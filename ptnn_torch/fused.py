@@ -1,0 +1,356 @@
+"""Fused-block samplers (port of ``ptnn/fused.py``, random walk only).
+
+The run is cut at its replica-exchange events and at the temper switch
+(``block_plan``). Every inter-swap interval is one call of
+``ops.block_step.fused_rw_block``, which on the card is one launch of the
+CUDA block kernel; between blocks run the swap event (``kernel.do_swap``)
+and, once, at the temper switch, ``kernel.recompute_ll``.
+
+Noise is drawn per block by ``noise_fn(start, k_max, c, w) -> (noise_w
+(k_max, c, w), noise_eta (k_max, c), u_mh (k_max, c), u_swap (c-1,))``. The
+default draws from a ``torch.Generator`` seeded from ``seed`` on the run's
+device. ``ptnn`` derives its noise from ``jax.random`` keys instead, so runs
+of the two packages agree in distribution, and exactly when ``ptnn``'s noise
+is fed in through ``noise_fn``.
+
+Scope (``fused_reason``): the reference random-walk proposal, regression,
+float32, every trace row kept, one device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ptnn_torch import kernel
+from ptnn_torch.config import PTConfig
+from ptnn_torch.models import fnn
+from ptnn_torch.ops import block_step, ladder
+from ptnn_torch.parallel import swap as swap_mod
+from ptnn_torch.sampler import SampleResult, make_dataset
+
+K_CAP = 128  # longest block: a longer swap interval is cut into pieces
+
+Noise = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+NoiseFn = Callable[[int, int, int, int], Noise]
+
+
+def fused_reason(cfg: PTConfig) -> Optional[str]:
+    """Why this port's fused sampler cannot run ``cfg`` (None: it can)."""
+    if cfg.task != "regression" or cfg.topology[2] != 1:
+        return ("regression with one output only (classification is not "
+                "yet ported)")
+    if cfg.proposal != "reference" or cfg.use_langevin_gradients:
+        return ("the reference random-walk proposal only (MALA/HMC/Langevin "
+                "are not yet ported)")
+    if cfg.use_surrogate or cfg.variational_reference:
+        return "no surrogate or variational-reference modes"
+    if cfg.record_fx or cfg.record_ll_state:
+        return "no fx/ll_cur traces"
+    if cfg.eval_dtype != "float32":
+        return "float32 only"
+    if cfg.record_thin != 1:
+        return "record_thin=1 only (thinned traces are not yet ported)"
+    return None
+
+
+_swap_due_host = kernel.swap_due  # the plan is built on the host
+
+
+def block_plan(
+    cfg: PTConfig, k_cap: int = K_CAP
+) -> List[List[Tuple[int, int, bool]]]:
+    """Per segment (split at the temper switch), the ``(start, length,
+    swap_after)`` blocks covering it, each at most ``k_cap`` steps and
+    ending at a swap event iff ``swap_after``."""
+    n = cfg.n_steps
+    switch = cfg.temper_switch_step
+    seg_bounds = [(0, switch), (switch, n)] if 0 < switch < n else [(0, n)]
+    segments = []
+    for a, b in seg_bounds:
+        points = [a]
+        for i in range(a, b):
+            if _swap_due_host(cfg, i) and i + 1 < b:
+                points.append(i + 1)
+        points.append(b)
+        blocks = []
+        for lo, hi in zip(points, points[1:]):
+            # only the last piece of a long interval may end at a swap event
+            cur = lo
+            while hi - cur > k_cap:
+                blocks.append((cur, k_cap, False))
+                cur += k_cap
+            blocks.append((cur, hi - cur, _swap_due_host(cfg, hi - 1)))
+        segments.append(blocks)
+    return segments
+
+
+def _to_kernel_state(st: kernel.ChainState,
+                     adapt: bool) -> Dict[str, torch.Tensor]:
+    lsw = st.log_step_w if adapt else torch.zeros_like(st.eta)
+    return dict(w=st.w, w_last=st.w_last, eta=st.eta, ll=st.ll,
+                prior=st.prior, rmse_train=st.rmse_train,
+                rmse_test=st.rmse_test, n_accept=st.n_accept, log_step_w=lsw)
+
+
+def _from_kernel_state(st: kernel.ChainState, ks: Dict[str, torch.Tensor],
+                       adapt: bool) -> kernel.ChainState:
+    out = st.replace(w=ks["w"], w_last=ks["w_last"], eta=ks["eta"],
+                     ll=ks["ll"], prior=ks["prior"],
+                     rmse_train=ks["rmse_train"], rmse_test=ks["rmse_test"],
+                     n_accept=ks["n_accept"])
+    if adapt:
+        out = out.replace(log_step_w=ks["log_step_w"])
+    return out
+
+
+def torch_noise(seed: int, device) -> NoiseFn:
+    """The default noise: a ``torch.Generator`` on ``device`` seeded from
+    (seed, block start), so a block's noise depends on where it starts and
+    not on what ran before it (as ``ptnn``'s ``fold_in(key, start)``)."""
+    gen = torch.Generator(device=device)
+
+    def noise_fn(start: int, k_max: int, c: int, w: int) -> Noise:
+        gen.manual_seed(_seed(seed, 1, start))
+        f32 = dict(dtype=torch.float32, device=device, generator=gen)
+        return (
+            torch.randn((k_max, c, w), **f32),
+            torch.randn((k_max, c), **f32),
+            torch.rand((k_max, c), **f32),
+            torch.rand((max(c - 1, 0),), **f32),
+        )
+
+    return noise_fn
+
+
+def _seed(*words: int) -> int:
+    seq = np.random.SeedSequence(list(words))
+    return int(seq.generate_state(1, np.uint64)[0])
+
+
+@dataclasses.dataclass
+class _Engine:
+    cfg: PTConfig
+    device: torch.device
+    data: kernel.Dataset
+    kdata: dict
+    temps_host: np.ndarray
+    temps: torch.Tensor
+    plan: List[List[Tuple[int, int, bool]]]
+    k_max: int
+    scal: dict
+    record_w: bool
+    pair_mask: Optional[torch.Tensor]
+
+    def init_state(self, seed: int) -> kernel.ChainState:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(_seed(seed, 0))
+        return kernel.init_state(self.cfg, self.data, generator=gen)
+
+    def block_body(self, st: kernel.ChainState, start: int, length: int,
+                   swap_flag: bool, noise: Noise):
+        """One fused block, then the swap event when ``swap_flag``.
+        Returns the new state and the block's ``length`` trace rows."""
+        cfg = self.cfg
+        noise_w, noise_eta, u_mh, u_swap = noise
+        adapt = cfg.adapt_step_size
+        adapttemp = kernel.adapttemp_at(cfg, self.temps, start)
+        ksd, traces = block_step.fused_rw_block(
+            _to_kernel_state(st, adapt), noise_w, noise_eta, u_mh, start,
+            length, self.kdata, adapttemp, cfg.topology, self.scal,
+            record_w=self.record_w,
+        )
+        st2 = _from_kernel_state(st, ksd, adapt)
+        st3 = st2
+        if swap_flag:
+            st3 = kernel.do_swap(cfg, st2, self.temps, start + length - 1,
+                                 u_swap, self.pair_mask)
+        out = {k: traces[k][:length]
+               for k in ("ll", "rmse_train", "rmse_test", "accept_count")}
+        if self.record_w:
+            out["w"] = self._w_trace(traces["w"][:length])
+        if cfg.track_replicas:
+            reps = st.replica_id[None, :].repeat(length, 1)
+            # the swap-boundary step records the post-swap identities
+            reps[length - 1] = st3.replica_id
+            out["replica"] = reps
+        return st3, out
+
+    def _w_trace(self, w_rows: torch.Tensor) -> torch.Tensor:
+        """(K, C, W) -> the recorded chains (``record_w_chains``)."""
+        cfg = self.cfg
+        k = cfg.record_w_chains
+        if k <= 0:
+            return w_rows
+        if cfg.n_ladders > 1:
+            return w_rows[:, :: cfg.rungs_per_ladder][:, :k]
+        return w_rows[:, :k]
+
+    def run(self, state: kernel.ChainState, noise_fn: NoiseFn,
+            on_block: Callable[[Dict[str, torch.Tensor]], None]):
+        """Every segment and block of the plan, in order."""
+        c, w = self.cfg.num_chains, fnn.w_size(self.cfg.topology)
+        for si, seg in enumerate(self.plan):
+            if si > 0:
+                state = kernel.recompute_ll(self.cfg, state, self.data)
+            for start, length, flag in seg:
+                noise = noise_fn(start, self.k_max, c, w)
+                state, out = self.block_body(state, start, length, flag, noise)
+                on_block(out)
+        return state
+
+
+def _engine(cfg: PTConfig, train, test, device, record_w: bool) -> _Engine:
+    reason = fused_reason(cfg)
+    if reason is not None:
+        raise ValueError(f"ptnn_torch's fused sampler runs {reason}")
+    device = torch.device(device)
+    data = make_dataset(cfg, train, test, device)
+    temps_host = ladder.build_temperatures(cfg)
+    plan = block_plan(cfg)
+    samples = cfg.samples_per_chain
+    return _Engine(
+        cfg=cfg,
+        device=device,
+        data=data,
+        kdata=block_step.prep_data(data.x_train, data.y_train, data.x_test,
+                                   data.y_test),
+        temps_host=temps_host,
+        temps=torch.as_tensor(temps_host, dtype=torch.float32, device=device),
+        plan=plan,
+        k_max=max(ln for seg in plan for (_s, ln, _f) in seg),
+        scal=dict(
+            step_w=cfg.step_w, step_eta=cfg.step_eta, sigma_sq=cfg.sigma_sq,
+            nu_1=cfg.nu_1, nu_2=cfg.nu_2, adapt=cfg.adapt_step_size,
+            adapt_rate=cfg.adapt_rate,
+            adapt_target=cfg.adapt_target_accept,
+            burn_end=int(samples * cfg.burn_in) - 1, task_cls=False,
+        ),
+        record_w=record_w,
+        pair_mask=swap_mod.pair_mask(cfg.num_chains, cfg.rungs_per_ladder,
+                                     device),
+    )
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def sample_fused(
+    cfg: PTConfig,
+    train: np.ndarray,
+    test: np.ndarray,
+    seed: int = 0,
+    device: Any = "cuda",
+    init_state: Optional[kernel.ChainState] = None,
+    noise_fn: Optional[NoiseFn] = None,
+) -> SampleResult:
+    """Fused-block sampler; the traces and counters of ``ptnn``'s."""
+    cfg.validate()
+    eng = _engine(cfg, train, test, device, record_w=cfg.record_w)
+    state = init_state if init_state is not None else eng.init_state(seed)
+    if noise_fn is None:
+        noise_fn = torch_noise(seed, eng.device)
+
+    blocks: List[Dict[str, torch.Tensor]] = []
+    t0 = time.perf_counter()
+    state = eng.run(state, noise_fn, blocks.append)
+    traces = {k: torch.cat([b[k] for b in blocks]).cpu().numpy()
+              for k in blocks[0]}
+    _synchronize(eng.device)
+    elapsed = time.perf_counter() - t0
+
+    c = cfg.num_chains
+    zeros = np.zeros((cfg.n_steps, c), np.float32)
+    traces["acc_train"] = zeros  # regression carries no accuracy
+    traces["acc_test"] = zeros.copy()
+    merged: Dict[str, np.ndarray] = {}
+    for name, arr in traces.items():
+        if name == "w":
+            row0 = np.ones((1,) + arr.shape[1:], arr.dtype)
+        elif name == "ll":
+            row0 = np.full((1,) + arr.shape[1:], -100.0, arr.dtype)
+        elif name == "replica":
+            row0 = np.arange(arr.shape[1], dtype=arr.dtype)[None, :]
+        else:
+            row0 = np.zeros((1,) + arr.shape[1:], arr.dtype)
+        merged[name] = np.concatenate([row0, arr], axis=0)
+
+    final = state.to("cpu")
+    n_prop = int(final.n_swap_proposed)
+    return SampleResult(
+        traces=merged,
+        final_state=final,
+        temperatures=np.asarray(eng.temps_host),
+        accept_ratio_per_chain=final.n_accept.numpy() * 100.0
+        / cfg.samples_per_chain,
+        swap_percent=(
+            100.0 * int(final.n_swap_accepted) / n_prop if n_prop else 0.0
+        ),
+        langevin_ratio_per_chain=np.zeros((c,)),
+        elapsed_s=elapsed,
+        chain_steps_per_sec=cfg.n_steps * c / elapsed,
+        config=cfg,
+        pair_swap_accept=final.pair_accept_sum.numpy()[:-1]
+        / np.maximum(final.pair_prop_count.numpy()[:-1], 1),
+    )
+
+
+def throughput_build_fused(
+    cfg: PTConfig,
+    train,
+    test,
+    seed: int = 0,
+    device: Any = "cuda",
+    noise_fn: Optional[NoiseFn] = None,
+):
+    """Benchmark protocol: build, run once as warm-up, and return a zero-arg
+    callable that runs one timed rep from the same initial state (and, with
+    a ``noise_fn`` that depends on the block start alone, the same noise).
+    Traces are reduced to their sums on the device, not fetched."""
+    cfg2 = dataclasses.replace(cfg, record_w=False).validate()
+    eng = _engine(cfg2, train, test, device, record_w=False)
+    state0 = eng.init_state(seed)
+    if noise_fn is None:
+        noise_fn = torch_noise(seed, eng.device)
+
+    def run():
+        sums: Dict[str, torch.Tensor] = {}
+
+        def reduce(out):
+            for k, v in out.items():
+                s = v.sum(dtype=torch.float64)
+                sums[k] = sums[k] + s if k in sums else s
+
+        st = eng.run(state0, noise_fn, reduce)
+        return st, sums
+
+    run()
+    _synchronize(eng.device)
+    n, c = cfg2.n_steps, cfg2.num_chains
+
+    def one_rep() -> Dict[str, Any]:
+        t0 = time.perf_counter()
+        st, sums = run()
+        _synchronize(eng.device)
+        dt = time.perf_counter() - t0
+        n_prop = int(st.n_swap_proposed)
+        return {
+            "trace_means": {k: float(v) / (n * c) for k, v in sums.items()},
+            "elapsed_s": dt,
+            "steps": float(n),
+            "chains": float(c),
+            "chain_steps_per_sec": n * c / dt,
+            "accept_pct": float(st.n_accept.float().mean())
+            * 100.0 / cfg2.samples_per_chain,
+            "swap_pct": 100.0 * int(st.n_swap_accepted) / n_prop
+            if n_prop else 0.0,
+            "final_rmse_test_cold": float(st.rmse_test[0]),
+        }
+
+    return one_rep

@@ -1,0 +1,336 @@
+"""A fused block of random-walk MH steps for every chain (regression).
+
+Counterpart of the RW part of ``ptnn/ops/pallas_step.py``
+(``_rw_block_kernel``, ``fused_rw_block_impl``, ``prep_data``). One call runs
+K steps of the reference random-walk sampler for all chains with
+pregenerated noise and uniforms, so it is a deterministic function of its
+inputs:
+
+* proposal ``w' = w + step * nw[k]`` (``step = exp(log_step_w)`` when
+  adapting, else ``step_w``) and ``eta' = eta + step_eta * ne[k]``;
+* Gaussian likelihood ``ll' = -n/2 (log 2 pi + eta') - sse / (2 tau')`` on
+  the train rows, test SSE for the rmse trace, and the regression prior;
+* ``log_mh = (ll' - ll) / T + (prior' - prior)``, accept iff
+  ``u < exp(min(log_mh, 0))`` and ``k < length``;
+* trace rows: the TEMPERED proposal ll ``ll' / T``; rmse carries written on
+  accept; ``accept_count`` BEFORE the step's decision; optional w rows that
+  follow ``w_last``; Robbins-Monro ``log_step_w += rate (a - target)`` while
+  ``start + k < burn_end``, clipped to [log 1e-5, log 10];
+* steps ``k >= length`` decide nothing and write the carries into their
+  trace rows, as ``ptnn`` does; the samplers never read those rows.
+
+Layout: chains-major. State (C, W) and (C,), noise (K, C, W) and (K, C),
+uniforms and trace rows (K, C), w trace (K, C, W). No padding.
+
+``fused_rw_block`` runs the CUDA kernel (``csrc/rw_block.cu``) on CUDA
+tensors and the plain version, ``rw_block_reference``, on CPU tensors only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from ptnn_torch.models import fnn
+from ptnn_torch.ops import likelihood
+
+launches = 0  # launches of the CUDA kernel (the plain version counts none)
+
+_STATE_F32 = ("eta", "ll", "prior", "rmse_train", "rmse_test", "log_step_w")
+_LOG_STEP_LO = math.log(1e-5)
+_LOG_STEP_HI = math.log(10.0)
+_THREADS = 128  # must equal THREADS in csrc/rw_block.cu
+_SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
+
+
+def prep_data(x_tr, y_tr, x_te, y_te) -> dict:
+    """Device-ready data: the four float32 tensors plus ``rows``, the train
+    then test rows packed as ``[x..., y]`` (N_tr + N_te, I + 1) for the
+    kernel's shared-memory copy."""
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32).contiguous()
+    x_tr, y_tr, x_te, y_te = f(x_tr), f(y_tr), f(x_te), f(y_te)
+    rows = torch.cat([torch.cat([x_tr, y_tr[:, None]], 1),
+                      torch.cat([x_te, y_te[:, None]], 1)]).contiguous()
+    return dict(x_tr=x_tr, y_tr=y_tr, x_te=x_te, y_te=y_te, rows=rows,
+                n_tr=x_tr.shape[0], n_te=x_te.shape[0])
+
+
+def _prior_const(topo, sigma_sq: float) -> float:
+    return -0.5 * likelihood.prior_dim_regression(topo) * math.log(sigma_sq)
+
+
+def rw_block_reference(
+    state: Dict[str, torch.Tensor],
+    noise_w: torch.Tensor,
+    noise_eta: torch.Tensor,
+    u_mh: torch.Tensor,
+    start: int,
+    length: int,
+    data: dict,
+    adapttemp: torch.Tensor,
+    topo,
+    scal: dict,
+    record_w: bool = True,
+    diagnostics: bool = False,
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The plain PyTorch version of ``fused_rw_block``, on any device, in
+    the dtype of its inputs.
+
+    ``diagnostics=True`` adds to the traces what a comparison with another
+    implementation needs: ``margin`` (C,), the smallest ``|u - a|`` over
+    the live steps (how close a chain came to a decision that rounding
+    could flip); ``ll_scale`` (K, C) and ``ll_scale_final`` (C,), the
+    magnitude ``(|n/2 (log 2 pi + eta')| + |sse'/(2 tau')|) / T`` of the two
+    terms that cancel in each recorded ll and in the carried one, the scale
+    on which float rounding of ll lives.
+    """
+    k_max, c, _w = noise_w.shape
+    n_tr, n_te = data["n_tr"], data["n_te"]
+    sigma_sq, adapt = scal["sigma_sq"], bool(scal["adapt"])
+    prior_const = _prior_const(topo, sigma_sq)
+    w, wl = state["w"], state["w_last"]
+    eta, ll, pr = state["eta"], state["ll"], state["prior"]
+    rtr, rte, na = state["rmse_train"], state["rmse_test"], state["n_accept"]
+    lsw = state["log_step_w"]
+    at = adapttemp
+    fl = dict(dtype=w.dtype, device=w.device)
+    t_ll = torch.empty((k_max, c), **fl)
+    t_rtr = torch.empty((k_max, c), **fl)
+    t_rte = torch.empty((k_max, c), **fl)
+    t_na = torch.empty((k_max, c), dtype=torch.int32, device=w.device)
+    t_w = torch.empty((k_max,) + tuple(w.shape), **fl) if record_w else None
+    margin = torch.full((c,), math.inf, **fl)
+    scale = torch.abs(ll)  # the carried ll's term scale (an input: exact)
+    t_scale = torch.empty((k_max, c), **fl)
+
+    def sse(wp, x, y):
+        fx = fnn.batched_forward(wp, x, topo)[:, :, 0]
+        return torch.sum(torch.square(y - fx), dim=-1)
+
+    for k in range(k_max):
+        live = k < length
+        if live:
+            step = torch.exp(lsw)[:, None] if adapt else scal["step_w"]
+            w_prop = w + step * noise_w[k]
+            ssq = torch.sum(w_prop * w_prop, dim=-1)
+            eta_prop = eta + scal["step_eta"] * noise_eta[k]
+            tau = torch.exp(eta_prop)
+            pr_prop = (
+                prior_const
+                - ssq / (2.0 * sigma_sq)
+                - (1.0 + scal["nu_1"]) * eta_prop
+                - scal["nu_2"] / tau
+            )
+            sse_tr = sse(w_prop, data["x_tr"], data["y_tr"])
+            sse_te = sse(w_prop, data["x_te"], data["y_te"])
+            ll_norm = -0.5 * n_tr * (likelihood._LOG_2PI + eta_prop)
+            ll_prop = ll_norm - 0.5 * sse_tr / tau
+            log_mh = (ll_prop - ll) / at + (pr_prop - pr)
+            a = torch.exp(torch.clamp(log_mh, max=0.0))
+            accept = u_mh[k] < a
+            if diagnostics:
+                margin = torch.minimum(margin, torch.abs(u_mh[k] - a))
+                scale_prop = torch.abs(ll_norm) + torch.abs(0.5 * sse_tr / tau)
+                t_scale[k] = scale_prop / at
+                scale = torch.where(accept, scale_prop, scale)
+            t_ll[k] = ll_prop / at
+            rtr = torch.where(accept, torch.sqrt(sse_tr / n_tr), rtr)
+            rte = torch.where(accept, torch.sqrt(sse_te / n_te), rte)
+        else:
+            t_ll[k] = ll / at
+            t_scale[k] = scale / at
+        t_rtr[k] = rtr
+        t_rte[k] = rte
+        t_na[k] = na
+        if live:
+            w = torch.where(accept[:, None], w_prop, w)
+            wl = torch.where(accept[:, None], w_prop, wl)
+            eta = torch.where(accept, eta_prop, eta)
+            ll = torch.where(accept, ll_prop, ll)
+            pr = torch.where(accept, pr_prop, pr)
+            na = na + accept.to(torch.int32)
+        if record_w:
+            t_w[k] = wl
+        if adapt:
+            if live and start + k < scal["burn_end"]:
+                lsw = lsw + scal["adapt_rate"] * (a - scal["adapt_target"])
+            lsw = torch.clamp(lsw, _LOG_STEP_LO, _LOG_STEP_HI)
+    new_state = dict(w=w, w_last=wl, eta=eta, ll=ll, prior=pr, rmse_train=rtr,
+                     rmse_test=rte, n_accept=na, log_step_w=lsw)
+    traces = dict(ll=t_ll, rmse_train=t_rtr, rmse_test=t_rte, accept_count=t_na)
+    if record_w:
+        traces["w"] = t_w
+    if diagnostics:
+        traces.update(margin=margin, ll_scale=t_scale, ll_scale_final=scale)
+    return new_state, traces
+
+
+class _RwParams(ctypes.Structure):
+    """Mirror of ``struct RwParams`` in csrc/rw_block.cu (same field order)."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in (
+            "rows", "at", "w", "w_last", "eta", "ll", "prior", "rmse_tr",
+            "rmse_te", "n_accept", "log_step", "noise_w", "noise_eta", "u",
+            "o_w", "o_w_last", "o_eta", "o_ll", "o_prior", "o_rmse_tr",
+            "o_rmse_te", "o_n_accept", "o_log_step", "t_ll", "t_rmse_tr",
+            "t_rmse_te", "t_accept", "t_w",
+        )
+    ] + [
+        (name, ctypes.c_int)
+        for name in (
+            "n_tr", "n_te", "n_in", "n_hid", "chains", "w_size", "k_max",
+            "start", "length", "adapt", "burn_end",
+        )
+    ] + [
+        (name, ctypes.c_float)
+        for name in (
+            "step_w", "step_eta", "prior_const", "two_sigma_sq",
+            "one_plus_nu1", "nu2", "ll_const", "log_2pi", "adapt_rate",
+            "adapt_target", "log_step_lo", "log_step_hi", "n_tr_f", "n_te_f",
+        )
+    ]
+
+
+def smem_bytes(n_rows: int, n_in: int, w_size: int) -> int:
+    """Dynamic shared memory of one block: the data rows, three weight
+    vectors (current, last accepted, proposal) and the reduction slots."""
+    return 4 * (n_rows * (n_in + 1) + 3 * w_size + 3 * (_THREADS // 32))
+
+
+def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch_cuda(state, noise_w, noise_eta, u_mh, start, length, data,
+                 adapttemp, topo, scal, record_w):
+    global launches
+    from ptnn_torch.ops import _build
+
+    lib = _build.build("rw_block").lib
+    dev = noise_w.device
+    k_max, c, w_dim = noise_w.shape
+    n_in, n_hid, n_out = topo
+    n_tr, n_te = int(data["n_tr"]), int(data["n_te"])
+    if n_out != 1 or w_dim != fnn.w_size(topo):
+        raise ValueError(f"noise width {w_dim} does not fit topology {topo}")
+    if not 0 <= int(length) <= k_max:
+        raise ValueError(f"length {length} outside [0, {k_max}]")
+    smem = smem_bytes(n_tr + n_te, n_in, w_dim)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"{n_tr}+{n_te} data rows need {smem} bytes of shared memory per "
+            f"block; a Hopper block has {_SMEM_LIMIT}"
+        )
+    f32, i32 = torch.float32, torch.int32
+    _check(data["rows"], "rows", (n_tr + n_te, n_in + 1), f32, dev)
+    _check(adapttemp, "adapttemp", (c,), f32, dev)
+    _check(noise_eta, "noise_eta", (k_max, c), f32, dev)
+    _check(u_mh, "u_mh", (k_max, c), f32, dev)
+    for name in ("w", "w_last"):
+        _check(state[name], name, (c, w_dim), f32, dev)
+    for name in _STATE_F32:
+        _check(state[name], name, (c,), f32, dev)
+    _check(state["n_accept"], "n_accept", (c,), i32, dev)
+
+    new = {k: torch.empty_like(state[k]) for k in ("w", "w_last", "n_accept")
+           + _STATE_F32}
+    tr = dict(
+        ll=torch.empty((k_max, c), dtype=f32, device=dev),
+        rmse_train=torch.empty((k_max, c), dtype=f32, device=dev),
+        rmse_test=torch.empty((k_max, c), dtype=f32, device=dev),
+        accept_count=torch.empty((k_max, c), dtype=i32, device=dev),
+    )
+    if record_w:
+        tr["w"] = torch.empty((k_max, c, w_dim), dtype=f32, device=dev)
+    p = lambda t: t.data_ptr()
+    sigma_sq = float(scal["sigma_sq"])
+    params = _RwParams(
+        rows=p(data["rows"]), at=p(adapttemp), w=p(state["w"]),
+        w_last=p(state["w_last"]), eta=p(state["eta"]), ll=p(state["ll"]),
+        prior=p(state["prior"]), rmse_tr=p(state["rmse_train"]),
+        rmse_te=p(state["rmse_test"]), n_accept=p(state["n_accept"]),
+        log_step=p(state["log_step_w"]), noise_w=p(noise_w),
+        noise_eta=p(noise_eta), u=p(u_mh),
+        o_w=p(new["w"]), o_w_last=p(new["w_last"]), o_eta=p(new["eta"]),
+        o_ll=p(new["ll"]), o_prior=p(new["prior"]),
+        o_rmse_tr=p(new["rmse_train"]), o_rmse_te=p(new["rmse_test"]),
+        o_n_accept=p(new["n_accept"]), o_log_step=p(new["log_step_w"]),
+        t_ll=p(tr["ll"]), t_rmse_tr=p(tr["rmse_train"]),
+        t_rmse_te=p(tr["rmse_test"]), t_accept=p(tr["accept_count"]),
+        t_w=p(tr["w"]) if record_w else None,
+        n_tr=n_tr, n_te=n_te, n_in=n_in, n_hid=n_hid, chains=c, w_size=w_dim,
+        k_max=k_max, start=int(start), length=int(length),
+        adapt=int(bool(scal["adapt"])), burn_end=int(scal["burn_end"]),
+        step_w=float(scal["step_w"]), step_eta=float(scal["step_eta"]),
+        prior_const=_prior_const(topo, sigma_sq),
+        two_sigma_sq=2.0 * sigma_sq, one_plus_nu1=1.0 + float(scal["nu_1"]),
+        nu2=float(scal["nu_2"]), ll_const=-0.5 * n_tr,
+        log_2pi=likelihood._LOG_2PI, adapt_rate=float(scal["adapt_rate"]),
+        adapt_target=float(scal["adapt_target"]),
+        log_step_lo=_LOG_STEP_LO, log_step_hi=_LOG_STEP_HI,
+        n_tr_f=float(n_tr), n_te_f=float(n_te),
+    )
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ptnn_rw_block(ctypes.byref(params), smem,
+                                ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"rw_block launch failed: {_build.error_string(lib, err)}"
+        )
+    launches += 1
+    return new, tr
+
+
+def fused_rw_block(
+    state: Dict[str, torch.Tensor],
+    noise_w: torch.Tensor,
+    noise_eta: torch.Tensor,
+    u_mh: torch.Tensor,
+    start: int,
+    length: int,
+    data: dict,
+    adapttemp: torch.Tensor,
+    topo,
+    scal: dict,
+    record_w: bool = True,
+):
+    """One K-step RW block for all chains -> ``(new_state, traces)``.
+
+    ``state`` holds w, w_last (C, W), eta, ll, prior, rmse_train,
+    rmse_test, log_step_w (C,) float32 and n_accept (C,) int32; ``scal``
+    holds step_w, step_eta, sigma_sq, nu_1, nu_2, adapt, adapt_rate,
+    adapt_target, burn_end and task_cls. Traces are (K, C) rows "ll",
+    "rmse_train", "rmse_test", "accept_count", plus "w" (K, C, W) when
+    ``record_w``. CUDA tensors launch the kernel; CPU tensors take the
+    plain version.
+    """
+    if scal.get("task_cls", False):
+        raise NotImplementedError(
+            "the classification branch of the RW block is not yet ported"
+        )
+    tensors = [noise_w, noise_eta, u_mh, adapttemp, data["rows"]] + [
+        v for v in state.values()
+    ]
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return rw_block_reference(state, noise_w, noise_eta, u_mh, start,
+                                  length, data, adapttemp, topo, scal,
+                                  record_w)
+    if kinds == {"cuda"}:
+        return _launch_cuda(state, noise_w, noise_eta, u_mh, start, length,
+                            data, adapttemp, topo, scal, record_w)
+    raise ValueError(f"fused_rw_block needs all tensors on one device type, "
+                     f"got {sorted(kinds)}")
