@@ -17,7 +17,8 @@ import torch
 from ptnn_torch.kernel import ChainState
 
 FIELDS = tuple(f.name for f in dataclasses.fields(ChainState))
-OPTIONAL = ("log_step_w", "replica_id")
+OPTIONAL = ("log_step_w", "g_like", "pc_mean", "pc_m2", "log_step_eta",
+            "log_traj", "chees_m1", "chees_v2", "replica_id")
 
 
 def chain_state_from_numpy(d: Dict[str, Any], device="cpu") -> ChainState:

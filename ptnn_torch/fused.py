@@ -1,20 +1,28 @@
-"""Fused-block samplers (port of ``ptnn/fused.py``, random walk only).
+"""Fused-block samplers (port of ``ptnn/fused.py``, regression).
 
 The run is cut at its replica-exchange events and at the temper switch
-(``block_plan``). Every inter-swap interval is one call of
-``ops.block_step.fused_rw_block``, which on the card is one launch of the
-CUDA block kernel; between blocks run the swap event (``kernel.do_swap``)
-and, once, at the temper switch, ``kernel.recompute_ll``.
+(``block_plan``). Every inter-swap interval is one call of a block function,
+which on the card is one launch of a CUDA block kernel:
 
-Noise is drawn per block by ``noise_fn(start, k_max, c, w) -> (noise_w
-(k_max, c, w), noise_eta (k_max, c), u_mh (k_max, c), u_swap (c-1,))``. The
-default draws from a ``torch.Generator`` seeded from ``seed`` on the run's
-device. ``ptnn`` derives its noise from ``jax.random`` keys instead, so runs
-of the two packages agree in distribution, and exactly when ``ptnn``'s noise
-is fed in through ``noise_fn``.
+* ``proposal="reference"``: ``ops.block_step.fused_rw_block``;
+* ``proposal="precond_mala"``: ``ops.precond_step.fused_mala_block``;
+* ``proposal="hmc"`` (with or without ChEES): ``fused_hmc_block``.
 
-Scope (``fused_reason``): the reference random-walk proposal, regression,
-float32, every trace row kept, one device.
+Between blocks run the swap event (``kernel.do_swap``) and, once, at the
+temper switch, ``kernel.recompute_ll``.
+
+Noise is drawn per block by ``noise_fn(start, k_max, c, w) -> dict``: "w"
+(k_max, c, w), "eta", "u" (k_max, c), "u_swap" (c-1,), and for MALA and HMC
+"u_eta" (k_max, c), for HMC "u_jit" (k_max, c) and "u_traj" (k_max,), the
+van der Corput jitter ``kernel.vdc_u(start + k)``. The default draws from a
+``torch.Generator`` seeded from ``seed`` on the run's device. ``ptnn``
+derives its noise from ``jax.random`` keys instead, so runs of the two
+packages agree in distribution, and exactly when ``ptnn``'s noise is fed in
+through ``noise_fn``.
+
+Scope (``fused_reason``): the reference random-walk, preconditioned-MALA
+and HMC/ChEES proposals, regression, float32, every trace row kept, one
+device.
 """
 
 from __future__ import annotations
@@ -29,13 +37,13 @@ import torch
 from ptnn_torch import kernel
 from ptnn_torch.config import PTConfig
 from ptnn_torch.models import fnn
-from ptnn_torch.ops import block_step, ladder
+from ptnn_torch.ops import block_step, ladder, precond_step
 from ptnn_torch.parallel import swap as swap_mod
 from ptnn_torch.sampler import SampleResult, make_dataset
 
 K_CAP = 128  # longest block: a longer swap interval is cut into pieces
 
-Noise = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+Noise = Dict[str, torch.Tensor]
 NoiseFn = Callable[[int, int, int, int], Noise]
 
 
@@ -44,9 +52,16 @@ def fused_reason(cfg: PTConfig) -> Optional[str]:
     if cfg.task != "regression" or cfg.topology[2] != 1:
         return ("regression with one output only (classification is not "
                 "yet ported)")
-    if cfg.proposal != "reference" or cfg.use_langevin_gradients:
-        return ("the reference random-walk proposal only (MALA/HMC/Langevin "
-                "are not yet ported)")
+    if cfg.use_langevin_gradients or cfg.proposal not in (
+            "reference", "precond_mala", "hmc"):
+        return ("the reference random-walk, precond_mala and hmc proposals "
+                "only (Langevin and the other proposals are not yet ported)")
+    if cfg.proposal == "hmc" and cfg.hmc_adapt_traj:
+        # ptnn/fused.py:72-96 without the mesh
+        try:
+            precond_step.panel_layout(cfg.num_chains, cfg.rungs_per_ladder)
+        except ValueError as e:
+            return f"fused {e}"
     if cfg.use_surrogate or cfg.variational_reference:
         return "no surrogate or variational-reference modes"
     if cfg.record_fx or cfg.record_ll_state:
@@ -89,40 +104,72 @@ def block_plan(
     return segments
 
 
-def _to_kernel_state(st: kernel.ChainState,
-                     adapt: bool) -> Dict[str, torch.Tensor]:
-    lsw = st.log_step_w if adapt else torch.zeros_like(st.eta)
-    return dict(w=st.w, w_last=st.w_last, eta=st.eta, ll=st.ll,
-                prior=st.prior, rmse_train=st.rmse_train,
-                rmse_test=st.rmse_test, n_accept=st.n_accept, log_step_w=lsw)
+_PRECOND_VEC = ("g_like", "pc_mean", "pc_m2")
+_CHEES = ("log_traj", "chees_m1", "chees_v2")
 
 
-def _from_kernel_state(st: kernel.ChainState, ks: Dict[str, torch.Tensor],
-                       adapt: bool) -> kernel.ChainState:
-    out = st.replace(w=ks["w"], w_last=ks["w_last"], eta=ks["eta"],
-                     ll=ks["ll"], prior=ks["prior"],
-                     rmse_train=ks["rmse_train"], rmse_test=ks["rmse_test"],
-                     n_accept=ks["n_accept"])
-    if adapt:
-        out = out.replace(log_step_w=ks["log_step_w"])
+def _to_kernel_state(st: kernel.ChainState, cfg: PTConfig) -> Dict[str, Any]:
+    out = dict(w=st.w, w_last=st.w_last, eta=st.eta, ll=st.ll,
+               prior=st.prior, rmse_train=st.rmse_train,
+               rmse_test=st.rmse_test, n_accept=st.n_accept)
+    if cfg.proposal == "reference":
+        out["log_step_w"] = (st.log_step_w if cfg.adapt_step_size
+                             else torch.zeros_like(st.eta))
+        return out
+    out.update(log_step_w=st.log_step_w, log_step_eta=st.log_step_eta)
+    for name in _PRECOND_VEC:
+        out[name] = getattr(st, name)
+    if st.log_traj is not None:
+        for name in _CHEES:
+            out[name] = getattr(st, name)
     return out
 
 
-def torch_noise(seed: int, device) -> NoiseFn:
+def _from_kernel_state(st: kernel.ChainState, ks: Dict[str, torch.Tensor],
+                       cfg: PTConfig) -> kernel.ChainState:
+    names = ["w", "w_last", "eta", "ll", "prior", "rmse_train", "rmse_test",
+             "n_accept"]
+    if cfg.proposal != "reference":
+        names += ["log_step_w", "log_step_eta", *_PRECOND_VEC]
+        if st.log_traj is not None:
+            names += list(_CHEES)
+    elif cfg.adapt_step_size:
+        names.append("log_step_w")
+    return st.replace(**{name: ks[name] for name in names})
+
+
+def noise_names(cfg: PTConfig) -> Tuple[str, ...]:
+    """The keys a block of ``cfg``'s proposal reads from ``noise_fn``."""
+    names = ("w", "eta", "u", "u_swap")
+    if cfg.proposal in ("precond_mala", "hmc"):
+        names += ("u_eta",)
+    if cfg.proposal == "hmc":
+        names += ("u_jit", "u_traj")
+    return names
+
+
+def torch_noise(seed: int, device, names=("w", "eta", "u", "u_swap")
+                ) -> NoiseFn:
     """The default noise: a ``torch.Generator`` on ``device`` seeded from
     (seed, block start), so a block's noise depends on where it starts and
-    not on what ran before it (as ``ptnn``'s ``fold_in(key, start)``)."""
+    not on what ran before it (as ``ptnn``'s ``fold_in(key, start)``).
+    ``names`` says which entries to draw (``noise_names``)."""
     gen = torch.Generator(device=device)
 
     def noise_fn(start: int, k_max: int, c: int, w: int) -> Noise:
         gen.manual_seed(_seed(seed, 1, start))
         f32 = dict(dtype=torch.float32, device=device, generator=gen)
-        return (
-            torch.randn((k_max, c, w), **f32),
-            torch.randn((k_max, c), **f32),
-            torch.rand((k_max, c), **f32),
-            torch.rand((max(c - 1, 0),), **f32),
+        draw = dict(
+            w=lambda: torch.randn((k_max, c, w), **f32),
+            eta=lambda: torch.randn((k_max, c), **f32),
+            u=lambda: torch.rand((k_max, c), **f32),
+            u_eta=lambda: torch.rand((k_max, c), **f32),
+            u_jit=lambda: torch.rand((k_max, c), **f32),
+            u_swap=lambda: torch.rand((max(c - 1, 0),), **f32),
+            u_traj=lambda: kernel.vdc_u(
+                torch.arange(start, start + k_max, device=device)),
         )
+        return {name: draw[name]() for name in names}
 
     return noise_fn
 
@@ -156,21 +203,27 @@ class _Engine:
         """One fused block, then the swap event when ``swap_flag``.
         Returns the new state and the block's ``length`` trace rows."""
         cfg = self.cfg
-        noise_w, noise_eta, u_mh, u_swap = noise
-        adapt = cfg.adapt_step_size
         adapttemp = kernel.adapttemp_at(cfg, self.temps, start)
-        ksd, traces = block_step.fused_rw_block(
-            _to_kernel_state(st, adapt), noise_w, noise_eta, u_mh, start,
-            length, self.kdata, adapttemp, cfg.topology, self.scal,
-            record_w=self.record_w,
-        )
-        st2 = _from_kernel_state(st, ksd, adapt)
+        kst = _to_kernel_state(st, cfg)
+        args = (start, length, self.kdata, adapttemp, cfg.topology,
+                self.scal)
+        if cfg.proposal == "reference":
+            ksd, traces = block_step.fused_rw_block(
+                kst, noise["w"], noise["eta"], noise["u"], *args,
+                record_w=self.record_w)
+        else:
+            block = (precond_step.fused_hmc_block if cfg.proposal == "hmc"
+                     else precond_step.fused_mala_block)
+            ksd, traces = block(kst, noise, *args, record_w=self.record_w)
+        st2 = _from_kernel_state(st, ksd, cfg)
         st3 = st2
         if swap_flag:
             st3 = kernel.do_swap(cfg, st2, self.temps, start + length - 1,
-                                 u_swap, self.pair_mask)
-        out = {k: traces[k][:length]
-               for k in ("ll", "rmse_train", "rmse_test", "accept_count")}
+                                 noise["u_swap"], self.pair_mask)
+        names = ["ll", "rmse_train", "rmse_test", "accept_count"]
+        if cfg.proposal == "hmc" and cfg.hmc_adapt_traj:
+            names.append("traj_len")
+        out = {k: traces[k][:length] for k in names}
         if self.record_w:
             out["w"] = self._w_trace(traces["w"][:length])
         if cfg.track_replicas:
@@ -204,6 +257,42 @@ class _Engine:
         return state
 
 
+def _scalars(cfg: PTConfig) -> dict:
+    """The block function's scalars: the ``scal`` dicts of
+    ``ptnn/fused.py:386-440``, with the ChEES panel rule of ``:414-430``."""
+    samples = cfg.samples_per_chain
+    burn_end = int(samples * cfg.burn_in) - 1
+    if cfg.proposal == "reference":
+        return dict(
+            step_w=cfg.step_w, step_eta=cfg.step_eta, sigma_sq=cfg.sigma_sq,
+            nu_1=cfg.nu_1, nu_2=cfg.nu_2, adapt=cfg.adapt_step_size,
+            adapt_rate=cfg.adapt_rate, adapt_target=cfg.adapt_target_accept,
+            burn_end=burn_end, task_cls=False,
+        )
+    scal = dict(
+        sigma_sq=cfg.sigma_sq, nu_1=cfg.nu_1, nu_2=cfg.nu_2,
+        adapt_rate=cfg.adapt_rate, warmstart_step=cfg.warmstart_step,
+        precond_power=cfg.precond_power,
+        pc_start=int(samples * cfg.precond_start_frac),
+        warm_end=int(samples * cfg.warmstart_frac), burn_end=burn_end,
+    )
+    if cfg.proposal == "precond_mala":
+        scal["mala_target"] = cfg.mala_target_accept
+        return scal
+    scal.update(
+        hmc_target=cfg.hmc_target_accept, leapfrog=cfg.hmc_leapfrog,
+        eps_jitter=cfg.hmc_eps_jitter, chees=cfg.hmc_adapt_traj,
+        chees_rate=cfg.chees_rate, rungs=cfg.rungs_per_ladder,
+        n_ladders=cfg.n_ladders,
+    )
+    if cfg.hmc_adapt_traj:
+        # every panel of 128 chains holds complete ladders; the rung sums
+        # pool its own 128 / K replicas
+        scal["n_ladders"] = precond_step.panel_layout(
+            cfg.num_chains, cfg.rungs_per_ladder)[1]
+    return scal
+
+
 def _engine(cfg: PTConfig, train, test, device, record_w: bool) -> _Engine:
     reason = fused_reason(cfg)
     if reason is not None:
@@ -212,7 +301,6 @@ def _engine(cfg: PTConfig, train, test, device, record_w: bool) -> _Engine:
     data = make_dataset(cfg, train, test, device)
     temps_host = ladder.build_temperatures(cfg)
     plan = block_plan(cfg)
-    samples = cfg.samples_per_chain
     return _Engine(
         cfg=cfg,
         device=device,
@@ -223,13 +311,7 @@ def _engine(cfg: PTConfig, train, test, device, record_w: bool) -> _Engine:
         temps=torch.as_tensor(temps_host, dtype=torch.float32, device=device),
         plan=plan,
         k_max=max(ln for seg in plan for (_s, ln, _f) in seg),
-        scal=dict(
-            step_w=cfg.step_w, step_eta=cfg.step_eta, sigma_sq=cfg.sigma_sq,
-            nu_1=cfg.nu_1, nu_2=cfg.nu_2, adapt=cfg.adapt_step_size,
-            adapt_rate=cfg.adapt_rate,
-            adapt_target=cfg.adapt_target_accept,
-            burn_end=int(samples * cfg.burn_in) - 1, task_cls=False,
-        ),
+        scal=_scalars(cfg),
         record_w=record_w,
         pair_mask=swap_mod.pair_mask(cfg.num_chains, cfg.rungs_per_ladder,
                                      device),
@@ -255,7 +337,7 @@ def sample_fused(
     eng = _engine(cfg, train, test, device, record_w=cfg.record_w)
     state = init_state if init_state is not None else eng.init_state(seed)
     if noise_fn is None:
-        noise_fn = torch_noise(seed, eng.device)
+        noise_fn = torch_noise(seed, eng.device, noise_names(cfg))
 
     blocks: List[Dict[str, torch.Tensor]] = []
     t0 = time.perf_counter()
@@ -317,7 +399,7 @@ def throughput_build_fused(
     eng = _engine(cfg2, train, test, device, record_w=False)
     state0 = eng.init_state(seed)
     if noise_fn is None:
-        noise_fn = torch_noise(seed, eng.device)
+        noise_fn = torch_noise(seed, eng.device, noise_names(cfg2))
 
     def run():
         sums: Dict[str, torch.Tensor] = {}

@@ -1,10 +1,11 @@
 """Chain state, initialisation, the swap event and the temper-switch recompute.
 
-Port of the part of ``ptnn/kernel.py`` that the fused random-walk regression
-sampler runs: ``ChainState`` (only the fields that path reads), ``Dataset``,
-``init_state`` (regression branch), ``swap_due``, and the ``do_swap`` and
-``recompute_ll`` closures of ``make_step_fn``, here plain functions. The
-per-step ``step`` and the non-RW branches are not ported yet.
+Port of the part of ``ptnn/kernel.py`` that the fused regression samplers
+run: ``ChainState`` (only the fields those paths read), ``Dataset``,
+``init_state`` (regression, with the preconditioned MALA/HMC branch),
+``swap_due``, ``vdc_u``, and the ``do_swap`` and ``recompute_ll`` closures of
+``make_step_fn``, here plain functions. The per-step ``step`` and
+``step_precond`` are not ported yet.
 
 Semantics kept from ``ptnn``: the chain carries its UNTEMPERED train
 log-likelihood and divides by the adaptive temperature at decision time;
@@ -38,6 +39,18 @@ class ChainState:
     rmse_train: torch.Tensor  # (C,) trace carry
     rmse_test: torch.Tensor  # (C,) trace carry
     log_step_w: Optional[torch.Tensor]  # (C,) or None unless adapt_step_size
+    #                                     or a precond_mala/hmc proposal
+    # preconditioned MALA/HMC state (None otherwise). g_like is the gradient
+    # of -SSE/2 at w and travels with w on swaps; the Welford buffers and the
+    # scales stay with the rung.
+    g_like: Optional[torch.Tensor]  # (C, W)
+    pc_mean: Optional[torch.Tensor]  # (C, W) Welford running mean of w
+    pc_m2: Optional[torch.Tensor]  # (C, W) Welford sum of squared deviations
+    log_step_eta: Optional[torch.Tensor]  # (C,) adapted eta RW scale
+    # ChEES trajectory-length state (None unless hmc_adapt_traj), rung-tied
+    log_traj: Optional[torch.Tensor]  # (C,)
+    chees_m1: Optional[torch.Tensor]  # (C,) Adam first moment
+    chees_v2: Optional[torch.Tensor]  # (C,) Adam second moment
     replica_id: Optional[torch.Tensor]  # (C,) int32 or None unless tracked
     pair_accept_sum: torch.Tensor  # (C,) f32, entry C-1 unused
     pair_prop_count: torch.Tensor  # (C,) int32, entry C-1 unused
@@ -85,6 +98,20 @@ def _reg_eval(cfg: PTConfig, w, x, y, tau):
     return likelihood.regression_eval_from_fx(fx, y, tau)
 
 
+def vdc_u(i) -> torch.Tensor:
+    """Van der Corput base-2 point in (0, 1) for step index ``i`` (int or
+    integer array), as float32: ``ptnn.kernel.vdc_u``, the ChEES trajectory
+    jitter. The bit reversal runs in int64 masked to 32 bits (the CPU build
+    of torch has no shifts on uint32)."""
+    x = (torch.as_tensor(i, dtype=torch.int64) + 1) & 0xFFFFFFFF
+    for shift, mask in ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F),
+                        (8, 0x00FF00FF)):
+        x = ((x & mask) << shift) | ((x >> shift) & mask)
+    x = ((x << 16) | (x >> 16)) & 0xFFFFFFFF
+    # uint32 -> float32 rounds to nearest, as jnp's astype does
+    return x.to(torch.float32) / 4294967296.0
+
+
 def init_state(
     cfg: PTConfig,
     data: Dataset,
@@ -121,10 +148,28 @@ def init_state(
     def zeros(dtype=torch.float32):
         return torch.zeros((c,), dtype=dtype, device=dev)
 
+    precond = cfg.proposal in ("precond_mala", "hmc")
     log_step_w = None
-    if cfg.adapt_step_size:
+    if cfg.adapt_step_size or precond:
         log_step_w = torch.full((c,), math.log(cfg.step_w),
                                 dtype=torch.float32, device=dev)
+    g_like = pc_mean = pc_m2 = log_step_eta = None
+    if precond:
+        pc_mean = torch.zeros_like(w)
+        pc_m2 = torch.zeros_like(w)
+        log_step_eta = torch.full((c,), math.log(cfg.step_eta),
+                                  dtype=torch.float32, device=dev)
+        g_like = fnn.neg_half_sse_grad(w, data.x_train, data.y_train,
+                                       cfg.topology)[1]
+    log_traj = chees_m1 = chees_v2 = None
+    if cfg.proposal == "hmc" and cfg.hmc_adapt_traj:
+        # half the static bound: with the vdc jitter (mean 1/2) the realized
+        # L starts near hmc_leapfrog / 4 and ChEES moves it from there
+        log_traj = torch.full(
+            (c,), math.log(0.5 * cfg.hmc_leapfrog * cfg.step_w),
+            dtype=torch.float32, device=dev)
+        chees_m1 = zeros()
+        chees_v2 = zeros()
     replica_id = None
     if cfg.track_replicas:
         replica_id = torch.arange(c, dtype=torch.int32, device=dev)
@@ -137,6 +182,13 @@ def init_state(
         rmse_train=zeros(),
         rmse_test=zeros(),
         log_step_w=log_step_w,
+        g_like=g_like,
+        pc_mean=pc_mean,
+        pc_m2=pc_m2,
+        log_step_eta=log_step_eta,
+        log_traj=log_traj,
+        chees_m1=chees_m1,
+        chees_v2=chees_v2,
         replica_id=replica_id,
         pair_accept_sum=zeros(),
         pair_prop_count=zeros(torch.int32),
@@ -200,6 +252,11 @@ def do_swap(
         pair_prop_count=state.pair_prop_count
         + pad(res.pair_active.to(torch.int32)),
     )
+    if state.g_like is not None:
+        # a function of w alone: it travels with the configuration, while
+        # the preconditioner and the scales stay with the rung
+        (g_like,) = swap_mod.apply_permutation(res.perm, state.g_like)
+        out = out.replace(g_like=g_like)
     if state.replica_id is not None:
         (rid,) = swap_mod.apply_permutation(res.perm, state.replica_id)
         out = out.replace(replica_id=rid)

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 by ``nvcc`` for Hopper (``sm_90a``) into ``build/ptnn_torch/<name>-<hash>.so``
-at the root of the checkout, keyed by a hash of the source and the flags, and
-loaded with ``ctypes``. A missing ``nvcc`` or a failed build raises. Nothing
-is compiled at import time.
+at the root of the checkout, keyed by a hash of the source, of the
+``csrc/*.cuh`` headers it includes and of the flags, and loaded with
+``ctypes``. A missing ``nvcc`` or a failed build raises. Nothing is compiled
+at import time; ``build_all`` compiles several sources in parallel.
 """
 
 from __future__ import annotations
@@ -12,11 +13,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, NamedTuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, NamedTuple
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ptnn_torch"
@@ -35,6 +38,7 @@ class Built(NamedTuple):
 
 
 _loaded: Dict[str, Built] = {}
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def nvcc() -> str:
@@ -55,39 +59,94 @@ def nvcc() -> str:
     )
 
 
-def build(name: str) -> Built:
-    """Compile (if needed) and load ``csrc/<name>.cu``; cached per process."""
-    if name in _loaded:
-        return _loaded[name]
+def _compile(name: str):
+    """Compile ``csrc/<name>.cu`` unless its ``.so`` is on disk; returns
+    ``(path, nvcc seconds, nvcc output)``."""
     src = _CSRC / f"{name}.cu"
     key = hashlib.sha256(
-        src.read_bytes() + " ".join(FLAGS).encode()
+        b"".join(p.read_bytes() for p in _sources(src))
+        + " ".join(FLAGS).encode()
     ).hexdigest()[:16]
     so = BUILD_DIR / f"{name}-{key}.so"
-    seconds, log = 0.0, ""
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(src)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {src.name}:\n{log}"
-            )
-        os.replace(tmp, so)  # atomic: a concurrent build sees all or none
+    if so.exists():
+        return so, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [nvcc(), *FLAGS, "-I", str(_CSRC), "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src.name}:\n{log}")
+    os.replace(tmp, so)  # atomic: a concurrent build sees all or none
+    return so, seconds, log
+
+
+def build(name: str, compiled=None) -> Built:
+    """Compile (if needed) and load ``csrc/<name>.cu``; cached per process.
+    ``compiled`` is ``_compile``'s result when it already ran."""
+    if name in _loaded:
+        return _loaded[name]
+    so, seconds, log = compiled if compiled is not None else _compile(name)
     lib = ctypes.CDLL(str(so))
     _declare(name, lib)
     _loaded[name] = Built(lib, so, seconds, log)
     return _loaded[name]
 
 
+def _sources(src: Path) -> List[Path]:
+    """``src`` and the ``csrc`` headers it includes, transitively, in a
+    fixed order: a header edit changes the cache key."""
+    out, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            if (_CSRC / inc).is_file():
+                todo.append(_CSRC / inc)
+    return out
+
+
+def build_all(names: List[str]) -> Dict[str, Built]:
+    """``build`` every name, the compilations in parallel (one nvcc per
+    source)."""
+    todo = [n for n in names if n not in _loaded]
+    with ThreadPoolExecutor(max_workers=max(len(todo), 1)) as pool:
+        futures = {n: pool.submit(_compile, n) for n in todo}
+        compiled = {n: fut.result() for n, fut in futures.items()}
+    return {n: build(n, compiled.get(n)) for n in names}
+
+
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     lib.ptnn_cuda_error_string.argtypes = [ctypes.c_int]
     lib.ptnn_cuda_error_string.restype = ctypes.c_char_p
+    if name in ("mala_block", "hmc_block"):
+        from ptnn_torch.ops.precond_step import PrecondParams, _WARPS
+
+        launch = getattr(lib, f"ptnn_{name}")
+        launch.argtypes = [ctypes.POINTER(PrecondParams), ctypes.c_int] + (
+            [ctypes.c_int] if name == "hmc_block" else []) + [ctypes.c_void_p]
+        launch.restype = ctypes.c_int
+        for fn in ("ptnn_precond_params_size", "ptnn_precond_warps",
+                   "ptnn_precond_w_size"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = ctypes.c_int
+        if lib.ptnn_precond_params_size() != ctypes.sizeof(PrecondParams):
+            raise RuntimeError(
+                f"PrecondParams layout differs between {name}.cu "
+                f"({lib.ptnn_precond_params_size()} bytes) and "
+                f"precond_step.py ({ctypes.sizeof(PrecondParams)} bytes)"
+            )
+        if lib.ptnn_precond_warps() != _WARPS:
+            raise RuntimeError(f"WARPS differs between {name}.cu and "
+                               "precond_step.py")
+        if lib.ptnn_precond_w_size() != 61:
+            raise RuntimeError(f"{name}.cu is not built for the (4, 10, 1) "
+                               "network precond_step.py launches it for")
     if name == "rw_block":
         from ptnn_torch.ops.block_step import _RwParams, _THREADS
 

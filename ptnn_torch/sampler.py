@@ -3,7 +3,7 @@
 Only the fused-block sampler is ported: ``sample`` and ``throughput_runner``
 dispatch to ``ptnn_torch.fused`` when ``cfg.fused_step`` is set and raise
 otherwise. Every entry point takes an explicit ``device``; on "cuda" the
-block kernel runs on the card, on "cpu" its plain version runs.
+block kernels run on the card, on "cpu" their plain versions run.
 """
 
 from __future__ import annotations

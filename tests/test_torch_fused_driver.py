@@ -1,13 +1,15 @@
 """The port's fused sampler against ptnn.fused.
 
 ``block_plan`` must equal ptnn's. The slice as a whole: the port's
-``sample_fused`` on the CPU (plain block version) against ptnn's (Pallas
-kernel in interpret mode) on Sunspot, started from ptnn's initial state
+``sample_fused`` on the CPU (plain block versions) against ptnn's (Pallas
+kernels in interpret mode) on Sunspot, started from ptnn's initial state
 (through ``convert.chain_state_from_numpy``) and fed ptnn's own noise
 (``jax.random`` from the run key, folded with each block's start, split as
-ptnn.fused's ``block_body`` splits it) through ``noise_fn``. Accept counts,
-replica identities and swap counts match exactly; float traces and the
-final state within rtol 2e-4, atol 2e-5 (tests/test_pallas_step.py).
+ptnn.fused's ``block_body`` splits it) through ``noise_fn``, for the
+random-walk, preconditioned-MALA and HMC/ChEES proposals. Accept counts,
+replica identities, swap counts and traj_len match exactly; float traces
+and the final state within rtol 2e-4, atol 2e-5 for the random walk and
+rtol 5e-4, atol 5e-5 for MALA and HMC (tests/test_pallas_step.py).
 """
 
 import jax
@@ -24,7 +26,8 @@ from ptnn import sampler as jsampler
 from ptnn.data import load_regression
 from ptnn_torch import convert
 from ptnn_torch import fused as tfused
-from ptnn_torch.ops import block_step
+from ptnn_torch.models import fnn
+from ptnn_torch.ops import block_step, precond_step
 
 torch.set_num_threads(1)
 
@@ -65,10 +68,16 @@ def test_block_plan_matches_ptnn(case):
 def test_fused_reason_scope():
     assert tfused.fused_reason(ptnn_torch.PTConfig(**_kw())) is None
     for bad in (dict(task="classification", topology=(4, 5, 3)),
-                dict(proposal="precond_mala"),
-                dict(record_thin=2, track_replicas=False)):
+                dict(task="classification", topology=(4, 5, 3),
+                     proposal="precond_mala"),
+                dict(record_thin=2, track_replicas=False),
+                # ptnn's 160-chain ChEES refusal: one panel cannot hold it
+                dict(proposal="hmc", hmc_adapt_traj=True, num_chains=160,
+                     num_samples=160 * 100, n_ladders=40)):
         cfg = ptnn_torch.PTConfig(**_kw(**bad)).validate()
         assert tfused.fused_reason(cfg) is not None
+        if bad.get("num_chains") == 160:
+            assert "128-lane" in tfused.fused_reason(cfg)
         with pytest.raises(ValueError, match="fused sampler runs"):
             tfused.sample_fused(cfg, np.zeros((4, 5)), np.zeros((4, 5)),
                                 device="cpu")
@@ -79,71 +88,133 @@ def test_fused_reason_scope():
 
 def _ptnn_noise_fn(k_run, p_pad, c_pad, w_size):
     """ptnn.fused._Fused.block_body's noise for the block at ``start``,
-    cut to the port's chains-major (K, C, W) layout."""
+    cut to the port's chains-major layout: ``kp, ke, ku, kue, ks =
+    split(fold_in(k_run, start), 5)``, u_jit from ``fold_in(kb, 101)`` and
+    u_traj = vdc_u(start + k)."""
     row_mask = (jnp.arange(p_pad) < w_size).astype(jnp.float32)[:, None]
 
     def noise_fn(start, k_max, c, w):
         kb = jax.random.fold_in(k_run, start)
-        kp, ke, ku, _kue, ks = jax.random.split(kb, 5)
+        kp, ke, ku, kue, ks = jax.random.split(kb, 5)
+        kc = lambda key: np.asarray(
+            jax.random.uniform(key, (k_max, c_pad), jnp.float32))[:, :c]
         nw = jax.random.normal(kp, (k_max, p_pad, c_pad), jnp.float32) * row_mask
         ne = jax.random.normal(ke, (k_max, c_pad), jnp.float32)
-        u = jax.random.uniform(ku, (k_max, c_pad), jnp.float32)
-        us = jax.random.uniform(ks, (c - 1,), jnp.float32)  # swap.py:91
+        ut = jkernel.vdc_u(start + jnp.arange(k_max, dtype=jnp.int32))
         t = lambda a: torch.from_numpy(np.array(a))
-        return (t(np.asarray(nw)[:, :w, :c].transpose(0, 2, 1)),
-                t(np.asarray(ne)[:, :c]), t(np.asarray(u)[:, :c]), t(us))
+        return dict(
+            w=t(np.asarray(nw)[:, :w, :c].transpose(0, 2, 1)),
+            eta=t(np.asarray(ne)[:, :c]), u=t(kc(ku)), u_eta=t(kc(kue)),
+            u_jit=t(kc(jax.random.fold_in(kb, 101))), u_traj=t(ut),
+            u_swap=t(jax.random.uniform(ks, (c - 1,), jnp.float32)),
+        )
 
     return noise_fn
 
 
-def test_sample_fused_matches_ptnn_on_sunspot():
-    seed = 2
+def _run_both(kw, seed):
     prob = load_regression("Sunspot")
-    jcfg = ptnn.PTConfig(**_kw()).validate()
-    tcfg = ptnn_torch.PTConfig(**_kw()).validate()
-    assert 0 < jcfg.temper_switch_step < jcfg.n_steps
+    jcfg = ptnn.PTConfig(**kw).validate()
+    tcfg = ptnn_torch.PTConfig(**kw).validate()
+    assert tfused.block_plan(tcfg) == jfused.block_plan(jcfg)
     k_init, k_run = jax.random.split(jax.random.PRNGKey(seed))
     data = jsampler.make_dataset(jcfg, prob.train, prob.test)
     st0 = jkernel.init_state(k_init, jcfg, data)
     ref = jfused.sample_fused(jcfg, prob.train, prob.test, seed=seed,
                               init_state=st0)
-
     st0_np = {k: (None if v is None else np.asarray(v))
               for k, v in jax.device_get(st0)._asdict().items()}
-    before = block_step.launches
+    before = (block_step.launches, dict(precond_step.launches))
     got = tfused.sample_fused(
         tcfg, prob.train, prob.test, seed=seed, device="cpu",
         init_state=convert.chain_state_from_numpy(st0_np),
         noise_fn=_ptnn_noise_fn(k_run, 64, 128, 61),
     )
-    assert block_step.launches == before
+    assert (block_step.launches, precond_step.launches) == before
+    return got, ref
 
+
+def _assert_runs_match(got, ref, rtol, atol, state_floats):
     assert set(got.traces) == set(ref.traces)
     for k, v in ref.traces.items():
         assert got.traces[k].shape == v.shape, k
-    np.testing.assert_array_equal(got.traces["accept_count"],
-                                  ref.traces["accept_count"])
-    np.testing.assert_array_equal(got.traces["replica"],
-                                  ref.traces["replica"])
+    for k in ("accept_count", "replica", "traj_len"):
+        if k in ref.traces:
+            np.testing.assert_array_equal(got.traces[k], ref.traces[k],
+                                          err_msg=k)
     assert got.swap_percent == ref.swap_percent
     assert 0.0 < got.swap_percent < 100.0
     np.testing.assert_array_equal(got.accept_ratio_per_chain,
                                   ref.accept_ratio_per_chain)
-    for k in ("ll", "rmse_train", "rmse_test", "acc_train", "acc_test", "w"):
-        np.testing.assert_allclose(got.traces[k], ref.traces[k], rtol=RTOL,
-                                   atol=ATOL, err_msg=k)
+    for k in ("rmse_train", "rmse_test", "acc_train", "acc_test", "w"):
+        np.testing.assert_allclose(got.traces[k], ref.traces[k], rtol=rtol,
+                                   atol=atol, err_msg=k)
+    # ll is the difference of two terms of size >= n_tr / T that cancel
+    # (the normalizer and SSE / 2 tau); its rtol applies to that size
+    n_tr = load_regression("Sunspot").train.shape[0]
+    scale = np.abs(ref.traces["ll"]) + n_tr / got.temperatures[None, :]
+    diff = np.abs(got.traces["ll"].astype(np.float64) - ref.traces["ll"])
+    assert np.all(diff <= atol + rtol * scale), float(diff.max())
     np.testing.assert_allclose(got.pair_swap_accept, ref.pair_swap_accept,
-                               rtol=RTOL, atol=ATOL)
-
+                               rtol=rtol, atol=atol)
     fin = convert.chain_state_to_numpy(got.final_state)
     jfin = ref.final_state._asdict()
     for k in ("n_accept", "replica_id", "pair_prop_count", "n_swap_accepted",
               "n_swap_proposed"):
         np.testing.assert_array_equal(fin[k], np.asarray(jfin[k]), err_msg=k)
     for k in ("w", "w_last", "eta", "ll", "prior", "rmse_train", "rmse_test",
-              "pair_accept_sum"):
-        np.testing.assert_allclose(fin[k], np.asarray(jfin[k]), rtol=RTOL,
-                                   atol=ATOL, err_msg=k)
+              "pair_accept_sum") + state_floats:
+        np.testing.assert_allclose(fin[k], np.asarray(jfin[k]), rtol=rtol,
+                                   atol=atol, err_msg=k)
+
+
+def test_sample_fused_matches_ptnn_on_sunspot():
+    got, ref = _run_both(_kw(), seed=2)
+    assert 0 < got.config.temper_switch_step < got.config.n_steps
+    _assert_runs_match(got, ref, RTOL, ATOL, ())
+
+
+def _precond_kw(**kw):
+    """bench.py's mala_16x4 / chees16_16x4 shape at 2 ladders of 4 rungs,
+    40 steps: warm start to 4, preconditioner from 12, adaptation to 19,
+    the temper switch at 24, DEO swaps after 10, 20 and 30. Gradient
+    samplers amplify float32 rounding: over longer runs this port and ptnn
+    drift apart as far as either drifts from a float64 run of the same
+    chain, until a decision flips."""
+    return _kw(num_samples=8 * 40, n_ladders=2, swap_style="even_odd",
+               adapt_rate=0.1, warmstart_frac=0.1, precond_start_frac=0.3,
+               record_w_chains=2, **kw)
+
+
+@pytest.mark.parametrize("proposal", ["precond_mala", "chees"])
+def test_precond_sample_fused_matches_ptnn_on_sunspot(proposal):
+    if proposal == "chees":
+        kw = _precond_kw(proposal="hmc", hmc_leapfrog=4, hmc_adapt_traj=True,
+                         step_w=0.01)
+    else:
+        kw = _precond_kw(proposal="precond_mala")
+    got, ref = _run_both(kw, seed=3)
+    state_floats = ("log_step_w", "log_step_eta", "pc_mean", "pc_m2")
+    if proposal == "chees":
+        state_floats += ("log_traj", "chees_m1", "chees_v2")
+        tl = got.traces["traj_len"][1:]
+        assert tl.min() >= 1 and tl.max() <= 4 and len(np.unique(tl)) > 1
+    assert got.traces["w"].shape == (got.config.samples_per_chain, 2, 61)
+    _assert_runs_match(got, ref, 5e-4, 5e-5, state_floats)
+    # g_like is the gradient of -SSE/2 at w. Near the mode it moves ~30x
+    # faster than w, so each run's cache is held to the gradient at its
+    # own final w (which agree above), and the port's gradient function to
+    # ptnn's cache at ptnn's w.
+    prob = load_regression("Sunspot")
+    x = torch.from_numpy(prob.train[:, :4].astype(np.float32))
+    y = torch.from_numpy(prob.train[:, 4].astype(np.float32))
+    jfin = ref.final_state._asdict()
+    for w, g_like in ((got.final_state.w, got.final_state.g_like),
+                      (torch.from_numpy(np.array(jfin["w"])),
+                       torch.from_numpy(np.array(jfin["g_like"])))):
+        g = fnn.neg_half_sse_grad(w, x, y, (4, 10, 1))[1]
+        torch.testing.assert_close(g_like, g, rtol=5e-4,
+                                   atol=5e-5 * float(g.abs().max()))
 
 
 def test_throughput_runner_reps_repeat_on_cpu():

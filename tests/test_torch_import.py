@@ -23,6 +23,7 @@ MODULES = (
     "ptnn_torch.ops",
     "ptnn_torch.ops._build",
     "ptnn_torch.ops.block_step",
+    "ptnn_torch.ops.precond_step",
     "ptnn_torch.ops.ladder",
     "ptnn_torch.ops.likelihood",
     "ptnn_torch.parallel.swap",
@@ -64,7 +65,7 @@ def test_port_sources_stay_clear_of_jax_and_fallbacks():
     pkg = os.path.join(ROOT, "ptnn_torch")
     for dirpath, _dirs, files in os.walk(pkg):
         for name in files:
-            if not name.endswith((".py", ".cu")):
+            if not name.endswith((".py", ".cu", ".cuh")):
                 continue
             with open(os.path.join(dirpath, name)) as f:
                 text = f.read()
