@@ -1,28 +1,32 @@
-"""Fused-block samplers (port of ``ptnn/fused.py``, regression).
+"""Fused-block samplers (port of ``ptnn/fused.py``).
 
 The run is cut at its replica-exchange events and at the temper switch
 (``block_plan``). Every inter-swap interval is one call of a block function,
 which on the card is one launch of a CUDA block kernel:
 
-* ``proposal="reference"``: ``ops.block_step.fused_rw_block``;
-* ``proposal="precond_mala"``: ``ops.precond_step.fused_mala_block``;
-* ``proposal="hmc"`` (with or without ChEES): ``fused_hmc_block``.
+* ``proposal="reference"``: ``ops.block_step.fused_rw_block`` (both tasks);
+* ``proposal="precond_mala"``: ``ops.precond_step.fused_mala_block``, or
+  for classification ``ops.precond_cls_step.fused_mala_cls_block``;
+* ``proposal="hmc"`` (with or without ChEES): ``fused_hmc_block`` /
+  ``fused_hmc_cls_block``.
 
 Between blocks run the swap event (``kernel.do_swap``) and, once, at the
 temper switch, ``kernel.recompute_ll``.
 
 Noise is drawn per block by ``noise_fn(start, k_max, c, w) -> dict``: "w"
-(k_max, c, w), "eta", "u" (k_max, c), "u_swap" (c-1,), and for MALA and HMC
-"u_eta" (k_max, c), for HMC "u_jit" (k_max, c) and "u_traj" (k_max,), the
-van der Corput jitter ``kernel.vdc_u(start + k)``. The default draws from a
+(k_max, c, w), "u" (k_max, c), "u_swap" (c-1,), for regression "eta"
+(k_max, c) and for its MALA and HMC "u_eta" (k_max, c), for HMC "u_jit"
+(k_max, c) and "u_traj" (k_max,), the van der Corput jitter
+``kernel.vdc_u(start + k)`` (``noise_names``). The default draws from a
 ``torch.Generator`` seeded from ``seed`` on the run's device. ``ptnn``
 derives its noise from ``jax.random`` keys instead, so runs of the two
 packages agree in distribution, and exactly when ``ptnn``'s noise is fed in
 through ``noise_fn``.
 
 Scope (``fused_reason``): the reference random-walk, preconditioned-MALA
-and HMC/ChEES proposals, regression, float32, every trace row kept, one
-device.
+and HMC/ChEES proposals, regression and classification, float32, every
+trace row kept, one device; and (``working_set_reason``) a network and
+dataset whose block fits the kernel's shared memory.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ import torch
 from ptnn_torch import kernel
 from ptnn_torch.config import PTConfig
 from ptnn_torch.models import fnn
-from ptnn_torch.ops import block_step, ladder, precond_step
+from ptnn_torch.ops import block_step, ladder, precond_cls_step, precond_step
 from ptnn_torch.parallel import swap as swap_mod
 from ptnn_torch.sampler import SampleResult, make_dataset
 
@@ -49,9 +53,8 @@ NoiseFn = Callable[[int, int, int, int], Noise]
 
 def fused_reason(cfg: PTConfig) -> Optional[str]:
     """Why this port's fused sampler cannot run ``cfg`` (None: it can)."""
-    if cfg.task != "regression" or cfg.topology[2] != 1:
-        return ("regression with one output only (classification is not "
-                "yet ported)")
+    if cfg.task == "regression" and cfg.topology[2] != 1:
+        return "regression with one output only"
     if cfg.use_langevin_gradients or cfg.proposal not in (
             "reference", "precond_mala", "hmc"):
         return ("the reference random-walk, precond_mala and hmc proposals "
@@ -70,6 +73,30 @@ def fused_reason(cfg: PTConfig) -> Optional[str]:
         return "float32 only"
     if cfg.record_thin != 1:
         return "record_thin=1 only (thinned traces are not yet ported)"
+    return None
+
+
+def working_set_reason(cfg: PTConfig, n_tr: int, n_te: int) -> Optional[str]:
+    """Why a block of ``cfg`` on ``n_tr`` + ``n_te`` rows does not fit the
+    CUDA kernel's shared memory (None: it does), on every device, so that a
+    configuration runs or is refused alike on the CPU and on the card."""
+    n_in, _hid, _out = cfg.topology
+    w = fnn.w_size(cfg.topology)
+    rows = n_tr + n_te
+    chees = cfg.proposal == "hmc" and cfg.hmc_adapt_traj
+    if cfg.task == "classification":
+        if cfg.proposal == "reference":
+            need = block_step.cls_smem_bytes(rows, n_in, w)
+        else:
+            need = precond_cls_step.smem_bytes(rows, cfg.topology, chees)
+    elif cfg.proposal == "reference":
+        need = block_step.smem_bytes(rows, n_in, w)
+    else:
+        need = precond_step.smem_bytes(rows, n_in, chees)
+    if need > precond_step._SMEM_LIMIT:
+        return (f"the block working set (w_size {w}, {n_tr}+{n_te} rows) "
+                f"needs {need} bytes of shared memory; a Hopper block has "
+                f"{precond_step._SMEM_LIMIT}")
     return None
 
 
@@ -106,17 +133,25 @@ def block_plan(
 
 _PRECOND_VEC = ("g_like", "pc_mean", "pc_m2")
 _CHEES = ("log_traj", "chees_m1", "chees_v2")
+_ACC = ("acc_train", "acc_test")
 
 
 def _to_kernel_state(st: kernel.ChainState, cfg: PTConfig) -> Dict[str, Any]:
+    """The block functions' state dict: classification adds the accuracy
+    carries and has no eta scale."""
+    cls = cfg.task == "classification"
     out = dict(w=st.w, w_last=st.w_last, eta=st.eta, ll=st.ll,
                prior=st.prior, rmse_train=st.rmse_train,
                rmse_test=st.rmse_test, n_accept=st.n_accept)
+    if cls:
+        out.update(acc_train=st.acc_train, acc_test=st.acc_test)
     if cfg.proposal == "reference":
         out["log_step_w"] = (st.log_step_w if cfg.adapt_step_size
                              else torch.zeros_like(st.eta))
         return out
-    out.update(log_step_w=st.log_step_w, log_step_eta=st.log_step_eta)
+    out["log_step_w"] = st.log_step_w
+    if not cls:
+        out["log_step_eta"] = st.log_step_eta
     for name in _PRECOND_VEC:
         out[name] = getattr(st, name)
     if st.log_traj is not None:
@@ -127,10 +162,13 @@ def _to_kernel_state(st: kernel.ChainState, cfg: PTConfig) -> Dict[str, Any]:
 
 def _from_kernel_state(st: kernel.ChainState, ks: Dict[str, torch.Tensor],
                        cfg: PTConfig) -> kernel.ChainState:
+    cls = cfg.task == "classification"
     names = ["w", "w_last", "eta", "ll", "prior", "rmse_train", "rmse_test",
-             "n_accept"]
+             "n_accept"] + (list(_ACC) if cls else [])
     if cfg.proposal != "reference":
-        names += ["log_step_w", "log_step_eta", *_PRECOND_VEC]
+        names += ["log_step_w", *_PRECOND_VEC]
+        if not cls:
+            names.append("log_step_eta")
         if st.log_traj is not None:
             names += list(_CHEES)
     elif cfg.adapt_step_size:
@@ -139,10 +177,14 @@ def _from_kernel_state(st: kernel.ChainState, ks: Dict[str, torch.Tensor],
 
 
 def noise_names(cfg: PTConfig) -> Tuple[str, ...]:
-    """The keys a block of ``cfg``'s proposal reads from ``noise_fn``."""
-    names = ("w", "eta", "u", "u_swap")
-    if cfg.proposal in ("precond_mala", "hmc"):
-        names += ("u_eta",)
+    """The keys a block of ``cfg``'s proposal reads from ``noise_fn``:
+    "w", "u" and "u_swap"; regression adds "eta", and "u_eta" for its
+    MALA/HMC eta block; HMC adds "u_jit" and "u_traj"."""
+    names = ("w", "u", "u_swap")
+    if cfg.task == "regression":
+        names += ("eta",)
+        if cfg.proposal in ("precond_mala", "hmc"):
+            names += ("u_eta",)
     if cfg.proposal == "hmc":
         names += ("u_jit", "u_traj")
     return names
@@ -207,13 +249,18 @@ class _Engine:
         kst = _to_kernel_state(st, cfg)
         args = (start, length, self.kdata, adapttemp, cfg.topology,
                 self.scal)
+        cls = cfg.task == "classification"
         if cfg.proposal == "reference":
             ksd, traces = block_step.fused_rw_block(
-                kst, noise["w"], noise["eta"], noise["u"], *args,
+                kst, noise["w"], noise.get("eta"), noise["u"], *args,
                 record_w=self.record_w)
         else:
-            block = (precond_step.fused_hmc_block if cfg.proposal == "hmc"
-                     else precond_step.fused_mala_block)
+            block = {
+                ("hmc", False): precond_step.fused_hmc_block,
+                ("hmc", True): precond_cls_step.fused_hmc_cls_block,
+                ("precond_mala", False): precond_step.fused_mala_block,
+                ("precond_mala", True): precond_cls_step.fused_mala_cls_block,
+            }[(cfg.proposal, cls)]
             ksd, traces = block(kst, noise, *args, record_w=self.record_w)
         st2 = _from_kernel_state(st, ksd, cfg)
         st3 = st2
@@ -221,6 +268,8 @@ class _Engine:
             st3 = kernel.do_swap(cfg, st2, self.temps, start + length - 1,
                                  noise["u_swap"], self.pair_mask)
         names = ["ll", "rmse_train", "rmse_test", "accept_count"]
+        if cls:
+            names += list(_ACC)
         if cfg.proposal == "hmc" and cfg.hmc_adapt_traj:
             names.append("traj_len")
         out = {k: traces[k][:length] for k in names}
@@ -267,7 +316,7 @@ def _scalars(cfg: PTConfig) -> dict:
             step_w=cfg.step_w, step_eta=cfg.step_eta, sigma_sq=cfg.sigma_sq,
             nu_1=cfg.nu_1, nu_2=cfg.nu_2, adapt=cfg.adapt_step_size,
             adapt_rate=cfg.adapt_rate, adapt_target=cfg.adapt_target_accept,
-            burn_end=burn_end, task_cls=False,
+            burn_end=burn_end, task_cls=cfg.task == "classification",
         )
     scal = dict(
         sigma_sq=cfg.sigma_sq, nu_1=cfg.nu_1, nu_2=cfg.nu_2,
@@ -297,8 +346,13 @@ def _engine(cfg: PTConfig, train, test, device, record_w: bool) -> _Engine:
     reason = fused_reason(cfg)
     if reason is not None:
         raise ValueError(f"ptnn_torch's fused sampler runs {reason}")
+    reason = working_set_reason(cfg, train.shape[0], test.shape[0])
+    if reason is not None:
+        raise ValueError(f"ptnn_torch's fused sampler cannot run this: "
+                         f"{reason}")
     device = torch.device(device)
     data = make_dataset(cfg, train, test, device)
+    n_classes = cfg.topology[2] if cfg.task == "classification" else 0
     temps_host = ladder.build_temperatures(cfg)
     plan = block_plan(cfg)
     return _Engine(
@@ -306,7 +360,7 @@ def _engine(cfg: PTConfig, train, test, device, record_w: bool) -> _Engine:
         device=device,
         data=data,
         kdata=block_step.prep_data(data.x_train, data.y_train, data.x_test,
-                                   data.y_test),
+                                   data.y_test, n_classes),
         temps_host=temps_host,
         temps=torch.as_tensor(temps_host, dtype=torch.float32, device=device),
         plan=plan,
@@ -348,9 +402,9 @@ def sample_fused(
     elapsed = time.perf_counter() - t0
 
     c = cfg.num_chains
-    zeros = np.zeros((cfg.n_steps, c), np.float32)
-    traces["acc_train"] = zeros  # regression carries no accuracy
-    traces["acc_test"] = zeros.copy()
+    if cfg.task == "regression":  # regression carries no accuracy
+        traces["acc_train"] = np.zeros((cfg.n_steps, c), np.float32)
+        traces["acc_test"] = np.zeros((cfg.n_steps, c), np.float32)
     merged: Dict[str, np.ndarray] = {}
     for name, arr in traces.items():
         if name == "w":
@@ -433,6 +487,7 @@ def throughput_build_fused(
             "swap_pct": 100.0 * int(st.n_swap_accepted) / n_prop
             if n_prop else 0.0,
             "final_rmse_test_cold": float(st.rmse_test[0]),
+            "final_acc_test_cold": float(st.acc_test[0]),
         }
 
     return one_rep

@@ -1,16 +1,17 @@
 """Chain state, initialisation, the swap event and the temper-switch recompute.
 
-Port of the part of ``ptnn/kernel.py`` that the fused regression samplers
-run: ``ChainState`` (only the fields those paths read), ``Dataset``,
-``init_state`` (regression, with the preconditioned MALA/HMC branch),
-``swap_due``, ``vdc_u``, and the ``do_swap`` and ``recompute_ll`` closures of
-``make_step_fn``, here plain functions. The per-step ``step`` and
-``step_precond`` are not ported yet.
+Port of the part of ``ptnn/kernel.py`` that the fused samplers run:
+``ChainState`` (only the fields those paths read), ``Dataset``,
+``init_state`` (regression and classification, with the preconditioned
+MALA/HMC branch), ``swap_due``, ``vdc_u``, and the ``do_swap`` and
+``recompute_ll`` closures of ``make_step_fn``, here plain functions. The
+per-step ``step`` and ``step_precond`` are not ported yet.
 
 Semantics kept from ``ptnn``: the chain carries its UNTEMPERED train
 log-likelihood and divides by the adaptive temperature at decision time;
-``w_last`` and the rmse carries are write-on-accept trace carries; a swap
+``w_last`` and the rmse/acc carries are write-on-accept trace carries; a swap
 moves (w, eta), and (ll, prior) too unless ``stale_likelihood_after_swap``.
+Classification has no noise parameter: eta is zeros and passes through.
 """
 
 from __future__ import annotations
@@ -38,15 +39,18 @@ class ChainState:
     w_last: torch.Tensor  # (C, W) last accepted proposal (trace carry)
     rmse_train: torch.Tensor  # (C,) trace carry
     rmse_test: torch.Tensor  # (C,) trace carry
+    acc_train: torch.Tensor  # (C,) trace carry, percent (0 for regression)
+    acc_test: torch.Tensor  # (C,) trace carry
     log_step_w: Optional[torch.Tensor]  # (C,) or None unless adapt_step_size
     #                                     or a precond_mala/hmc proposal
     # preconditioned MALA/HMC state (None otherwise). g_like is the gradient
-    # of -SSE/2 at w and travels with w on swaps; the Welford buffers and the
-    # scales stay with the rung.
+    # of the likelihood term at w (-SSE/2, or the multinomial ll) and travels
+    # with w on swaps; the Welford buffers and the scales stay with the rung.
     g_like: Optional[torch.Tensor]  # (C, W)
     pc_mean: Optional[torch.Tensor]  # (C, W) Welford running mean of w
     pc_m2: Optional[torch.Tensor]  # (C, W) Welford sum of squared deviations
     log_step_eta: Optional[torch.Tensor]  # (C,) adapted eta RW scale
+    #                                       (regression only)
     # ChEES trajectory-length state (None unless hmc_adapt_traj), rung-tied
     log_traj: Optional[torch.Tensor]  # (C,)
     chees_m1: Optional[torch.Tensor]  # (C,) Adam first moment
@@ -85,17 +89,19 @@ def swap_due(cfg: PTConfig, i: int) -> bool:
     return k % si == 0 and k > 0
 
 
-def _check_regression(cfg: PTConfig) -> None:
-    if cfg.task != "regression":
-        raise NotImplementedError(
-            "ptnn_torch ports the regression sampler only; classification "
-            "is not yet ported"
-        )
-
-
 def _reg_eval(cfg: PTConfig, w, x, y, tau):
     fx = fnn.batched_forward(w, x, cfg.topology)[:, :, 0]
     return likelihood.regression_eval_from_fx(fx, y, tau)
+
+
+def train_loglik(cfg: PTConfig, w: torch.Tensor, eta: torch.Tensor,
+                 data: Dataset) -> torch.Tensor:
+    """The untempered train log-likelihood of every chain at (w, eta)."""
+    if cfg.task == "regression":
+        return _reg_eval(cfg, w, data.x_train, data.y_train,
+                         torch.exp(eta)).loglik
+    return likelihood.classification_eval(w, data.x_train, data.y_train,
+                                          cfg.topology).loglik
 
 
 def vdc_u(i) -> torch.Tensor:
@@ -120,9 +126,11 @@ def init_state(
     init_eta: Optional[torch.Tensor] = None,
 ) -> ChainState:
     """Initial state: standard-normal weights (from ``generator``, or
-    ``init_w``), eta = log of the population variance of the initial
-    residuals (or ``init_eta``), and ll/prior computed at that point."""
-    _check_regression(cfg)
+    ``init_w``), and ll/prior computed at that point. Regression: eta = log
+    of the population variance of the initial residuals (or ``init_eta``);
+    classification: eta = 0, the multinomial ll and the prior with
+    dimension term w_size."""
+    cls = cfg.task == "classification"
     dev = data.x_train.device
     c, w_dim = cfg.num_chains, fnn.w_size(cfg.topology)
     if init_w is None:
@@ -132,18 +140,25 @@ def init_state(
         w = torch.as_tensor(init_w, dtype=torch.float32, device=dev)
         if tuple(w.shape) != (c, w_dim):
             raise ValueError(f"init_w shape {tuple(w.shape)} != {(c, w_dim)}")
-    pred = fnn.batched_forward(w, data.x_train, cfg.topology)[:, :, 0]
-    resid = pred - data.y_train[None, :]
-    eta = torch.log(torch.var(resid, dim=1, correction=0))
-    if init_eta is not None:
-        eta = torch.as_tensor(init_eta, dtype=torch.float32, device=dev)
-        if tuple(eta.shape) != (c,):
-            raise ValueError(f"init_eta shape {tuple(eta.shape)} != {(c,)}")
-    tau = torch.exp(eta)
-    ll = _reg_eval(cfg, w, data.x_train, data.y_train, tau).loglik
-    prior = likelihood.regression_log_prior(
-        w, tau, cfg.topology, cfg.sigma_sq, cfg.nu_1, cfg.nu_2
-    )
+    if cls:
+        eta = torch.zeros((c,), dtype=torch.float32, device=dev)
+        ll = train_loglik(cfg, w, eta, data)
+        prior = likelihood.classification_log_prior(w, cfg.topology,
+                                                    cfg.sigma_sq)
+    else:
+        pred = fnn.batched_forward(w, data.x_train, cfg.topology)[:, :, 0]
+        resid = pred - data.y_train[None, :]
+        eta = torch.log(torch.var(resid, dim=1, correction=0))
+        if init_eta is not None:
+            eta = torch.as_tensor(init_eta, dtype=torch.float32, device=dev)
+            if tuple(eta.shape) != (c,):
+                raise ValueError(
+                    f"init_eta shape {tuple(eta.shape)} != {(c,)}")
+        tau = torch.exp(eta)
+        ll = _reg_eval(cfg, w, data.x_train, data.y_train, tau).loglik
+        prior = likelihood.regression_log_prior(
+            w, tau, cfg.topology, cfg.sigma_sq, cfg.nu_1, cfg.nu_2
+        )
 
     def zeros(dtype=torch.float32):
         return torch.zeros((c,), dtype=dtype, device=dev)
@@ -157,10 +172,14 @@ def init_state(
     if precond:
         pc_mean = torch.zeros_like(w)
         pc_m2 = torch.zeros_like(w)
-        log_step_eta = torch.full((c,), math.log(cfg.step_eta),
-                                  dtype=torch.float32, device=dev)
-        g_like = fnn.neg_half_sse_grad(w, data.x_train, data.y_train,
-                                       cfg.topology)[1]
+        if cls:
+            g_like = fnn.multinomial_ll_grad(w, data.x_train, data.y_train,
+                                             cfg.topology)[1]
+        else:
+            log_step_eta = torch.full((c,), math.log(cfg.step_eta),
+                                      dtype=torch.float32, device=dev)
+            g_like = fnn.neg_half_sse_grad(w, data.x_train, data.y_train,
+                                           cfg.topology)[1]
     log_traj = chees_m1 = chees_v2 = None
     if cfg.proposal == "hmc" and cfg.hmc_adapt_traj:
         # half the static bound: with the vdc jitter (mean 1/2) the realized
@@ -181,6 +200,8 @@ def init_state(
         w_last=torch.ones_like(w),  # the reference's pos_w rows start at 1
         rmse_train=zeros(),
         rmse_test=zeros(),
+        acc_train=zeros(),
+        acc_test=zeros(),
         log_step_w=log_step_w,
         g_like=g_like,
         pc_mean=pc_mean,
@@ -267,6 +288,4 @@ def recompute_ll(cfg: PTConfig, state: ChainState,
                  data: Dataset) -> ChainState:
     """Refresh the carried log-likelihood from the current (w, eta), with
     the accepted eta; the reference does this once, at the temper switch."""
-    ev = _reg_eval(cfg, state.w, data.x_train, data.y_train,
-                   torch.exp(state.eta))
-    return state.replace(ll=ev.loglik)
+    return state.replace(ll=train_loglik(cfg, state.w, state.eta, data))

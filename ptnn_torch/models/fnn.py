@@ -5,9 +5,11 @@ Port of ``ptnn/models/fnn.py``.
 The flat weight codec is ``[W1.ravel(), W2.ravel(), B1, B2]`` and the forward
 pass SUBTRACTS the biases, ``sigmoid(sigmoid(x @ W1 - B1) @ W2 - B2)``, as in
 the reference network and in ``ptnn``. ``unpack`` takes any number of
-leading batch dimensions on ``w``. ``neg_half_sse_grad`` is the
-hand-written backprop of -SSE/2 that the preconditioned MALA/HMC samplers
-take their likelihood gradient from.
+leading batch dimensions on ``w``. ``neg_half_sse_grad`` (regression) and
+``multinomial_ll_grad`` (classification) are the hand-written backprops the
+preconditioned MALA/HMC samplers take their likelihood gradient from.
+Classification's class probabilities are a softmax over the SIGMOID outputs
+and the predicted class is their first argmax.
 
 Float32 matrix products run in full float32: TF32 would keep about three
 decimal digits and move the log-likelihoods the MH test compares, so it is
@@ -92,3 +94,58 @@ def neg_half_sse_grad(
     d_w1 = torch.einsum("ni,cnh->cih", x, dh)
     grad = torch.cat([d_w1.reshape(w.shape[0], -1), d_w2, d_b1, d_b2], dim=-1)
     return val, grad
+
+
+def class_probs(out: torch.Tensor) -> torch.Tensor:
+    """Softmax over the sigmoid outputs (..., O)."""
+    return torch.softmax(out, dim=-1)
+
+
+def log_class_probs(out: torch.Tensor) -> torch.Tensor:
+    """Log-softmax over the sigmoid outputs (..., O): the log class
+    probabilities the multinomial likelihood gathers."""
+    return torch.log_softmax(out, dim=-1)
+
+
+def predict_class(out: torch.Tensor) -> torch.Tensor:
+    """Predicted class index (..., ) int64: the FIRST argmax of the outputs
+    over the last axis (a later class wins only if strictly larger)."""
+    best = out[..., 0]
+    pred = torch.zeros(out.shape[:-1], dtype=torch.int64, device=out.device)
+    for o in range(1, out.shape[-1]):
+        better = out[..., o] > best
+        pred = torch.where(better, o, pred)
+        best = torch.maximum(best, out[..., o])
+    return pred
+
+
+def multinomial_ll_grad(
+    w: torch.Tensor, x: torch.Tensor, y: torch.Tensor, topo: Topology
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every chain at once: w (C, W), x (N, n_in), integer-valued labels y
+    (N,) -> ``(ll (C,), d ll/dw (C, W), outputs (C, N, O))`` where ll is the
+    multinomial log-likelihood ``sum_n log softmax(out_n)[y_n]``.
+
+    The chain rule written out, as ``_fwd_grad_cls`` in
+    ``ptnn/ops/pallas_step.py``: delta2_o = (onehot_o - p_o) out_o (1 -
+    out_o); dW2_ho = sum delta2_o s_h; dB2_o = -sum delta2_o; delta1_h =
+    (sum_o delta2_o W2_ho) s_h (1 - s_h); dW1_ih = sum delta1_h x_i;
+    dB1_h = -sum delta1_h. Independent of the temperature.
+    """
+    p = unpack(w, topo)
+    s = torch.sigmoid(torch.matmul(x, p.w1) - p.b1[:, None, :])  # (C, N, H)
+    out = torch.sigmoid(torch.matmul(s, p.w2) - p.b2[:, None, :])  # (C, N, O)
+    logp = log_class_probs(out)
+    onehot = torch.nn.functional.one_hot(y.to(torch.int64),
+                                         out.shape[-1]).to(out.dtype)
+    ll = torch.sum(logp * onehot, dim=(-2, -1))
+    d2 = (onehot - torch.exp(logp)) * out * (1.0 - out)  # (C, N, O)
+    d_w2 = torch.einsum("cnh,cno->cho", s, d2)
+    d_b2 = -torch.sum(d2, dim=1)
+    dh = torch.einsum("cno,cho->cnh", d2, p.w2) * s * (1.0 - s)  # (C, N, H)
+    d_b1 = -torch.sum(dh, dim=1)
+    d_w1 = torch.einsum("ni,cnh->cih", x, dh)
+    c = w.shape[0]
+    grad = torch.cat([d_w1.reshape(c, -1), d_w2.reshape(c, -1), d_b1, d_b2],
+                     dim=-1)
+    return ll, grad, out

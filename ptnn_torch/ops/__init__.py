@@ -1,8 +1,6 @@
-"""Tensor operations of the port: model likelihoods, the block kernel, ladders.
+"""Tensor operations of the port: model likelihoods, the block kernels,
+ladders, and the NumPy diagnostics ``roundtrip`` and ``ess``."""
 
-``roundtrip`` and ``ess`` are ``ptnn``'s NumPy modules, shared unchanged.
-"""
-
-from ptnn_torch._shared import ess, roundtrip
+from ptnn_torch.ops import ess, roundtrip
 
 __all__ = ["ess", "roundtrip"]

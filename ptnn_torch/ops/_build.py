@@ -131,22 +131,35 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         launch.argtypes = [ctypes.POINTER(PrecondParams), ctypes.c_int] + (
             [ctypes.c_int] if name == "hmc_block" else []) + [ctypes.c_void_p]
         launch.restype = ctypes.c_int
-        for fn in ("ptnn_precond_params_size", "ptnn_precond_warps",
-                   "ptnn_precond_w_size"):
-            getattr(lib, fn).argtypes = []
-            getattr(lib, fn).restype = ctypes.c_int
-        if lib.ptnn_precond_params_size() != ctypes.sizeof(PrecondParams):
-            raise RuntimeError(
-                f"PrecondParams layout differs between {name}.cu "
-                f"({lib.ptnn_precond_params_size()} bytes) and "
-                f"precond_step.py ({ctypes.sizeof(PrecondParams)} bytes)"
-            )
-        if lib.ptnn_precond_warps() != _WARPS:
-            raise RuntimeError(f"WARPS differs between {name}.cu and "
-                               "precond_step.py")
-        if lib.ptnn_precond_w_size() != 61:
-            raise RuntimeError(f"{name}.cu is not built for the (4, 10, 1) "
-                               "network precond_step.py launches it for")
+        _check_query(lib, name, "ptnn_precond_params_size",
+                     ctypes.sizeof(PrecondParams), "PrecondParams size")
+        _check_query(lib, name, "ptnn_precond_warps", _WARPS, "WARPS")
+        _check_query(lib, name, "ptnn_precond_w_size", 61,
+                     "the (4, 10, 1) w_size")
+    if name in ("mala_cls_block", "hmc_cls_block"):
+        from ptnn_torch.ops.precond_cls_step import ClsPrecondParams
+        from ptnn_torch.ops.precond_step import _WARPS
+
+        launch = getattr(lib, f"ptnn_{name}")
+        launch.argtypes = [ctypes.POINTER(ClsPrecondParams), ctypes.c_int] + (
+            [ctypes.c_int] if name == "hmc_cls_block" else []) + [
+            ctypes.c_void_p]
+        launch.restype = ctypes.c_int
+        _check_query(lib, name, "ptnn_cls_params_size",
+                     ctypes.sizeof(ClsPrecondParams), "ClsPrecondParams size")
+        _check_query(lib, name, "ptnn_cls_warps", _WARPS, "CLS_WARPS")
+        _check_query(lib, name, "ptnn_cls_w_size", 99, "the (4, 12, 3) w_size")
+    if name == "rw_cls_block":
+        from ptnn_torch.ops.block_step import _ClsRwParams, _THREADS
+
+        lib.ptnn_rw_cls_block.argtypes = [
+            ctypes.POINTER(_ClsRwParams), ctypes.c_int, ctypes.c_void_p
+        ]
+        lib.ptnn_rw_cls_block.restype = ctypes.c_int
+        _check_query(lib, name, "ptnn_rw_cls_params_size",
+                     ctypes.sizeof(_ClsRwParams), "ClsRwParams size")
+        _check_query(lib, name, "ptnn_rw_cls_block_threads", _THREADS,
+                     "RW_THREADS")
     if name == "rw_block":
         from ptnn_torch.ops.block_step import _RwParams, _THREADS
 
@@ -154,19 +167,22 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             ctypes.POINTER(_RwParams), ctypes.c_int, ctypes.c_void_p
         ]
         lib.ptnn_rw_block.restype = ctypes.c_int
-        lib.ptnn_rw_params_size.argtypes = []
-        lib.ptnn_rw_params_size.restype = ctypes.c_int
-        lib.ptnn_rw_block_threads.argtypes = []
-        lib.ptnn_rw_block_threads.restype = ctypes.c_int
-        if lib.ptnn_rw_params_size() != ctypes.sizeof(_RwParams):
-            raise RuntimeError(
-                "RwParams layout differs between rw_block.cu "
-                f"({lib.ptnn_rw_params_size()} bytes) and block_step.py "
-                f"({ctypes.sizeof(_RwParams)} bytes)"
-            )
-        if lib.ptnn_rw_block_threads() != _THREADS:
-            raise RuntimeError("THREADS differs between rw_block.cu and "
-                               "block_step.py")
+        _check_query(lib, name, "ptnn_rw_params_size",
+                     ctypes.sizeof(_RwParams), "RwParams size")
+        _check_query(lib, name, "ptnn_rw_block_threads", _THREADS, "THREADS")
+
+
+def _check_query(lib: ctypes.CDLL, name: str, fn: str, want: int,
+                 what: str) -> None:
+    """Call the library's int query ``fn`` and raise unless it is ``want``:
+    the .cu and its Python mirror must agree."""
+    f = getattr(lib, fn)
+    f.argtypes = []
+    f.restype = ctypes.c_int
+    got = f()
+    if got != want:
+        raise RuntimeError(f"{what} differs between {name}.cu ({got}) and "
+                           f"its Python mirror ({want})")
 
 
 def error_string(lib: ctypes.CDLL, err: int) -> str:

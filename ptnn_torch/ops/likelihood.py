@@ -1,8 +1,11 @@
-"""Regression log-likelihood and prior (port of ``ptnn/ops/likelihood.py``).
+"""Log-likelihoods, priors and metrics (port of ``ptnn/ops/likelihood.py``).
 
 Untempered values, batched over any leading dimensions: the sampler divides
 by the chain's temperature at decision time. The regression prior's dimension
-term is the reference's ``(I*H + H + 2)/2``, not the parameter count.
+term is the reference's ``(I*H + H + 2)/2``, not the parameter count; the
+classification prior's is ``w_size``. Classification's rmse is taken over the
+predicted class INDEX (a quirk of the reference kept for parity) and its
+accuracy is a percentage.
 """
 
 from __future__ import annotations
@@ -12,9 +15,64 @@ from typing import NamedTuple
 
 import torch
 
+from ptnn_torch.models import fnn
 from ptnn_torch.models.fnn import Topology
 
 _LOG_2PI = math.log(2.0 * math.pi)
+
+
+class ClassEval(NamedTuple):
+    loglik: torch.Tensor  # (...,) untempered
+    rmse: torch.Tensor  # (...,) of the predicted class index against y
+    acc: torch.Tensor  # (...,) percent
+    fx: torch.Tensor  # (..., N) predicted class indices
+
+
+def rmse(pred: torch.Tensor, actual: torch.Tensor) -> torch.Tensor:
+    """Root mean squared error over the last axis."""
+    return torch.sqrt(torch.mean(torch.square(pred - actual), dim=-1))
+
+
+def accuracy(pred: torch.Tensor, actual: torch.Tensor) -> torch.Tensor:
+    """Percentage of exact matches over the last axis."""
+    return 100.0 * torch.mean((pred == actual).to(pred.dtype), dim=-1)
+
+
+def classification_eval_from_logp(
+    logp: torch.Tensor, out: torch.Tensor, y: torch.Tensor
+) -> ClassEval:
+    """Multinomial log-likelihood ``sum_i logp[..., i, y_i]`` and the
+    metrics from log class probabilities ``logp`` (..., N, O), the raw
+    outputs ``out`` for the first-argmax prediction and integer-valued
+    labels ``y`` (N,)."""
+    yi = y.to(torch.int64)
+    idx = yi.expand(logp.shape[:-1])[..., None]
+    gathered = torch.gather(logp, -1, idx)[..., 0]
+    pred = fnn.predict_class(out).to(logp.dtype)
+    yf = y.to(logp.dtype)
+    return ClassEval(loglik=torch.sum(gathered, dim=-1), rmse=rmse(pred, yf),
+                     acc=accuracy(pred, yf), fx=pred)
+
+
+def classification_eval(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                        topo: Topology) -> ClassEval:
+    """Every chain at once: w (C, W), x (N, I), y (N,) -> (C,) values."""
+    out = fnn.batched_forward(w, x, topo)
+    return classification_eval_from_logp(fnn.log_class_probs(out), out, y)
+
+
+def classification_log_prior_dim(w: torch.Tensor, dim: int,
+                                 sigma_sq: float = 25.0) -> torch.Tensor:
+    """Gaussian weight prior with an explicit dimension constant."""
+    part1 = -0.5 * dim * math.log(sigma_sq)
+    return part1 - torch.sum(torch.square(w), dim=-1) / (2.0 * sigma_sq)
+
+
+def classification_log_prior(w: torch.Tensor, topo: Topology,
+                             sigma_sq: float = 25.0) -> torch.Tensor:
+    """``-(w_size/2) log(sigma^2) - sum(w^2) / (2 sigma^2)``: the
+    reference's dimension term ``d*h + h + o + h*o`` is ``w_size``."""
+    return classification_log_prior_dim(w, fnn.w_size(topo), sigma_sq)
 
 
 class RegEval(NamedTuple):

@@ -552,7 +552,9 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
 
 
 def _dispatch(name, reference, state, noise, start, length, data, adapttemp,
-              topo, scal, record_w):
+              topo, scal, record_w, launch=None):
+    """CPU tensors to ``reference``, CUDA tensors to ``launch`` (this
+    module's ``_launch_cuda`` by default), mixed ones raise."""
     tensors = [adapttemp, data["rows"]] + list(noise.values()) + [
         v for v in state.values() if v is not None]
     kinds = {t.device.type for t in tensors}
@@ -560,8 +562,8 @@ def _dispatch(name, reference, state, noise, start, length, data, adapttemp,
         return reference(state, noise, start, length, data, adapttemp, topo,
                          scal, record_w)
     if kinds == {"cuda"}:
-        return _launch_cuda(name, state, noise, start, length, data,
-                            adapttemp, topo, scal, record_w)
+        return (launch or _launch_cuda)(name, state, noise, start, length,
+                                        data, adapttemp, topo, scal, record_w)
     raise ValueError(f"fused_{name} needs all tensors on one device type, "
                      f"got {sorted(kinds)}")
 

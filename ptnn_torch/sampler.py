@@ -23,7 +23,9 @@ class SampleResult:
     """Host-side result of a PT run (the fields of ``ptnn.SampleResult``).
 
     Trace arrays have shape (samples_per_chain, num_chains, ...) with row 0
-    the reference's init row (w ones, ll -100, replica ids in order).
+    the reference's init row (w ones, ll -100, replica ids in order);
+    "acc_train" / "acc_test" are the accuracy traces (zeros for
+    regression).
     """
 
     traces: Dict[str, np.ndarray]
@@ -43,7 +45,9 @@ class SampleResult:
 
 
 def make_dataset(cfg: PTConfig, train, test, device) -> Dataset:
-    """Split raw ``[features..., label]`` rows into float32 tensors."""
+    """Split raw ``[features..., label]`` rows into float32 tensors (the
+    class index of a classification row stays a float32, as ptnn keeps
+    it)."""
     i = cfg.topology[0]
 
     def t(a):

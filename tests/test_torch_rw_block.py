@@ -167,6 +167,22 @@ def test_fused_rw_block_routes_cpu_tensors_to_the_plain_version(rng):
         np.testing.assert_array_equal(got[0][k], ref[0][k], err_msg=k)
     for k in ref[1]:
         np.testing.assert_array_equal(got[1][k], ref[1][k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="classification"):
-        _run_port(data, state, noise, at, 30, 9, dict(scal, task_cls=True),
-                  True, fn=block_step.fused_rw_block)
+    # classification routes the same way: CPU tensors, the plain version
+    topo_c = (4, 5, 3)
+    w_c = fnn.w_size(topo_c)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    y = lambda n: t(rng.integers(0, 3, size=n))
+    kdata = block_step.prep_data(t(data[0]), y(37), t(data[2]), y(23),
+                                 n_classes=3)
+    cstate = {k: t(v) for k, v in state.items()}
+    cstate.update(w=t(rng.normal(size=(C, w_c))), w_last=torch.ones(C, w_c),
+                  acc_train=torch.zeros(C), acc_test=torch.zeros(C))
+    args = (cstate, t(rng.normal(size=(K, C, w_c))), None, t(noise["u"]), 30,
+            9, kdata, t(at), topo_c, dict(scal, task_cls=True))
+    before_cls = block_step.cls_launches
+    got = block_step.fused_rw_block(*args)
+    ref = block_step.rw_block_reference(*args)
+    assert block_step.cls_launches == before_cls
+    for a, b in zip(got, ref):
+        for k in b:
+            torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
