@@ -9,8 +9,9 @@ Phases, one line each or more (a failing phase raises and the exit code is
 not 0):
   1. device: needs torch.cuda; prints nvidia-smi's "name, power.limit" line
      and the toolchain's versions;
-  2. build: compiles the six ptnn_torch/csrc/*_block.cu with nvcc into
-     build/, one nvcc per source, all at once, with ptxas' register report;
+  2. build: compiles the eight ptnn_torch/csrc/*.cu (six *_block.cu,
+     drift_epoch.cu, fnn_eval.cu) with nvcc into build/, one nvcc per
+     source, all at once, with ptxas' register report;
   3. kernel: each CUDA block kernel against its plain PyTorch version on the
      same CUDA tensors at the main paths' widths. Sunspot: RW at 1000 chains
      x 100 steps, adapt off and on; MALA at 1024 chains x 10 steps across
@@ -19,7 +20,11 @@ not 0):
      ChEES at leapfrog 8; and the swap sweep against the CPU's. Iris: the
      RW classification branch at 1000 x 100, adapt off and on; MALA at 1024
      x 10 across the phases; HMC with ChEES at 64 chains (one panel) and
-     256 (two), leapfrog 16; HMC without ChEES at leapfrog 8;
+     256 (two), leapfrog 16; HMC without ChEES at leapfrog 8. The per-step
+     sampler's kernels: the drift epoch at Sunspot (4, 10, 1) 64 chains
+     (depth 1 and 2), Ionosphere (34, 50, 2) 10 chains on 245 rows and
+     PenDigit (16, 30, 10) 10 chains on all 7494 train rows; the FNN eval
+     at Sunspot 64 chains and Ionosphere 10, train and test rows;
   4. end to end, each path with its launch counts set to 0 just before it,
      through ptnn_torch.sample, each checked against the bands of the JAX
      package's records: the Sunspot rw_fused sampler (64 chains x 5000),
@@ -27,10 +32,14 @@ not 0):
      mala_fused_16x4 (64 x 5000); the iris RW preset (10 x 5000); the iris
      quality flagship chees16_fused_16x4 (64 x 8000, seeds 1-3) against the
      served-accuracy gate of 96.76; iris mala_fused_16x4 (64 x 8000);
+     then the per-step sampler: Sunspot lg_pallas (64 x 5000, Langevin
+     gradients), Sunspot rw per-step (64 x 5000) and Ionosphere legacy LG
+     (10 x 5000), each with its drift and eval launches held to the plan;
   5. throughput: throughput_runner at 2000 samples per chain (Sunspot
      rw_fused at 64 and 1024 chains, mala_fused_16x4, chees16_fused_256x4;
-     iris chees16_fused_16x4 and chees16_fused_64x4), and each kernel's time
-     against its plain version's for one block at its path's widths;
+     iris chees16_fused_16x4 and chees16_fused_64x4; lg_pallas), and each
+     kernel's time against its plain version's for one block (one epoch,
+     one eval) at its path's widths;
   6. one JSON line listing the kernels (time, plain time, bound, launches,
      largest difference from the plain version), then the device line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -88,7 +97,7 @@ P_RTOL, P_ATOL = 1e-3, 1e-4
 P_MARGIN = 1e-5  # |u - a| of the w and eta blocks
 TRAJ_MARGIN = 1e-5  # distance of tau_traj / eps to a leapfrog-count boundary
 KERNELS = ("rw_block", "mala_block", "hmc_block", "rw_cls_block",
-           "mala_cls_block", "hmc_cls_block")
+           "mala_cls_block", "hmc_cls_block", "drift_epoch", "fnn_eval")
 # what each kernel replaces: the TPU kernel of ptnn (file:line)
 REPLACES = {
     "rw_block": "ptnn/ops/pallas_step.py:307 (_rw_block_kernel, regression)",
@@ -98,6 +107,8 @@ REPLACES = {
         "ptnn/ops/pallas_step.py:307 (_rw_block_kernel, classification)",
     "mala_cls_block": "ptnn/ops/pallas_step.py:1339",
     "hmc_cls_block": "ptnn/ops/pallas_step.py:1589",
+    "drift_epoch": "ptnn/ops/pallas_drift.py:42",
+    "fnn_eval": "ptnn/ops/pallas_eval.py:52",
 }
 # H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor cores and
 # HBM3 bandwidth; a kernel's bound is the larger of its operations over the
@@ -1002,8 +1013,13 @@ def phase_cls_kernels():
 
 
 def launch_count(name):
-    from ptnn_torch.ops import block_step, precond_cls_step, precond_step
+    from ptnn_torch.ops import (block_step, drift, fnn_eval, precond_cls_step,
+                                precond_step)
 
+    if name == "drift_epoch":
+        return drift.launches
+    if name == "fnn_eval":
+        return fnn_eval.launches
     if name == "rw_block":
         return block_step.launches
     if name == "rw_cls_block":
@@ -1014,10 +1030,13 @@ def launch_count(name):
 
 
 def reset_launch_counts():
-    from ptnn_torch.ops import block_step, precond_cls_step, precond_step
+    from ptnn_torch.ops import (block_step, drift, fnn_eval, precond_cls_step,
+                                precond_step)
 
     block_step.launches = 0
     block_step.cls_launches = 0
+    drift.launches = 0
+    fnn_eval.launches = 0
     for counts in (precond_step.launches, precond_cls_step.launches):
         for key in counts:
             counts[key] = 0
@@ -1212,21 +1231,374 @@ def phase_cls_throughput():
     return out
 
 
+# ---------------------------------------------------------------------------
+# The per-step sampler: the Langevin drift epoch and the FNN eval kernels.
+
+# lg_pallas (bench.py's _variants(64, 5000, full=True)["lg_pallas"]): ptnn's
+# per-step sampler on the CPU, seeds 0-4 (python tests/test_torch_step.py lg
+# 0 1 2 3 4): cold-rung test RMSE over the second half 0.0217-0.0251, cold
+# accept 9.9-10.9 %, mean accept 18.1-19.0 %, swap 82.7-86.0 %, Langevin
+# 49.8-50.2 % (BENCH_r02.json: RMSE 0.0224, accept 18.3 %, swap 84.6 %)
+LG_RMSE = (0.01, 0.04)
+LG_COLD_ACCEPT = (3.0, 20.0)
+LG_MEAN_ACCEPT = (14.0, 24.0)
+LG_SWAP = (75.0, 92.0)
+LANGEVIN = (48.0, 52.0)
+# Ionosphere legacy LG (classification_preset((34, 50, 2), 50_000,
+# legacy_lg=True), 10 x 5000): ptnn's 5-seed band 92.64 +- 0.92 test mean,
+# accept 95.6 %, swap 55.6 % (PARITY.md:116); ptnn's per-step sampler on the
+# CPU, seeds 0-4 (python tests/test_torch_step.py iono 0 1 2 3 4): test mean
+# 91.87-93.72, mean accept 95.38-95.59 %, swap 53.3-63.3 %, Langevin
+# 49.7-50.4 %. The test-mean band is +-2 sigma of the 5-seed band.
+IONO_TEST_MEAN = (90.80, 94.48)
+IONO_ACCEPT = (94.5, 96.5)
+IONO_SWAP = (50.0, 66.0)
+# the drift epoch: hundreds to thousands of dependent row updates summed in
+# another order, so w is held on the scale of each chain's vector
+D_RTOL, D_ATOL = 1e-3, 1e-4
+
+
+def lg_cfg(chains, samples, **kw):
+    """bench.py's lg_pallas: the rw config with Langevin gradients
+    (langevin_prob 0.5, learn_rate 0.01, the reference q-ratio) and
+    drift_mode "pallas", per-step."""
+    return rw_fused_cfg(chains, samples, use_langevin_gradients=True,
+                        drift_mode="pallas", fused_step=False, **kw)
+
+
+def iono_cfg():
+    """The reference's PT_EvalSwapLG Ionosphere row as
+    scripts/cls_bands.py:54-66 builds it, with drift_mode "pallas"."""
+    from ptnn_torch import classification_preset
+
+    cfg = classification_preset((34, 50, 2), num_samples=50_000,
+                                legacy_lg=True)
+    return dataclasses.replace(cfg, record_w=False,
+                               drift_mode="pallas").validate()
+
+
+def drift_cases():
+    """(label, topology, task, chains, x, t, depth) at the main path's widths:
+    Sunspot 64 chains on its train rows (depth 1 and 2), Ionosphere 10 on
+    its 245, PenDigit 10 on all 7494 train rows."""
+    import torch
+
+    from ptnn_torch import data
+    from ptnn_torch.ops import drift
+
+    out = []
+    for label, prob, c, depth in (
+            ("Sunspot", sunspot(), 64, 1), ("Sunspot", sunspot(), 64, 2),
+            ("Ionosphere", data.load_classification("Ionosphere"), 10, 1),
+            ("PenDigit", data.load_classification("PenDigit"), 10, 1)):
+        topo = prob.topology if prob.task == "classification" else (4, 10, 1)
+        i = topo[0]
+        f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+        x, y = f(prob.train[:, :i]).contiguous(), f(prob.train[:, i])
+        t = drift.make_targets(y, topo[2], prob.task).contiguous()
+        out.append((label, topo, prob.task, c, x, t, depth))
+    return out
+
+
+def drift_ops(topo, c, n, depth):
+    """Arithmetic of ``depth`` epochs over ``n`` rows: per row the forward
+    (2IH + 2HO multiply-adds, H + O sigmoids), the deltas (2HO + 3H + 4O)
+    and the updates (3IH + 3HO + 2H + 2O)."""
+    i, h, o = topo
+    per_row = (5 * i * h + 7 * h * o + h * (SIGMOID_OPS + 6)
+               + o * (SIGMOID_OPS + 7))
+    return c * n * depth * per_row
+
+
+def phase_drift_kernel():
+    """The drift kernel against its plain version on the same CUDA tensors;
+    returns the largest |diff| and each case's numbers for the report."""
+    import numpy as np
+    import torch
+
+    from ptnn_torch.models import fnn
+    from ptnn_torch.ops import drift
+
+    rng = np.random.default_rng(23)
+    err, rows = 0.0, {}
+    for label, topo, _task, c, x, t, depth in drift_cases():
+        w = torch.as_tensor(rng.normal(size=(c, fnn.w_size(topo))),
+                            dtype=torch.float32, device=DEVICE)
+        before = drift.launches
+        got = drift.sgd_epoch(w, x, t, topo, 0.01, mode="pallas", depth=depth)
+        check(drift.launches == before + 1, "drift_epoch did not launch")
+        want = drift.sgd_epoch_sequential(w, x, t, topo, 0.01, depth)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"drift {label}: not finite")
+        scale = want.abs().amax(dim=-1, keepdim=True)
+        diff = (got - want).abs()
+        bad = int((diff > D_ATOL + D_RTOL * scale).sum())
+        rel = float((diff / scale).max())
+        check(bad == 0, f"drift {label} depth {depth}: {bad} entries off, max "
+              f"|diff| {float(diff.max()):.3g}")
+        moved = float((want - w).abs().max())
+        check(moved > 1e-3, f"drift {label}: the epoch did not move w")
+        err = max(err, float(diff.max()))
+        rows[(label, depth)] = (float(diff.max()), rel)
+        print(f"[3/6] kernel: drift_epoch {label} {topo} C={c} N={x.shape[0]} "
+              f"depth {depth}: w within rtol {D_RTOL} of each chain's scale, "
+              f"atol {D_ATOL} (max |diff| {float(diff.max()):.3g}, "
+              f"{rel:.3g} of the chain's scale; the epoch moved w by up to "
+              f"{moved:.3g})")
+    return err, rows
+
+
+def eval_cases():
+    """(label, topology, task, chains, x, y) at the main path's widths:
+    Sunspot 64 chains and Ionosphere 10, on train and test rows."""
+    import torch
+
+    from ptnn_torch import data
+
+    out = []
+    for label, prob, c in (("Sunspot", sunspot(), 64),
+                           ("Ionosphere",
+                            data.load_classification("Ionosphere"), 10)):
+        topo = prob.topology if prob.task == "classification" else (4, 10, 1)
+        i = topo[0]
+        f = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                      device=DEVICE).contiguous()
+        for part, rows in (("train", prob.train), ("test", prob.test)):
+            out.append((f"{label} {part}", topo, prob.task, c, f(rows[:, :i]),
+                        f(rows[:, i])))
+    return out
+
+
+def phase_eval_kernel():
+    """The eval kernel against its plain version: ll on the size of its
+    cancelling terms, regression rmse within RTOL, classification acc and
+    rmse exact where no row's argmax is fragile."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from ptnn_torch.models import fnn
+    from ptnn_torch.ops import block_step, fnn_eval
+
+    rng = np.random.default_rng(29)
+    err = 0.0
+    for label, topo, task, c, x, y in eval_cases():
+        w = torch.as_tensor(rng.normal(size=(c, fnn.w_size(topo))),
+                            dtype=torch.float32, device=DEVICE)
+        tau = torch.as_tensor(rng.uniform(0.01, 0.2, size=c),
+                              dtype=torch.float32, device=DEVICE)
+        before = fnn_eval.launches
+        ll, rmse, acc = fnn_eval.fnn_eval(w, x, y, tau, topo, task)
+        check(fnn_eval.launches == before + 1, "fnn_eval did not launch")
+        r_ll, r_rmse, r_acc = fnn_eval.fnn_eval_reference(w, x, y, tau, topo,
+                                                          task)
+        torch.cuda.synchronize()
+        n = x.shape[0]
+        n_fragile = 0
+        if task == "regression":
+            terms = (0.5 * n * torch.log(2 * math.pi * tau).abs()
+                     + 0.5 * n * r_rmse ** 2 / tau)
+            check(bool(((rmse - r_rmse).abs()
+                        <= ATOL + RTOL * r_rmse).all()), f"{label}: rmse")
+        else:
+            terms = r_ll.abs()
+            sure = ~block_step.argmax_fragile(w, x, topo)
+            n_fragile = int((~sure).sum())
+            check(n_fragile <= max(1, 0.1 * c), f"{label}: {n_fragile} "
+                  f"chains with fragile argmaxes")
+            check(torch.equal(acc[sure], r_acc[sure])
+                  and torch.equal(rmse[sure], r_rmse[sure]),
+                  f"{label}: acc or rmse differs")
+        diff = (ll - r_ll).abs()
+        check(bool((diff <= ATOL + RTOL * terms).all()),
+              f"{label}: ll off, max |diff| {float(diff.max()):.3g}")
+        err = max(err, float(diff.max()))
+        metrics = (f"rmse within rtol {RTOL}" if task == "regression" else
+                   f"acc and rmse exact outside {n_fragile} chains with "
+                   f"fragile argmaxes")
+        print(f"[3/6] kernel: fnn_eval {label} {topo} C={c} N={n}: ll within "
+              f"rtol {RTOL} of its terms (max |diff| {float(diff.max()):.3g}), "
+              f"{metrics}")
+    return err
+
+
+def run_per_step_counted(cfg, prob, seed=0):
+    """One per-step run through ptnn_torch.sample with every launch count
+    set to 0 just before it; checks the plan: 2 drift launches a step with
+    Langevin gradients (0 without), and 2 evals a step plus init_state's
+    and the temper switch's recompute."""
+    import ptnn_torch
+
+    n = cfg.n_steps
+    plan_drift = 2 * n if cfg.use_langevin_gradients else 0
+    plan_eval = 2 * n + 1 + int(0 < cfg.temper_switch_step < n)
+    reset_launch_counts()
+    res = ptnn_torch.sample(cfg, prob.train, prob.test, seed=seed,
+                            device=DEVICE)
+    got = {name: launch_count(name) for name in KERNELS}
+    want = {name: 0 for name in KERNELS}
+    want.update(drift_epoch=plan_drift, fnn_eval=plan_eval)
+    check(got == want, f"per-step launches {got}, planned {want}")
+    return res, got
+
+
+def per_step_stats(cfg, res):
+    import numpy as np
+
+    s = cfg.samples_per_chain
+    return dict(
+        cold_rmse=float(np.mean(res.traces["rmse_test"][s // 2:, 0])),
+        cold_accept=float(res.accept_ratio_per_chain[0]),
+        mean_accept=float(np.mean(res.accept_ratio_per_chain)),
+        swap=float(res.swap_percent),
+        langevin=float(np.mean(res.langevin_ratio_per_chain)))
+
+
+def phase_per_step_end_to_end():
+    """Configurations 1-3 through ptnn_torch.sample, per-step, on the card;
+    returns the launches of lg_pallas."""
+    import numpy as np
+
+    from ptnn_torch import data
+
+    prob = sunspot()
+    out = {}
+    for tag, cfg, bands in (
+            ("lg_pallas", lg_cfg(64, 5000),
+             (("cold_rmse", LG_RMSE), ("cold_accept", LG_COLD_ACCEPT),
+              ("mean_accept", LG_MEAN_ACCEPT), ("swap", LG_SWAP),
+              ("langevin", LANGEVIN))),
+            ("rw per-step", rw_fused_cfg(64, 5000, fused_step=False),
+             (("cold_rmse", COLD_RMSE), ("cold_accept", COLD_ACCEPT),
+              ("mean_accept", MEAN_ACCEPT), ("swap", SWAP)))):
+        res, got = run_per_step_counted(cfg, prob)
+        for name in ("ll", "rmse_train", "rmse_test", "accept_count"):
+            check(res.traces[name].shape == (cfg.samples_per_chain,
+                                             cfg.num_chains)
+                  and np.isfinite(res.traces[name]).all(),
+                  f"{tag}: trace {name}")
+        st = per_step_stats(cfg, res)
+        print(f"[4/6] end to end: Sunspot {tag} {cfg.num_chains} chains x "
+              f"{cfg.samples_per_chain} samples in {res.elapsed_s:.3f} s "
+              f"({res.chain_steps_per_sec:.0f} chain-steps/s incl. trace "
+              f"fetch); cold test RMSE {st['cold_rmse']:.5f}, cold accept "
+              f"{st['cold_accept']:.2f}%, mean accept {st['mean_accept']:.2f}%,"
+              f" swap {st['swap']:.2f}%, Langevin {st['langevin']:.2f}%; "
+              f"launches drift_epoch {got['drift_epoch']}, fnn_eval "
+              f"{got['fnn_eval']} (as planned)")
+        for what, (lo, hi) in bands:
+            check(lo <= st[what] <= hi, f"{tag} {what} {st[what]:.4f} outside "
+                  f"[{lo}, {hi}]")
+        if tag == "lg_pallas":
+            out = dict(got)
+    # --- Ionosphere legacy LG ----------------------------------------------
+    prob = data.load_classification("Ionosphere")
+    cfg = iono_cfg()
+    res, got = run_per_step_counted(cfg, prob)
+    tr = res.traces
+    for name in ("ll", "acc_test", "rmse_test", "accept_count"):
+        check(tr[name].shape == (cfg.samples_per_chain, cfg.num_chains)
+              and np.isfinite(tr[name]).all(), f"Ionosphere trace {name}")
+    cold = int(cfg.samples_per_chain * cfg.burn_in) - 1
+    st = per_step_stats(cfg, res)
+    st["test_mean"] = float(np.mean(tr["acc_test"][cold:, :]))
+    print(f"[4/6] end to end: Ionosphere legacy LG {cfg.num_chains} chains x "
+          f"{cfg.samples_per_chain} samples in {res.elapsed_s:.3f} s "
+          f"({res.chain_steps_per_sec:.0f} chain-steps/s incl. trace fetch); "
+          f"test-accuracy mean {st['test_mean']:.2f}% (ptnn 92.64 +- 0.92), "
+          f"mean accept {st['mean_accept']:.2f}% (95.6), swap "
+          f"{st['swap']:.2f}% (55.6), Langevin {st['langevin']:.2f}%; "
+          f"launches drift_epoch {got['drift_epoch']}, fnn_eval "
+          f"{got['fnn_eval']} (as planned)")
+    for what, (lo, hi) in (("test_mean", IONO_TEST_MEAN),
+                           ("mean_accept", IONO_ACCEPT), ("swap", IONO_SWAP),
+                           ("langevin", LANGEVIN)):
+        check(lo <= st[what] <= hi, f"Ionosphere {what} {st[what]:.4f} "
+              f"outside [{lo}, {hi}]")
+    return out
+
+
+def phase_per_step_throughput():
+    """lg_pallas chain-steps/s (throughput_runner, 2000 samples), and one
+    epoch and one eval at each width against the plain versions; returns
+    the kernels' line entries at the main path's widths (Sunspot, 64
+    chains)."""
+    import numpy as np
+    import torch
+
+    import ptnn_torch
+    from ptnn_torch.models import fnn
+    from ptnn_torch.ops import drift, fnn_eval
+
+    prob = sunspot()
+    runner = ptnn_torch.throughput_runner(lg_cfg(64, 2000), prob.train,
+                                          prob.test, device=DEVICE)
+    reps = [runner() for _ in range(3)]
+    rate = statistics.median(r["chain_steps_per_sec"] for r in reps)
+    print(f"[5/6] throughput: lg_pallas 64 chains x 2000 samples: median "
+          f"{rate:.0f} chain-steps/s over 3 reps (accept "
+          f"{reps[0]['accept_pct']:.1f}%, swap {reps[0]['swap_pct']:.1f}%, "
+          f"Langevin {reps[0]['langevin_pct']:.1f}%)")
+    rng = np.random.default_rng(31)
+    out = {}
+    for label, topo, _task, c, x, t, depth in drift_cases():
+        w = torch.as_tensor(rng.normal(size=(c, fnn.w_size(topo))),
+                            dtype=torch.float32, device=DEVICE)
+        kern = lambda: drift.sgd_epoch(w, x, t, topo, 0.01, depth=depth)
+        plain = lambda: drift.sgd_epoch_sequential(w, x, t, topo, 0.01, depth)
+        big = x.shape[0] > 1000
+        k_ms, p_ms = timing(kern, plain, 3 if big else 20, 1 if big else 2,
+                            warm=1)
+        n = x.shape[0]
+        b_ms, b_by = bound(drift_ops(topo, c, n, depth),
+                           4 * (2 * w.numel() + x.numel() + t.numel()))
+        print(f"[5/6] throughput: drift_epoch {label} {topo} C={c} N={n} "
+              f"depth {depth}: kernel {k_ms:.4f} ms ({1e3 * k_ms / (n * depth):.3f}"
+              f" us a row), plain version {p_ms:.3f} ms, bound {b_ms:.6f} ms "
+              f"({b_by})")
+        if label == "Sunspot" and depth == 1:
+            out["drift_epoch"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                      bound_by=b_by)
+    for label, topo, task, c, x, y in eval_cases():
+        w = torch.as_tensor(rng.normal(size=(c, fnn.w_size(topo))),
+                            dtype=torch.float32, device=DEVICE)
+        tau = torch.full((c,), 0.05, dtype=torch.float32, device=DEVICE)
+        kern = lambda: fnn_eval.fnn_eval(w, x, y, tau, topo, task)
+        plain = lambda: fnn_eval.fnn_eval_reference(w, x, y, tau, topo, task)
+        k_ms, p_ms = timing(kern, plain, 50, 20)
+        n = x.shape[0]
+        b_ms, b_by = bound(c * n * row_ops(topo, task != "regression", False),
+                           4 * (w.numel() + x.numel() + y.numel() + 4 * c))
+        print(f"[5/6] throughput: fnn_eval {label} {topo} C={c} N={n}: kernel "
+              f"{k_ms:.4f} ms, plain version {p_ms:.3f} ms, bound "
+              f"{b_ms:.6f} ms ({b_by})")
+        if label == "Sunspot train":
+            out["fnn_eval"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                   bound_by=b_by)
+    return out
+
+
 def main() -> int:
     phase_device()
     phase_build()
     errs = {"rw_block": phase_kernel()}
     errs.update(phase_precond_kernels())
     errs.update(phase_cls_kernels())
+    errs["drift_epoch"] = phase_drift_kernel()[0]
+    errs["fnn_eval"] = phase_eval_kernel()
     phase_swap()
     times = {"rw_block": time_block(64, 100, record_w=True)}
     launches = {"rw_block": phase_end_to_end(),
                 "hmc_block": phase_flagship(),
                 "mala_block": phase_mala_end_to_end()}
     launches.update(phase_iris_end_to_end())
+    lg = phase_per_step_end_to_end()
+    launches.update(drift_epoch=lg["drift_epoch"], fnn_eval=lg["fnn_eval"])
     phase_throughput()
     times.update(phase_precond_throughput())
     times.update(phase_cls_throughput())
+    times.update(phase_per_step_throughput())
     import torch
 
     print(json.dumps({"kernels": [dict({
@@ -1236,7 +1608,9 @@ def main() -> int:
         "replaces": REPLACES[name],
         "launches": launches[name],
         "max_abs_err": errs[name],
-        "library_ms": None,  # no single PyTorch call computes a fused MH block
+        # no single PyTorch call computes a fused MH block, a drift epoch
+        # or a fused eval
+        "library_ms": None,
     }, **times[name]) for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

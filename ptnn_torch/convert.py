@@ -3,9 +3,9 @@
 ``ptnn``'s ``ChainState`` fetched to the host (``jax.device_get(state)
 ._asdict()``) is a dict of NumPy arrays, None for the fields a run does not
 use. ``chain_state_from_numpy`` takes the fields the port holds (the
-accuracy carries and, for classification, a state without ``log_step_eta``
-included), with their dtypes and bits unchanged; ``chain_state_to_numpy``
-gives them back.
+accuracy carries, the Langevin counter ``n_langevin`` and, for
+classification, a state without ``log_step_eta`` included), with their
+dtypes and bits unchanged; ``chain_state_to_numpy`` gives them back.
 """
 
 from __future__ import annotations

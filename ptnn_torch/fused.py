@@ -43,7 +43,9 @@ from ptnn_torch.config import PTConfig
 from ptnn_torch.models import fnn
 from ptnn_torch.ops import block_step, ladder, precond_cls_step, precond_step
 from ptnn_torch.parallel import swap as swap_mod
-from ptnn_torch.sampler import SampleResult, make_dataset
+from ptnn_torch.sampler import (SampleResult, init_chains, make_dataset,
+                                make_result, seed_of, synchronize,
+                                throughput_rep, trace_sums)
 
 K_CAP = 128  # longest block: a longer swap interval is cut into pieces
 
@@ -199,7 +201,7 @@ def torch_noise(seed: int, device, names=("w", "eta", "u", "u_swap")
     gen = torch.Generator(device=device)
 
     def noise_fn(start: int, k_max: int, c: int, w: int) -> Noise:
-        gen.manual_seed(_seed(seed, 1, start))
+        gen.manual_seed(seed_of(seed, 1, start))
         f32 = dict(dtype=torch.float32, device=device, generator=gen)
         draw = dict(
             w=lambda: torch.randn((k_max, c, w), **f32),
@@ -214,11 +216,6 @@ def torch_noise(seed: int, device, names=("w", "eta", "u", "u_swap")
         return {name: draw[name]() for name in names}
 
     return noise_fn
-
-
-def _seed(*words: int) -> int:
-    seq = np.random.SeedSequence(list(words))
-    return int(seq.generate_state(1, np.uint64)[0])
 
 
 @dataclasses.dataclass
@@ -236,9 +233,7 @@ class _Engine:
     pair_mask: Optional[torch.Tensor]
 
     def init_state(self, seed: int) -> kernel.ChainState:
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(_seed(seed, 0))
-        return kernel.init_state(self.cfg, self.data, generator=gen)
+        return init_chains(self.cfg, self.data, seed)
 
     def block_body(self, st: kernel.ChainState, start: int, length: int,
                    swap_flag: bool, noise: Noise):
@@ -274,23 +269,13 @@ class _Engine:
             names.append("traj_len")
         out = {k: traces[k][:length] for k in names}
         if self.record_w:
-            out["w"] = self._w_trace(traces["w"][:length])
+            out["w"] = traces["w"][:length, kernel.recorded_chains(cfg)]
         if cfg.track_replicas:
             reps = st.replica_id[None, :].repeat(length, 1)
             # the swap-boundary step records the post-swap identities
             reps[length - 1] = st3.replica_id
             out["replica"] = reps
         return st3, out
-
-    def _w_trace(self, w_rows: torch.Tensor) -> torch.Tensor:
-        """(K, C, W) -> the recorded chains (``record_w_chains``)."""
-        cfg = self.cfg
-        k = cfg.record_w_chains
-        if k <= 0:
-            return w_rows
-        if cfg.n_ladders > 1:
-            return w_rows[:, :: cfg.rungs_per_ladder][:, :k]
-        return w_rows[:, :k]
 
     def run(self, state: kernel.ChainState, noise_fn: NoiseFn,
             on_block: Callable[[Dict[str, torch.Tensor]], None]):
@@ -342,6 +327,13 @@ def _scalars(cfg: PTConfig) -> dict:
     return scal
 
 
+def runtime_reason(cfg: PTConfig, n_tr: int, n_te: int) -> Optional[str]:
+    """Why the fused sampler cannot run ``cfg`` on ``n_tr`` + ``n_te`` rows
+    (None: it can); ``sampler.sample`` then falls back to the per-step
+    sampler."""
+    return fused_reason(cfg) or working_set_reason(cfg, n_tr, n_te)
+
+
 def _engine(cfg: PTConfig, train, test, device, record_w: bool) -> _Engine:
     reason = fused_reason(cfg)
     if reason is not None:
@@ -372,11 +364,6 @@ def _engine(cfg: PTConfig, train, test, device, record_w: bool) -> _Engine:
     )
 
 
-def _synchronize(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def sample_fused(
     cfg: PTConfig,
     train: np.ndarray,
@@ -398,43 +385,13 @@ def sample_fused(
     state = eng.run(state, noise_fn, blocks.append)
     traces = {k: torch.cat([b[k] for b in blocks]).cpu().numpy()
               for k in blocks[0]}
-    _synchronize(eng.device)
+    synchronize(eng.device)
     elapsed = time.perf_counter() - t0
 
-    c = cfg.num_chains
     if cfg.task == "regression":  # regression carries no accuracy
-        traces["acc_train"] = np.zeros((cfg.n_steps, c), np.float32)
-        traces["acc_test"] = np.zeros((cfg.n_steps, c), np.float32)
-    merged: Dict[str, np.ndarray] = {}
-    for name, arr in traces.items():
-        if name == "w":
-            row0 = np.ones((1,) + arr.shape[1:], arr.dtype)
-        elif name == "ll":
-            row0 = np.full((1,) + arr.shape[1:], -100.0, arr.dtype)
-        elif name == "replica":
-            row0 = np.arange(arr.shape[1], dtype=arr.dtype)[None, :]
-        else:
-            row0 = np.zeros((1,) + arr.shape[1:], arr.dtype)
-        merged[name] = np.concatenate([row0, arr], axis=0)
-
-    final = state.to("cpu")
-    n_prop = int(final.n_swap_proposed)
-    return SampleResult(
-        traces=merged,
-        final_state=final,
-        temperatures=np.asarray(eng.temps_host),
-        accept_ratio_per_chain=final.n_accept.numpy() * 100.0
-        / cfg.samples_per_chain,
-        swap_percent=(
-            100.0 * int(final.n_swap_accepted) / n_prop if n_prop else 0.0
-        ),
-        langevin_ratio_per_chain=np.zeros((c,)),
-        elapsed_s=elapsed,
-        chain_steps_per_sec=cfg.n_steps * c / elapsed,
-        config=cfg,
-        pair_swap_accept=final.pair_accept_sum.numpy()[:-1]
-        / np.maximum(final.pair_prop_count.numpy()[:-1], 1),
-    )
+        for name in _ACC:
+            traces[name] = np.zeros((cfg.n_steps, cfg.num_chains), np.float32)
+    return make_result(cfg, traces, state, eng.temps_host, elapsed)
 
 
 def throughput_build_fused(
@@ -457,37 +414,6 @@ def throughput_build_fused(
 
     def run():
         sums: Dict[str, torch.Tensor] = {}
+        return eng.run(state0, noise_fn, trace_sums(sums)), sums
 
-        def reduce(out):
-            for k, v in out.items():
-                s = v.sum(dtype=torch.float64)
-                sums[k] = sums[k] + s if k in sums else s
-
-        st = eng.run(state0, noise_fn, reduce)
-        return st, sums
-
-    run()
-    _synchronize(eng.device)
-    n, c = cfg2.n_steps, cfg2.num_chains
-
-    def one_rep() -> Dict[str, Any]:
-        t0 = time.perf_counter()
-        st, sums = run()
-        _synchronize(eng.device)
-        dt = time.perf_counter() - t0
-        n_prop = int(st.n_swap_proposed)
-        return {
-            "trace_means": {k: float(v) / (n * c) for k, v in sums.items()},
-            "elapsed_s": dt,
-            "steps": float(n),
-            "chains": float(c),
-            "chain_steps_per_sec": n * c / dt,
-            "accept_pct": float(st.n_accept.float().mean())
-            * 100.0 / cfg2.samples_per_chain,
-            "swap_pct": 100.0 * int(st.n_swap_accepted) / n_prop
-            if n_prop else 0.0,
-            "final_rmse_test_cold": float(st.rmse_test[0]),
-            "final_acc_test_cold": float(st.acc_test[0]),
-        }
-
-    return one_rep
+    return throughput_rep(cfg2, run, eng.device)

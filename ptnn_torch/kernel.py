@@ -1,11 +1,19 @@
-"""Chain state, initialisation, the swap event and the temper-switch recompute.
+"""Chain state, initialisation, the per-step MH step, the swap event and the
+temper-switch recompute.
 
-Port of the part of ``ptnn/kernel.py`` that the fused samplers run:
-``ChainState`` (only the fields those paths read), ``Dataset``,
-``init_state`` (regression and classification, with the preconditioned
-MALA/HMC branch), ``swap_due``, ``vdc_u``, and the ``do_swap`` and
-``recompute_ll`` closures of ``make_step_fn``, here plain functions. The
-per-step ``step`` and ``step_precond`` are not ported yet.
+Port of ``ptnn/kernel.py``: ``ChainState`` (the fields the ported paths
+read), ``Dataset``, ``init_state`` (regression and classification, with the
+preconditioned MALA/HMC branch), ``swap_due``, ``vdc_u``, the ``do_swap``
+and ``recompute_ll`` closures of ``make_step_fn`` as plain functions, and
+``make_step_fn`` for the reference proposal: the per-step random walk with
+the optional Langevin-gradient drift and its q-ratio ("reference" or
+"ldpt_legacy"). ``step_precond`` (the per-step precond family) is not
+ported yet.
+
+Every evaluation of the network on data (the step's train and test evals,
+``train_loglik``, ``init_state``'s ll, ``recompute_ll``) goes through
+``ops.fnn_eval.fnn_eval``, and the drift through the model spec's
+``ops.drift.sgd_epoch``: on the card the two hand-written kernels.
 
 Semantics kept from ``ptnn``: the chain carries its UNTEMPERED train
 log-likelihood and divides by the adaptive temperature at decision time;
@@ -18,13 +26,17 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ptnn_torch.config import PTConfig
+from ptnn_torch.models import api as model_api
 from ptnn_torch.models import fnn
 from ptnn_torch.ops import likelihood
+from ptnn_torch.ops.block_step import _LOG_STEP_HI, _LOG_STEP_LO
+from ptnn_torch.ops.fnn_eval import fnn_eval
 from ptnn_torch.parallel import swap as swap_mod
 
 
@@ -59,6 +71,7 @@ class ChainState:
     pair_accept_sum: torch.Tensor  # (C,) f32, entry C-1 unused
     pair_prop_count: torch.Tensor  # (C,) int32, entry C-1 unused
     n_accept: torch.Tensor  # (C,) int32
+    n_langevin: torch.Tensor  # (C,) int32 Langevin proposals made
     n_swap_accepted: torch.Tensor  # () int32
     n_swap_proposed: torch.Tensor  # () int32
 
@@ -78,6 +91,7 @@ class Dataset:
     y_train: torch.Tensor  # (N,)
     x_test: torch.Tensor
     y_test: torch.Tensor
+    t_train: Optional[torch.Tensor] = None  # (N, O) delta-rule targets
 
 
 def swap_due(cfg: PTConfig, i: int) -> bool:
@@ -89,19 +103,22 @@ def swap_due(cfg: PTConfig, i: int) -> bool:
     return k % si == 0 and k > 0
 
 
-def _reg_eval(cfg: PTConfig, w, x, y, tau):
-    fx = fnn.batched_forward(w, x, cfg.topology)[:, :, 0]
-    return likelihood.regression_eval_from_fx(fx, y, tau)
-
-
 def train_loglik(cfg: PTConfig, w: torch.Tensor, eta: torch.Tensor,
                  data: Dataset) -> torch.Tensor:
     """The untempered train log-likelihood of every chain at (w, eta)."""
-    if cfg.task == "regression":
-        return _reg_eval(cfg, w, data.x_train, data.y_train,
-                         torch.exp(eta)).loglik
-    return likelihood.classification_eval(w, data.x_train, data.y_train,
-                                          cfg.topology).loglik
+    return fnn_eval(w, data.x_train, data.y_train, torch.exp(eta),
+                    cfg.topology, cfg.task)[0]
+
+
+def recorded_chains(cfg: PTConfig) -> slice:
+    """The chains whose w (and eta) rows are traced (``record_w_chains``):
+    all, the first k, or under replicated ladders the first k cold rungs."""
+    k = cfg.record_w_chains
+    if k <= 0:
+        return slice(None)
+    if cfg.n_ladders > 1:
+        return slice(0, k * cfg.rungs_per_ladder, cfg.rungs_per_ladder)
+    return slice(0, k)
 
 
 def vdc_u(i) -> torch.Tensor:
@@ -155,7 +172,7 @@ def init_state(
                 raise ValueError(
                     f"init_eta shape {tuple(eta.shape)} != {(c,)}")
         tau = torch.exp(eta)
-        ll = _reg_eval(cfg, w, data.x_train, data.y_train, tau).loglik
+        ll = train_loglik(cfg, w, eta, data)
         prior = likelihood.regression_log_prior(
             w, tau, cfg.topology, cfg.sigma_sq, cfg.nu_1, cfg.nu_2
         )
@@ -214,6 +231,7 @@ def init_state(
         pair_accept_sum=zeros(),
         pair_prop_count=zeros(torch.int32),
         n_accept=zeros(torch.int32),
+        n_langevin=zeros(torch.int32),
         n_swap_accepted=torch.zeros((), dtype=torch.int32, device=dev),
         n_swap_proposed=torch.zeros((), dtype=torch.int32, device=dev),
     )
@@ -289,3 +307,203 @@ def recompute_ll(cfg: PTConfig, state: ChainState,
     """Refresh the carried log-likelihood from the current (w, eta), with
     the accepted eta; the reference does this once, at the temper switch."""
     return state.replace(ll=train_loglik(cfg, state.w, state.eta, data))
+
+
+# ---------------------------------------------------------------------------
+# The per-step sampler's step (ptnn/kernel.py make_step_fn, proposal
+# "reference").
+
+Noise = Dict[str, torch.Tensor]
+
+
+def step_reason(cfg: PTConfig) -> Optional[str]:
+    """The feature of ``cfg`` the per-step sampler does not run yet (None:
+    it runs ``cfg``)."""
+    if cfg.proposal != "reference":
+        return f"proposal={cfg.proposal!r} (the per-step precond family)"
+    for flag in ("use_surrogate", "variational_reference", "record_fx",
+                 "record_ll_state"):
+        if getattr(cfg, flag):
+            return flag
+    if cfg.record_thin != 1:
+        return "record_thin > 1"
+    if cfg.eval_dtype != "float32":
+        return f"eval_dtype={cfg.eval_dtype!r}"
+    if cfg.adapt_step_size and cfg.use_langevin_gradients:
+        return ("adapt_step_size with Langevin gradients (the drift rate "
+                "tied to each chain's adapted step)")
+    if cfg.task == "regression" and cfg.topology[2] != 1:
+        return "regression with more than one output"
+    return None
+
+
+def step_noise_names(cfg: PTConfig) -> Tuple[str, ...]:
+    """The per-step noise a run of ``cfg`` reads: "w" normal (C, W), "u"
+    uniform (C,) for the MH test, "u_swap" uniform (C-1,) for the swap
+    event; "l" uniform (C,), the Langevin choice, with Langevin gradients;
+    "eta" normal (C,) for regression."""
+    names = ("w", "u", "u_swap")
+    if cfg.use_langevin_gradients:
+        names += ("l",)
+    if cfg.task == "regression":
+        names += ("eta",)
+    return names
+
+
+class StepFn:
+    """ptnn's ``make_step_fn`` for the reference proposal: ``step(state, i,
+    noise) -> (state, trace)`` advances every chain by one MH step (and the
+    swap event after it when ``swap_due(cfg, i)``); ``recompute_ll``.
+    ``noise`` holds this step's draws (``step_noise_names``)."""
+
+    def __init__(self, cfg: PTConfig, data: Dataset, temps: torch.Tensor,
+                 spec: model_api.ModelSpec):
+        reason = step_reason(cfg)
+        if reason is not None:
+            raise NotImplementedError(
+                f"ptnn_torch's per-step sampler does not run {reason}: not "
+                f"yet ported")
+        if cfg.use_langevin_gradients and data.t_train is None:
+            raise ValueError("Langevin gradients need data.t_train")
+        self.cfg, self.data, self.temps, self.spec = cfg, data, temps, spec
+        self.cls = cfg.task == "classification"
+        self.ones = torch.ones_like(temps)
+        self.rec = recorded_chains(cfg)
+        self.pair_mask = swap_mod.pair_mask(cfg.num_chains,
+                                            cfg.rungs_per_ladder,
+                                            temps.device)
+        self.burn_end = int(cfg.samples_per_chain * cfg.burn_in) - 1
+        # the ldpt_legacy ratio's MVN normaliser with COVARIANCE step_w, in
+        # float32 as ptnn forms it
+        self.log_norm = torch.tensor(-0.5 * spec.w_size, dtype=torch.float32) \
+            * torch.log(torch.tensor(2.0 * np.pi * cfg.step_w,
+                                     dtype=torch.float32))
+        self.log_norm = self.log_norm.to(temps.device)
+
+    def _propose(self, state: ChainState, noise: Noise, at: torch.Tensor):
+        """Weight proposal, q-ratio correction and Langevin counter
+        (ptnn/kernel.py:979-1038)."""
+        cfg = self.cfg
+        if cfg.adapt_step_size:
+            sw = torch.exp(state.log_step_w)[:, None]
+            sq = (sw * sw)[:, 0]
+        else:
+            sw = cfg.step_w
+            sq = cfg.step_w * cfg.step_w
+        nw = noise["w"] * sw
+        if not cfg.use_langevin_gradients:
+            return state.w + nw, torch.zeros_like(state.ll), state.n_langevin
+        use_l = noise["l"] < cfg.langevin_prob
+        d = self.data
+
+        def drift(w):
+            return self.spec.drift(w, d.x_train, d.t_train, cfg.learn_rate)
+
+        w_gd = drift(state.w)
+        w_prop = torch.where(use_l[:, None], w_gd + nw, state.w + nw)
+        w_prop_gd = drift(w_prop)
+        ss_rev = torch.sum(torch.square(state.w - w_prop_gd), dim=-1)
+        ss_fwd = torch.sum(torch.square(w_prop - w_gd), dim=-1)
+        if cfg.qratio == "reference":
+            # the simplified log q-ratio of pt_classification.py:340-351
+            first = -0.5 * ss_rev / sq
+            second = -0.5 * ss_fwd / sq
+            ratio = (first - second) / at
+        else:
+            # "ldpt_legacy": log(pdf1 - log(pdf2)) with covariance step_w;
+            # pdf1 overflowing is clamped at e^80 (accept), a non-positive
+            # argument rejects
+            log_pdf1 = self.log_norm - 0.5 * ss_rev / cfg.step_w
+            log_pdf2 = self.log_norm - 0.5 * ss_fwd / cfg.step_w
+            arg = torch.exp(torch.clamp(log_pdf1, max=80.0)) - log_pdf2
+            legacy = torch.where(arg > 0.0,
+                                 torch.log(torch.clamp(arg, min=1e-30)),
+                                 -math.inf)
+            ratio = legacy / at
+        diff = torch.where(use_l, ratio, 0.0)
+        return w_prop, diff, state.n_langevin + use_l.to(torch.int32)
+
+    def step(self, state: ChainState, i: int,
+             noise: Noise) -> Tuple[ChainState, Dict[str, torch.Tensor]]:
+        """ptnn/kernel.py:1260-1393 for the reference proposal."""
+        cfg, d, spec = self.cfg, self.data, self.spec
+        at = self.temps if i < cfg.temper_switch_step else self.ones
+        w_prop, diff_prop, n_langevin = self._propose(state, noise, at)
+        if self.cls:
+            eta_prop = state.eta
+            tau_prop = None
+            prior_prop = likelihood.classification_log_prior_dim(
+                w_prop, spec.prior_dim_classification, cfg.sigma_sq)
+        else:
+            eta_prop = state.eta + cfg.step_eta * noise["eta"]
+            tau_prop = torch.exp(eta_prop)
+            prior_prop = likelihood.regression_log_prior_dim(
+                w_prop, tau_prop, spec.prior_dim_regression, cfg.sigma_sq,
+                cfg.nu_1, cfg.nu_2)
+        ll_prop, rmse_tr, acc_tr = fnn_eval(w_prop, d.x_train, d.y_train,
+                                            tau_prop, cfg.topology, cfg.task)
+        _ll, rmse_te, acc_te = fnn_eval(w_prop, d.x_test, d.y_test, tau_prop,
+                                        cfg.topology, cfg.task)
+        log_mh = (ll_prop - state.ll) / at + (prior_prop - state.prior) \
+            + diff_prop
+        mh_prob = torch.exp(torch.clamp(log_mh, max=0.0))
+        accept = noise["u"] < mh_prob
+        acc_w = accept[:, None]
+
+        def carry(new, old):
+            return torch.where(accept, new, old)
+
+        trace = {
+            # regression records the TEMPERED proposal ll, classification
+            # the untempered one
+            "ll": ll_prop if self.cls else ll_prop / at,
+            "rmse_train": carry(rmse_tr, state.rmse_train),
+            "rmse_test": carry(rmse_te, state.rmse_test),
+            "acc_train": carry(acc_tr, state.acc_train),
+            "acc_test": carry(acc_te, state.acc_test),
+            # the count BEFORE this step's decision
+            "accept_count": state.n_accept,
+        }
+        new = state.replace(
+            w=torch.where(acc_w, w_prop, state.w),
+            eta=carry(eta_prop, state.eta),
+            ll=carry(ll_prop, state.ll),
+            prior=carry(prior_prop, state.prior),
+            w_last=torch.where(acc_w, w_prop, state.w_last),
+            rmse_train=trace["rmse_train"],
+            rmse_test=trace["rmse_test"],
+            acc_train=trace["acc_train"],
+            acc_test=trace["acc_test"],
+            n_accept=state.n_accept + accept.to(torch.int32),
+            n_langevin=n_langevin,
+        )
+        if cfg.adapt_step_size:
+            # Robbins-Monro toward the target acceptance until burn-in
+            delta = cfg.adapt_rate * (mh_prob - cfg.adapt_target_accept)
+            lsw = state.log_step_w + (delta if i < self.burn_end else 0.0)
+            new = new.replace(log_step_w=torch.clamp(lsw, _LOG_STEP_LO,
+                                                     _LOG_STEP_HI))
+        if cfg.record_w:
+            trace["w"] = new.w_last[self.rec]
+        if cfg.record_eta and not self.cls:
+            trace["eta"] = new.eta[self.rec]
+        if swap_due(cfg, i):
+            new = do_swap(cfg, new, self.temps, i, noise["u_swap"],
+                          self.pair_mask)
+        if cfg.track_replicas:
+            trace["replica"] = new.replica_id
+        return new, trace
+
+    def recompute_ll(self, state: ChainState) -> ChainState:
+        return recompute_ll(self.cfg, state, self.data)
+
+
+def make_step_fn(cfg: PTConfig, data: Dataset, temps: torch.Tensor,
+                 spec: Optional[model_api.ModelSpec] = None) -> StepFn:
+    """The per-step sampler's step for ``cfg`` (reference proposal, with or
+    without Langevin gradients); ``spec`` defaults to the reference FNN
+    with ``cfg.drift_mode``. Raises NotImplementedError naming a feature
+    that is not ported (``step_reason``)."""
+    if spec is None:
+        spec = model_api.fnn_spec(cfg.topology, cfg.drift_mode)
+    return StepFn(cfg, data, temps, spec)

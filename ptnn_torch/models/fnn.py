@@ -53,6 +53,14 @@ def unpack(w: torch.Tensor, topo: Topology) -> FnnParams:
     )
 
 
+def pack(p: FnnParams) -> torch.Tensor:
+    """Layer weights with leading batch dimensions back into the flat codec
+    (..., W)."""
+    lead = p.b1.shape[:-1]
+    return torch.cat([p.w1.reshape(lead + (-1,)), p.w2.reshape(lead + (-1,)),
+                      p.b1, p.b2], dim=-1)
+
+
 def forward(w: torch.Tensor, x: torch.Tensor, topo: Topology) -> torch.Tensor:
     """One network: w (W,), x (N, n_in) -> sigmoid outputs (N, n_out)."""
     p = unpack(w, topo)

@@ -1,6 +1,7 @@
 """Build the port's CUDA sources into shared libraries and load them.
 
-Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
+Each ``csrc/<name>.cu`` (the six ``*_block.cu``, ``drift_epoch.cu`` and
+``fnn_eval.cu``) has a plain C interface. At first use it is compiled
 by ``nvcc`` for Hopper (``sm_90a``) into ``build/ptnn_torch/<name>-<hash>.so``
 at the root of the checkout, keyed by a hash of the source, of the
 ``csrc/*.cuh`` headers it includes and of the flags, and loaded with
@@ -160,6 +161,29 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                      ctypes.sizeof(_ClsRwParams), "ClsRwParams size")
         _check_query(lib, name, "ptnn_rw_cls_block_threads", _THREADS,
                      "RW_THREADS")
+    if name == "drift_epoch":
+        from ptnn_torch.ops.drift import _DriftParams, _HID_PER_LANE, _WARPS
+
+        lib.ptnn_drift_epoch.argtypes = [
+            ctypes.POINTER(_DriftParams), ctypes.c_int, ctypes.c_void_p
+        ]
+        lib.ptnn_drift_epoch.restype = ctypes.c_int
+        _check_query(lib, name, "ptnn_drift_params_size",
+                     ctypes.sizeof(_DriftParams), "DriftParams size")
+        _check_query(lib, name, "ptnn_drift_warps", _WARPS, "WARPS")
+        _check_query(lib, name, "ptnn_drift_hid_per_lane", _HID_PER_LANE,
+                     "HPL")
+    if name == "fnn_eval":
+        from ptnn_torch.ops.fnn_eval import _EvalParams, _MAX_OUT, _THREADS
+
+        lib.ptnn_fnn_eval.argtypes = [
+            ctypes.POINTER(_EvalParams), ctypes.c_int, ctypes.c_void_p
+        ]
+        lib.ptnn_fnn_eval.restype = ctypes.c_int
+        _check_query(lib, name, "ptnn_eval_params_size",
+                     ctypes.sizeof(_EvalParams), "EvalParams size")
+        _check_query(lib, name, "ptnn_eval_threads", _THREADS, "THREADS")
+        _check_query(lib, name, "ptnn_eval_max_out", _MAX_OUT, "max outputs")
     if name == "rw_block":
         from ptnn_torch.ops.block_step import _RwParams, _THREADS
 

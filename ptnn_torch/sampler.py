@@ -1,21 +1,46 @@
 """Sampling entry points (port of ``ptnn/sampler.py``).
 
-Only the fused-block sampler is ported: ``sample`` and ``throughput_runner``
-dispatch to ``ptnn_torch.fused`` when ``cfg.fused_step`` is set and raise
-otherwise. Every entry point takes an explicit ``device``; on "cuda" the
-block kernels run on the card, on "cpu" their plain versions run.
+``sample`` and ``throughput_runner`` run the fused-block sampler
+(``ptnn_torch.fused``) when ``cfg.fused_step`` is set and the fused path can
+run ``cfg`` (``fused.runtime_reason``); otherwise, with a warning for a
+fused config, the per-step sampler here: the reference proposal, with or
+without the Langevin-gradient drift. Every entry point takes an explicit
+``device``; on "cuda" the hand-written kernels run on the card, on "cpu"
+their plain versions run.
+
+The per-step run is split at the temper switch, with the reference's
+one-time ``recompute_ll`` between the two segments, and each segment into
+chunks of about ``cfg.chunk_steps`` steps (``_pick_chunk``). Each chunk's
+traces stay on the device until the chunk ends. Noise is drawn per chunk by
+``noise_fn(start, length, c, w) -> dict`` of (length, ...) tensors:
+"w" (L, C, W) normal, "u" (L, C) uniform, "u_swap" (L, C-1) uniform, with
+Langevin "l" (L, C) uniform, for regression "eta" (L, C) normal
+(``kernel.step_noise_names``). The default draws from a ``torch.Generator``
+on the run's device seeded from (seed, chunk start). ``ptnn`` derives each
+step's noise from ``split(fold_in(k_run, i), 6)`` instead, so runs of the
+two packages agree in distribution, and exactly when ptnn's draws are fed
+in through ``noise_fn`` (``tests/test_torch_step.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
+import warnings
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ptnn_torch import kernel
 from ptnn_torch.config import PTConfig
 from ptnn_torch.kernel import ChainState, Dataset
+from ptnn_torch.models import api as model_api
+from ptnn_torch.ops import drift, ladder
+
+Noise = Dict[str, torch.Tensor]
+NoiseFn = Callable[[int, int, int, int], Noise]
 
 
 @dataclass
@@ -46,24 +71,267 @@ class SampleResult:
 
 def make_dataset(cfg: PTConfig, train, test, device) -> Dataset:
     """Split raw ``[features..., label]`` rows into float32 tensors (the
-    class index of a classification row stays a float32, as ptnn keeps
-    it)."""
-    i = cfg.topology[0]
+    class index of a classification row stays a float32, as ptnn keeps it)
+    and the delta-rule targets of the train rows."""
+    i, _h, o = cfg.topology
 
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32),
                                device=device)
 
-    return Dataset(x_train=t(train[:, :i]), y_train=t(train[:, i]),
-                   x_test=t(test[:, :i]), y_test=t(test[:, i]))
+    y_tr = t(train[:, i])
+    return Dataset(x_train=t(train[:, :i]), y_train=y_tr,
+                   x_test=t(test[:, :i]), y_test=t(test[:, i]),
+                   t_train=drift.make_targets(y_tr, o, cfg.task))
 
 
-def _not_ported(cfg: PTConfig) -> None:
-    if not cfg.fused_step:
-        raise NotImplementedError(
-            "ptnn_torch runs the fused-block sampler only; the per-step "
-            "sampler is not yet ported (set fused_step=True)"
+def seed_of(*words: int) -> int:
+    """A generator seed from integer words (run seed, stream, start)."""
+    seq = np.random.SeedSequence(list(words))
+    return int(seq.generate_state(1, np.uint64)[0])
+
+
+def init_chains(cfg: PTConfig, data: Dataset, seed: int) -> ChainState:
+    """``kernel.init_state`` from a generator seeded from ``seed``."""
+    gen = torch.Generator(device=data.x_train.device)
+    gen.manual_seed(seed_of(seed, 0))
+    return kernel.init_state(cfg, data, generator=gen)
+
+
+def merge_rows(traces: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Prepend ptnn's init row 0 to (n_steps, C, ...) traces: w ones, ll
+    -100, replica ids in order, zeros elsewhere."""
+    merged = {}
+    for name, arr in traces.items():
+        if name == "w":
+            row0 = np.ones((1,) + arr.shape[1:], arr.dtype)
+        elif name == "ll":
+            row0 = np.full((1,) + arr.shape[1:], -100.0, arr.dtype)
+        elif name == "replica":
+            row0 = np.arange(arr.shape[1], dtype=arr.dtype)[None, :]
+        else:
+            row0 = np.zeros((1,) + arr.shape[1:], arr.dtype)
+        merged[name] = np.concatenate([row0, arr], axis=0)
+    return merged
+
+
+def make_result(cfg: PTConfig, traces: Dict[str, np.ndarray],
+                state: ChainState, temps_host: np.ndarray,
+                elapsed: float) -> SampleResult:
+    """The ``SampleResult`` of a finished run: merged traces, the final
+    state on the CPU, and ptnn's percentages."""
+    final = state.to("cpu")
+    samples = cfg.samples_per_chain
+    n_prop = int(final.n_swap_proposed)
+    return SampleResult(
+        traces=merge_rows(traces),
+        final_state=final,
+        temperatures=np.asarray(temps_host),
+        accept_ratio_per_chain=final.n_accept.numpy() * 100.0 / samples,
+        swap_percent=(
+            100.0 * int(final.n_swap_accepted) / n_prop if n_prop else 0.0
+        ),
+        langevin_ratio_per_chain=final.n_langevin.numpy() * 100.0 / samples,
+        elapsed_s=elapsed,
+        chain_steps_per_sec=cfg.n_steps * cfg.num_chains / elapsed,
+        config=cfg,
+        pair_swap_accept=final.pair_accept_sum.numpy()[:-1]
+        / np.maximum(final.pair_prop_count.numpy()[:-1], 1),
+    )
+
+
+def synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def throughput_rep(cfg: PTConfig, run: Callable, device: torch.device):
+    """The benchmark protocol around ``run() -> (final state, trace sums on
+    the device)``: run it once as warm-up and return a zero-arg callable
+    that times one rep."""
+    run()
+    synchronize(device)
+    n, c = cfg.n_steps, cfg.num_chains
+
+    def one_rep() -> Dict[str, Any]:
+        t0 = time.perf_counter()
+        st, sums = run()
+        synchronize(device)
+        dt = time.perf_counter() - t0
+        n_prop = int(st.n_swap_proposed)
+        return {
+            "trace_means": {k: float(v) / (n * c) for k, v in sums.items()},
+            "elapsed_s": dt,
+            "steps": float(n),
+            "chains": float(c),
+            "chain_steps_per_sec": n * c / dt,
+            "accept_pct": float(st.n_accept.float().mean())
+            * 100.0 / cfg.samples_per_chain,
+            "langevin_pct": float(st.n_langevin.float().mean())
+            * 100.0 / cfg.samples_per_chain,
+            "swap_pct": 100.0 * int(st.n_swap_accepted) / n_prop
+            if n_prop else 0.0,
+            "final_rmse_test_cold": float(st.rmse_test[0]),
+            "final_acc_test_cold": float(st.acc_test[0]),
+        }
+
+    return one_rep
+
+
+def trace_sums(sums: Dict[str, torch.Tensor]):
+    """An ``on_chunk`` that adds each trace's float64 sum into ``sums`` on
+    the device."""
+    def reduce(out: Dict[str, torch.Tensor]) -> None:
+        for k, v in out.items():
+            s = v.sum(dtype=torch.float64)
+            sums[k] = sums[k] + s if k in sums else s
+
+    return reduce
+
+
+# ---------------------------------------------------------------------------
+# The per-step sampler.
+
+
+def _pick_chunk(n_steps: int, target: int) -> int:
+    """Largest divisor of ``n_steps`` not exceeding ~2x the target
+    (ptnn/sampler.py:86-100)."""
+    best = 1
+    for d in range(1, int(n_steps**0.5) + 1):
+        if n_steps % d == 0:
+            for cand in (d, n_steps // d):
+                if best < cand <= 2 * target:
+                    best = cand
+    if best < max(1, target // 8):
+        return target
+    return best
+
+
+def step_noise(seed: int, device, names) -> NoiseFn:
+    """The per-step sampler's default noise: a ``torch.Generator`` on
+    ``device`` seeded from (seed, chunk start), drawing ``names``
+    (``kernel.step_noise_names``)."""
+    gen = torch.Generator(device=device)
+
+    def noise_fn(start: int, length: int, c: int, w: int) -> Noise:
+        gen.manual_seed(seed_of(seed, 2, start))
+        f32 = dict(dtype=torch.float32, device=device, generator=gen)
+        draw = dict(
+            w=lambda: torch.randn((length, c, w), **f32),
+            l=lambda: torch.rand((length, c), **f32),
+            eta=lambda: torch.randn((length, c), **f32),
+            u=lambda: torch.rand((length, c), **f32),
+            u_swap=lambda: torch.rand((length, max(c - 1, 0)), **f32),
         )
+        return {name: draw[name]() for name in names}
+
+    return noise_fn
+
+
+@dataclasses.dataclass
+class _PerStep:
+    cfg: PTConfig
+    device: torch.device
+    data: Dataset
+    temps_host: np.ndarray
+    step_fn: kernel.StepFn
+
+    def run(self, state: ChainState, noise_fn: NoiseFn,
+            on_chunk: Callable[[Dict[str, torch.Tensor]], None]) -> ChainState:
+        """Both segments (ptnn/sampler.py:233-322), chunk by chunk; each
+        chunk's traces (length, C, ...) go to ``on_chunk``."""
+        cfg, fn = self.cfg, self.step_fn
+        n, switch = cfg.n_steps, cfg.temper_switch_step
+        segments = [(0, switch), (switch, n)] if 0 < switch < n else [(0, n)]
+        target = max(1, min(cfg.chunk_steps, n))
+        c, w = cfg.num_chains, fn.spec.w_size
+        for si, (a, b) in enumerate(segments):
+            if si > 0:
+                state = fn.recompute_ll(state)
+            chunk = _pick_chunk(b - a, target)
+            done = a
+            while done < b:
+                length = min(chunk, b - done)
+                noise = noise_fn(done, length, c, w)
+                rows: List[Dict[str, torch.Tensor]] = []
+                for k in range(length):
+                    state, trace = fn.step(
+                        state, done + k, {m: v[k] for m, v in noise.items()})
+                    rows.append(trace)
+                on_chunk({m: torch.stack([r[m] for r in rows])
+                          for m in rows[0]})
+                done += length
+        return state
+
+
+def _per_step(cfg: PTConfig, train, test, device) -> _PerStep:
+    device = torch.device(device)
+    data = make_dataset(cfg, train, test, device)
+    temps_host = ladder.build_temperatures(cfg)
+    temps = torch.as_tensor(temps_host, dtype=torch.float32, device=device)
+    spec = model_api.fnn_spec(cfg.topology, cfg.drift_mode)
+    return _PerStep(cfg, device, data, temps_host,
+                    kernel.make_step_fn(cfg, data, temps, spec))
+
+
+def sample_per_step(
+    cfg: PTConfig,
+    train: np.ndarray,
+    test: np.ndarray,
+    seed: int = 0,
+    device: Any = "cuda",
+    init_state: Optional[ChainState] = None,
+    noise_fn: Optional[NoiseFn] = None,
+) -> SampleResult:
+    """The per-step sampler; the traces and counters of ptnn's."""
+    eng = _per_step(cfg, train, test, device)
+    state = (init_state if init_state is not None
+             else init_chains(cfg, eng.data, seed))
+    if noise_fn is None:
+        noise_fn = step_noise(seed, eng.device, kernel.step_noise_names(cfg))
+    chunks: List[Dict[str, np.ndarray]] = []
+    t0 = time.perf_counter()
+    state = eng.run(state, noise_fn, lambda tr: chunks.append(
+        {k: v.cpu().numpy() for k, v in tr.items()}))
+    synchronize(eng.device)
+    elapsed = time.perf_counter() - t0
+    traces = {k: np.concatenate([ch[k] for ch in chunks]) for k in chunks[0]}
+    return make_result(cfg, traces, state, eng.temps_host, elapsed)
+
+
+def throughput_build_per_step(cfg: PTConfig, train, test, seed: int = 0,
+                              device: Any = "cuda",
+                              noise_fn: Optional[NoiseFn] = None):
+    """Benchmark protocol of the per-step sampler: ``record_w`` off, traces
+    reduced to their sums on the device, every rep from the same initial
+    state (and, with the default noise, the same noise)."""
+    cfg2 = dataclasses.replace(cfg, record_w=False).validate()
+    eng = _per_step(cfg2, train, test, device)
+    state0 = init_chains(cfg2, eng.data, seed)
+    if noise_fn is None:
+        noise_fn = step_noise(seed, eng.device,
+                              kernel.step_noise_names(cfg2))
+
+    def run():
+        sums: Dict[str, torch.Tensor] = {}
+        return eng.run(state0, noise_fn, trace_sums(sums)), sums
+
+    return throughput_rep(cfg2, run, eng.device)
+
+
+def _fused_or_warn(cfg: PTConfig, train, test) -> bool:
+    """Whether ``cfg`` takes the fused path; a fused config the fused path
+    cannot run falls back to the per-step sampler with a warning."""
+    if not cfg.fused_step:
+        return False
+    from ptnn_torch import fused
+
+    reason = fused.runtime_reason(cfg, train.shape[0], test.shape[0])
+    if reason is None:
+        return True
+    warnings.warn(f"fused_step: falling back to the per-step sampler "
+                  f"({reason})")
+    return False
 
 
 def sample(
@@ -75,13 +343,16 @@ def sample(
     init_state: Optional[ChainState] = None,
     noise_fn=None,
 ) -> SampleResult:
-    """Run the PT sampler and return its traces and counters."""
+    """Run the PT sampler and return its traces and counters. ``noise_fn``
+    follows the contract of the path that runs (``fused`` or per-step)."""
     cfg.validate()
-    _not_ported(cfg)
-    from ptnn_torch import fused
+    if _fused_or_warn(cfg, train, test):
+        from ptnn_torch import fused
 
-    return fused.sample_fused(cfg, train, test, seed=seed, device=device,
-                              init_state=init_state, noise_fn=noise_fn)
+        return fused.sample_fused(cfg, train, test, seed=seed, device=device,
+                                  init_state=init_state, noise_fn=noise_fn)
+    return sample_per_step(cfg, train, test, seed=seed, device=device,
+                           init_state=init_state, noise_fn=noise_fn)
 
 
 def throughput_runner(
@@ -94,8 +365,10 @@ def throughput_runner(
     """Build a benchmark run, run it once as warm-up, and return a zero-arg
     callable that executes one timed rep."""
     cfg = cfg.validate()
-    _not_ported(cfg)
-    from ptnn_torch import fused
+    if _fused_or_warn(cfg, train, test):
+        from ptnn_torch import fused
 
-    return fused.throughput_build_fused(cfg, train, test, seed=seed,
-                                        device=device)
+        return fused.throughput_build_fused(cfg, train, test, seed=seed,
+                                            device=device)
+    return throughput_build_per_step(cfg, train, test, seed=seed,
+                                     device=device)

@@ -36,7 +36,7 @@ def test_chain_state_round_trip_is_bit_exact(optional):
         assert v.tobytes() == src[k].tobytes(), k
     assert (back["log_step_w"] is not None) == optional
     assert (back["replica_id"] is not None) == optional
-    # what the port leaves out is constant on this path
+    # the accuracy carries and the Langevin counter start at 0
     for k in ("acc_train", "acc_test", "n_langevin"):
         assert not np.any(src[k]), k
     for k in ("fx_train", "g_like", "surr", "vr_mean"):

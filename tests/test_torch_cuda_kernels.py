@@ -391,3 +391,91 @@ def test_cls_kernels_reject_other_topologies(cuda):
     with pytest.raises(ValueError, match="topolog"):
         precond_cls_step.fused_mala_cls_block(state, noise, 0, 4, args[4],
                                               args[5], (4, 11, 3), args[6])
+
+
+# ---------------------------------------------------------------------------
+# The per-step sampler's kernels: the drift epoch (drift_epoch.cu) and the
+# FNN eval (fnn_eval.cu). The drift's weights are held on the scale of each
+# chain's vector (an epoch is hundreds of dependent row updates summed in
+# another order); the eval's ll on the size of its cancelling terms, rmse
+# within rtol 1e-4, and classification acc/rmse exactly where no row's
+# argmax is fragile.
+
+from ptnn_torch.ops import drift as drift_ops  # noqa: E402
+from ptnn_torch.ops import fnn_eval as eval_ops  # noqa: E402
+
+
+def _rows(rng, device, n, topo, task):
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    x = f(rng.normal(size=(n, topo[0])))
+    if task == "classification":
+        y = f(rng.integers(0, topo[2], size=n))
+    else:
+        y = f(rng.uniform(size=n))
+    return x, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topo,task,c,n,depth", [
+    ((4, 10, 1), "regression", 67, 298, 1),
+    ((4, 12, 3), "classification", 10, 105, 2),
+    ((34, 50, 2), "classification", 10, 245, 1),
+    ((16, 30, 10), "classification", 5, 1500, 1),  # three row tiles
+])
+def test_drift_kernel_matches_plain_version(cuda, topo, task, c, n, depth):
+    rng = np.random.default_rng(17)
+    x, y = _rows(rng, cuda, n, topo, task)
+    t = drift_ops.make_targets(y, topo[2], task)
+    w = torch.as_tensor(rng.normal(size=(c, fnn.w_size(topo))) * 0.5,
+                        dtype=torch.float32, device=cuda)
+    before = drift_ops.launches
+    got = drift_ops.sgd_epoch(w, x, t, topo, 0.01, mode="sequential",
+                              depth=depth)
+    assert drift_ops.launches == before + 1
+    want = drift_ops.sgd_epoch_sequential(w, x, t, topo, 0.01, depth)
+    torch.cuda.synchronize()
+    scale = want.abs().amax(dim=-1, keepdim=True)
+    assert bool(((got - want).abs() <= 1e-5 + 1e-4 * scale).all())
+    assert float((got - w).abs().max()) > 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topo,task,c,n", [
+    ((4, 10, 1), "regression", 64, 298),
+    ((4, 12, 3), "classification", 13, 105),
+    ((34, 50, 2), "classification", 10, 245),
+])
+def test_eval_kernel_matches_plain_version(cuda, topo, task, c, n):
+    rng = np.random.default_rng(19)
+    x, y = _rows(rng, cuda, n, topo, task)
+    w = torch.as_tensor(rng.normal(size=(c, fnn.w_size(topo))),
+                        dtype=torch.float32, device=cuda)
+    tau = torch.as_tensor(rng.uniform(0.01, 0.2, size=c), dtype=torch.float32,
+                          device=cuda)
+    before = eval_ops.launches
+    ll, rmse, acc = eval_ops.fnn_eval(w, x, y, tau, topo, task)
+    assert eval_ops.launches == before + 1
+    r_ll, r_rmse, r_acc = eval_ops.fnn_eval_reference(w, x, y, tau, topo, task)
+    torch.cuda.synchronize()
+    if task == "regression":
+        terms = 0.5 * n * torch.log(2 * math.pi * tau).abs() \
+            + 0.5 * n * r_rmse ** 2 / tau
+        torch.testing.assert_close(rmse, r_rmse, rtol=1e-4, atol=1e-6)
+        assert not bool(acc.any())
+    else:
+        terms = r_ll.abs()
+        sure = ~block_step.argmax_fragile(w, x, topo)
+        assert torch.equal(acc[sure], r_acc[sure])
+        assert torch.equal(rmse[sure], r_rmse[sure])
+    assert bool(((ll - r_ll).abs() <= 1e-4 + 1e-4 * terms).all())
+
+
+@pytest.mark.cuda
+def test_per_step_kernels_reject_what_they_cannot_take(cuda):
+    w = torch.zeros((3, 61), device=cuda)
+    x, t = torch.zeros((5, 4), device=cuda), torch.zeros((5, 1), device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        drift_ops.sgd_epoch(w.double(), x, t, (4, 10, 1), 0.1)
+    with pytest.raises(ValueError, match="shape"):
+        eval_ops.fnn_eval(w, x, t, torch.ones(3, device=cuda), (4, 10, 1),
+                          "regression")

@@ -20,10 +20,13 @@ MODULES = (
     "ptnn_torch.kernel",
     "ptnn_torch.predict",
     "ptnn_torch.sampler",
+    "ptnn_torch.models.api",
     "ptnn_torch.models.fnn",
     "ptnn_torch.ops",
     "ptnn_torch.ops._build",
     "ptnn_torch.ops.block_step",
+    "ptnn_torch.ops.drift",
+    "ptnn_torch.ops.fnn_eval",
     "ptnn_torch.ops.precond_cls_step",
     "ptnn_torch.ops.precond_step",
     "ptnn_torch.ops.ess",
@@ -51,6 +54,13 @@ def test_port_imports_without_jax():
         "p = data.load_classification('iris')\n"
         "assert p.train.shape == (105, 5) and p.test.shape == (45, 5)\n"
         "assert ladder.build_temperatures(cfg).shape == (cfg.num_chains,)\n"
+        "lg = ptnn_torch.PTConfig(task='regression', topology=(4, 10, 1),\n"
+        "                         num_samples=4 * 6, num_chains=4,\n"
+        "                         use_langevin_gradients=True,\n"
+        "                         drift_mode='pallas').validate()\n"
+        "s = data.load_regression('Sunspot')\n"
+        "r = ptnn_torch.sample(lg, s.train, s.test, device='cpu')\n"
+        "assert r.traces['ll'].shape == (6, 4)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'ptnn.'))\n"
         "               for k in sys.modules if sys.modules[k] is not None)\n"
         "assert not any(k.startswith('_ptnn_shared_') for k in sys.modules)\n"
