@@ -9,9 +9,9 @@ Phases, one line each or more (a failing phase raises and the exit code is
 not 0):
   1. device: needs torch.cuda; prints nvidia-smi's "name, power.limit" line
      and the toolchain's versions;
-  2. build: compiles the eight ptnn_torch/csrc/*.cu (six *_block.cu,
-     drift_epoch.cu, fnn_eval.cu) with nvcc into build/, one nvcc per
-     source, all at once, with ptxas' register report;
+  2. build: compiles the nine ptnn_torch/csrc/*.cu (six *_block.cu,
+     drift_epoch.cu, fnn_eval.cu, conv1_relu_pool.cu) with nvcc into build/,
+     one nvcc per source, all at once, with ptxas' register report;
   3. kernel: each CUDA block kernel against its plain PyTorch version on the
      same CUDA tensors at the main paths' widths. Sunspot: RW at 1000 chains
      x 100 steps, adapt off and on; MALA at 1024 chains x 10 steps across
@@ -24,7 +24,10 @@ not 0):
      sampler's kernels: the drift epoch at Sunspot (4, 10, 1) 64 chains
      (depth 1 and 2), Ionosphere (34, 50, 2) 10 chains on 245 rows and
      PenDigit (16, 30, 10) 10 chains on all 7494 train rows; the FNN eval
-     at Sunspot 64 chains and Ionosphere 10, train and test rows;
+     at Sunspot 64 chains and Ionosphere 10, train and test rows. The
+     CNN's fused stage 1, conv1_relu_pool, at the digits widths (256 chains
+     x 1257 and 540 images), ragged shapes, three input channels and the
+     MNIST side, and the fused CNN forward against the plain one;
   4. end to end, each path with its launch counts set to 0 just before it,
      through ptnn_torch.sample, each checked against the bands of the JAX
      package's records: the Sunspot rw_fused sampler (64 chains x 5000),
@@ -35,11 +38,22 @@ not 0):
      then the per-step sampler: Sunspot lg_pallas (64 x 5000, Langevin
      gradients), Sunspot rw per-step (64 x 5000) and Ionosphere legacy LG
      (10 x 5000), each with its drift and eval launches held to the plan;
+     then the model zoo on the digits images: the Bayesian CNN,
+     cnn.digits_spec(fused_eval=True), at cnn_digits's default configuration,
+     256 chains on all 1257 / 540 rows, with its conv launches held to the
+     plan; the same at 64 chains x 300 held to bands around the JAX
+     package's run on the CPU; the fused eval against the plain eval on the
+     same noise; a deep MLP; and the cnn_digits command line as a
+     subprocess, with its artifact tree;
   5. throughput: throughput_runner at 2000 samples per chain (Sunspot
      rw_fused at 64 and 1024 chains, mala_fused_16x4, chees16_fused_256x4;
      iris chees16_fused_16x4 and chees16_fused_64x4; lg_pallas), and each
      kernel's time against its plain version's for one block (one epoch,
-     one eval) at its path's widths;
+     one eval) at its path's widths; the CNN's chain-steps/s, the conv
+     kernel's time against its plain version's and the library's
+     (F.conv2d + relu + F.avg_pool2d), one drift and one eval of a CNN
+     step, and stage 2 as the port multiplies it against one grouped
+     F.conv2d;
   6. one JSON line listing the kernels (time, plain time, bound, launches,
      largest difference from the plain version), then the device line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -97,7 +111,8 @@ P_RTOL, P_ATOL = 1e-3, 1e-4
 P_MARGIN = 1e-5  # |u - a| of the w and eta blocks
 TRAJ_MARGIN = 1e-5  # distance of tau_traj / eps to a leapfrog-count boundary
 KERNELS = ("rw_block", "mala_block", "hmc_block", "rw_cls_block",
-           "mala_cls_block", "hmc_cls_block", "drift_epoch", "fnn_eval")
+           "mala_cls_block", "hmc_cls_block", "drift_epoch", "fnn_eval",
+           "conv1_relu_pool")
 # what each kernel replaces: the TPU kernel of ptnn (file:line)
 REPLACES = {
     "rw_block": "ptnn/ops/pallas_step.py:307 (_rw_block_kernel, regression)",
@@ -109,6 +124,7 @@ REPLACES = {
     "hmc_cls_block": "ptnn/ops/pallas_step.py:1589",
     "drift_epoch": "ptnn/ops/pallas_drift.py:42",
     "fnn_eval": "ptnn/ops/pallas_eval.py:52",
+    "conv1_relu_pool": "ptnn/ops/pallas_conv.py:39",
 }
 # H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor cores and
 # HBM3 bandwidth; a kernel's bound is the larger of its operations over the
@@ -1013,9 +1029,11 @@ def phase_cls_kernels():
 
 
 def launch_count(name):
-    from ptnn_torch.ops import (block_step, drift, fnn_eval, precond_cls_step,
-                                precond_step)
+    from ptnn_torch.ops import (block_step, conv_stage, drift, fnn_eval,
+                                precond_cls_step, precond_step)
 
+    if name == "conv1_relu_pool":
+        return conv_stage.launches
     if name == "drift_epoch":
         return drift.launches
     if name == "fnn_eval":
@@ -1030,9 +1048,10 @@ def launch_count(name):
 
 
 def reset_launch_counts():
-    from ptnn_torch.ops import (block_step, drift, fnn_eval, precond_cls_step,
-                                precond_step)
+    from ptnn_torch.ops import (block_step, conv_stage, drift, fnn_eval,
+                                precond_cls_step, precond_step)
 
+    conv_stage.launches = 0
     block_step.launches = 0
     block_step.cls_launches = 0
     drift.launches = 0
@@ -1579,6 +1598,419 @@ def phase_per_step_throughput():
     return out
 
 
+# ---------------------------------------------------------------------------
+# The model zoo: the Bayesian CNN and a deep MLP on the digits images,
+# through the per-step sampler; the CNN's fused stage 1 (conv1_relu_pool).
+
+# cnn_digits's default configuration at 64 chains x 300 steps, all 1257 / 540
+# rows: ptnn's per-step sampler on the CPU, seeds 0-2 (PYTHONPATH=. python
+# tests/test_torch_zoo_step.py cnn 64 300 0 1 2), about an hour a seed: mean
+# accept %, swap % (of 126 proposed pairs), Langevin %, and the ladder-mean and
+# the cold rung's test accuracy over the second half. The bands are those
+# three values widened: one run is one draw of a 300-step trace that has
+# barely left chance (10 %), and the cold rung's accuracy is one chain's.
+CNN_REF = dict(accept=(23.41, 23.73, 24.34), swap=(89.68, 95.24, 89.68),
+               langevin=(50.27, 49.46, 49.82),
+               ladder_acc=(9.92, 10.05, 10.83), cold_acc=(10.33, 3.67, 5.96))
+CNN_BANDS = dict(accept=(20.0, 28.0), swap=(82.0, 99.0), langevin=LANGEVIN,
+                 ladder_acc=(8.0, 13.0), cold_acc=(1.0, 20.0))
+CNN_CHAINS, CNN_STEPS = 256, 2000  # the full-width run (cnn_digits's default)
+BAND_CHAINS, BAND_STEPS = 64, 300  # the run held to ptnn's bands
+CMP_STEPS = 100  # fused eval against plain eval (no swap event: < 101)
+CLI_CHAINS, CLI_STEPS = 128, 300  # the command line's run
+CHANCE = 10.0  # ten classes
+CNN_ABOVE_CHANCE = 5.0  # the full-width run's cold test accuracy over chance
+C_ATOL = 1e-5  # conv kernel against plain: FMA contraction, summation order
+F_ATOL = 1e-4  # the fused CNN forward against the plain one (logits)
+# (chains, images, side, in_ch, out_ch) of the conv kernel's comparisons
+CONV_SHAPES = ((256, 1257, 8, 1, 8), (256, 540, 8, 1, 8), (130, 19, 8, 1, 8),
+               (4, 6, 8, 3, 8), (32, 64, 28, 1, 8))
+
+
+def digits():
+    from ptnn_torch import data
+
+    return data.load_digits(0)
+
+
+def cnn_cfg(chains, steps, **kw):
+    """python -m ptnn_torch.experiments.cnn_digits's default configuration:
+    the classification preset at maxtemp 5, step_w 0.01, learn_rate
+    step_w^2 / 2, Langevin gradients, swaps every 100, record_w off."""
+    from ptnn_torch import classification_preset
+
+    step_w = 0.01
+    base = classification_preset(
+        (64, 32, 10), num_samples=chains * steps, num_chains=chains,
+        maxtemp=5.0, use_langevin_gradients=True,
+        learn_rate=step_w * step_w / 2.0)
+    extra = dict(swap_interval=100, step_w=step_w, record_w=False,
+                 chunk_steps=min(500, steps))
+    extra.update(kw)
+    return dataclasses.replace(base, **extra).validate()
+
+
+def conv_inputs(c, n, hw, in_ch, out_ch, seed=37):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=DEVICE)
+    return (f(rng.uniform(size=(n, hw * hw * in_ch))),
+            f(rng.normal(size=(c, 3, 3, in_ch, out_ch)) * 0.3),
+            f(rng.normal(size=(c, out_ch)) * 0.1))
+
+
+def phase_conv_kernel():
+    """conv1_relu_pool against its plain version (F.conv2d + relu +
+    avg_pool2d, TF32 off) at the main path's widths and the ragged ones, then
+    the fused CNN forward against the plain chain-batched forward; returns
+    the largest |diff| of the kernel."""
+    import numpy as np
+    import torch
+
+    from ptnn_torch.models import cnn
+    from ptnn_torch.ops import conv_stage
+
+    err = 0.0
+    for c, n, hw, in_ch, out_ch in CONV_SHAPES:
+        x, w1, b1 = conv_inputs(c, n, hw, in_ch, out_ch)
+        before = conv_stage.launches
+        got = conv_stage.conv1_relu_pool(x, w1, b1, hw, in_ch, out_ch)
+        torch.cuda.synchronize()
+        check(conv_stage.launches == before + 1, "conv1_relu_pool did not "
+              "launch")
+        want = conv_stage.conv1_relu_pool_reference(x, w1, b1, hw, in_ch,
+                                                    out_ch)
+        check(got.shape == want.shape == (c, n, hw // 2, hw // 2, out_ch),
+              f"conv shape {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), "conv output not finite")
+        diff = float((got - want).abs().max())
+        check(diff <= C_ATOL, f"conv1_relu_pool C={c} N={n} hw={hw} "
+              f"{in_ch}->{out_ch}: max |diff| {diff:.3g} > {C_ATOL}")
+        check(float(want.abs().max()) > 0.1 and float((want == 0).float().mean())
+              < 0.9, "conv comparison on a trivial output")
+        err = max(err, diff)
+        print(f"[3/6] kernel: conv1_relu_pool C={c} N={n} hw={hw} {in_ch}->"
+              f"{out_ch}: within atol {C_ATOL} of F.conv2d + relu + "
+              f"avg_pool2d, TF32 off (max |diff| {diff:.3g}, outputs up to "
+              f"{float(want.abs().max()):.3g})")
+    cfg = cnn.CnnConfig(image_hw=8, n_classes=10)
+    prob = digits()
+    rng = np.random.default_rng(41)
+    ws = torch.as_tensor(rng.normal(size=(CNN_CHAINS, cnn.w_size(cfg))) * 0.2,
+                         dtype=torch.float32, device=DEVICE)
+    for rows in (prob.train, prob.test):
+        x = torch.as_tensor(rows[:, :64], dtype=torch.float32, device=DEVICE)
+        before = conv_stage.launches
+        got = cnn.batched_forward_fused(ws, x, cfg)
+        check(conv_stage.launches == before + 1, "the fused forward did not "
+              "launch conv1_relu_pool")
+        want = cnn.forward(ws, x, cfg)
+        torch.cuda.synchronize()
+        diff = float((got - want).abs().max())
+        check(diff <= F_ATOL, f"fused CNN forward: max |diff| {diff:.3g}")
+        print(f"[3/6] kernel: batched_forward_fused C={CNN_CHAINS} "
+              f"N={x.shape[0]}: logits within atol {F_ATOL} of the plain "
+              f"chain-batched forward (max |diff| {diff:.3g}, logits up to "
+              f"{float(want.abs().max()):.3g})")
+    return err
+
+
+def run_zoo_counted(cfg, prob, spec, seed=0):
+    """One model-zoo run through ptnn_torch.sample with every launch count
+    set to 0 just before it. The plan: no kernel but conv1_relu_pool, and
+    that one once for each eval of a spec with the fused eval (two a step,
+    init_state's, the temper switch's recompute), never otherwise."""
+    import ptnn_torch
+
+    n = cfg.n_steps
+    fused = spec.batched_forward is not None
+    plan = (2 * n + 1 + int(0 < cfg.temper_switch_step < n)) if fused else 0
+    reset_launch_counts()
+    res = ptnn_torch.sample(cfg, prob.train, prob.test, seed=seed,
+                            device=DEVICE, model_spec=spec)
+    got = {name: launch_count(name) for name in KERNELS}
+    want = dict({name: 0 for name in KERNELS}, conv1_relu_pool=plan)
+    check(got == want, f"model-zoo launches {got}, planned {want}")
+    return res, plan
+
+
+def zoo_stats(cfg, res):
+    import numpy as np
+
+    from ptnn_torch import kernel
+
+    s = cfg.samples_per_chain
+    tr = res.traces
+    for name in ("ll", "acc_train", "acc_test", "rmse_test", "accept_count"):
+        check(tr[name].shape == (s, cfg.num_chains)
+              and np.isfinite(tr[name]).all(), f"trace {name}")
+    acc = tr["acc_test"][s // 2:]
+    n_events = sum(kernel.swap_due(cfg, i) for i in range(cfg.n_steps))
+    return dict(accept=float(np.mean(res.accept_ratio_per_chain)),
+                swap=float(res.swap_percent),
+                langevin=float(np.mean(res.langevin_ratio_per_chain)),
+                ladder_acc=float(np.mean(acc)),
+                cold_acc=float(np.mean(acc[:, 0])),
+                swap_events=n_events,
+                swaps_proposed=int(res.final_state.n_swap_proposed))
+
+
+def phase_zoo_end_to_end():
+    """The model zoo through ptnn_torch.sample on the card; returns the conv
+    kernel's launches in the full-width run."""
+    import shutil
+
+    import numpy as np
+
+    from ptnn_torch import kernel
+    from ptnn_torch.models import cnn, mlp
+
+    prob = digits()
+    check(prob.train.shape == (1257, 65) and prob.test.shape == (540, 65),
+          "digits rows")
+    fused = cnn.digits_spec(fused_eval=True)
+    check(fused.w_size == 3658, f"CNN w_size {fused.w_size}")
+    # --- full width: cnn_digits's default configuration ---------------------
+    cfg = cnn_cfg(CNN_CHAINS, CNN_STEPS)
+    res, launches = run_zoo_counted(cfg, prob, fused)
+    st = zoo_stats(cfg, res)
+    print(f"[4/6] end to end: digits CNN {fused.name} {cfg.num_chains} chains "
+          f"x {cfg.samples_per_chain} samples on {prob.train.shape[0]} / "
+          f"{prob.test.shape[0]} rows in "
+          f"{res.elapsed_s:.3f} s ({res.chain_steps_per_sec:.0f} chain-steps/s"
+          f" incl. trace fetch); mean accept {st['accept']:.2f}%, swap "
+          f"{st['swap']:.2f}% ({st['swaps_proposed']} pairs proposed in "
+          f"{st['swap_events']} events), Langevin {st['langevin']:.2f}%; test "
+          f"accuracy over the second half: cold {st['cold_acc']:.2f}%, ladder "
+          f"mean {st['ladder_acc']:.2f}%, final cold "
+          f"{res.traces['acc_test'][-1, 0]:.2f}%; conv1_relu_pool launches "
+          f"{launches} (as planned), every other kernel 0")
+    check(LANGEVIN[0] <= st["langevin"] <= LANGEVIN[1],
+          f"CNN Langevin share {st['langevin']:.2f}")
+    check(st["swap_events"] > 0 and st["swaps_proposed"]
+          == st["swap_events"] * (cfg.num_chains - 1),
+          f"CNN swaps proposed {st['swaps_proposed']} in {st['swap_events']} "
+          f"events")
+    check(st["cold_acc"] >= CHANCE + CNN_ABOVE_CHANCE,
+          f"CNN cold test accuracy {st['cold_acc']:.2f}% is not "
+          f"{CNN_ABOVE_CHANCE} above chance ({CHANCE}%)")
+    check(0.0 < st["accept"] < 100.0, "CNN accepted all or nothing")
+    # --- held to ptnn: 64 chains x 300, seed 0 ------------------------------
+    cfg = cnn_cfg(BAND_CHAINS, BAND_STEPS)
+    res, n_conv = run_zoo_counted(cfg, prob, fused, seed=0)
+    st = zoo_stats(cfg, res)
+    print(f"[4/6] end to end: digits CNN {BAND_CHAINS} chains x {BAND_STEPS} "
+          f"samples, seed 0, in {res.elapsed_s:.3f} s; against ptnn's per-step "
+          f"sampler on the CPU, seeds 0-2: " + "; ".join(
+              f"{k} {st[k]:.2f} (ptnn {', '.join(f'{v:.2f}' for v in CNN_REF[k])}"
+              f"; band {CNN_BANDS[k][0]}-{CNN_BANDS[k][1]})"
+              for k in CNN_BANDS) + f"; conv1_relu_pool launches {n_conv}")
+    for k, (lo, hi) in CNN_BANDS.items():
+        check(lo <= st[k] <= hi, f"CNN {BAND_CHAINS} x {BAND_STEPS} {k} "
+              f"{st[k]:.4f} outside [{lo}, {hi}]")
+    # --- the fused eval against the plain eval, same seed and noise ---------
+    cfg = cnn_cfg(BAND_CHAINS, CMP_STEPS)
+    check(not any(kernel.swap_due(cfg, i) for i in range(cfg.n_steps)),
+          "the fused-against-plain comparison expects independent chains "
+          "(no swap event)")
+    a, _ = run_zoo_counted(cfg, prob, fused, seed=0)
+    b, _ = run_zoo_counted(cfg, prob, cnn.digits_spec(), seed=0)
+    # a decision flips where |u - mh_prob| is under the evals' difference
+    # (logits differ by ~1e-6, ll by ~1e-4 of 1257 terms): about one of the
+    # 6336 decisions. A chain that flipped parts ways from there (no swaps
+    # in 99 steps, so the others do not); at most 5 % of the chains may.
+    same = (a.traces["accept_count"] == b.traces["accept_count"]).all(axis=0)
+    check(int(same.sum()) >= 0.95 * BAND_CHAINS, f"fused vs plain eval: only "
+          f"{int(same.sum())} of {BAND_CHAINS} chains keep their accept "
+          f"counts")
+    row = 100.0 / prob.test.shape[0]  # one test row's share of the accuracy
+    d_acc = np.abs(a.traces["acc_test"][:, same] - b.traces["acc_test"][:, same])
+    frac = float((d_acc <= 1.01 * row).mean())
+    check(frac >= 0.999 and float(d_acc.max()) <= 3.01 * row,
+          f"fused vs plain eval: acc_test differs by up to {d_acc.max():.3f}")
+    d_ll = np.abs(a.traces["ll"][:, same] - b.traces["ll"][:, same])
+    check(bool((d_ll <= ATOL + RTOL * np.abs(b.traces["ll"][:, same])).all()),
+          f"fused vs plain eval: ll differs by up to {d_ll.max():.3g}")
+    print(f"[4/6] end to end: digits CNN {BAND_CHAINS} x {CMP_STEPS}, seed 0, "
+          f"fused eval against plain eval on the same noise: "
+          f"{int(same.sum())} of {BAND_CHAINS} chains keep every accept count; on those acc_test agrees within one test row "
+          f"({row:.3f}%) in {100 * frac:.2f}% of the entries (max "
+          f"{d_acc.max():.3f}), ll within rtol {RTOL} (max |diff| "
+          f"{d_ll.max():.3g})")
+    # --- a deep MLP ----------------------------------------------------------
+    cfg = dataclasses.replace(cnn_cfg(BAND_CHAINS, BAND_STEPS),
+                              learn_rate=5e-5).validate()
+    spec = mlp.spec((64, 32, 16, 10), task="classification", act="relu")
+    res, _ = run_zoo_counted(cfg, prob, spec)
+    st = zoo_stats(cfg, res)
+    print(f"[4/6] end to end: digits MLP {spec.name} {BAND_CHAINS} chains x "
+          f"{BAND_STEPS} samples in {res.elapsed_s:.3f} s ({res.chain_steps_per_sec:.0f} "
+          f"chain-steps/s): mean accept {st['accept']:.2f}%, swap "
+          f"{st['swap']:.2f}%, Langevin {st['langevin']:.2f}%, cold test "
+          f"accuracy {st['cold_acc']:.2f}%, ladder mean "
+          f"{st['ladder_acc']:.2f}%; no kernel launched (as planned)")
+    check(LANGEVIN[0] <= st["langevin"] <= LANGEVIN[1],
+          f"MLP Langevin share {st['langevin']:.2f}")
+    check(0.0 < st["accept"] < 100.0, "MLP accepted all or nothing")
+    # --- the command line, as a subprocess -----------------------------------
+    out = ROOT / "build" / "chip_smoke_cnn"
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "ptnn_torch.experiments.cnn_digits",
+           "--chains", str(CLI_CHAINS), "--steps", str(CLI_STEPS), "--adapt",
+           "--out", str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cnn_digits exited with {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    check(line.startswith(f"[digits] chains={CLI_CHAINS} test_acc mean="),
+          line)
+    run = out / "digits_0"
+    with open(run / "config.json") as f:
+        written = json.load(f)
+    check(written["adapt_step_size"] and written["use_langevin_gradients"]
+          and written["num_chains"] == CLI_CHAINS, "cnn_digits config.json")
+    n_files = sum(1 for _ in run.rglob("*.txt"))
+    check(n_files == 3 + 7 * CLI_CHAINS, f"cnn_digits wrote {n_files} text "
+          f"files")
+    acc = np.loadtxt(run / "predictions" / "acc_test_chain_1.0.txt")
+    check(acc.shape == (CLI_STEPS,) and np.isfinite(acc).all()
+          and (run / "metrics.jsonl").is_file(), "cnn_digits artifacts")
+    print(f"[4/6] end to end: python -m ptnn_torch.experiments.cnn_digits "
+          f"--chains {CLI_CHAINS} --steps {CLI_STEPS} --adapt exited 0 in {wall:.1f} s: "
+          f"{line.split(' -> ')[0]}; {n_files} text files, config.json and "
+          f"metrics.jsonl under {run.relative_to(ROOT)}")
+    return launches
+
+
+def conv_ops(c, n, hw, in_ch, out_ch):
+    """Arithmetic of conv1_relu_pool: per pre-pool value 9 * in_ch
+    multiply-adds, the bias and the ReLU, and its share of the pool (three
+    adds and the scaling for four values)."""
+    return c * n * hw * hw * out_ch * (18 * in_ch + 3)
+
+
+def phase_zoo_throughput():
+    """The CNN's chain-steps/s (throughput_runner), the conv kernel's time
+    against its plain version's, the library chain's and the bound, one
+    drift and one eval of a full-width CNN step, and stage 2 (patches times
+    taps) against the same stage as one grouped F.conv2d; returns the conv
+    kernel's line entry at the main path's widths (256 chains x 1257
+    images)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import ptnn_torch
+    from ptnn_torch.models import cnn
+    from ptnn_torch.ops import conv_stage, drift
+    from ptnn_torch.ops.precision import full_float32
+
+    prob = digits()
+    fused = cnn.digits_spec(fused_eval=True)
+    cfg = cnn_cfg(CNN_CHAINS, BAND_STEPS)
+    runner = ptnn_torch.throughput_runner(cfg, prob.train, prob.test,
+                                          device=DEVICE, model_spec=fused)
+    reps = [runner() for _ in range(2)]
+    rate = statistics.median(r["chain_steps_per_sec"] for r in reps)
+    print(f"[5/6] throughput: digits CNN {CNN_CHAINS} chains x {BAND_STEPS} "
+          f"samples: "
+          f"median {rate:.0f} chain-steps/s over 2 reps "
+          f"({1e3 * CNN_CHAINS / rate:.2f} ms a step; accept "
+          f"{reps[0]['accept_pct']:.1f}%, Langevin "
+          f"{reps[0]['langevin_pct']:.1f}%)")
+    out = {}
+    for c, n, hw, in_ch, out_ch in CONV_SHAPES[:2]:
+        x, w1, b1 = conv_inputs(c, n, hw, in_ch, out_ch)
+        kern = lambda: conv_stage.conv1_relu_pool(x, w1, b1, hw, in_ch, out_ch)
+        plain = lambda: conv_stage.conv1_relu_pool_reference(x, w1, b1, hw,
+                                                             in_ch, out_ch)
+        img = x.reshape(n, hw, hw, in_ch).permute(0, 3, 1, 2).contiguous()
+        weight = w1.permute(0, 4, 3, 1, 2).reshape(c * out_ch, in_ch, 3,
+                                                   3).contiguous()
+        bias = b1.reshape(c * out_ch).contiguous()
+
+        def library():
+            # the C chains as C * out_ch output channels of one convolution
+            # over the shared images, in its own layout (N, C * out_ch, ...)
+            with full_float32():
+                return F.avg_pool2d(torch.relu(
+                    F.conv2d(img, weight, bias, padding=1)), 2)
+
+        k_ms, p_ms = timing(kern, plain, 20, 5)
+        l_ms = min(time_ms(library, 5), time_ms(library, 5))
+        got = kern()
+        nbytes = 4 * (x.numel() + w1.numel() + b1.numel() + got.numel())
+        b_ms, b_by = bound(conv_ops(c, n, hw, in_ch, out_ch), nbytes)
+        print(f"[5/6] throughput: conv1_relu_pool C={c} N={n} hw={hw} {in_ch}->"
+              f"{out_ch}: kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.0f} GB/s "
+              f"of its {nbytes / 1e6:.1f} MB), plain version {p_ms:.3f} ms, "
+              f"library F.conv2d + relu + F.avg_pool2d (TF32 off) "
+              f"{l_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        if n == 1257:
+            out["conv1_relu_pool"] = dict(ms=k_ms, plain_ms=p_ms,
+                                          bound_ms=b_ms, bound_by=b_by,
+                                          library_ms=l_ms)
+    # one drift (forward and backward of the plain forward) and one eval of
+    # the full-width step
+    rng = np.random.default_rng(43)
+    w = torch.as_tensor(rng.normal(size=(CNN_CHAINS, fused.w_size)) * 0.2,
+                        dtype=torch.float32, device=DEVICE)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+    x_tr, y_tr = f(prob.train[:, :64]), f(prob.train[:, 64])
+    x_te = f(prob.test[:, :64])
+    t_tr = drift.make_targets(y_tr, 10, "classification")
+    torch.cuda.reset_peak_memory_stats()
+    d = time_ms(lambda: fused.drift(w, x_tr, t_tr, 5e-5), 5, warm=1)
+    fp = time_ms(lambda: fused.forward(w, x_tr), 5, warm=1)
+    ftr = time_ms(lambda: fused.batched_forward(w, x_tr), 5, warm=1)
+    fte = time_ms(lambda: fused.batched_forward(w, x_te), 5, warm=1)
+    mem = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[5/6] throughput: CNN step parts at {CNN_CHAINS} chains: one "
+          f"drift (forward and backward, 1257 rows) {d:.2f} ms, plain forward "
+          f"{fp:.2f} ms, fused-eval forward {ftr:.2f} ms (1257 rows) and "
+          f"{fte:.2f} ms (540 rows); peak device memory {mem:.2f} GiB; a step "
+          f"is 2 drifts and 2 evals: {2 * d + ftr + fte:.2f} ms")
+    # stage 2 (8 -> 16 channels on 4x4 maps, per-chain taps): the port's
+    # patches-times-taps product against one F.conv2d with groups = chains
+    h = torch.as_tensor(rng.uniform(size=(CNN_CHAINS, 1257, 4, 4, 8)),
+                        dtype=torch.float32, device=DEVICE).requires_grad_()
+    cw = torch.as_tensor(rng.normal(size=(CNN_CHAINS, 3, 3, 8, 16)) * 0.2,
+                         dtype=torch.float32, device=DEVICE).requires_grad_()
+    cb = torch.zeros((CNN_CHAINS, 16), device=DEVICE).requires_grad_()
+
+    def stage_grouped(h, cw, cb):
+        c, k, _, ci, co = cw.shape
+        _, n, hh, ww, _ = h.shape
+        x = h.permute(1, 0, 4, 2, 3).reshape(n, c * ci, hh, ww)
+        weight = cw.permute(0, 4, 3, 1, 2).reshape(c * co, ci, k, k)
+        with full_float32():
+            z = F.conv2d(x, weight, cb.reshape(c * co), padding=1, groups=c)
+        z = z.reshape(n, c, co, hh, ww).permute(1, 0, 3, 4, 2)
+        return cnn._pool(torch.relu(z))
+
+    with torch.no_grad():
+        diff = float((cnn._conv_stage(h, cw, cb)
+                      - stage_grouped(h, cw, cb)).abs().max())
+    check(diff <= F_ATOL, f"stage 2: product against grouped conv differ by "
+          f"{diff:.3g}")
+    stage_ms = {}
+    for name, fn in (("patches x taps", cnn._conv_stage),
+                     ("grouped conv", stage_grouped)):
+        both = lambda: torch.autograd.grad(fn(h, cw, cb).sum(), (h, cw, cb))
+        stage_ms[name] = (time_ms(lambda: fn(h, cw, cb), 5, warm=1),
+                          time_ms(both, 5, warm=1))
+    print(f"[5/6] throughput: CNN stage 2 at {CNN_CHAINS} chains x 1257 rows "
+          f"(max |diff| {diff:.3g}): " + "; ".join(
+              f"{name} forward {f_ms:.2f} ms, forward and backward "
+              f"{fb_ms:.2f} ms" for name, (f_ms, fb_ms) in stage_ms.items()))
+    return out
+
+
 def main() -> int:
     phase_device()
     phase_build()
@@ -1587,6 +2019,7 @@ def main() -> int:
     errs.update(phase_cls_kernels())
     errs["drift_epoch"] = phase_drift_kernel()[0]
     errs["fnn_eval"] = phase_eval_kernel()
+    errs["conv1_relu_pool"] = phase_conv_kernel()
     phase_swap()
     times = {"rw_block": time_block(64, 100, record_w=True)}
     launches = {"rw_block": phase_end_to_end(),
@@ -1595,10 +2028,12 @@ def main() -> int:
     launches.update(phase_iris_end_to_end())
     lg = phase_per_step_end_to_end()
     launches.update(drift_epoch=lg["drift_epoch"], fnn_eval=lg["fnn_eval"])
+    launches["conv1_relu_pool"] = phase_zoo_end_to_end()
     phase_throughput()
     times.update(phase_precond_throughput())
     times.update(phase_cls_throughput())
     times.update(phase_per_step_throughput())
+    times.update(phase_zoo_throughput())
     import torch
 
     print(json.dumps({"kernels": [dict({
@@ -1609,7 +2044,7 @@ def main() -> int:
         "launches": launches[name],
         "max_abs_err": errs[name],
         # no single PyTorch call computes a fused MH block, a drift epoch
-        # or a fused eval
+        # or a fused eval; the conv stage has F.conv2d + relu + avg_pool2d
         "library_ms": None,
     }, **times[name]) for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

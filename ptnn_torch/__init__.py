@@ -14,7 +14,13 @@ Two samplers run today, for regression and classification:
   without the paper's Langevin-gradient drift (``qratio`` "reference" or
   "ldpt_legacy"). Each step launches the drift kernel
   (``csrc/drift_epoch.cu``, twice with Langevin gradients) and the FNN eval
-  kernel (``csrc/fnn_eval.cu``, on the train and the test rows).
+  kernel (``csrc/fnn_eval.cu``, on the train and the test rows). With
+  ``model_spec=`` it runs the model zoo instead: ``models.mlp.spec`` (a deep
+  MLP) and ``models.cnn.spec`` (the Bayesian CNN), whose drift is a gradient
+  step by autograd (``grad_drift``) and, for ``cnn.digits_spec(fused_eval=
+  True)``, whose eval's first stage is ``csrc/conv1_relu_pool.cu``.
+  ``python -m ptnn_torch.experiments.cnn_digits`` is the CNN's driver and
+  ``results`` writes a run's artifact tree.
 
 The kernels are built with ``nvcc`` for Hopper at first use. On CPU tensors
 the same functions run their plain PyTorch versions. The served predictor
@@ -25,8 +31,10 @@ is ``predict.posterior_predict``. The package imports ``torch`` and never
 
 from ptnn_torch.config import (PTConfig, classification_preset,
                                regression_preset)
+from ptnn_torch import results
 from ptnn_torch.kernel import make_step_fn
-from ptnn_torch.models.api import ModelSpec, fnn_spec
+from ptnn_torch.models import cnn, mlp
+from ptnn_torch.models.api import ModelSpec, fnn_spec, grad_drift
 from ptnn_torch.sampler import SampleResult, sample, throughput_runner
 
 __all__ = [
@@ -35,6 +43,10 @@ __all__ = [
     "regression_preset",
     "ModelSpec",
     "fnn_spec",
+    "grad_drift",
+    "cnn",
+    "mlp",
+    "results",
     "make_step_fn",
     "SampleResult",
     "sample",

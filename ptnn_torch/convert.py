@@ -6,6 +6,9 @@ use. ``chain_state_from_numpy`` takes the fields the port holds (the
 accuracy carries, the Langevin counter ``n_langevin`` and, for
 classification, a state without ``log_step_eta`` included), with their
 dtypes and bits unchanged; ``chain_state_to_numpy`` gives them back.
+``model_params_from_numpy`` takes ``ptnn``'s flat model weights: every model
+of the port keeps ptnn's flat order, so it is the identity with the shape
+and the type checked.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from ptnn_torch.kernel import ChainState
+from ptnn_torch.models.api import ModelSpec
 
 FIELDS = tuple(f.name for f in dataclasses.fields(ChainState))
 OPTIONAL = ("log_step_w", "g_like", "pc_mean", "pc_m2", "log_step_eta",
@@ -42,3 +46,18 @@ def chain_state_to_numpy(state: ChainState) -> Dict[str, Optional[np.ndarray]]:
         v = getattr(state, name)
         out[name] = None if v is None else v.detach().cpu().numpy()
     return out
+
+
+def model_params_from_numpy(w: Any, spec: ModelSpec,
+                            device="cpu") -> torch.Tensor:
+    """``ptnn``'s flat weights (C, W) of the model ``spec`` describes (the
+    FNN codec, the MLP's ``[W1, b1, ...]``, the CNN's taps as (kh, kw, c_in,
+    c_out)) as the port's: the same vector, float32, checked against
+    ``spec.w_size``."""
+    a = np.asarray(w)
+    if a.ndim != 2 or a.shape[1] != spec.w_size:
+        raise ValueError(f"weights of shape {a.shape} are not (chains, "
+                         f"{spec.w_size}) as {spec.name} takes them")
+    if a.dtype != np.float32:
+        raise ValueError(f"weights have dtype {a.dtype}, expected float32")
+    return torch.from_numpy(np.array(a, copy=True)).to(device)

@@ -1,8 +1,9 @@
 """Dataset loaders and preprocessing.
 
-The port's own copy of ``ptnn/data.py`` (same names, NumPy float64 rows),
-without the digits loader, which needs scikit-learn. The data root is
-``<repo>/data`` unless ``PTNN_DATA`` names another.
+The port's own copy of ``ptnn/data.py`` (same names, NumPy float64 rows).
+The digits loader reads ``classification/digits.csv.gz`` under the data root
+with gzip and numpy (``ptnn`` asks scikit-learn for the same file). The data
+root is ``<repo>/data`` unless ``PTNN_DATA`` names another.
 
 Bundles the reference's problem suite (SURVEY.md §L7). Regression sets are the
 4-lag Takens-embedding one-step-ahead series
@@ -19,6 +20,7 @@ Row format everywhere: ``[features..., label]`` float matrix.
 
 from __future__ import annotations
 
+import gzip
 import os
 from dataclasses import dataclass
 from typing import Dict, Tuple
@@ -274,3 +276,30 @@ def load_classification(name: str, seed: int = 0, root: str | None = None) -> Pr
     else:
         topo = CLASSIFICATION_TOPOLOGIES[name]
     return Problem(name, "classification", topo, train, test)
+
+
+def load_digits(seed: int = 0, root: str | None = None) -> Problem:
+    """The 8x8 digit images for the Bayesian-CNN configuration: 1797 rows of
+    64 pixels (0..16) and the label, the UCI optical-digits test set as
+    scikit-learn bundles it (``classification/digits.csv.gz``). Pixels
+    scaled to [0, 1]; a seeded 70/30 split (1257 / 540 rows)."""
+    path = os.path.join(root or _ROOT, "classification", "digits.csv.gz")
+    with gzip.open(path, "rt") as f:
+        data = np.loadtxt(f, delimiter=",")
+    x = data[:, :-1] / 16.0
+    y = data[:, -1].astype(np.int64).astype(np.float64)
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(len(y))
+    cut = int(0.7 * len(y))
+    both = np.hstack([x, y.reshape(-1, 1)])
+    return Problem(
+        "digits", "classification", (64, 32, 10), both[idx[:cut]], both[idx[cut:]]
+    )
+
+
+def load(name: str, seed: int = 0, root: str | None = None) -> Problem:
+    if name in REGRESSION_SETS:
+        return load_regression(name, root)
+    if name == "digits":
+        return load_digits(seed, root)
+    return load_classification(name, seed, root)

@@ -12,8 +12,14 @@ ported yet.
 
 Every evaluation of the network on data (the step's train and test evals,
 ``train_loglik``, ``init_state``'s ll, ``recompute_ll``) goes through
-``ops.fnn_eval.fnn_eval``, and the drift through the model spec's
-``ops.drift.sgd_epoch``: on the card the two hand-written kernels.
+``spec_eval`` and the drift through the model spec's ``drift``. For the
+reference FNN those are ``ops.fnn_eval.fnn_eval`` and
+``ops.drift.sgd_epoch``, on the card the two hand-written kernels. Any
+other spec (``models.mlp``, ``models.cnn``) evaluates with its
+``batched_forward`` where it has one (the CNN's hand-written stage 1), else
+its ``forward``, then ``log_probs`` and the likelihood of
+``ops.likelihood``; on the card and on the CPU alike (``ptnn`` takes
+``batched_forward`` only on a TPU).
 
 Semantics kept from ``ptnn``: the chain carries its UNTEMPERED train
 log-likelihood and divides by the adaptive temperature at decision time;
@@ -103,11 +109,33 @@ def swap_due(cfg: PTConfig, i: int) -> bool:
     return k % si == 0 and k > 0
 
 
+def default_spec(cfg: PTConfig) -> model_api.ModelSpec:
+    """The reference FNN of ``cfg.topology`` with ``cfg.drift_mode``."""
+    return model_api.fnn_spec(cfg.topology, cfg.drift_mode)
+
+
+def spec_eval(cfg: PTConfig, spec: model_api.ModelSpec, w: torch.Tensor,
+              x: torch.Tensor, y: torch.Tensor,
+              tau: Optional[torch.Tensor]):
+    """Every chain's untempered (ll, rmse, acc), each (C,), on the rows
+    (x, y): ``_batched_evals`` of ptnn/kernel.py. ``tau`` (C,) is the noise
+    variance (regression)."""
+    if spec.fnn_topology is not None:
+        return fnn_eval(w, x, y, tau, spec.fnn_topology, cfg.task)
+    out = (spec.batched_forward or spec.forward)(w, x)
+    if cfg.task == "regression":
+        ev = likelihood.regression_eval_from_fx(out[:, :, 0], y, tau)
+        return ev.loglik, ev.rmse, torch.zeros_like(ev.rmse)
+    ev = likelihood.classification_eval_from_logp(spec.log_probs(out), out, y)
+    return ev.loglik, ev.rmse, ev.acc
+
+
 def train_loglik(cfg: PTConfig, w: torch.Tensor, eta: torch.Tensor,
-                 data: Dataset) -> torch.Tensor:
+                 data: Dataset,
+                 spec: Optional[model_api.ModelSpec] = None) -> torch.Tensor:
     """The untempered train log-likelihood of every chain at (w, eta)."""
-    return fnn_eval(w, data.x_train, data.y_train, torch.exp(eta),
-                    cfg.topology, cfg.task)[0]
+    return spec_eval(cfg, spec or default_spec(cfg), w, data.x_train,
+                     data.y_train, torch.exp(eta))[0]
 
 
 def recorded_chains(cfg: PTConfig) -> slice:
@@ -141,15 +169,22 @@ def init_state(
     generator: Optional[torch.Generator] = None,
     init_w: Optional[torch.Tensor] = None,
     init_eta: Optional[torch.Tensor] = None,
+    spec: Optional[model_api.ModelSpec] = None,
 ) -> ChainState:
     """Initial state: standard-normal weights (from ``generator``, or
     ``init_w``), and ll/prior computed at that point. Regression: eta = log
     of the population variance of the initial residuals (or ``init_eta``);
     classification: eta = 0, the multinomial ll and the prior with
-    dimension term w_size."""
+    dimension term w_size. ``spec`` defaults to the reference FNN."""
     cls = cfg.task == "classification"
     dev = data.x_train.device
-    c, w_dim = cfg.num_chains, fnn.w_size(cfg.topology)
+    spec = spec or default_spec(cfg)
+    precond = cfg.proposal in ("precond_mala", "hmc")
+    if precond and spec.fnn_topology is None:
+        raise NotImplementedError(
+            f"ptnn_torch runs proposal={cfg.proposal!r} on the reference FNN "
+            f"only, not on {spec.name}: not yet ported")
+    c, w_dim = cfg.num_chains, spec.w_size
     if init_w is None:
         w = torch.randn((c, w_dim), generator=generator, device=dev,
                         dtype=torch.float32)
@@ -159,11 +194,11 @@ def init_state(
             raise ValueError(f"init_w shape {tuple(w.shape)} != {(c, w_dim)}")
     if cls:
         eta = torch.zeros((c,), dtype=torch.float32, device=dev)
-        ll = train_loglik(cfg, w, eta, data)
-        prior = likelihood.classification_log_prior(w, cfg.topology,
-                                                    cfg.sigma_sq)
+        ll = train_loglik(cfg, w, eta, data, spec)
+        prior = likelihood.classification_log_prior_dim(
+            w, spec.prior_dim_classification, cfg.sigma_sq)
     else:
-        pred = fnn.batched_forward(w, data.x_train, cfg.topology)[:, :, 0]
+        pred = spec.forward(w, data.x_train)[:, :, 0]
         resid = pred - data.y_train[None, :]
         eta = torch.log(torch.var(resid, dim=1, correction=0))
         if init_eta is not None:
@@ -172,15 +207,14 @@ def init_state(
                 raise ValueError(
                     f"init_eta shape {tuple(eta.shape)} != {(c,)}")
         tau = torch.exp(eta)
-        ll = train_loglik(cfg, w, eta, data)
-        prior = likelihood.regression_log_prior(
-            w, tau, cfg.topology, cfg.sigma_sq, cfg.nu_1, cfg.nu_2
-        )
+        ll = train_loglik(cfg, w, eta, data, spec)
+        prior = likelihood.regression_log_prior_dim(
+            w, tau, spec.prior_dim_regression, cfg.sigma_sq, cfg.nu_1,
+            cfg.nu_2)
 
     def zeros(dtype=torch.float32):
         return torch.zeros((c,), dtype=dtype, device=dev)
 
-    precond = cfg.proposal in ("precond_mala", "hmc")
     log_step_w = None
     if cfg.adapt_step_size or precond:
         log_step_w = torch.full((c,), math.log(cfg.step_w),
@@ -302,11 +336,11 @@ def do_swap(
     return out
 
 
-def recompute_ll(cfg: PTConfig, state: ChainState,
-                 data: Dataset) -> ChainState:
+def recompute_ll(cfg: PTConfig, state: ChainState, data: Dataset,
+                 spec: Optional[model_api.ModelSpec] = None) -> ChainState:
     """Refresh the carried log-likelihood from the current (w, eta), with
     the accepted eta; the reference does this once, at the temper switch."""
-    return state.replace(ll=train_loglik(cfg, state.w, state.eta, data))
+    return state.replace(ll=train_loglik(cfg, state.w, state.eta, data, spec))
 
 
 # ---------------------------------------------------------------------------
@@ -316,9 +350,10 @@ def recompute_ll(cfg: PTConfig, state: ChainState,
 Noise = Dict[str, torch.Tensor]
 
 
-def step_reason(cfg: PTConfig) -> Optional[str]:
-    """The feature of ``cfg`` the per-step sampler does not run yet (None:
-    it runs ``cfg``)."""
+def step_reason(cfg: PTConfig,
+                spec: Optional[model_api.ModelSpec] = None) -> Optional[str]:
+    """The feature of ``cfg`` the per-step sampler does not run yet on
+    ``spec`` (default: the reference FNN); None: it runs ``cfg``."""
     if cfg.proposal != "reference":
         return f"proposal={cfg.proposal!r} (the per-step precond family)"
     for flag in ("use_surrogate", "variational_reference", "record_fx",
@@ -329,9 +364,11 @@ def step_reason(cfg: PTConfig) -> Optional[str]:
         return "record_thin > 1"
     if cfg.eval_dtype != "float32":
         return f"eval_dtype={cfg.eval_dtype!r}"
-    if cfg.adapt_step_size and cfg.use_langevin_gradients:
+    if cfg.adapt_step_size and cfg.use_langevin_gradients and not (
+            spec is not None and spec.drift_per_chain_rate):
         return ("adapt_step_size with Langevin gradients (the drift rate "
-                "tied to each chain's adapted step)")
+                "tied to each chain's adapted step) on a drift that takes "
+                "one rate")
     if cfg.task == "regression" and cfg.topology[2] != 1:
         return "regression with more than one output"
     return None
@@ -354,11 +391,13 @@ class StepFn:
     """ptnn's ``make_step_fn`` for the reference proposal: ``step(state, i,
     noise) -> (state, trace)`` advances every chain by one MH step (and the
     swap event after it when ``swap_due(cfg, i)``); ``recompute_ll``.
-    ``noise`` holds this step's draws (``step_noise_names``)."""
+    ``noise`` holds this step's draws (``step_noise_names``). With
+    ``diagnostics`` set, the trace also carries "margin", |u - mh_prob|:
+    how far each chain's decision was from flipping."""
 
     def __init__(self, cfg: PTConfig, data: Dataset, temps: torch.Tensor,
                  spec: model_api.ModelSpec):
-        reason = step_reason(cfg)
+        reason = step_reason(cfg, spec)
         if reason is not None:
             raise NotImplementedError(
                 f"ptnn_torch's per-step sampler does not run {reason}: not "
@@ -367,6 +406,7 @@ class StepFn:
             raise ValueError("Langevin gradients need data.t_train")
         self.cfg, self.data, self.temps, self.spec = cfg, data, temps, spec
         self.cls = cfg.task == "classification"
+        self.diagnostics = False
         self.ones = torch.ones_like(temps)
         self.rec = recorded_chains(cfg)
         self.pair_mask = swap_mod.pair_mask(cfg.num_chains,
@@ -379,6 +419,19 @@ class StepFn:
             * torch.log(torch.tensor(2.0 * np.pi * cfg.step_w,
                                      dtype=torch.float32))
         self.log_norm = self.log_norm.to(temps.device)
+
+    def _drift(self, w: torch.Tensor, lrate: model_api.Rate) -> torch.Tensor:
+        """The spec's drift of every chain, in ``drift_chain_microbatch``
+        sequential chunks of chains: the chains are independent, so the
+        numbers are the whole batch's, and a gradient drift keeps the
+        activations of one chunk at a time."""
+        d, mb = self.data, self.cfg.drift_chain_microbatch
+        if mb <= 1:
+            return self.spec.drift(w, d.x_train, d.t_train, lrate)
+        rates = (lrate.chunk(mb) if isinstance(lrate, torch.Tensor)
+                 else [lrate] * mb)
+        return torch.cat([self.spec.drift(wk, d.x_train, d.t_train, lk)
+                          for wk, lk in zip(w.chunk(mb), rates)])
 
     def _propose(self, state: ChainState, noise: Noise, at: torch.Tensor):
         """Weight proposal, q-ratio correction and Langevin counter
@@ -394,10 +447,14 @@ class StepFn:
         if not cfg.use_langevin_gradients:
             return state.w + nw, torch.zeros_like(state.ll), state.n_langevin
         use_l = noise["l"] < cfg.langevin_prob
-        d = self.data
+        # with step-size adaptation the drift scale is tied to each chain's
+        # adapted step (MALA: drift = (sigma^2 / 2) grad log pi) and
+        # cfg.learn_rate is ignored (ptnn/kernel.py:688-707)
+        lrate = (0.5 * torch.exp(2.0 * state.log_step_w)
+                 if cfg.adapt_step_size else cfg.learn_rate)
 
         def drift(w):
-            return self.spec.drift(w, d.x_train, d.t_train, cfg.learn_rate)
+            return self._drift(w, lrate)
 
         w_gd = drift(state.w)
         w_prop = torch.where(use_l[:, None], w_gd + nw, state.w + nw)
@@ -440,10 +497,10 @@ class StepFn:
             prior_prop = likelihood.regression_log_prior_dim(
                 w_prop, tau_prop, spec.prior_dim_regression, cfg.sigma_sq,
                 cfg.nu_1, cfg.nu_2)
-        ll_prop, rmse_tr, acc_tr = fnn_eval(w_prop, d.x_train, d.y_train,
-                                            tau_prop, cfg.topology, cfg.task)
-        _ll, rmse_te, acc_te = fnn_eval(w_prop, d.x_test, d.y_test, tau_prop,
-                                        cfg.topology, cfg.task)
+        ll_prop, rmse_tr, acc_tr = spec_eval(cfg, spec, w_prop, d.x_train,
+                                             d.y_train, tau_prop)
+        _ll, rmse_te, acc_te = spec_eval(cfg, spec, w_prop, d.x_test,
+                                         d.y_test, tau_prop)
         log_mh = (ll_prop - state.ll) / at + (prior_prop - state.prior) \
             + diff_prop
         mh_prob = torch.exp(torch.clamp(log_mh, max=0.0))
@@ -483,6 +540,8 @@ class StepFn:
             lsw = state.log_step_w + (delta if i < self.burn_end else 0.0)
             new = new.replace(log_step_w=torch.clamp(lsw, _LOG_STEP_LO,
                                                      _LOG_STEP_HI))
+        if self.diagnostics:
+            trace["margin"] = torch.abs(noise["u"] - mh_prob)
         if cfg.record_w:
             trace["w"] = new.w_last[self.rec]
         if cfg.record_eta and not self.cls:
@@ -495,7 +554,7 @@ class StepFn:
         return new, trace
 
     def recompute_ll(self, state: ChainState) -> ChainState:
-        return recompute_ll(self.cfg, state, self.data)
+        return recompute_ll(self.cfg, state, self.data, self.spec)
 
 
 def make_step_fn(cfg: PTConfig, data: Dataset, temps: torch.Tensor,
@@ -504,6 +563,4 @@ def make_step_fn(cfg: PTConfig, data: Dataset, temps: torch.Tensor,
     without Langevin gradients); ``spec`` defaults to the reference FNN
     with ``cfg.drift_mode``. Raises NotImplementedError naming a feature
     that is not ported (``step_reason``)."""
-    if spec is None:
-        spec = model_api.fnn_spec(cfg.topology, cfg.drift_mode)
-    return StepFn(cfg, data, temps, spec)
+    return StepFn(cfg, data, temps, spec or default_spec(cfg))

@@ -1,7 +1,7 @@
 """Build the port's CUDA sources into shared libraries and load them.
 
-Each ``csrc/<name>.cu`` (the six ``*_block.cu``, ``drift_epoch.cu`` and
-``fnn_eval.cu``) has a plain C interface. At first use it is compiled
+Each ``csrc/<name>.cu`` (the six ``*_block.cu``, ``drift_epoch.cu``,
+``fnn_eval.cu`` and ``conv1_relu_pool.cu``) has a plain C interface. At first use it is compiled
 by ``nvcc`` for Hopper (``sm_90a``) into ``build/ptnn_torch/<name>-<hash>.so``
 at the root of the checkout, keyed by a hash of the source, of the
 ``csrc/*.cuh`` headers it includes and of the flags, and loaded with
@@ -184,6 +184,15 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                      ctypes.sizeof(_EvalParams), "EvalParams size")
         _check_query(lib, name, "ptnn_eval_threads", _THREADS, "THREADS")
         _check_query(lib, name, "ptnn_eval_max_out", _MAX_OUT, "max outputs")
+    if name == "conv1_relu_pool":
+        from ptnn_torch.ops.conv_stage import _ConvParams
+
+        lib.ptnn_conv1_relu_pool.argtypes = [
+            ctypes.POINTER(_ConvParams), ctypes.c_int, ctypes.c_void_p
+        ]
+        lib.ptnn_conv1_relu_pool.restype = ctypes.c_int
+        _check_query(lib, name, "ptnn_conv_params_size",
+                     ctypes.sizeof(_ConvParams), "ConvParams size")
     if name == "rw_block":
         from ptnn_torch.ops.block_step import _RwParams, _THREADS
 

@@ -4,9 +4,12 @@
 (``ptnn_torch.fused``) when ``cfg.fused_step`` is set and the fused path can
 run ``cfg`` (``fused.runtime_reason``); otherwise, with a warning for a
 fused config, the per-step sampler here: the reference proposal, with or
-without the Langevin-gradient drift. Every entry point takes an explicit
-``device``; on "cuda" the hand-written kernels run on the card, on "cpu"
-their plain versions run.
+without the Langevin-gradient drift. ``model_spec`` names the model
+(``models.cnn.digits_spec()``, ``models.mlp.spec(...)``; default: the
+reference FNN of ``cfg.topology``); a spec that is not the reference FNN
+never takes the fused path. Every entry point takes an explicit ``device``;
+on "cuda" the hand-written kernels run on the card, on "cpu" their plain
+versions run.
 
 The per-step run is split at the temper switch, with the reference's
 one-time ``recompute_ll`` between the two segments, and each segment into
@@ -91,11 +94,12 @@ def seed_of(*words: int) -> int:
     return int(seq.generate_state(1, np.uint64)[0])
 
 
-def init_chains(cfg: PTConfig, data: Dataset, seed: int) -> ChainState:
+def init_chains(cfg: PTConfig, data: Dataset, seed: int,
+                spec: Optional[model_api.ModelSpec] = None) -> ChainState:
     """``kernel.init_state`` from a generator seeded from ``seed``."""
     gen = torch.Generator(device=data.x_train.device)
     gen.manual_seed(seed_of(seed, 0))
-    return kernel.init_state(cfg, data, generator=gen)
+    return kernel.init_state(cfg, data, generator=gen, spec=spec)
 
 
 def merge_rows(traces: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -264,14 +268,14 @@ class _PerStep:
         return state
 
 
-def _per_step(cfg: PTConfig, train, test, device) -> _PerStep:
+def _per_step(cfg: PTConfig, train, test, device,
+              model_spec: Optional[model_api.ModelSpec] = None) -> _PerStep:
     device = torch.device(device)
     data = make_dataset(cfg, train, test, device)
     temps_host = ladder.build_temperatures(cfg)
     temps = torch.as_tensor(temps_host, dtype=torch.float32, device=device)
-    spec = model_api.fnn_spec(cfg.topology, cfg.drift_mode)
     return _PerStep(cfg, device, data, temps_host,
-                    kernel.make_step_fn(cfg, data, temps, spec))
+                    kernel.make_step_fn(cfg, data, temps, model_spec))
 
 
 def sample_per_step(
@@ -282,11 +286,12 @@ def sample_per_step(
     device: Any = "cuda",
     init_state: Optional[ChainState] = None,
     noise_fn: Optional[NoiseFn] = None,
+    model_spec: Optional[model_api.ModelSpec] = None,
 ) -> SampleResult:
     """The per-step sampler; the traces and counters of ptnn's."""
-    eng = _per_step(cfg, train, test, device)
+    eng = _per_step(cfg, train, test, device, model_spec)
     state = (init_state if init_state is not None
-             else init_chains(cfg, eng.data, seed))
+             else init_chains(cfg, eng.data, seed, eng.step_fn.spec))
     if noise_fn is None:
         noise_fn = step_noise(seed, eng.device, kernel.step_noise_names(cfg))
     chunks: List[Dict[str, np.ndarray]] = []
@@ -299,15 +304,16 @@ def sample_per_step(
     return make_result(cfg, traces, state, eng.temps_host, elapsed)
 
 
-def throughput_build_per_step(cfg: PTConfig, train, test, seed: int = 0,
-                              device: Any = "cuda",
-                              noise_fn: Optional[NoiseFn] = None):
+def throughput_build_per_step(
+        cfg: PTConfig, train, test, seed: int = 0, device: Any = "cuda",
+        noise_fn: Optional[NoiseFn] = None,
+        model_spec: Optional[model_api.ModelSpec] = None):
     """Benchmark protocol of the per-step sampler: ``record_w`` off, traces
     reduced to their sums on the device, every rep from the same initial
     state (and, with the default noise, the same noise)."""
     cfg2 = dataclasses.replace(cfg, record_w=False).validate()
-    eng = _per_step(cfg2, train, test, device)
-    state0 = init_chains(cfg2, eng.data, seed)
+    eng = _per_step(cfg2, train, test, device, model_spec)
+    state0 = init_chains(cfg2, eng.data, seed, eng.step_fn.spec)
     if noise_fn is None:
         noise_fn = step_noise(seed, eng.device,
                               kernel.step_noise_names(cfg2))
@@ -319,7 +325,7 @@ def throughput_build_per_step(cfg: PTConfig, train, test, seed: int = 0,
     return throughput_rep(cfg2, run, eng.device)
 
 
-def _fused_or_warn(cfg: PTConfig, train, test) -> bool:
+def _fused_or_warn(cfg: PTConfig, train, test, model_spec=None) -> bool:
     """Whether ``cfg`` takes the fused path; a fused config the fused path
     cannot run falls back to the per-step sampler with a warning."""
     if not cfg.fused_step:
@@ -327,6 +333,8 @@ def _fused_or_warn(cfg: PTConfig, train, test) -> bool:
     from ptnn_torch import fused
 
     reason = fused.runtime_reason(cfg, train.shape[0], test.shape[0])
+    if model_spec is not None and model_spec.fnn_topology is None:
+        reason = "fused_step supports the reference FNN spec"
     if reason is None:
         return True
     warnings.warn(f"fused_step: falling back to the per-step sampler "
@@ -342,17 +350,19 @@ def sample(
     device: Any = "cuda",
     init_state: Optional[ChainState] = None,
     noise_fn=None,
+    model_spec: Optional[model_api.ModelSpec] = None,
 ) -> SampleResult:
     """Run the PT sampler and return its traces and counters. ``noise_fn``
     follows the contract of the path that runs (``fused`` or per-step)."""
     cfg.validate()
-    if _fused_or_warn(cfg, train, test):
+    if _fused_or_warn(cfg, train, test, model_spec):
         from ptnn_torch import fused
 
         return fused.sample_fused(cfg, train, test, seed=seed, device=device,
                                   init_state=init_state, noise_fn=noise_fn)
     return sample_per_step(cfg, train, test, seed=seed, device=device,
-                           init_state=init_state, noise_fn=noise_fn)
+                           init_state=init_state, noise_fn=noise_fn,
+                           model_spec=model_spec)
 
 
 def throughput_runner(
@@ -361,14 +371,15 @@ def throughput_runner(
     test: np.ndarray,
     seed: int = 0,
     device: Any = "cuda",
+    model_spec: Optional[model_api.ModelSpec] = None,
 ):
     """Build a benchmark run, run it once as warm-up, and return a zero-arg
     callable that executes one timed rep."""
     cfg = cfg.validate()
-    if _fused_or_warn(cfg, train, test):
+    if _fused_or_warn(cfg, train, test, model_spec):
         from ptnn_torch import fused
 
         return fused.throughput_build_fused(cfg, train, test, seed=seed,
                                             device=device)
     return throughput_build_per_step(cfg, train, test, seed=seed,
-                                     device=device)
+                                     device=device, model_spec=model_spec)

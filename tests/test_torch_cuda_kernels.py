@@ -27,7 +27,9 @@ import ptnn_torch
 import ptnn_torch.data
 from ptnn_torch import fused, kernel
 from ptnn_torch.models import fnn
-from ptnn_torch.ops import block_step, likelihood, precond_cls_step, precond_step
+from ptnn_torch.models import cnn
+from ptnn_torch.ops import (block_step, conv_stage, likelihood,
+                            precond_cls_step, precond_step)
 from ptnn_torch.sampler import make_dataset
 
 torch.set_num_threads(1)
@@ -479,3 +481,60 @@ def test_per_step_kernels_reject_what_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="shape"):
         eval_ops.fnn_eval(w, x, t, torch.ones(3, device=cuda), (4, 10, 1),
                           "regression")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n,hw,in_ch,out_ch", [
+    (3, 19, 8, 1, 8), (130, 8, 8, 1, 8), (4, 6, 8, 3, 8), (5, 7, 8, 2, 6),
+    (9, 5, 28, 1, 8), (256, 77, 8, 1, 4)])
+def test_conv_kernel_matches_plain_version(cuda, c, n, hw, in_ch, out_ch):
+    """csrc/conv1_relu_pool.cu against F.conv2d + relu + avg_pool2d (TF32
+    off): ragged chain groups and image tiles, several input channels, an
+    output width that is no multiple of 4 (the scalar stores), the MNIST
+    side. atol 1e-5: the kernel's multiply-adds contract into FMAs."""
+    rng = np.random.default_rng(c + n)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+    w1 = f(rng.normal(size=(c, 3, 3, in_ch, out_ch)) * 0.3)
+    b1 = f(rng.normal(size=(c, out_ch)) * 0.1)
+    x = f(rng.uniform(size=(n, hw * hw * in_ch)))
+    before = conv_stage.launches
+    got = conv_stage.conv1_relu_pool(x, w1, b1, hw, in_ch, out_ch)
+    torch.cuda.synchronize()
+    assert conv_stage.launches == before + 1
+    want = conv_stage.conv1_relu_pool_reference(x, w1, b1, hw, in_ch, out_ch)
+    assert got.shape == (c, n, hw // 2, hw // 2, out_ch)
+    torch.testing.assert_close(got, want, rtol=0.0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fused_cnn_forward_matches_plain_forward(cuda):
+    cfg = cnn.CnnConfig(image_hw=8, n_classes=10)
+    rng = np.random.default_rng(5)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+    ws = f(rng.normal(size=(37, cnn.w_size(cfg))) * 0.2)
+    x = f(rng.uniform(size=(23, 64)))
+    before = conv_stage.launches
+    got = cnn.batched_forward_fused(ws, x, cfg)
+    assert conv_stage.launches == before + 1
+    torch.testing.assert_close(got, cnn.forward(ws, x, cfg), rtol=0.0,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_conv_kernel_rejects_what_it_cannot_take(cuda):
+    f = lambda *s: torch.zeros(s, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="3x3 kernels only"):
+        conv_stage.conv1_relu_pool(f(2, 64), f(3, 5, 5, 1, 8), f(3, 8), 8)
+    with pytest.raises(ValueError, match="even image side"):
+        conv_stage.conv1_relu_pool(f(2, 49), f(3, 3, 3, 1, 8), f(3, 8), 7)
+    with pytest.raises(ValueError, match="x has shape"):
+        conv_stage.conv1_relu_pool(f(2, 60), f(3, 3, 3, 1, 8), f(3, 8), 8)
+    with pytest.raises(ValueError, match="one device type"):
+        conv_stage.conv1_relu_pool(f(2, 64).cpu(), f(3, 3, 3, 1, 8), f(3, 8),
+                                   8)
+    with pytest.raises(ValueError, match="no backward"):
+        conv_stage.conv1_relu_pool(f(2, 64), f(3, 3, 3, 1, 8).requires_grad_(),
+                                   f(3, 8), 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        conv_stage.conv1_relu_pool(f(1, 400 * 400), f(3, 3, 3, 1, 8), f(3, 8),
+                                   400)

@@ -22,6 +22,12 @@ MODULES = (
     "ptnn_torch.sampler",
     "ptnn_torch.models.api",
     "ptnn_torch.models.fnn",
+    "ptnn_torch.models.mlp",
+    "ptnn_torch.models.cnn",
+    "ptnn_torch.results",
+    "ptnn_torch.experiments.cnn_digits",
+    "ptnn_torch.ops.conv_stage",
+    "ptnn_torch.ops.precision",
     "ptnn_torch.ops",
     "ptnn_torch.ops._build",
     "ptnn_torch.ops.block_step",
@@ -61,6 +67,17 @@ def test_port_imports_without_jax():
         "s = data.load_regression('Sunspot')\n"
         "r = ptnn_torch.sample(lg, s.train, s.test, device='cpu')\n"
         "assert r.traces['ll'].shape == (6, 4)\n"
+        "d = data.load('digits')\n"
+        "assert d.train.shape == (1257, 65) and d.test.shape == (540, 65)\n"
+        "from ptnn_torch.models import cnn\n"
+        "zoo = ptnn_torch.classification_preset((64, 16, 10),\n"
+        "    num_samples=4 * 4, num_chains=4, use_langevin_gradients=True)\n"
+        "r = ptnn_torch.sample(zoo, d.train[:16], d.test[:8], device='cpu',\n"
+        "    model_spec=cnn.digits_spec(channels=(4,), hidden=8,\n"
+        "                               fused_eval=True))\n"
+        "assert r.traces['acc_test'].shape == (4, 4)\n"
+        "assert not any(k.split('.')[0] in ('sklearn', 'matplotlib')\n"
+        "               for k in sys.modules)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'ptnn.'))\n"
         "               for k in sys.modules if sys.modules[k] is not None)\n"
         "assert not any(k.startswith('_ptnn_shared_') for k in sys.modules)\n"
