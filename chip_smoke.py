@@ -5,13 +5,21 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+Two other modes print measurements and run no smoke: ``--walls [DIR]`` (the
+kernel times and walls of the checkout at DIR, to compare two checkouts on
+one card: ``walls``), and ``--precond-seeds SEED ...`` (the ChEES kernel
+comparisons on other inputs: ``precond_seeds``).
+
 Phases, one line each or more (a failing phase raises and the exit code is
 not 0):
   1. device: needs torch.cuda; prints nvidia-smi's "name, power.limit" line
      and the toolchain's versions;
   2. build: compiles the nine ptnn_torch/csrc/*.cu (six *_block.cu,
      drift_epoch.cu, fnn_eval.cu, conv1_relu_pool.cu) with nvcc into build/,
-     one nvcc per source, all at once, with ptxas' register report;
+     one nvcc per source, all at once, with ptxas' register report; every
+     drift_epoch instantiation and the three HMC variants must spill
+     nothing; the HMC exchange route (cluster or cooperative grid) the
+     card's occupancy gives the ChEES layouts at 1024, 256 and 52 chains;
   3. kernel: each CUDA block kernel against its plain PyTorch version on the
      same CUDA tensors at the main paths' widths. Sunspot: RW at 1000 chains
      x 100 steps, adapt off and on; MALA at 1024 chains x 10 steps across
@@ -20,10 +28,14 @@ not 0):
      ChEES at leapfrog 8; and the swap sweep against the CPU's. Iris: the
      RW classification branch at 1000 x 100, adapt off and on; MALA at 1024
      x 10 across the phases; HMC with ChEES at 64 chains (one panel) and
-     256 (two), leapfrog 16; HMC without ChEES at leapfrog 8. The per-step
-     sampler's kernels: the drift epoch at Sunspot (4, 10, 1) 64 chains
-     (depth 1 and 2), Ionosphere (34, 50, 2) 10 chains on 245 rows and
-     PenDigit (16, 30, 10) 10 chains on all 7494 train rows; the FNN eval
+     256 (two), leapfrog 16; HMC without ChEES at leapfrog 8. (Sunspot HMC
+     with ChEES also at 256 chains, two panels, and 52, a half-empty last
+     block.) The per-step sampler's kernels: the drift epoch at Sunspot
+     (4, 10, 1) 64 chains (depth 1 and 2), Ionosphere (34, 50, 2) 10 chains
+     on 245 rows and PenDigit (16, 30, 10) 10 chains on all 7494 train
+     rows, then every distinct bundled topology and one the generic kernel
+     runs, 10 chains on 64 random rows, each checking which kernel ran; the
+     FNN eval
      at Sunspot 64 chains and Ionosphere 10, train and test rows. The
      CNN's fused stage 1, conv1_relu_pool, at the digits widths (256 chains
      x 1257 and 540 images), ragged shapes, three input channels and the
@@ -109,6 +121,17 @@ RTOL, ATOL = 1e-4, 1e-5
 # the kernel's g_like is held to the gradient at the kernel's own w.
 P_RTOL, P_ATOL = 1e-3, 1e-4
 P_MARGIN = 1e-5  # |u - a| of the w and eta blocks
+# The float64 witness of the MALA and HMC comparisons. The leapfrog steps
+# amplify float32 rounding and, under ChEES, so do the rung sums (each
+# chain's dsq is a difference of two sums of squares), so in a chaotic
+# chain the plain float32 version itself sits several tolerances from the
+# exact result, and the kernel, summing in another order, elsewhere. The
+# plain version runs again in float64 on the same inputs; in every chain
+# that took the same decisions in both runs (under ChEES, every replica of
+# its rung), the kernel may differ from the plain float32 version by the
+# tolerance plus WITNESS_R times the plain version's largest distance from
+# float64 in that chain and quantity.
+WITNESS_R = 4.0
 TRAJ_MARGIN = 1e-5  # distance of tau_traj / eps to a leapfrog-count boundary
 KERNELS = ("rw_block", "mala_block", "hmc_block", "rw_cls_block",
            "mala_cls_block", "hmc_cls_block", "drift_epoch", "fnn_eval",
@@ -204,7 +227,11 @@ def phase_device():
 
 
 def phase_build():
-    from ptnn_torch.ops import _build
+    """Every source, one nvcc each, all at once; ptxas' report; and for the
+    redesigned kernels (every drift_epoch instantiation, the three HMC
+    variants) the registers and spill bytes, which must be 0, and the HMC
+    exchange route the card gives the ChEES layouts."""
+    from ptnn_torch.ops import _build, precond_step
 
     t0 = time.perf_counter()
     built = _build.build_all(list(KERNELS))
@@ -216,6 +243,35 @@ def phase_build():
                  if "registers" in ln or "spill" in ln or "Compiling" in ln]
         print(f"[2/6] build: {name}.cu -> {b.path.relative_to(ROOT)} (nvcc "
               f"{b.seconds:.2f} s); ptxas: {' | '.join(ptxas)}")
+    for name in ("drift_epoch", "hmc_block"):
+        entries = _build.ptxas_report(built[name].log)
+        check(entries, f"{name}: no ptxas report")
+        for e in entries:
+            print(f"[2/6] build: {name} {demangle(e.kernel)}: {e.registers} "
+                  f"registers, {e.spill_stores} / {e.spill_loads} bytes of "
+                  f"spill stores / loads")
+            check(e.spill_stores == 0 and e.spill_loads == 0,
+                  f"{name} {e.kernel} spills")
+    for c in (1024, 256, 52):
+        panel = min(c, precond_step.PANEL)
+        blocks, cluster = precond_step.hmc_layout(c, panel)
+        smem = precond_step.smem_bytes(496, 4, True, hmc=True)
+        route, why = precond_step.hmc_route(DEVICE, smem, cluster, blocks)
+        print(f"[2/6] build: hmc_block ChEES at {c} chains: {blocks} blocks, "
+              f"panels of {cluster} blocks; route {route} ({why})")
+
+
+def demangle(name):
+    """``drift_reg_kernel<4, 10, 1, 4>`` from its mangled entry name."""
+    import re
+
+    m = re.match(r"_Z(\d+)", name)
+    if not m:
+        return name
+    ident = name[m.end():m.end() + int(m.group(1))]
+    rest = name[m.end() + int(m.group(1)):]
+    args = re.findall(r"Li(\d+)E", rest) if rest.startswith("I") else []
+    return f"{ident}<{', '.join(args)}>" if args else ident
 
 
 def sunspot():
@@ -487,20 +543,43 @@ def precond_inputs(cfg, k, start, phases, seed=7):
     return state, noise, kdata, at, scal
 
 
-def compare_precond(cfg, k, start, phases):
+def upcast(tree):
+    """``tree`` (a dict of tensors and numbers) with every floating tensor
+    in float64: the same inputs, for the float64 witness."""
+    import torch
+
+    return {n: v.double() if torch.is_tensor(v) and v.is_floating_point()
+            else v for n, v in tree.items()}
+
+
+def chain_max(x, axis):
+    """The largest entry of ``x`` in each chain: (C,) over every axis but
+    the chain ``axis``."""
+    x = x.movedim(axis, 0)
+    return x.reshape(x.shape[0], -1).amax(dim=1)
+
+
+def compare_precond(cfg, k, start, phases, seed=7):
     """One block of the MALA or HMC kernel against its plain version on the
-    same CUDA tensors. A chain whose decision (|u - a|) or leapfrog count
+    same CUDA tensors, with the plain version run again in float64 as the
+    witness (WITNESS_R). A chain whose decision (|u - a|) or leapfrog count
     (tau_traj / eps at an integer) fell within the margin may differ; under
     ChEES it feeds its rung's sums, so every replica of its (panel, rung)
-    is left out. Returns (excluded chains, excluded groups, accepts,
-    max |diff| of the floats)."""
+    is left out, and at most 1 % of the chains or one such group may be.
+    Returns (excluded chains, excluded groups, accepts, max |diff| of the
+    floats, witness), ``witness`` a dict of what_past (quantity -> entries
+    past the float32 tolerance that the witness allows), r_needed (the
+    largest multiple of the plain version's distance from float64 those
+    entries needed) and worst (quantity, |kernel - float64|, |plain -
+    float64|) at the entry that needed it."""
     import torch
 
     from ptnn_torch.models import fnn
     from ptnn_torch.ops import precond_step
 
     hmc = cfg.proposal == "hmc"
-    state, noise, kdata, at, scal = precond_inputs(cfg, k, start, phases)
+    state, noise, kdata, at, scal = precond_inputs(cfg, k, start, phases,
+                                                   seed)
     args = (state, noise, start, k, kdata, at, cfg.topology, scal)
     kern = precond_step.fused_hmc_block if hmc else precond_step.fused_mala_block
     plain = (precond_step.hmc_block_reference if hmc
@@ -510,12 +589,20 @@ def compare_precond(cfg, k, start, phases):
     new_k, tr_k = kern(*args, record_w=True)
     check(precond_step.launches[name] == before + 1, f"{name} did not launch")
     new_r, tr_r = plain(*args, record_w=True, diagnostics=True)
+    new_d, tr_d = plain(upcast(state), upcast(noise), start, k, upcast(kdata),
+                        at.double(), cfg.topology, scal, record_w=True)
     torch.cuda.synchronize()
     c = cfg.num_chains
     close = (tr_r["margin"] <= P_MARGIN) | (tr_r["traj_margin"] <= TRAJ_MARGIN)
-    n_groups = 0
+    # the chains whose float64 run took the float32 run's decisions
+    same = new_d["n_accept"] == new_r["n_accept"]
+    for n in ("accept_count", "traj_len"):
+        if n in tr_r:
+            same &= (tr_d[n] == tr_r[n]).all(dim=0)
+    n_groups, group_size = 0, 1
     if hmc and scal["chees"]:
         panel = scal["rungs"] * scal["n_ladders"]
+        group_size = scal["n_ladders"]
         idx = torch.arange(c, device=DEVICE)
         group = (idx // panel) * scal["rungs"] + idx % scal["rungs"]
         tainted = torch.zeros(int(group.max()) + 1, dtype=torch.bool,
@@ -523,10 +610,14 @@ def compare_precond(cfg, k, start, phases):
         tainted[group[close]] = True
         n_groups = int(tainted.sum())
         close = tainted[group]
+        apart = torch.zeros_like(tainted)
+        apart[group[~same]] = True
+        same = ~apart[group]
     ok = ~close
     n_close = int(close.sum())
-    check(n_close <= 0.01 * c, f"{name}: {n_close} of {c} chains within the "
-          f"decision margins ({n_groups} ChEES groups)")
+    check(n_close <= max(0.01 * c, group_size),
+          f"{name}: {n_close} of {c} chains within the decision margins "
+          f"({n_groups} ChEES groups)")
     na = new_r["n_accept"]
     check(0 < int(na.sum()) < k * c, f"{name}: block accepted all or nothing")
     exact = [(new_k["n_accept"][ok], na[ok], "n_accept")]
@@ -540,35 +631,65 @@ def compare_precond(cfg, k, start, phases):
         check(float(tl.min()) >= 1.0 and float(tl.max()) <= scal["leapfrog"],
               f"{name}: traj_len outside [1, {scal['leapfrog']}]")
     vec_scale = lambda v: v.abs().amax(dim=-1, keepdim=True).expand_as(v)
+    # (kernel, plain, float64 witness or None, scale, chain axis, what)
     pairs = []
     for n, v in new_r.items():
         if n in ("n_accept", "ll"):
             continue
-        scale = vec_scale(v[ok]) if v.dim() == 2 else v[ok]
+        scale, wit = (vec_scale(v) if v.dim() == 2 else v), new_d[n]
         if n == "chees_m1":
-            scale = v[ok].abs() + new_r["chees_v2"][ok].abs().sqrt()
-        if n == "g_like":
+            scale = v.abs() + new_r["chees_v2"].abs().sqrt()
+        if n == "g_like":  # a function of the kernel's own w: no witness
             v = fnn.neg_half_sse_grad(new_k["w"], kdata["x_tr"], kdata["y_tr"],
                                       cfg.topology)[1]
-            scale = vec_scale(v[ok])
-        pairs.append((new_k[n][ok], v[ok], scale, n))
-    pairs += [(tr_k[n][:, ok], tr_r[n][:, ok], tr_r[n][:, ok], "trace " + n)
+            scale, wit = vec_scale(v), None
+        pairs.append((new_k[n], v, wit, scale, 0, n))
+    pairs += [(tr_k[n], tr_r[n], tr_d[n], tr_r[n], 1, "trace " + n)
               for n in ("rmse_train", "rmse_test")]
-    pairs.append((tr_k["w"][:, ok], tr_r["w"][:, ok],
-                  vec_scale(tr_r["w"][:, ok]), "trace w"))
-    pairs += [(new_k["ll"][ok], new_r["ll"][ok], tr_r["ll_scale_final"][ok],
-               "ll"),
-              (tr_k["ll"][:, ok], tr_r["ll"][:, ok], tr_r["ll_scale"][:, ok],
+    pairs.append((tr_k["w"], tr_r["w"], tr_d["w"], vec_scale(tr_r["w"]), 1,
+                  "trace w"))
+    pairs += [(new_k["ll"], new_r["ll"], new_d["ll"], tr_r["ll_scale_final"],
+               0, "ll"),
+              (tr_k["ll"], tr_r["ll"], tr_d["ll"], tr_r["ll_scale"], 1,
                "trace ll")]
-    err = 0.0
-    for a, b, scale, what in pairs:
+    err, past, r_needed, worst = 0.0, {}, 0.0, None
+    for a, b, wit, scale, axis, what in pairs:
         check(bool(torch.isfinite(a).all()), f"{name}: {what} not finite")
+        shape = [1] * a.dim()
+        shape[axis] = c
+        keep = ok.reshape(shape).expand_as(a)
         diff = (a - b).abs()
-        bad = int((diff > P_ATOL + P_RTOL * scale.abs()).sum())
+        tol = P_ATOL + P_RTOL * scale.abs()
+        d = torch.zeros_like(diff)
+        if wit is not None:
+            d = (chain_max((b - wit).abs(), axis) * same).reshape(
+                shape).expand_as(a).to(diff.dtype)
+        bad = int(((diff > tol + WITNESS_R * d) & keep).sum())
         check(bad == 0, f"{name}: {what}: {bad} entries off, max |diff| "
-              f"{float(diff.max()):.3g}")
-        err = max(err, float(diff.max()))
-    return n_close, n_groups, int(na.sum()), err
+              f"{float(diff[keep].max()):.3g}")
+        over = (diff > tol) & keep
+        if bool(over.any()):
+            past[what] = int(over.sum())
+            need = torch.where(over, (diff - tol) / d, torch.zeros_like(d))
+            at_max = int(need.argmax())
+            if float(need.flatten()[at_max]) > r_needed:
+                r_needed = float(need.flatten()[at_max])
+                worst = (what,
+                         float((a - wit).abs().flatten()[at_max]),
+                         float((b - wit).abs().flatten()[at_max]))
+        err = max(err, float(diff[keep].max()))
+    return n_close, n_groups, int(na.sum()), err, dict(
+        past=past, r_needed=r_needed, worst=worst)
+
+
+def witness_text(wit):
+    if not wit["past"]:
+        return "no entry past the float32 tolerance"
+    what, k64, p64 = wit["worst"]
+    return (f"entries past the float32 tolerance {wit['past']}, within it "
+            f"plus {wit['r_needed']:.3g}x (<= {WITNESS_R}) the plain "
+            f"version's distance from float64; at the worst, {what}: kernel "
+            f"{k64:.3g} and plain {p64:.3g} from float64")
 
 
 def phase_precond_kernels():
@@ -583,20 +704,32 @@ def phase_precond_kernels():
         ("hmc_block", precond_cfg(1024, 100, "hmc", hmc_leapfrog=8,
                                   hmc_adapt_traj=False), 10, 0,
          dict(warm_end=2, pc_start=4, burn_end=8)),
+        # ChEES on two panels, and on one panel whose last block is half
+        # empty (52 chains: 7 blocks of 8)
+        ("hmc_block", precond_cfg(256, 100, "hmc"), 10, 0,
+         dict(warm_end=2, pc_start=4, burn_end=8)),
+        ("hmc_block", precond_cfg(52, 100, "hmc"), 10, 0,
+         dict(warm_end=2, pc_start=4, burn_end=8)),
     )
+    from ptnn_torch.ops import precond_step
+
     for name, cfg, k, start, phases in cases:
-        n_close, n_groups, n_acc, err = compare_precond(cfg, k, start, phases)
+        routes = dict(precond_step.hmc_routes)
+        n_close, n_groups, n_acc, err, wit = compare_precond(cfg, k, start,
+                                                             phases)
+        route = [r for r in routes if precond_step.hmc_routes[r] > routes[r]]
         out[name] = max(out.get(name, 0.0), err)
         what = ("ChEES, " if cfg.hmc_adapt_traj and name == "hmc_block"
-                else "") + (f"leapfrog {cfg.hmc_leapfrog}, "
+                else "") + (f"leapfrog {cfg.hmc_leapfrog}, route "
+                            f"{'/'.join(route)}, "
                             if name == "hmc_block" else "")
-        print(f"[3/6] kernel: {name} {what}C={cfg.num_chains} K={k} steps "
-              f"{start}-{start + k - 1} across {phases}: {n_acc} accepts, "
-              f"counters{' and traj_len' if name == 'hmc_block' else ''} "
-              f"exact; {n_close} chains ({n_groups} ChEES groups) excluded "
+        print(f"[3/6] kernel: {name} {what}C={cfg.num_chains} K={k} "
+              f"steps {start}-{start + k - 1} across {phases}: {n_acc} "
+              f"accepts, counters{' and traj_len' if name == 'hmc_block' else ''}"
+              f" exact; {n_close} chains ({n_groups} ChEES groups) excluded "
               f"under the {P_MARGIN} / {TRAJ_MARGIN} margins; floats within "
               f"rtol {P_RTOL} atol {P_ATOL}, ll's rtol on its terms (max "
-              f"|diff| {err:.3g})")
+              f"|diff| {err:.3g}); {witness_text(wit)}")
     return out
 
 
@@ -638,9 +771,12 @@ def phase_flagship():
     """chees16_fused_256x4 as bench.py samples it for its quality gate."""
     import numpy as np
 
+    from ptnn_torch.ops import precond_step
+
     cfg = precond_cfg(1024, 8000, "hmc", record_w=True, record_w_chains=256,
                       track_replicas=True)
     res, launches, n_blocks = run_counted("hmc_block", cfg)
+    routes = {r: n for r, n in precond_step.hmc_routes.items() if n}
     tr = res.traces
     s, c = cfg.samples_per_chain, cfg.num_chains
     for name in ("ll", "rmse_train", "rmse_test", "accept_count", "replica",
@@ -661,7 +797,8 @@ def phase_flagship():
           f"{res.swap_percent:.2f}%, round trips {trips:.2f} per ladder per "
           f"1k steps; traj_len {tl.min():.0f}-{tl.max():.0f} (mean "
           f"{tl.mean():.2f}); log_traj {lt.min():.3f}..{lt.max():.3f} from "
-          f"{lt0:.3f}; kernel launches {launches} for {n_blocks} planned blocks")
+          f"{lt0:.3f}; kernel launches {launches} for {n_blocks} planned "
+          f"blocks, by route {routes}")
     for what, v, (lo, hi) in (("cold test RMSE", rmse, FLAGSHIP_RMSE),
                               ("mean accept %", acc, FLAGSHIP_ACCEPT),
                               ("swap %", res.swap_percent, FLAGSHIP_SWAP),
@@ -726,6 +863,11 @@ def phase_precond_throughput():
         rate = statistics.median(r["chain_steps_per_sec"] for r in reps)
         t = out[name] = time_precond_block(cfg, adapting)
         tag = "chees16_fused_256x4" if name == "hmc_block" else "mala_fused_16x4"
+        if name == "hmc_block":
+            from ptnn_torch.ops import precond_step
+
+            tag += " (route " + "/".join(
+                r for r, n in precond_step.hmc_routes.items() if n) + ")"
         print(f"[5/6] throughput: {tag} {cfg.num_chains} chains x 2000 "
               f"samples: median {rate:.0f} chain-steps/s over 3 reps (accept "
               f"{reps[0]['accept_pct']:.1f}%, swap {reps[0]['swap_pct']:.1f}%);"
@@ -1056,7 +1198,8 @@ def reset_launch_counts():
     block_step.cls_launches = 0
     drift.launches = 0
     fnn_eval.launches = 0
-    for counts in (precond_step.launches, precond_cls_step.launches):
+    for counts in (precond_step.launches, precond_cls_step.launches,
+                   precond_step.hmc_routes, drift.variant_launches):
         for key in counts:
             counts[key] = 0
 
@@ -1297,14 +1440,21 @@ def iono_cfg():
 
 
 def drift_cases():
-    """(label, topology, task, chains, x, t, depth) at the main path's widths:
-    Sunspot 64 chains on its train rows (depth 1 and 2), Ionosphere 10 on
-    its 245, PenDigit 10 on all 7494 train rows."""
+    """(label, topology, task, chains, x, t, depth, main) of the drift
+    kernel's comparisons. At the main path's widths (``main``): Sunspot 64
+    chains on its train rows (depth 1 and 2), Ionosphere 10 on its 245,
+    PenDigit 10 on all 7494 train rows. Then every distinct topology of the
+    bundled datasets (data.py), each at 10 chains on 64 random rows, and one
+    topology outside the register kernel's table, which the generic kernel
+    runs."""
+    import numpy as np
     import torch
 
     from ptnn_torch import data
     from ptnn_torch.ops import drift
 
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                  device=DEVICE).contiguous()
     out = []
     for label, prob, c, depth in (
             ("Sunspot", sunspot(), 64, 1), ("Sunspot", sunspot(), 64, 2),
@@ -1312,10 +1462,20 @@ def drift_cases():
             ("PenDigit", data.load_classification("PenDigit"), 10, 1)):
         topo = prob.topology if prob.task == "classification" else (4, 10, 1)
         i = topo[0]
-        f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
-        x, y = f(prob.train[:, :i]).contiguous(), f(prob.train[:, i])
+        x, y = f(prob.train[:, :i]), f(prob.train[:, i])
         t = drift.make_targets(y, topo[2], prob.task).contiguous()
-        out.append((label, topo, prob.task, c, x, t, depth))
+        out.append((label, topo, prob.task, c, x, t, depth, True))
+    rng = np.random.default_rng(41)
+    topos = sorted(set(data.CLASSIFICATION_TOPOLOGIES.values())
+                   | {data.REGRESSION_TOPOLOGY}) + [(5, 20, 3)]
+    for topo in topos:
+        task = "regression" if topo[2] == 1 else "classification"
+        x = f(rng.normal(size=(64, topo[0])))
+        y = (f(rng.uniform(size=64)) if task == "regression"
+             else f(rng.integers(0, topo[2], size=64)))
+        t = drift.make_targets(y, topo[2], task).contiguous()
+        out.append((f"random {drift.variant(topo)[0]}", topo, task, 10, x, t,
+                    1, False))
     return out
 
 
@@ -1340,12 +1500,18 @@ def phase_drift_kernel():
 
     rng = np.random.default_rng(23)
     err, rows = 0.0, {}
-    for label, topo, _task, c, x, t, depth in drift_cases():
-        w = torch.as_tensor(rng.normal(size=(c, fnn.w_size(topo))),
+    for label, topo, _task, c, x, t, depth, main in drift_cases():
+        # on random rows, weights of half the scale keep the sigmoids of the
+        # wider nets out of saturation, so the epoch moves w
+        w = torch.as_tensor(rng.normal(size=(c, fnn.w_size(topo)))
+                            * (1.0 if main else 0.5),
                             dtype=torch.float32, device=DEVICE)
-        before = drift.launches
+        kind, group = drift.variant(topo)
+        before = drift.launches, dict(drift.variant_launches)
         got = drift.sgd_epoch(w, x, t, topo, 0.01, mode="pallas", depth=depth)
-        check(drift.launches == before + 1, "drift_epoch did not launch")
+        check(drift.launches == before[0] + 1
+              and drift.variant_launches[kind] == before[1][kind] + 1,
+              f"drift_epoch {topo}: the {kind} kernel did not launch")
         want = drift.sgd_epoch_sequential(w, x, t, topo, 0.01, depth)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"drift {label}: not finite")
@@ -1353,17 +1519,18 @@ def phase_drift_kernel():
         diff = (got - want).abs()
         bad = int((diff > D_ATOL + D_RTOL * scale).sum())
         rel = float((diff / scale).max())
-        check(bad == 0, f"drift {label} depth {depth}: {bad} entries off, max "
-              f"|diff| {float(diff.max()):.3g}")
+        check(bad == 0, f"drift {label} {topo} depth {depth}: {bad} entries "
+              f"off, max |diff| {float(diff.max()):.3g}")
         moved = float((want - w).abs().max())
         check(moved > 1e-3, f"drift {label}: the epoch did not move w")
         err = max(err, float(diff.max()))
         rows[(label, depth)] = (float(diff.max()), rel)
-        print(f"[3/6] kernel: drift_epoch {label} {topo} C={c} N={x.shape[0]} "
-              f"depth {depth}: w within rtol {D_RTOL} of each chain's scale, "
-              f"atol {D_ATOL} (max |diff| {float(diff.max()):.3g}, "
-              f"{rel:.3g} of the chain's scale; the epoch moved w by up to "
-              f"{moved:.3g})")
+        how = f"register kernel, G={group}" if kind == "register" else kind
+        print(f"[3/6] kernel: drift_epoch {label} {topo} ({how}) C={c} "
+              f"N={x.shape[0]} depth {depth}: w within rtol {D_RTOL} of each "
+              f"chain's scale, atol {D_ATOL} (max |diff| "
+              f"{float(diff.max()):.3g}, {rel:.3g} of the chain's scale; the "
+              f"epoch moved w by up to {moved:.3g})")
     return err, rows
 
 
@@ -1459,6 +1626,12 @@ def run_per_step_counted(cfg, prob, seed=0):
     want = {name: 0 for name in KERNELS}
     want.update(drift_epoch=plan_drift, fnn_eval=plan_eval)
     check(got == want, f"per-step launches {got}, planned {want}")
+    from ptnn_torch.ops import drift
+
+    kind = drift.variant(cfg.topology)[0] if plan_drift else None
+    check(not plan_drift or drift.variant_launches[kind] == plan_drift,
+          f"drift launches by kernel {drift.variant_launches}, planned "
+          f"{plan_drift} of the {kind} kernel")
     return res, got
 
 
@@ -1504,8 +1677,8 @@ def phase_per_step_end_to_end():
               f"fetch); cold test RMSE {st['cold_rmse']:.5f}, cold accept "
               f"{st['cold_accept']:.2f}%, mean accept {st['mean_accept']:.2f}%,"
               f" swap {st['swap']:.2f}%, Langevin {st['langevin']:.2f}%; "
-              f"launches drift_epoch {got['drift_epoch']}, fnn_eval "
-              f"{got['fnn_eval']} (as planned)")
+              f"launches drift_epoch {got['drift_epoch']} (register kernel), "
+              f"fnn_eval {got['fnn_eval']} (as planned)")
         for what, (lo, hi) in bands:
             check(lo <= st[what] <= hi, f"{tag} {what} {st[what]:.4f} outside "
                   f"[{lo}, {hi}]")
@@ -1528,8 +1701,8 @@ def phase_per_step_end_to_end():
           f"test-accuracy mean {st['test_mean']:.2f}% (ptnn 92.64 +- 0.92), "
           f"mean accept {st['mean_accept']:.2f}% (95.6), swap "
           f"{st['swap']:.2f}% (55.6), Langevin {st['langevin']:.2f}%; "
-          f"launches drift_epoch {got['drift_epoch']}, fnn_eval "
-          f"{got['fnn_eval']} (as planned)")
+          f"launches drift_epoch {got['drift_epoch']} (register kernel), "
+          f"fnn_eval {got['fnn_eval']} (as planned)")
     for what, (lo, hi) in (("test_mean", IONO_TEST_MEAN),
                            ("mean_accept", IONO_ACCEPT), ("swap", IONO_SWAP),
                            ("langevin", LANGEVIN)):
@@ -1561,7 +1734,9 @@ def phase_per_step_throughput():
           f"Langevin {reps[0]['langevin_pct']:.1f}%)")
     rng = np.random.default_rng(31)
     out = {}
-    for label, topo, _task, c, x, t, depth in drift_cases():
+    for label, topo, _task, c, x, t, depth, main in drift_cases():
+        if not main:
+            continue
         w = torch.as_tensor(rng.normal(size=(c, fnn.w_size(topo))),
                             dtype=torch.float32, device=DEVICE)
         kern = lambda: drift.sgd_epoch(w, x, t, topo, 0.01, depth=depth)
@@ -1572,10 +1747,10 @@ def phase_per_step_throughput():
         n = x.shape[0]
         b_ms, b_by = bound(drift_ops(topo, c, n, depth),
                            4 * (2 * w.numel() + x.numel() + t.numel()))
-        print(f"[5/6] throughput: drift_epoch {label} {topo} C={c} N={n} "
-              f"depth {depth}: kernel {k_ms:.4f} ms ({1e3 * k_ms / (n * depth):.3f}"
-              f" us a row), plain version {p_ms:.3f} ms, bound {b_ms:.6f} ms "
-              f"({b_by})")
+        print(f"[5/6] throughput: drift_epoch {label} {topo} (G="
+              f"{drift.variant(topo)[1]}) C={c} N={n} depth {depth}: kernel "
+              f"{k_ms:.4f} ms ({1e3 * k_ms / (n * depth):.3f} us a row), "
+              f"plain version {p_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})")
         if label == "Sunspot" and depth == 1:
             out["drift_epoch"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                       bound_by=b_by)
@@ -2055,8 +2230,138 @@ def main() -> int:
     return 0
 
 
+def precond_seeds(seeds):
+    """The ChEES comparisons of phase 3 off their default inputs: 256 chains
+    (two panels), 100 and 52 (one panel, the last block half empty), each
+    on the inputs of every seed in ``seeds``; one line each with the
+    verdict, the excluded chains and the float64 witness's readings.
+    Returns 1 if any failed."""
+    from ptnn_torch.ops import _build
+
+    phase_device()
+    _build.build_all(["hmc_block"])
+    failed = 0
+    for c in (256, 100, 52):
+        for seed in seeds:
+            head = f"[seeds] hmc_block ChEES C={c} inputs of seed {seed}:"
+            try:
+                n_close, n_groups, n_acc, err, wit = compare_precond(
+                    precond_cfg(c, 100, "hmc"), 10, 0,
+                    dict(warm_end=2, pc_start=4, burn_end=8), seed)
+            except SmokeError as e:
+                failed += 1
+                print(f"{head} FAIL: {e}")
+                continue
+            print(f"{head} ok; {n_acc} accepts, {n_close} chains ({n_groups} "
+                  f"ChEES groups) excluded, max |diff| {err:.3g}; "
+                  f"{witness_text(wit)}")
+    return int(failed > 0)
+
+
+def walls(root):
+    """Times for the checkout at ``root``, as one JSON line, so that two
+    checkouts can be compared on one card by running this mode on each in
+    turns (A, B, B, A, ...): the drift epoch at the per-step paths' widths
+    (Sunspot (4, 10, 1) 64 chains x 298 rows, Ionosphere (34, 50, 2) 10 x
+    245, PenDigit (16, 30, 10) 10 x 7494) and one adapting 10-step ChEES-HMC
+    block at 1024 chains (CUDA events); the default per-step noise of the
+    64 x 5000 runs, drawn chunk by chunk and sliced a step at a time as the
+    sampler does (host clock around a synchronised loop); and the walls of
+    ptnn_torch.sample for lg_pallas 64 x 5000, rw per-step 64 x 5000,
+    Ionosphere legacy LG 10 x 5000 and chees16_fused_256x4 1024 x 8000
+    (host clock around a synchronised run, trace fetch included), each run
+    twice. Uses only what ``root``'s ptnn_torch has had since its per-step
+    sampler was ported."""
+    import numpy as np
+    import torch
+
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    sys.path.insert(0, str(root))
+    import ptnn_torch
+    from ptnn_torch import data, kernel, sampler
+    from ptnn_torch.models import fnn
+    from ptnn_torch.ops import _build, drift
+
+    check(Path(ptnn_torch.__file__).resolve().is_relative_to(root),
+          f"ptnn_torch imported from {ptnn_torch.__file__}, not {root}")
+    _build.build_all(list(KERNELS))
+    rng = np.random.default_rng(31)
+    out = {"root": str(root), "device": torch.cuda.get_device_name(0),
+           "drift_ms": {}, "noise_ms": {}, "walls_s": {}}
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                  device=DEVICE).contiguous()
+    for label, prob, c in (
+            ("Sunspot", data.load_regression("Sunspot"), 64),
+            ("Ionosphere", data.load_classification("Ionosphere"), 10),
+            ("PenDigit", data.load_classification("PenDigit"), 10)):
+        topo = prob.topology
+        i = topo[0]
+        x, y = f(prob.train[:, :i]), f(prob.train[:, i])
+        t = drift.make_targets(y, topo[2], prob.task).contiguous()
+        w = f(rng.normal(size=(c, fnn.w_size(topo))))
+        reps = 3 if x.shape[0] > 1000 else 20
+        out["drift_ms"][label] = min(
+            time_ms(lambda: drift.sgd_epoch(w, x, t, topo, 0.01), reps)
+            for _ in range(2))
+    out["hmc_ms"] = time_precond_block(
+        precond_cfg(1024, 2000, "hmc"),
+        dict(warm_end=0, pc_start=0, burn_end=1000))["ms"]
+    lg = lg_cfg(64, 5000)
+    rw = rw_fused_cfg(64, 5000, fused_step=False)
+    for tag, cfg in (("lg_pallas", lg), ("rw per-step", rw)):
+        n, switch = cfg.n_steps, cfg.temper_switch_step
+        segments = [(0, switch), (switch, n)] if 0 < switch < n else [(0, n)]
+        target = max(1, min(cfg.chunk_steps, n))
+        c, w_size = cfg.num_chains, fnn.w_size(cfg.topology)
+        runs = []
+        for _ in range(2):
+            noise_fn = sampler.step_noise(0, torch.device(DEVICE),
+                                          kernel.step_noise_names(cfg))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for a, b in segments:
+                chunk = sampler._pick_chunk(b - a, target)
+                for done in range(a, b, chunk):
+                    length = min(chunk, b - done)
+                    noise = noise_fn(done, length, c, w_size)
+                    for k in range(length):
+                        {m: v[k] for m, v in noise.items()}
+            torch.cuda.synchronize()
+            runs.append(1e3 * (time.perf_counter() - t0))
+        out["noise_ms"][tag] = runs
+    sunspot_prob = data.load_regression("Sunspot")
+    iono = data.load_classification("Ionosphere")
+    for tag, cfg, prob in (
+            ("lg_pallas", lg, sunspot_prob),
+            ("rw per-step", rw, sunspot_prob),
+            ("ionosphere_lg", iono_cfg(), iono),
+            ("chees16_fused_256x4", precond_cfg(
+                1024, 8000, "hmc", record_w=True, record_w_chains=256,
+                track_replicas=True), sunspot_prob)):
+        out["walls_s"][tag] = [
+            ptnn_torch.sample(cfg, prob.train, prob.test, seed=0,
+                              device=DEVICE).elapsed_s for _ in range(2)]
+    print(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--walls", nargs="?", const=str(ROOT), metavar="DIR",
+                      help="print the kernel times and walls of the checkout "
+                           "at DIR (default: this one) as JSON, no smoke")
+    mode.add_argument("--precond-seeds", nargs="+", type=int, metavar="SEED",
+                      help="run the ChEES kernel comparisons on the inputs "
+                           "of each SEED, no smoke")
+    opts = ap.parse_args()
     try:
+        if opts.walls is not None:
+            sys.exit(walls(Path(opts.walls).resolve()))
+        if opts.precond_seeds:
+            sys.exit(precond_seeds(opts.precond_seeds))
         sys.exit(main())
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

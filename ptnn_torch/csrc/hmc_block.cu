@@ -10,35 +10,49 @@
 // What bounds it. A chain-step runs up to `leapfrog` (16 in the flagship)
 // gradient evaluations, each a forward and backward pass of the (4, 10, 1)
 // FNN over the 298 train rows, one after the other: a block costs K times
-// the latency of one trajectory, and the trajectory is the serial chain of
-// per-row arithmetic and warp reductions on one warp. Device memory sees
-// only the noise and the trace rows.
+// one trajectory. A trajectory is per-row arithmetic (about 400 instructions
+// a row, ten rows a lane) and a 62-shuffle reduce-scatter, so with a warp
+// per chain the SM's instruction issue, not memory, sets the pace. Device
+// memory sees only the noise and the trace rows.
 //
-// Design. The MALA kernel's layout (precond_common.cuh): one warp per
-// chain, 16 chains per 512-thread block, rows in shared memory, the chain's
-// vectors in its warp's slots in the lane layout. Each warp runs its own
+// Design. The precond layout of precond_common.cuh (one warp per chain,
+// rows in shared memory, the chain's vectors in its warp's slots, lane l
+// owning entries 2l and 2l+1), with HMC_WARPS = 8 chains per 256-thread
+// block: the flagship's 1024 chains are 128 blocks on 128 of the 132 SMs,
+// two warps per scheduler, and one block an SM leaves a thread up to 255
+// registers. Each gradient evaluation publishes its weights to the warp's
+// broadcast slot once and loads all 61 into registers (16 float4 loads), so
+// the row loop reads no weight from shared memory. Each warp runs its own
 // chain's leapfrog count and skips the trajectory on warm-start and dead
 // steps; ptnn masks lanes past their count inside the block's longest
-// trajectory, which is the same arithmetic. The proposal's SSE and
-// gradient are the last leapfrog step's; only a live warm-start step
-// evaluates its proposal afresh.
+// trajectory, which is the same arithmetic. The proposal's SSE and gradient
+// are the last leapfrog step's; only a live warm-start step evaluates its
+// proposal afresh.
 //
 // ChEES couples the chains of a panel at every adapting step: after the
 // decision, each chain needs the means over its rung's replicas in the
 // panel (128 chains, or all C <= 128) of w' and of the pre-decision w, and
 // then the rung sums of the acceptance a and of the estimator. So all
-// chains of a panel must run at the same time, in lockstep at those points:
-// a panel is one thread-block CLUSTER (8 blocks for 128 chains, launched
-// with cudaLaunchKernelEx and a cluster dimension), whose blocks are
-// co-scheduled by the hardware. Each warp publishes (w', w_old, a) to its
-// shared-memory exchange slot, the cluster synchronises, each warp sums its
-// rung's replicas by reading the other blocks' slots through distributed
-// shared memory (in replica order, so every replica of a rung gets the same
-// bits), publishes its estimator, the cluster synchronises again and each
-// warp sums the estimators. The slots alternate between two parities, so
-// the next exchange need not wait for the last reads. Blocks hold their
-// shared memory until a last cluster barrier. Without ChEES the kernel
-// runs no cluster and no barrier after the rows are loaded.
+// chains of a panel run at the same time, in lockstep at those points. Each
+// warp publishes (w', w_old, a) to its exchange slot, all synchronise, each
+// warp sums its rung's replicas (in replica order, so every replica of a
+// rung gets the same bits), publishes its estimator, all synchronise again
+// and each warp sums the estimators. The slots alternate between two
+// parities, so the next exchange need not wait for the last reads. Two
+// routes, picked by the wrapper from the card's occupancy
+// (ops/precond_step.py `hmc_route`):
+//   * cluster: a panel is one thread-block cluster of up to 16 blocks (16 is
+//     a non-portable size), launched with cudaLaunchKernelEx; the slots sit
+//     in shared memory and are read through distributed shared memory; the
+//     barrier is the cluster's. Blocks hold their shared memory until a last
+//     cluster barrier. Taken when every panel's cluster fits on the card at
+//     once.
+//   * grid: a cooperative launch (every block resident, one an SM); the
+//     slots sit in device memory (PrecondParams::exch, read past L1 with
+//     __ldcg) and the barrier is a grid barrier. Taken when the clusters do
+//     not all fit at once but the whole grid does.
+// Without ChEES the kernel runs no exchange and no barrier after the rows
+// are loaded.
 
 #include <cooperative_groups.h>
 
@@ -46,22 +60,138 @@
 
 namespace cg = cooperative_groups;
 
+#define HMC_WARPS 8  // chains per thread block
+#define HMC_THREADS (HMC_WARPS * 32)
+#define HMC_MAX_CLUSTER 16  // blocks of a panel's cluster (non-portable)
 #define EX_FLOATS (2 * VEC + 4)  // one parity of a chain's exchange slot
+#define ROUTE_PLAIN 0  // no ChEES: no exchange
+#define ROUTE_CLUSTER 1
+#define ROUTE_GRID 2
 
-template <int NI, int NH, bool CHEES>
-__global__ void __launch_bounds__(THREADS, 1) hmc_block_kernel(const PrecondParams p) {
+// The chain's 61 weights (and 3 pad entries) from its broadcast slot into
+// registers: 16 float4 loads.
+__device__ __forceinline__ void load_weights(const float* wb, float (&wr)[VEC]) {
+  const float4* q = reinterpret_cast<const float4*>(wb);
+#pragma unroll
+  for (int e = 0; e < VEC / 4; ++e) {
+    const float4 v = q[e];
+    wr[4 * e] = v.x;
+    wr[4 * e + 1] = v.y;
+    wr[4 * e + 2] = v.z;
+    wr[4 * e + 3] = v.w;
+  }
+}
+
+// fwd_grad of precond_common.cuh with the weights in registers.
+template <int NI, int NH>
+__device__ __forceinline__ float2 fwd_grad_reg(const float* __restrict__ rows, int n_tr,
+                                               const float (&wr)[VEC], int lane,
+                                               float& sse_out) {
+  using N = Net<NI, NH>;
+  float acc[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+  float sse = 0.f;
+  for (int r = lane; r < n_tr; r += 32) {
+    const float* xr = rows + r * (NI + 1);
+    float x[NI];
+#pragma unroll
+    for (int i = 0; i < NI; ++i) x[i] = xr[i];
+    const float y = xr[NI];
+    float s[NH];
+    float out = 0.f;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      float z = -wr[N::S2 + h];
+#pragma unroll
+      for (int i = 0; i < NI; ++i) z += x[i] * wr[i * NH + h];
+      s[h] = sigmoid_f(z);
+      out += s[h] * wr[N::S1 + h];
+    }
+    const float fx = sigmoid_f(out - wr[N::B2]);
+    const float resid = y - fx;
+    sse += resid * resid;
+    const float delta = resid * fx * (1.f - fx);
+    acc[N::B2] -= delta;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      acc[N::S1 + h] += delta * s[h];
+      const float dh = delta * wr[N::S1 + h] * s[h] * (1.f - s[h]);
+      acc[N::S2 + h] -= dh;
+#pragma unroll
+      for (int i = 0; i < NI; ++i) acc[i * NH + h] += dh * x[i];
+    }
+  }
+  acc[N::W] = sse;
+  reduce_scatter64(acc, lane);
+  sse_out = __shfl_sync(FULL_MASK, acc[N::W & 1], N::W >> 1);
+  float2 g = f2(acc[0], acc[1]);
+  if (2 * lane == N::W) g.x = 0.f;  // the slot that carried the SSE
+  if (2 * lane + 1 == N::W) g.y = 0.f;
+  return g;
+}
+
+// fwd_sse of precond_common.cuh with the weights in registers.
+template <int NI, int NH>
+__device__ __forceinline__ float fwd_sse_reg(const float* __restrict__ rows, int n,
+                                             const float (&wr)[VEC], int lane) {
+  using N = Net<NI, NH>;
+  float sse = 0.f;
+  for (int r = lane; r < n; r += 32) {
+    const float* xr = rows + r * (NI + 1);
+    float out = 0.f;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      float z = -wr[N::S2 + h];
+#pragma unroll
+      for (int i = 0; i < NI; ++i) z += xr[i] * wr[i * NH + h];
+      out += sigmoid_f(z) * wr[N::S1 + h];
+    }
+    const float resid = xr[NI] - sigmoid_f(out - wr[N::B2]);
+    sse += resid * resid;
+  }
+  return warp_sum(sse);
+}
+
+// Reads of an exchange slot: distributed shared memory, or device memory
+// past the SM's L1 (another SM wrote it since this one last read it).
+template <int ROUTE>
+__device__ __forceinline__ float2 ex_ld2(const float* q, int lane) {
+  if constexpr (ROUTE == ROUTE_GRID) return __ldcg(reinterpret_cast<const float2*>(q) + lane);
+  return reinterpret_cast<const float2*>(q)[lane];
+}
+
+template <int ROUTE>
+__device__ __forceinline__ float ex_ld(const float* q) {
+  if constexpr (ROUTE == ROUTE_GRID) return __ldcg(q);
+  return *q;
+}
+
+template <int ROUTE>
+__device__ __forceinline__ void ex_sync() {
+  if constexpr (ROUTE == ROUTE_CLUSTER) {
+    cg::this_cluster().sync();
+  } else {
+    __threadfence();
+    cg::this_grid().sync();
+  }
+}
+
+template <int NI, int NH, int ROUTE>
+__global__ void __launch_bounds__(HMC_THREADS, 1) hmc_block_kernel(const PrecondParams p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   using N = Net<NI, NH>;
   constexpr int W = N::W;
+  constexpr bool CHEES = ROUTE != ROUTE_PLAIN;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c = blockIdx.x * WARPS + warp;
+  const int c = blockIdx.x * HMC_WARPS + warp;
   const bool active = c < p.chains;
   const int n_rows = p.n_tr + p.n_te;
   float* s_rows = smem;
   const int row_floats = rows_floats(n_rows, NI);
   const ChainSlots s = chain_slots(smem, row_floats, warp);
-  float* ex_base = smem + row_floats + WARPS * 6 * VEC;  // ChEES exchange
+  float* ex_base = smem + row_floats + HMC_WARPS * 6 * VEC;  // cluster route
   load_rows(p, s_rows, NI);
   __syncthreads();
   if (!CHEES && !active) return;  // without ChEES no barrier follows
@@ -85,6 +215,7 @@ __global__ void __launch_bounds__(THREADS, 1) hmc_block_kernel(const PrecondPara
   const int rung0 = pbase + (c - pbase) % max(p.rungs, 1);
   const int n_lad = p.panel / max(p.rungs, 1);
   int parity = 0;
+  float wr[VEC];  // the weights of the last evaluation
 
   for (int k = 0; k < p.k_max; ++k) {
     const int i = p.start + k;
@@ -134,8 +265,9 @@ __global__ void __launch_bounds__(THREADS, 1) hmc_block_kernel(const PrecondPara
         const float2 p_half = f2(p_c.x + 0.5f * eps * g_c.x, p_c.y + 0.5f * eps * g_c.y);
         const float2 w_n = f2(w_c.x + eps * m.x * p_half.x, w_c.y + eps * m.y * p_half.y);
         publish(s.wb, lane, w_n);
+        load_weights(s.wb, wr);
         float sse_n;
-        const float2 gl_n = fwd_grad<NI, NH>(s_rows, p.n_tr, s.wb, lane, sse_n);
+        const float2 gl_n = fwd_grad_reg<NI, NH>(s_rows, p.n_tr, wr, lane, sse_n);
         const float2 g_n = f2(gl_n.x / tat - w_n.x / sq, gl_n.y / tat - w_n.y / sq);
         p_c = f2(p_half.x + 0.5f * eps * g_n.x, p_half.y + 0.5f * eps * g_n.y);
         w_c = w_n;
@@ -154,10 +286,11 @@ __global__ void __launch_bounds__(THREADS, 1) hmc_block_kernel(const PrecondPara
         const float d = fmaxf(g_rms, 1e-12f);
         w_prop = f2(w.x + p.warmstart_step * g_cur.x / d, w.y + p.warmstart_step * g_cur.y / d);
         publish(s.wb, lane, w_prop);
-        g_rows = fwd_grad<NI, NH>(s_rows, p.n_tr, s.wb, lane, sse_tr);
+        load_weights(s.wb, wr);
+        g_rows = fwd_grad_reg<NI, NH>(s_rows, p.n_tr, wr, lane, sse_tr);
       }
-      // s.wb holds w_prop: the last leapfrog step or the warm start wrote it
-      const float sse_te = fwd_sse<NI, NH>(te_rows, p.n_te, s.wb, lane);
+      // wr holds w_prop: the last leapfrog step or the warm start loaded it
+      const float sse_te = fwd_sse_reg<NI, NH>(te_rows, p.n_te, wr, lane);
       const float ssq = dot2(w_prop, w_prop);
       const float pr_p =
           p.prior_const - ssq / (2.f * sq) - p.one_plus_nu1 * r.eta - p.nu2 / tau;
@@ -185,29 +318,35 @@ __global__ void __launch_bounds__(THREADS, 1) hmc_block_kernel(const PrecondPara
     // --- ChEES: Adam on log_traj from the panel's rung means ----------------
     if constexpr (CHEES) {
       if (adapting) {  // uniform over the grid
-        cg::cluster_group cluster = cg::this_cluster();
-        const int cbase = (int)(blockIdx.x - cluster.block_rank());
-        auto slot = [&](int chain) {  // chain's exchange slot in its block
-          float* local = ex_base + (chain % WARPS) * 2 * EX_FLOATS + parity * EX_FLOATS;
-          return cluster.map_shared_rank(local, (unsigned)(chain / WARPS - cbase));
+        auto slot = [&](int chain) -> float* {
+          if constexpr (ROUTE == ROUTE_CLUSTER) {
+            cg::cluster_group cluster = cg::this_cluster();
+            const int cbase = (int)(blockIdx.x - cluster.block_rank());
+            float* local = ex_base + (chain % HMC_WARPS) * 2 * EX_FLOATS + parity * EX_FLOATS;
+            return cluster.map_shared_rank(local, (unsigned)(chain / HMC_WARPS - cbase));
+          } else {
+            return p.exch + ((size_t)chain * 2 + parity) * EX_FLOATS;
+          }
         };
-        float* mine = ex_base + warp * 2 * EX_FLOATS + parity * EX_FLOATS;
+        float* mine = ROUTE == ROUTE_CLUSTER
+                          ? ex_base + warp * 2 * EX_FLOATS + parity * EX_FLOATS
+                          : p.exch + ((size_t)c * 2 + parity) * EX_FLOATS;
         if (active) {
           reinterpret_cast<float2*>(mine)[lane] = w_prop;
           reinterpret_cast<float2*>(mine + VEC)[lane] = w_old;
           if (lane == 0) mine[2 * VEC] = a;
         }
-        cluster.sync();
+        ex_sync<ROUTE>();
         float2 sp = f2(0.f, 0.f), so = f2(0.f, 0.f);
         float sa = 0.f, g_ch = 0.f;
         if (active) {
           for (int t = 0; t < n_lad; ++t) {
             const float* x = slot(rung0 + t * p.rungs);
-            const float2 xp = reinterpret_cast<const float2*>(x)[lane];
-            const float2 xo = reinterpret_cast<const float2*>(x + VEC)[lane];
+            const float2 xp = ex_ld2<ROUTE>(x, lane);
+            const float2 xo = ex_ld2<ROUTE>(x + VEC, lane);
             sp = f2(sp.x + xp.x, sp.y + xp.y);
             so = f2(so.x + xo.x, so.y + xo.y);
-            sa += x[2 * VEC];
+            sa += ex_ld<ROUTE>(x + 2 * VEC);
           }
           const float2 dxp = f2(w_prop.x - sp.x / p.n_ladders_f, w_prop.y - sp.y / p.n_ladders_f);
           const float2 dx = f2(w_old.x - so.x / p.n_ladders_f, w_old.y - so.y / p.n_ladders_f);
@@ -217,10 +356,10 @@ __global__ void __launch_bounds__(THREADS, 1) hmc_block_kernel(const PrecondPara
           g_ch = a * dsq * inner * u_t;
           if (lane == 0) mine[2 * VEC + 1] = g_ch;
         }
-        cluster.sync();
+        ex_sync<ROUTE>();
         if (active) {
           float sg = 0.f;
-          for (int t = 0; t < n_lad; ++t) sg += slot(rung0 + t * p.rungs)[2 * VEC + 1];
+          for (int t = 0; t < n_lad; ++t) sg += ex_ld<ROUTE>(slot(rung0 + t * p.rungs) + 2 * VEC + 1);
           const float wsum = fmaxf(sa, 1e-6f);
           const float g_log = sg / wsum * tau_traj;
           const float t_ad = fmaxf((float)(min(i, p.burn_end) - p.warm_end) + 1.f, 1.f);
@@ -258,44 +397,106 @@ __global__ void __launch_bounds__(THREADS, 1) hmc_block_kernel(const PrecondPara
       }
     }
   }
-  if constexpr (CHEES) cg::this_cluster().sync();  // keep the slots alive
+  if constexpr (ROUTE == ROUTE_CLUSTER) cg::this_cluster().sync();  // keep the slots alive
 }
 
-extern "C" {
-
-// Launches ceil(C / WARPS) blocks on `stream`, under ChEES in clusters of
-// `cluster` blocks (one per panel); returns the cudaError_t of the
-// attribute call or of the launch (0 = success). Does not synchronise.
-int ptnn_hmc_block(const PrecondParams* p, int smem_bytes, int cluster, void* stream) {
-  const int grid = (p->chains + WARPS - 1) / WARPS;
-  if (!p->chees) {
-    auto kern = hmc_block_kernel<4, 10, false>;
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-    kern<<<grid, THREADS, smem_bytes, (cudaStream_t)stream>>>(*p);
-    return (int)cudaGetLastError();
-  }
-  auto kern = hmc_block_kernel<4, 10, true>;
+// The attributes every launch of `kern` needs: its dynamic shared memory
+// and, for a cluster kernel, clusters above the portable 8 blocks.
+template <typename K>
+static cudaError_t set_attributes(K kern, int smem_bytes, bool cluster) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem_bytes);
-  if (e != cudaSuccess) return (int)e;
-  if (cluster < 1 || grid % cluster != 0) return (int)cudaErrorInvalidValue;
+  if (e == cudaSuccess && cluster)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+static cudaLaunchConfig_t cluster_config(int grid, int smem_bytes, int cluster,
+                                         cudaStream_t stream, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid, 1, 1);
-  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.blockDim = dim3(HMC_THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem_bytes;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
+  cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, *p);
+  return cfg;
+}
+
+extern "C" {
+
+int ptnn_hmc_warps() { return HMC_WARPS; }
+
+int ptnn_hmc_max_cluster() { return HMC_MAX_CLUSTER; }
+
+// How many clusters of `cluster` blocks of the cluster-route kernel the card
+// holds at once, into *out; returns the cudaError_t (0 = success).
+int ptnn_hmc_max_active_clusters(int smem_bytes, int cluster, int* out) {
+  auto kern = hmc_block_kernel<4, 10, ROUTE_CLUSTER>;
+  cudaError_t e = set_attributes(kern, smem_bytes, true);
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(cluster, smem_bytes, cluster, 0, attr);
+  return (int)cudaOccupancyMaxActiveClusters(out, kern, &cfg);
+}
+
+// How many blocks of the grid-route kernel the card holds at once (blocks
+// an SM times SMs), into *out; returns the cudaError_t (0 = success).
+int ptnn_hmc_coop_blocks(int smem_bytes, int* out) {
+  auto kern = hmc_block_kernel<4, 10, ROUTE_GRID>;
+  cudaError_t e = set_attributes(kern, smem_bytes, false);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0, dev = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, HMC_THREADS, smem_bytes);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *out = per_sm * sms;
+  return (int)e;
+}
+
+// Launches ceil(C / HMC_WARPS) blocks on `stream` by `route`: ROUTE_PLAIN
+// (no ChEES), ROUTE_CLUSTER (clusters of `cluster` blocks, one a panel) or
+// ROUTE_GRID (cooperative; p->exch holds the slots). Returns the
+// cudaError_t of the attribute call or of the launch (0 = success). Does
+// not synchronise.
+int ptnn_hmc_block(const PrecondParams* p, int smem_bytes, int cluster, int route,
+                   void* stream) {
+  const int grid = (p->chains + HMC_WARPS - 1) / HMC_WARPS;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (route == ROUTE_PLAIN && !p->chees) {
+    auto kern = hmc_block_kernel<4, 10, ROUTE_PLAIN>;
+    cudaError_t e = set_attributes(kern, smem_bytes, false);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, HMC_THREADS, smem_bytes, st>>>(*p);
+    return (int)cudaGetLastError();
+  }
+  if (route == ROUTE_CLUSTER && p->chees) {
+    if (cluster < 1 || cluster > HMC_MAX_CLUSTER || grid % cluster != 0)
+      return (int)cudaErrorInvalidValue;
+    auto kern = hmc_block_kernel<4, 10, ROUTE_CLUSTER>;
+    cudaError_t e = set_attributes(kern, smem_bytes, true);
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = cluster_config(grid, smem_bytes, cluster, st, attr);
+    e = cudaLaunchKernelEx(&cfg, kern, *p);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
+  if (route == ROUTE_GRID && p->chees && p->exch != nullptr) {
+    auto kern = hmc_block_kernel<4, 10, ROUTE_GRID>;
+    cudaError_t e = set_attributes(kern, smem_bytes, false);
+    if (e != cudaSuccess) return (int)e;
+    void* args[] = {(void*)p};
+    e = cudaLaunchCooperativeKernel((const void*)kern, dim3(grid), dim3(HMC_THREADS), args,
+                                    (size_t)smem_bytes, st);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // Device code shared by the preconditioned MALA and HMC block kernels
 // (mala_block.cu, hmc_block.cu), regression task, for Hopper (sm_90a).
 //
-// Layout: one warp per chain, WARPS chains per thread block. A chain's
+// Layout: one warp per chain, WARPS chains per thread block (the MALA
+// kernel; hmc_block.cu sets its own HMC_WARPS). A chain's
 // vectors of w_size <= 63 entries sit in 64-float slots; lane l owns
 // entries 2l and 2l+1 (a float2), so elementwise work on w, momenta and
 // gradients is lane-local and a dot product is one warp reduction. The
@@ -23,7 +24,7 @@
 
 #include <cuda_runtime.h>
 
-#define WARPS 16  // chains per thread block
+#define WARPS 16  // chains per thread block of the MALA kernel
 #define THREADS (WARPS * 32)
 #define VEC 64  // floats per chain vector slot
 #define FULL_MASK 0xffffffffu
@@ -79,6 +80,9 @@ struct PrecondParams {
   int* t_accept;
   float* t_traj_len;
   float* t_w;
+  // HMC under ChEES on the cooperative route: the exchange slots in device
+  // memory, (C, 2, 2 * VEC + 4) floats; null otherwise
+  float* exch;
   int n_tr, n_te, chains, k_max, start, length, pc_start, warm_end, burn_end,
       leapfrog, chees, rungs, panel;
   float sigma_sq, one_plus_nu1, nu2, adapt_rate, target, eta_target,
@@ -359,7 +363,7 @@ __device__ __forceinline__ void write_trace(const PrecondParams& p, const ChainS
 
 __device__ __forceinline__ void load_rows(const PrecondParams& p, float* s_rows, int ni) {
   const int n = (p.n_tr + p.n_te) * (ni + 1);
-  for (int t = threadIdx.x; t < n; t += THREADS) s_rows[t] = p.rows[t];
+  for (int t = threadIdx.x; t < n; t += blockDim.x) s_rows[t] = p.rows[t];
 }
 
 // The host-side queries each kernel's library exports; the loader checks

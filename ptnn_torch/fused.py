@@ -25,8 +25,9 @@ through ``noise_fn``.
 
 Scope (``fused_reason``): the reference random-walk, preconditioned-MALA
 and HMC/ChEES proposals, regression and classification, float32, every
-trace row kept, one device; and (``working_set_reason``) a network and
-dataset whose block fits the kernel's shared memory.
+trace row kept, one device; (``topology_reason``) a network the CUDA block
+kernels are built for; and (``working_set_reason``) a network and dataset
+whose block fits the kernel's shared memory.
 """
 
 from __future__ import annotations
@@ -78,6 +79,26 @@ def fused_reason(cfg: PTConfig) -> Optional[str]:
     return None
 
 
+def topology_reason(cfg: PTConfig) -> Optional[str]:
+    """Why the CUDA block kernel of ``cfg``'s proposal is not built for its
+    FNN topology (None: it is), on every device, so that a configuration
+    runs or falls back alike on the CPU and on the card. The regression
+    random walk takes any (I, H, 1); the other kernels are instantiated for
+    the topologies their modules list."""
+    topo = tuple(cfg.topology)
+    if cfg.task == "classification":
+        built = (block_step.CLS_TOPOLOGIES if cfg.proposal == "reference"
+                 else precond_cls_step.TOPOLOGIES)
+    elif cfg.proposal == "reference":
+        return None
+    else:
+        built = precond_step.TOPOLOGIES
+    if topo in built:
+        return None
+    return (f"the CUDA {cfg.task} {cfg.proposal} block kernel is built for "
+            f"topologies {built}, not {topo}")
+
+
 def working_set_reason(cfg: PTConfig, n_tr: int, n_te: int) -> Optional[str]:
     """Why a block of ``cfg`` on ``n_tr`` + ``n_te`` rows does not fit the
     CUDA kernel's shared memory (None: it does), on every device, so that a
@@ -94,7 +115,8 @@ def working_set_reason(cfg: PTConfig, n_tr: int, n_te: int) -> Optional[str]:
     elif cfg.proposal == "reference":
         need = block_step.smem_bytes(rows, n_in, w)
     else:
-        need = precond_step.smem_bytes(rows, n_in, chees)
+        need = precond_step.smem_bytes(rows, n_in, chees,
+                                       hmc=cfg.proposal == "hmc")
     if need > precond_step._SMEM_LIMIT:
         return (f"the block working set (w_size {w}, {n_tr}+{n_te} rows) "
                 f"needs {need} bytes of shared memory; a Hopper block has "
@@ -331,14 +353,16 @@ def runtime_reason(cfg: PTConfig, n_tr: int, n_te: int) -> Optional[str]:
     """Why the fused sampler cannot run ``cfg`` on ``n_tr`` + ``n_te`` rows
     (None: it can); ``sampler.sample`` then falls back to the per-step
     sampler."""
-    return fused_reason(cfg) or working_set_reason(cfg, n_tr, n_te)
+    return (fused_reason(cfg) or working_set_reason(cfg, n_tr, n_te)
+            or topology_reason(cfg))
 
 
 def _engine(cfg: PTConfig, train, test, device, record_w: bool) -> _Engine:
     reason = fused_reason(cfg)
     if reason is not None:
         raise ValueError(f"ptnn_torch's fused sampler runs {reason}")
-    reason = working_set_reason(cfg, train.shape[0], test.shape[0])
+    reason = (working_set_reason(cfg, train.shape[0], test.shape[0])
+              or topology_reason(cfg))
     if reason is not None:
         raise ValueError(f"ptnn_torch's fused sampler cannot run this: "
                          f"{reason}")

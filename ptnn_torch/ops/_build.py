@@ -12,6 +12,7 @@ at import time; ``build_all`` compiles several sources in parallel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -20,7 +21,7 @@ import subprocess
 import time
 from pathlib import Path
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Tuple
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ptnn_torch"
@@ -40,6 +41,58 @@ class Built(NamedTuple):
 
 _loaded: Dict[str, Built] = {}
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+@functools.lru_cache(maxsize=None)
+def cu_define(source: str, name: str) -> int:
+    """The integer of ``#define name <int>`` in ``csrc/<source>``."""
+    text = (_CSRC / source).read_text()
+    m = re.search(rf"^\s*#\s*define\s+{name}\s+(\d+)\b", text, re.M)
+    if m is None:
+        raise RuntimeError(f"no '#define {name} <int>' in csrc/{source}")
+    return int(m.group(1))
+
+
+@functools.lru_cache(maxsize=None)
+def cu_rows(source: str, macro: str) -> Tuple[Tuple[int, ...], ...]:
+    """The ``X(a, b, ...)`` rows of the table macro ``macro`` in
+    ``csrc/<source>`` (a ``#define macro(X)`` continued with backslashes),
+    as tuples of ints, in order."""
+    text = (_CSRC / source).read_text()
+    m = re.search(rf"^\s*#\s*define\s+{macro}\(X\)((?:.*\\\n)*.*)$", text,
+                  re.M)
+    if m is None:
+        raise RuntimeError(f"no table macro {macro}(X) in csrc/{source}")
+    return tuple(tuple(int(v) for v in row.split(","))
+                 for row in re.findall(r"X\(([\d,\s]+)\)", m.group(1)))
+
+
+class PtxasEntry(NamedTuple):
+    kernel: str  # the mangled entry name
+    registers: int
+    spill_stores: int  # bytes
+    spill_loads: int  # bytes
+
+
+def ptxas_report(log: str) -> List[PtxasEntry]:
+    """Registers and spill bytes of each kernel entry in nvcc's ``-Xptxas
+    -v`` output."""
+    out, entry, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out.append(PtxasEntry(entry, int(m.group(1)), *spills))
+            entry, spills = None, (0, 0)
+    return out
 
 
 def nvcc() -> str:
@@ -126,29 +179,43 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     lib.ptnn_cuda_error_string.argtypes = [ctypes.c_int]
     lib.ptnn_cuda_error_string.restype = ctypes.c_char_p
     if name in ("mala_block", "hmc_block"):
-        from ptnn_torch.ops.precond_step import PrecondParams, _WARPS
+        from ptnn_torch.ops import precond_step as ps
 
+        hmc = name == "hmc_block"
         launch = getattr(lib, f"ptnn_{name}")
-        launch.argtypes = [ctypes.POINTER(PrecondParams), ctypes.c_int] + (
-            [ctypes.c_int] if name == "hmc_block" else []) + [ctypes.c_void_p]
+        launch.argtypes = [ctypes.POINTER(ps.PrecondParams), ctypes.c_int] + (
+            [ctypes.c_int, ctypes.c_int] if hmc else []) + [ctypes.c_void_p]
         launch.restype = ctypes.c_int
         _check_query(lib, name, "ptnn_precond_params_size",
-                     ctypes.sizeof(PrecondParams), "PrecondParams size")
-        _check_query(lib, name, "ptnn_precond_warps", _WARPS, "WARPS")
+                     ctypes.sizeof(ps.PrecondParams), "PrecondParams size")
+        _check_query(lib, name, "ptnn_precond_warps", ps._common("WARPS"),
+                     "WARPS")
         _check_query(lib, name, "ptnn_precond_w_size", 61,
                      "the (4, 10, 1) w_size")
+        if hmc:
+            _check_query(lib, name, "ptnn_hmc_warps", ps._hmc("HMC_WARPS"),
+                         "HMC_WARPS")
+            _check_query(lib, name, "ptnn_hmc_max_cluster",
+                         ps._hmc("HMC_MAX_CLUSTER"), "HMC_MAX_CLUSTER")
+            lib.ptnn_hmc_max_active_clusters.argtypes = [
+                ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            lib.ptnn_hmc_max_active_clusters.restype = ctypes.c_int
+            lib.ptnn_hmc_coop_blocks.argtypes = [
+                ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            lib.ptnn_hmc_coop_blocks.restype = ctypes.c_int
     if name in ("mala_cls_block", "hmc_cls_block"):
-        from ptnn_torch.ops.precond_cls_step import ClsPrecondParams
-        from ptnn_torch.ops.precond_step import _WARPS
+        from ptnn_torch.ops import precond_cls_step as pcs
 
         launch = getattr(lib, f"ptnn_{name}")
-        launch.argtypes = [ctypes.POINTER(ClsPrecondParams), ctypes.c_int] + (
+        launch.argtypes = [ctypes.POINTER(pcs.ClsPrecondParams),
+                           ctypes.c_int] + (
             [ctypes.c_int] if name == "hmc_cls_block" else []) + [
             ctypes.c_void_p]
         launch.restype = ctypes.c_int
         _check_query(lib, name, "ptnn_cls_params_size",
-                     ctypes.sizeof(ClsPrecondParams), "ClsPrecondParams size")
-        _check_query(lib, name, "ptnn_cls_warps", _WARPS, "CLS_WARPS")
+                     ctypes.sizeof(pcs.ClsPrecondParams),
+                     "ClsPrecondParams size")
+        _check_query(lib, name, "ptnn_cls_warps", pcs._warps(), "CLS_WARPS")
         _check_query(lib, name, "ptnn_cls_w_size", 99, "the (4, 12, 3) w_size")
     if name == "rw_cls_block":
         from ptnn_torch.ops.block_step import _ClsRwParams, _THREADS
@@ -162,17 +229,32 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         _check_query(lib, name, "ptnn_rw_cls_block_threads", _THREADS,
                      "RW_THREADS")
     if name == "drift_epoch":
-        from ptnn_torch.ops.drift import _DriftParams, _HID_PER_LANE, _WARPS
+        from ptnn_torch.ops import drift
 
         lib.ptnn_drift_epoch.argtypes = [
-            ctypes.POINTER(_DriftParams), ctypes.c_int, ctypes.c_void_p
+            ctypes.POINTER(drift._DriftParams), ctypes.c_int, ctypes.c_void_p
         ]
         lib.ptnn_drift_epoch.restype = ctypes.c_int
+        lib.ptnn_drift_epoch_reg.argtypes = [
+            ctypes.POINTER(drift._DriftParams), ctypes.c_int, ctypes.c_void_p
+        ]
+        lib.ptnn_drift_epoch_reg.restype = ctypes.c_int
         _check_query(lib, name, "ptnn_drift_params_size",
-                     ctypes.sizeof(_DriftParams), "DriftParams size")
-        _check_query(lib, name, "ptnn_drift_warps", _WARPS, "WARPS")
-        _check_query(lib, name, "ptnn_drift_hid_per_lane", _HID_PER_LANE,
-                     "HPL")
+                     ctypes.sizeof(drift._DriftParams), "DriftParams size")
+        for query, define in (("ptnn_drift_warps", "WARPS"),
+                              ("ptnn_drift_hid_per_lane", "HPL"),
+                              ("ptnn_drift_reg_threads", "REG_THREADS")):
+            _check_query(lib, name, query, drift._define(define), define)
+        rows = cu_rows("drift_epoch.cu", "DRIFT_REG_LAYOUTS")
+        buf = (ctypes.c_int * (4 * len(rows)))()
+        lib.ptnn_drift_reg_layouts.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.ptnn_drift_reg_layouts.restype = ctypes.c_int
+        n = lib.ptnn_drift_reg_layouts(buf, len(rows))
+        got = tuple(tuple(buf[4 * k:4 * k + 4])
+                    for k in range(min(n, len(rows))))
+        if n != len(rows) or got != rows:
+            raise RuntimeError(f"DRIFT_REG_LAYOUTS of the built library "
+                               f"({n} rows) differs from the source's")
     if name == "fnn_eval":
         from ptnn_torch.ops.fnn_eval import _EvalParams, _MAX_OUT, _THREADS
 

@@ -55,7 +55,7 @@ _LOG_STEP_LO = math.log(1e-5)
 _LOG_STEP_HI = math.log(10.0)
 _THREADS = 128  # must equal THREADS in csrc/rw_block.cu
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
-_CLS_TOPOLOGIES = ((4, 12, 3),)  # the (I, H, O) rw_cls_block.cu instantiates
+CLS_TOPOLOGIES = ((4, 12, 3),)  # the (I, H, O) rw_cls_block.cu instantiates
 
 
 def prep_data(x_tr, y_tr, x_te, y_te, n_classes: int = 0) -> dict:
@@ -455,9 +455,9 @@ def _launch_cls_cuda(state, noise_w, u_mh, start, length, data, adapttemp,
     k_max, c, w_dim = noise_w.shape
     n_in = topo[0]
     n_tr, n_te = int(data["n_tr"]), int(data["n_te"])
-    if tuple(topo) not in _CLS_TOPOLOGIES:
+    if tuple(topo) not in CLS_TOPOLOGIES:
         raise ValueError(f"the CUDA rw_cls_block kernel is instantiated for "
-                         f"topologies {_CLS_TOPOLOGIES}, not {tuple(topo)}")
+                         f"topologies {CLS_TOPOLOGIES}, not {tuple(topo)}")
     if w_dim != fnn.w_size(topo):
         raise ValueError(f"noise width {w_dim} does not fit topology {topo}")
     if not 0 <= int(length) <= k_max:

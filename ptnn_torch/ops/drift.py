@@ -26,6 +26,14 @@ column (regression):
   kernel ``csrc/drift_epoch.cu``, on CPU tensors both run the plain version.
   A CUDA tensor never takes the plain version: it launches or raises.
 
+``csrc/drift_epoch.cu`` has two kernels, picked by topology (``variant``),
+never by failure: the register kernel for the topologies of its
+``DRIFT_REG_LAYOUTS`` table (every network the repository bundles), with a
+lane group of G lanes per chain and the weights in registers; the generic
+kernel (one warp per chain, the weights in shared memory) for any other
+topology with at most ``32 * HPL`` hidden units. ``launches`` counts both;
+``variant_launches`` says which ran.
+
 Weights are chains-major flat vectors (C, W) in the codec of
 ``models/fnn.py``; x (N, I), t (N, O) float32.
 """
@@ -33,19 +41,54 @@ Weights are chains-major flat vectors (C, W) in the codec of
 from __future__ import annotations
 
 import ctypes
+import functools
+import types
+from typing import Mapping, Optional, Tuple
 
 import torch
 
 from ptnn_torch.models import fnn
 from ptnn_torch.models.fnn import Topology
+from ptnn_torch.ops import _build
 from ptnn_torch.ops.block_step import _SMEM_LIMIT, _check
 
 launches = 0  # launches of csrc/drift_epoch.cu (the plain version counts none)
+variant_launches = {"register": 0, "generic": 0}  # which kernel they ran
 
 MODES = ("sequential", "pallas", "batch")
-_WARPS = 4  # chains per block: must equal WARPS in csrc/drift_epoch.cu
-_HID_PER_LANE = 4  # HPL in csrc/drift_epoch.cu: n_hidden <= 128
+_SOURCE = "drift_epoch.cu"
 _TILE_FLOATS = 16384  # rows staged per tile: at most 64 KB of (x, t)
+
+
+def _define(name: str) -> int:
+    """A layout constant of csrc/drift_epoch.cu, read from the source at
+    first use: WARPS (the generic kernel's chains a block), HPL (its hidden
+    units a lane, n_hid <= 32 HPL), REG_THREADS (the register kernel's
+    threads a block)."""
+    return _build.cu_define(_SOURCE, name)
+
+
+@functools.lru_cache(maxsize=None)
+def reg_layouts() -> Mapping[Tuple[int, int, int], int]:
+    """The topologies the register kernel is instantiated for, each with its
+    lane-group size G, from the ``DRIFT_REG_LAYOUTS`` table of
+    csrc/drift_epoch.cu (read once)."""
+    rows = _build.cu_rows(_SOURCE, "DRIFT_REG_LAYOUTS")
+    return types.MappingProxyType({r[:3]: r[3] for r in rows})
+
+
+def variant(topo: Topology) -> Tuple[str, Optional[int]]:
+    """The kernel a CUDA epoch of ``topo`` launches: ("register", G) for a
+    topology of the register table, else ("generic", None) for at most
+    ``32 * HPL`` hidden units; anything else raises."""
+    topo = tuple(topo)
+    g = reg_layouts().get(topo)
+    if g is not None:
+        return "register", g
+    if topo[1] > 32 * _define("HPL"):
+        raise ValueError(f"the drift kernel takes at most "
+                         f"{32 * _define('HPL')} hidden units, not {topo[1]}")
+    return "generic", None
 
 
 def make_targets(y: torch.Tensor, n_out: int, task: str) -> torch.Tensor:
@@ -114,23 +157,23 @@ def tile_rows(n_rows: int, depth: int, n_in: int, n_out: int) -> int:
 
 
 def smem_bytes(n_rows: int, depth: int, topo: Topology) -> int:
-    """Dynamic shared memory of one block: a tile of rows and one weight
-    vector per chain of the block."""
+    """Dynamic shared memory of one block: a tile of rows and, for the
+    generic kernel, one weight vector per chain of the block (the register
+    kernel keeps its weights in registers)."""
     i, _h, o = topo
-    return 4 * (tile_rows(n_rows, depth, i, o) * (i + o)
-                + _WARPS * fnn.w_size(topo))
+    tile = tile_rows(n_rows, depth, i, o) * (i + o)
+    if variant(topo)[0] == "generic":
+        tile += _define("WARPS") * fnn.w_size(topo)
+    return 4 * tile
 
 
 def _launch_cuda(w, x, t, topo, lrate, depth):
     global launches
-    from ptnn_torch.ops import _build
 
     n_in, n_hid, n_out = topo
     c, n = w.shape[0], x.shape[0]
     dev = w.device
-    if n_hid > 32 * _HID_PER_LANE:
-        raise ValueError(f"the drift kernel takes at most "
-                         f"{32 * _HID_PER_LANE} hidden units, not {n_hid}")
+    kind = variant(topo)[0]
     if not isinstance(lrate, (int, float)):
         raise ValueError("the drift kernel takes one float learning rate")
     if depth < 1 or n < 1:
@@ -150,13 +193,16 @@ def _launch_cuda(w, x, t, topo, lrate, depth):
         tile_rows=tile_rows(n, depth, n_in, n_out), lrate=float(lrate),
     )
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ptnn_drift_epoch(ctypes.byref(params), smem,
-                                   ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if kind == "register":
+            err = lib.ptnn_drift_epoch_reg(ctypes.byref(params), smem, stream)
+        else:
+            err = lib.ptnn_drift_epoch(ctypes.byref(params), smem, stream)
     if err != 0:
         raise RuntimeError(
             f"drift_epoch launch failed: {_build.error_string(lib, err)}")
     launches += 1
+    variant_launches[kind] += 1
     return out
 
 
@@ -165,8 +211,8 @@ def sgd_epoch(w: torch.Tensor, x: torch.Tensor, t: torch.Tensor,
               depth: int = 1) -> torch.Tensor:
     """The Langevin drift of every chain: ``depth`` epochs of ``mode``
     ("sequential" and "pallas": the per-row epoch; "batch": the summed
-    update). CUDA tensors launch the drift kernel for the per-row epoch; CPU
-    tensors run the plain version."""
+    update). CUDA tensors launch the drift kernel for the per-row epoch;
+    CPU tensors run the plain version."""
     if mode == "batch":
         for _ in range(depth):
             w = sgd_epoch_batch(w, x, t, topo, lrate)

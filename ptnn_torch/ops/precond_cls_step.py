@@ -49,15 +49,22 @@ from typing import Dict
 import torch
 
 from ptnn_torch.models import fnn
+from ptnn_torch.ops import _build
 from ptnn_torch.ops.block_step import (_check, argmax_fragile, cls_eval,
                                        cls_metrics, cls_prior_const, inv_rows)
 from ptnn_torch.ops.precond_step import (PANEL, _LOG_HI, _LOG_LO_W, _LOG09,
                                          _LOG0999, _LOG_TRAJ_LO, _MAX_CLUSTER,
-                                         _SMEM_LIMIT, _WARPS, _clip_traj,
-                                         _dispatch, _precond_diag, rung_sum)
+                                         _SMEM_LIMIT, _clip_traj, _dispatch,
+                                         _precond_diag, rung_sum)
 
 launches = {"mala_cls_block": 0, "hmc_cls_block": 0}  # CUDA launches
-_TOPOLOGIES = ((4, 12, 3),)  # the (I, H, O) the CUDA kernels instantiate
+
+
+def _warps() -> int:
+    """Chains a block of the classification MALA/HMC kernels (CLS_WARPS of
+    csrc/cls_common.cuh, read from the source at first use)."""
+    return _build.cu_define("cls_common.cuh", "CLS_WARPS")
+TOPOLOGIES = ((4, 12, 3),)  # the (I, H, O) the CUDA kernels instantiate
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -352,23 +359,21 @@ def smem_bytes(n_rows: int, topo, chees: bool) -> int:
     stride = (2 * n_hid + n_out + n_in + 1) | 1
     rows = (n_rows * (n_in + 1) + 3) // 4 * 4
     per_chain = 6 * vec + 32 * stride + (2 * (2 * vec + 4) if chees else 0)
-    return 4 * (rows + _WARPS * per_chain)
+    return 4 * (rows + _warps() * per_chain)
 
 
 def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
                  length: int, data: dict, adapttemp: torch.Tensor, topo,
                  scal: dict, record_w: bool):
-    from ptnn_torch.ops import _build
-
     hmc = name == "hmc_cls_block"
     chees = hmc and bool(scal["chees"])
     dev = noise["w"].device
     k_max, c, w_dim = noise["w"].shape
     n_in = topo[0]
     n_tr, n_te = int(data["n_tr"]), int(data["n_te"])
-    if tuple(topo) not in _TOPOLOGIES:
+    if tuple(topo) not in TOPOLOGIES:
         raise ValueError(f"the CUDA {name} kernel is instantiated for "
-                         f"topologies {_TOPOLOGIES}, not {tuple(topo)}")
+                         f"topologies {TOPOLOGIES}, not {tuple(topo)}")
     if w_dim != fnn.w_size(topo):
         raise ValueError(f"noise width {w_dim} does not fit topology {topo}")
     if not 0 <= int(length) <= k_max:
@@ -386,8 +391,8 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
         if c % panel or (panel != c and panel != PANEL):
             raise ValueError(f"ChEES panel of {panel} chains does not tile "
                              f"{c} chains")
-        cluster = -(-panel // _WARPS)
-        if cluster > _MAX_CLUSTER or (c > panel and panel % _WARPS):
+        cluster = -(-panel // _warps())
+        if cluster > _MAX_CLUSTER or (c > panel and panel % _warps()):
             raise ValueError(f"a ChEES panel of {panel} chains does not fit "
                              f"one cluster of {_MAX_CLUSTER} blocks")
     f32, i32 = torch.float32, torch.int32

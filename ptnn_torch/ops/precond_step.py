@@ -49,21 +49,33 @@ Layout: chains-major, no padding. State (C, W) and (C,), noise ``w``
 (``csrc/mala_block.cu``, ``csrc/hmc_block.cu``) on CUDA tensors and run the
 plain versions, ``mala_block_reference`` / ``hmc_block_reference``, on CPU
 tensors only.
+
+CUDA layout: one warp per chain; the MALA kernel puts ``WARPS`` (16) chains
+in a block, the HMC kernel ``HMC_WARPS`` (8), both read from the sources
+(``_build.cu_define``). Under ChEES a panel's blocks exchange rung sums
+(``hmc_layout``, ``exchange_reads``) by one of two routes (``hmc_route``):
+one thread-block cluster a panel, or a cooperative launch of the whole
+grid with the exchange slots in device memory. ``hmc_routes`` counts the
+launches of each.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ptnn_torch.models import fnn
-from ptnn_torch.ops import likelihood
+from ptnn_torch.ops import _build, likelihood
 from ptnn_torch.ops.block_step import _check, _prior_const
 
 launches = {"mala_block": 0, "hmc_block": 0}  # CUDA launches per kernel
+ROUTES = ("plain", "cluster", "grid")  # ROUTE_* of csrc/hmc_block.cu
+hmc_routes = {r: 0 for r in ROUTES}  # hmc_block launches by route
 
 ETA_TARGET_ACCEPT = 0.44  # 1-D random-walk optimum (ptnn's convention)
 PANEL = 128  # ChEES pools rung replicas within runs of this many chains
@@ -71,12 +83,30 @@ _LOG_LO_W, _LOG_LO_ETA, _LOG_HI = math.log(1e-6), math.log(1e-4), math.log(10.0)
 _LOG_TRAJ_LO = math.log(1e-4)
 _LOG09, _LOG0999 = math.log(0.9), math.log(0.999)
 
-_WARPS = 16  # chains per CUDA block: must equal WARPS in precond_common.cuh
 _SMEM_LIMIT = 232448
 _MAX_CLUSTER = 8  # portable thread-block cluster size on Hopper
-_TOPOLOGIES = ((4, 10, 1),)  # the (I, H, 1) the CUDA kernels instantiate
+TOPOLOGIES = ((4, 10, 1),)  # the (I, H, 1) the CUDA kernels instantiate
 
 Tensors = Dict[str, torch.Tensor]
+
+
+def _common(name: str) -> int:
+    """A constant of csrc/precond_common.cuh, read from the source at first
+    use: WARPS (the MALA kernel's chains a block), VEC (floats a vector
+    slot)."""
+    return _build.cu_define("precond_common.cuh", name)
+
+
+def _hmc(name: str) -> int:
+    """A constant of csrc/hmc_block.cu: HMC_WARPS (chains a block),
+    HMC_MAX_CLUSTER (blocks a panel's cluster may have)."""
+    return _build.cu_define("hmc_block.cu", name)
+
+
+def _ex_floats() -> int:
+    """Floats of one parity of a chain's ChEES exchange slot: w', w_old and
+    two scalars (EX_FLOATS of csrc/hmc_block.cu)."""
+    return 2 * _common("VEC") + 4
 
 
 def panel_layout(num_chains: int, rungs: int) -> Tuple[int, int]:
@@ -90,6 +120,36 @@ def panel_layout(num_chains: int, rungs: int) -> Tuple[int, int]:
             f"{num_chains} chains of {rungs} rungs do not tile"
         )
     return panel, panel // rungs
+
+
+def hmc_layout(num_chains: int, panel: int = 0) -> Tuple[int, int]:
+    """``(blocks, cluster)`` of an HMC launch: ceil(C / HMC_WARPS) blocks;
+    under ChEES (``panel`` > 0) the blocks of a panel, ceil(panel /
+    HMC_WARPS), exchange its rung sums (one cluster each on the cluster
+    route). A panel that does not tile the chains, or whose blocks a chain
+    of another panel would share, is refused."""
+    warps, most = _hmc("HMC_WARPS"), _hmc("HMC_MAX_CLUSTER")
+    blocks = -(-num_chains // warps)
+    if not panel:
+        return blocks, 1
+    if num_chains % panel or (panel != num_chains and panel != PANEL):
+        raise ValueError(f"ChEES panel of {panel} chains does not tile "
+                         f"{num_chains} chains")
+    cluster = -(-panel // warps)
+    if cluster > most or (num_chains > panel and panel % warps):
+        raise ValueError(f"a ChEES panel of {panel} chains does not fit "
+                         f"one cluster of {most} blocks")
+    return blocks, cluster
+
+
+def exchange_reads(num_chains: int, rungs: int) -> np.ndarray:
+    """(C, n_ladders) chain indices whose exchange slots each chain sums in
+    the HMC kernel under ChEES, in its order: ``rung0 + t * rungs`` with
+    ``rung0`` the first replica of the chain's rung in its panel."""
+    panel, n_lad = panel_layout(num_chains, rungs)
+    c = np.arange(num_chains)
+    rung0 = (c // panel) * panel + (c % panel) % rungs
+    return rung0[:, None] + rungs * np.arange(n_lad)[None, :]
 
 
 def rung_sum(x: torch.Tensor, panel: int, rungs: int) -> torch.Tensor:
@@ -396,7 +456,7 @@ class PrecondParams(ctypes.Structure):
             "o_ll", "o_prior", "o_rmse_tr", "o_rmse_te", "o_n_accept",
             "o_log_step_w", "o_log_step_eta", "o_log_traj", "o_chees_m1",
             "o_chees_v2", "t_ll", "t_rmse_tr", "t_rmse_te", "t_accept",
-            "t_traj_len", "t_w",
+            "t_traj_len", "t_w", "exch",
         )
     ] + [
         (name, ctypes.c_int)
@@ -416,13 +476,57 @@ class PrecondParams(ctypes.Structure):
     ]
 
 
-def smem_bytes(n_rows: int, n_in: int, chees: bool) -> int:
-    """Dynamic shared memory of one CUDA block: the data rows (padded to 16
-    bytes), six 64-float vectors per chain and, under ChEES, two parities
-    of the exchange slots (w', w_old and two scalars) per chain."""
+def smem_bytes(n_rows: int, n_in: int, chees: bool, hmc: bool = False) -> int:
+    """Dynamic shared memory of one CUDA block (MALA, or HMC with ``hmc``):
+    the data rows (padded to 16 bytes), six 64-float vectors per chain and,
+    under ChEES, two parities of the exchange slots (w', w_old and two
+    scalars) per chain."""
     rows = (n_rows * (n_in + 1) + 3) // 4 * 4
-    per_chain = 6 * 64 + (2 * (2 * 64 + 4) if chees else 0)
-    return 4 * (rows + _WARPS * per_chain)
+    per_chain = 6 * _common("VEC") + (2 * _ex_floats() if chees else 0)
+    warps = _hmc("HMC_WARPS") if hmc else _common("WARPS")
+    return 4 * (rows + warps * per_chain)
+
+
+@functools.lru_cache(maxsize=None)
+def _route_of(device_index: int, smem: int, cluster: int,
+              blocks: int) -> Tuple[str, str]:
+    lib = _build.build("hmc_block").lib
+    n_panels = blocks // cluster
+    fits = ctypes.c_int(0)
+    err = lib.ptnn_hmc_max_active_clusters(smem, cluster, ctypes.byref(fits))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: "
+                           f"{_build.error_string(lib, err)}")
+    if fits.value >= n_panels:
+        return "cluster", (f"{fits.value} clusters of {cluster} blocks fit "
+                           f"at once, {n_panels} panels")
+    coop = ctypes.c_int(0)
+    err = lib.ptnn_hmc_coop_blocks(smem, ctypes.byref(coop))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: "
+                           f"{_build.error_string(lib, err)}")
+    if blocks <= coop.value:
+        return "grid", (f"only {fits.value} clusters of {cluster} blocks fit "
+                        f"at once for {n_panels} panels; all {blocks} blocks "
+                        f"fit ({coop.value})")
+    return "cluster", (f"{fits.value} clusters of {cluster} blocks fit at "
+                       f"once for {n_panels} panels, and the grid of "
+                       f"{blocks} blocks does not ({coop.value}): clusters "
+                       f"in waves")
+
+
+def hmc_route(device, smem: int, cluster: int, blocks: int,
+              chees: bool = True) -> Tuple[str, str]:
+    """(route, why) of an HMC launch on the card ``device``: "plain"
+    without ChEES; "cluster" when every panel's cluster fits on the card at
+    once (cudaOccupancyMaxActiveClusters); else "grid", a cooperative launch,
+    when the whole grid fits; else clusters in waves."""
+    if not chees:
+        return "plain", "no ChEES: no exchange"
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    with torch.cuda.device(index):
+        return _route_of(index, smem, cluster, blocks)
 
 
 def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
@@ -437,14 +541,14 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
     k_max, c, w_dim = noise["w"].shape
     n_in, n_hid, n_out = topo
     n_tr, n_te = int(data["n_tr"]), int(data["n_te"])
-    if tuple(topo) not in _TOPOLOGIES:
+    if tuple(topo) not in TOPOLOGIES:
         raise ValueError(f"the CUDA {name} kernel is instantiated for "
-                         f"topologies {_TOPOLOGIES}, not {tuple(topo)}")
+                         f"topologies {TOPOLOGIES}, not {tuple(topo)}")
     if w_dim != fnn.w_size(topo):
         raise ValueError(f"noise width {w_dim} does not fit topology {topo}")
     if not 0 <= int(length) <= k_max:
         raise ValueError(f"length {length} outside [0, {k_max}]")
-    smem = smem_bytes(n_tr + n_te, n_in, chees)
+    smem = smem_bytes(n_tr + n_te, n_in, chees, hmc)
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"{n_tr}+{n_te} data rows need {smem} bytes of shared memory per "
@@ -454,13 +558,7 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
     if chees:
         rungs = int(scal["rungs"])
         panel = rungs * int(scal["n_ladders"])
-        if c % panel or (panel != c and panel != PANEL):
-            raise ValueError(f"ChEES panel of {panel} chains does not tile "
-                             f"{c} chains")
-        cluster = -(-panel // _WARPS)
-        if cluster > _MAX_CLUSTER or (c > panel and panel % _WARPS):
-            raise ValueError(f"a ChEES panel of {panel} chains does not fit "
-                             f"one cluster of {_MAX_CLUSTER} blocks")
+        cluster = hmc_layout(c, panel)[1]
     f32, i32 = torch.float32, torch.int32
     _check(data["rows"], "rows", (n_tr + n_te, n_in + 1), f32, dev)
     _check(adapttemp, "adapttemp", (c,), f32, dev)
@@ -482,6 +580,11 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
         tr["traj_len"] = kc()
     if record_w:
         tr["w"] = torch.empty((k_max, c, w_dim), dtype=f32, device=dev)
+    route = exch = None
+    if hmc:
+        route = hmc_route(dev, smem, cluster, hmc_layout(c)[0], chees)[0]
+        if route == "grid":
+            exch = torch.empty((c, 2, _ex_floats()), dtype=f32, device=dev)
     p = lambda t: None if t is None else t.data_ptr()
     g = lambda d, k: p(d.get(k))
     sq = float(scal["sigma_sq"])
@@ -512,7 +615,7 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
         o_chees_v2=g(new, "chees_v2"),
         t_ll=p(tr["ll"]), t_rmse_tr=p(tr["rmse_train"]),
         t_rmse_te=p(tr["rmse_test"]), t_accept=p(tr["accept_count"]),
-        t_traj_len=g(tr, "traj_len"), t_w=g(tr, "w"),
+        t_traj_len=g(tr, "traj_len"), t_w=g(tr, "w"), exch=p(exch),
         n_tr=n_tr, n_te=n_te, chains=c, k_max=k_max, start=int(start),
         length=int(length), pc_start=int(scal["pc_start"]),
         warm_end=int(scal["warm_end"]), burn_end=int(scal["burn_end"]),
@@ -536,7 +639,7 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         if hmc:
             err = lib.ptnn_hmc_block(ctypes.byref(params), smem, cluster,
-                                     stream)
+                                     ROUTES.index(route), stream)
         else:
             err = lib.ptnn_mala_block(ctypes.byref(params), smem, stream)
     if err != 0:
@@ -544,6 +647,8 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
             f"{name} launch failed: {_build.error_string(lib, err)}"
         )
     launches[name] += 1
+    if hmc:
+        hmc_routes[route] += 1
     if hmc and not chees:  # passed through, as ptnn's kernel does
         for key in _CHEES_C:
             if key in state:

@@ -18,11 +18,12 @@ traces stay on the device until the chunk ends. Noise is drawn per chunk by
 ``noise_fn(start, length, c, w) -> dict`` of (length, ...) tensors:
 "w" (L, C, W) normal, "u" (L, C) uniform, "u_swap" (L, C-1) uniform, with
 Langevin "l" (L, C) uniform, for regression "eta" (L, C) normal
-(``kernel.step_noise_names``). The default draws from a ``torch.Generator``
-on the run's device seeded from (seed, chunk start). ``ptnn`` derives each
-step's noise from ``split(fold_in(k_run, i), 6)`` instead, so runs of the
-two packages agree in distribution, and exactly when ptnn's draws are fed
-in through ``noise_fn`` (``tests/test_torch_step.py``).
+(``kernel.step_noise_names``). The default (``step_noise``) draws pages of
+steps from a ``torch.Generator`` on the run's device seeded from (seed, page
+index), so a step's noise does not depend on ``chunk_steps``. ``ptnn``
+derives each step's noise from ``split(fold_in(k_run, i), 6)`` instead, so
+runs of the two packages agree in distribution, and exactly when ptnn's
+draws are fed in through ``noise_fn`` (``tests/test_torch_step.py``).
 """
 
 from __future__ import annotations
@@ -211,23 +212,53 @@ def _pick_chunk(n_steps: int, target: int) -> int:
     return best
 
 
+PAGE_STEPS = 256  # steps of per-step noise drawn at a time
+PAGE_FLOATS = 16 * 2**20  # at most 64 MB of w-noise in a page
+
+
+def page_steps(c: int, w: int) -> int:
+    """Steps in one page of the per-step noise: ``PAGE_STEPS``, fewer where
+    a page of (steps, C, W) w-noise would pass ``PAGE_FLOATS``. A function
+    of the run's widths only, never of ``chunk_steps``."""
+    return max(1, min(PAGE_STEPS, PAGE_FLOATS // max(c * w, 1)))
+
+
 def step_noise(seed: int, device, names) -> NoiseFn:
-    """The per-step sampler's default noise: a ``torch.Generator`` on
-    ``device`` seeded from (seed, chunk start), drawing ``names``
-    (``kernel.step_noise_names``)."""
+    """The per-step sampler's default noise, drawing ``names``
+    (``kernel.step_noise_names``). It is drawn in pages of ``page_steps``
+    steps, page p from a ``torch.Generator`` on ``device`` seeded from
+    (seed, 2, p), and a chunk takes the slices of the pages it covers, so a
+    step's noise depends on its absolute index alone: results are invariant
+    to chunking, as ptnn's per-step keys make them. The last page drawn is
+    kept for the next chunk."""
     gen = torch.Generator(device=device)
+    cache: Dict[int, Noise] = {}
+
+    def page(p: int, steps: int, c: int, w: int) -> Noise:
+        if p not in cache:
+            gen.manual_seed(seed_of(seed, 2, p))
+            f32 = dict(dtype=torch.float32, device=device, generator=gen)
+            draw = dict(
+                w=lambda: torch.randn((steps, c, w), **f32),
+                l=lambda: torch.rand((steps, c), **f32),
+                eta=lambda: torch.randn((steps, c), **f32),
+                u=lambda: torch.rand((steps, c), **f32),
+                u_swap=lambda: torch.rand((steps, max(c - 1, 0)), **f32),
+            )
+            cache.clear()
+            cache[p] = {name: draw[name]() for name in names}
+        return cache[p]
 
     def noise_fn(start: int, length: int, c: int, w: int) -> Noise:
-        gen.manual_seed(seed_of(seed, 2, start))
-        f32 = dict(dtype=torch.float32, device=device, generator=gen)
-        draw = dict(
-            w=lambda: torch.randn((length, c, w), **f32),
-            l=lambda: torch.rand((length, c), **f32),
-            eta=lambda: torch.randn((length, c), **f32),
-            u=lambda: torch.rand((length, c), **f32),
-            u_swap=lambda: torch.rand((length, max(c - 1, 0)), **f32),
-        )
-        return {name: draw[name]() for name in names}
+        steps = page_steps(c, w)
+        parts = []
+        for p in range(start // steps, (start + length - 1) // steps + 1):
+            lo = max(start - p * steps, 0)
+            hi = min(start + length - p * steps, steps)
+            parts.append({k: v[lo:hi] for k, v in page(p, steps, c, w).items()})
+        if len(parts) == 1:
+            return parts[0]
+        return {k: torch.cat([part[k] for part in parts]) for k in parts[0]}
 
     return noise_fn
 
@@ -383,3 +414,23 @@ def throughput_runner(
                                             device=device)
     return throughput_build_per_step(cfg, train, test, seed=seed,
                                      device=device, model_spec=model_spec)
+
+
+def throughput_run(
+    cfg: PTConfig,
+    train: np.ndarray,
+    test: np.ndarray,
+    seed: int = 0,
+    mesh=None,
+    model_spec: Optional[model_api.ModelSpec] = None,
+    device: Any = "cuda",
+) -> Dict[str, Any]:
+    """ptnn's benchmark call: one warm-up pass that is not timed, then one
+    timed run from the same initial state; returns ``throughput_runner``'s
+    dict (the keys of ptnn's, and ``langevin_pct``,
+    ``final_acc_test_cold``)."""
+    if mesh is not None:
+        raise NotImplementedError("throughput_run(mesh=...): the port runs "
+                                  "on one device (ROADMAP Queue 1 item 14)")
+    return throughput_runner(cfg, train, test, seed=seed, device=device,
+                             model_spec=model_spec)()

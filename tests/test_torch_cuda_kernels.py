@@ -14,7 +14,9 @@ with it, since it feeds their rung sums). RW floats within rtol 1e-4, atol
 the chain's vector, the Adam moment on |m1| + sqrt(v2), and g_like against
 the gradient at the kernel's own w (chip_smoke.py states why). ll's rtol
 applies to the size of the terms that cancel in it (the plain versions'
-``diagnostics=True``).
+``diagnostics=True``). MALA/HMC floats may exceed that tolerance by
+WITNESS_R times the plain version's own distance from a float64 run of it
+on the same inputs, in the same chain (chip_smoke.py's WITNESS_R).
 """
 
 import math
@@ -112,6 +114,7 @@ def test_rw_block_kernel_rejects_what_it_cannot_take(cuda):
 
 
 P_RTOL, P_ATOL = 1e-3, 1e-4
+WITNESS_R = 4.0  # the float64 witness of the MALA/HMC comparisons
 
 
 def _precond_inputs(device, c, proposal, k=12, start=0, seed=5, **kw):
@@ -146,6 +149,11 @@ def _precond_inputs(device, c, proposal, k=12, start=0, seed=5, **kw):
     return (state, noise, start, k, data, at, TOPO, scal), cfg
 
 
+def _upcast(tree):
+    return {n: v.double() if torch.is_tensor(v) and v.is_floating_point()
+            else v for n, v in tree.items()}
+
+
 def _check_precond(hmc, args, cfg):
     kern = precond_step.fused_hmc_block if hmc else precond_step.fused_mala_block
     plain = (precond_step.hmc_block_reference if hmc
@@ -155,14 +163,23 @@ def _check_precond(hmc, args, cfg):
     new_k, tr_k = kern(*args, record_w=True)
     assert precond_step.launches[name] == before + 1
     new_r, tr_r = plain(*args, record_w=True, diagnostics=True)
+    state, noise, start, k, data, at, topo, scal = args
+    new_d, tr_d = plain(_upcast(state), _upcast(noise), start, k,
+                        _upcast(data), at.double(), topo, scal, record_w=True)
     torch.cuda.synchronize()
-    scal, c = args[-1], cfg.num_chains
+    c = cfg.num_chains
     close = (tr_r["margin"] <= MARGIN) | (tr_r["traj_margin"] <= MARGIN)
+    # the chains whose float64 run took the float32 run's decisions
+    same = new_d["n_accept"] == new_r["n_accept"]
+    for n in ("accept_count", "traj_len"):
+        if n in tr_r:
+            same &= (tr_d[n] == tr_r[n]).all(dim=0)
     if hmc and scal["chees"]:
         panel = scal["rungs"] * scal["n_ladders"]
         idx = torch.arange(c, device=close.device)
         group = (idx // panel) * scal["rungs"] + idx % scal["rungs"]
         close = torch.isin(group, group[close])
+        same = ~torch.isin(group, group[~same])
     ok = ~close
     # 1 % of the chains, or one chain or ChEES group at these small counts
     group_size = scal["n_ladders"] if hmc and scal["chees"] else 1
@@ -172,28 +189,40 @@ def _check_precond(hmc, args, cfg):
     for n in ("accept_count", "traj_len"):
         if n in tr_r:
             assert torch.equal(tr_k[n][:, ok], tr_r[n][:, ok]), n
+
+    def close_enough(got, ref, wit, scale, axis):
+        """Within the tolerance plus WITNESS_R times the plain version's
+        largest distance from float64 in the chain (chip_smoke.py)."""
+        shape = [1] * got.dim()
+        shape[axis] = c
+        d = torch.zeros_like(got)
+        if wit is not None:
+            gap = (ref - wit).abs().movedim(axis, 0).reshape(c, -1)
+            d = (gap.amax(dim=1) * same).reshape(shape).to(got.dtype)
+        keep = ok.reshape(shape).expand_as(got)
+        allowed = P_ATOL + P_RTOL * scale.abs() + WITNESS_R * d
+        return bool(((got - ref).abs() <= allowed)[keep].all())
+
     vec = lambda v: v.abs().amax(dim=-1, keepdim=True).expand_as(v)
     for n, v in new_r.items():
         if n in ("n_accept", "ll"):
             continue
-        scale = vec(v) if v.dim() == 2 else v.abs()
+        scale, wit = (vec(v) if v.dim() == 2 else v), new_d[n]
         if n == "chees_m1":
             scale = v.abs() + new_r["chees_v2"].abs().sqrt()
         if n == "g_like":  # the gradient at the kernel's own w
-            v = fnn.neg_half_sse_grad(new_k["w"], args[4]["x_tr"],
-                                      args[4]["y_tr"], TOPO)[1]
-            scale = vec(v)
-        diff = (new_k[n] - v).abs()[ok]
-        assert bool((diff <= P_ATOL + P_RTOL * scale[ok]).all()), n
+            v = fnn.neg_half_sse_grad(new_k["w"], data["x_tr"], data["y_tr"],
+                                      TOPO)[1]
+            scale, wit = vec(v), None
+        assert close_enough(new_k[n], v, wit, scale, 0), n
     for n in ("rmse_train", "rmse_test", "w"):
-        ref = tr_r[n][:, ok]
-        scale = vec(ref) if n == "w" else ref.abs()
-        assert bool(((tr_k[n][:, ok] - ref).abs()
-                     <= P_ATOL + P_RTOL * scale).all()), n
-    for got, ref, sc in ((new_k["ll"], new_r["ll"], tr_r["ll_scale_final"]),
-                         (tr_k["ll"], tr_r["ll"], tr_r["ll_scale"])):
-        diff = (got - ref).abs()[..., ok]
-        assert bool((diff <= P_ATOL + P_RTOL * sc[..., ok]).all())
+        ref = tr_r[n]
+        scale = vec(ref) if n == "w" else ref
+        assert close_enough(tr_k[n], ref, tr_d[n], scale, 1), n
+    assert close_enough(new_k["ll"], new_r["ll"], new_d["ll"],
+                        tr_r["ll_scale_final"], 0)
+    assert close_enough(tr_k["ll"], tr_r["ll"], tr_d["ll"], tr_r["ll_scale"],
+                        1)
     return new_k, tr_k
 
 
@@ -205,16 +234,22 @@ def test_mala_block_kernel_matches_plain_version(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("chains, chees", [(130, False), (96, True),
+                                           (100, True), (52, True),
                                            (256, True)])
 def test_hmc_block_kernel_matches_plain_version(cuda, chains, chees):
-    """ChEES on one panel of 24 four-rung ladders (a cluster of 6 blocks)
-    and on two panels of 32 (clusters of 8); without ChEES a ragged
-    count."""
+    """ChEES on one panel of 24 four-rung ladders (12 blocks of 8 chains),
+    on one of 25 and one of 13 (13 and 7 blocks, the last one half empty)
+    and on two panels of 32 (16 blocks each); without ChEES a ragged count.
+    Whichever exchange route the card takes (``precond_step.hmc_route``) is
+    the one tested."""
     kw = dict(hmc_leapfrog=8, hmc_adapt_traj=chees)
     if chees:
         kw["n_ladders"] = chains // 4
     args, cfg = _precond_inputs(cuda, chains, "hmc", start=1, **kw)
+    routes = dict(precond_step.hmc_routes)
     new_k, tr_k = _check_precond(True, args, cfg)
+    taken = [r for r in routes if precond_step.hmc_routes[r] != routes[r]]
+    assert len(taken) == 1 and (taken[0] == "plain") == (not chees)
     tl = tr_k["traj_len"]
     assert float(tl.min()) >= 1.0 and float(tl.max()) <= 8.0
     if chees:
@@ -417,23 +452,33 @@ def _rows(rng, device, n, topo, task):
     return x, y
 
 
+# every instantiation of the register kernel (10 chains on 64 rows), the
+# main paths' widths, and two topologies outside the register table that the
+# generic kernel runs
+DRIFT_CASES = [
+    ((4, 10, 1), 67, 298, 1), ((4, 12, 3), 10, 105, 2),
+    ((34, 50, 2), 10, 245, 1),
+    ((16, 30, 10), 5, 1500, 1),  # three row tiles
+] + [(topo, 10, 64, 1) for topo in sorted(drift_ops.reg_layouts())] + [
+    ((5, 20, 3), 9, 64, 2), ((3, 100, 1), 6, 64, 1),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("topo,task,c,n,depth", [
-    ((4, 10, 1), "regression", 67, 298, 1),
-    ((4, 12, 3), "classification", 10, 105, 2),
-    ((34, 50, 2), "classification", 10, 245, 1),
-    ((16, 30, 10), "classification", 5, 1500, 1),  # three row tiles
-])
-def test_drift_kernel_matches_plain_version(cuda, topo, task, c, n, depth):
+@pytest.mark.parametrize("topo,c,n,depth", DRIFT_CASES)
+def test_drift_kernel_matches_plain_version(cuda, topo, c, n, depth):
+    task = "regression" if topo[2] == 1 else "classification"
     rng = np.random.default_rng(17)
     x, y = _rows(rng, cuda, n, topo, task)
     t = drift_ops.make_targets(y, topo[2], task)
     w = torch.as_tensor(rng.normal(size=(c, fnn.w_size(topo))) * 0.5,
                         dtype=torch.float32, device=cuda)
-    before = drift_ops.launches
+    kind = drift_ops.variant(topo)[0]
+    before = drift_ops.launches, drift_ops.variant_launches[kind]
     got = drift_ops.sgd_epoch(w, x, t, topo, 0.01, mode="sequential",
                               depth=depth)
-    assert drift_ops.launches == before + 1
+    assert (drift_ops.launches,
+            drift_ops.variant_launches[kind]) == (before[0] + 1, before[1] + 1)
     want = drift_ops.sgd_epoch_sequential(w, x, t, topo, 0.01, depth)
     torch.cuda.synchronize()
     scale = want.abs().amax(dim=-1, keepdim=True)

@@ -114,3 +114,46 @@ def test_dispatcher_and_kernel_gates():
     for topo, n in (((16, 30, 10), 7494), ((34, 50, 2), 245),
                     ((51, 50, 2), 28831), ((4, 10, 1), 298)):
         assert drift.smem_bytes(n, 2, topo) <= drift._SMEM_LIMIT
+
+
+def test_kernel_layouts_follow_the_source():
+    """The register kernel's table (csrc/drift_epoch.cu DRIFT_REG_LAYOUTS,
+    read by ``reg_layouts``) covers every bundled network with one lane-group
+    size each, under the rules the source states: G a power of two up to 32,
+    128 / G chains a block, and the measured pick (one hidden unit a lane,
+    or a whole warp for H > 32). Every other topology with at most 32 * HPL
+    hidden units goes to the generic kernel, larger ones are refused, and
+    only the generic kernel keeps weights in shared memory."""
+    from ptnn_torch import data
+    from ptnn_torch.ops import _build
+
+    lay = drift.reg_layouts()
+    bundled = set(data.CLASSIFICATION_TOPOLOGIES.values()) | {
+        data.REGRESSION_TOPOLOGY}
+    assert bundled == set(lay)
+    assert len(_build.cu_rows("drift_epoch.cu", "DRIFT_REG_LAYOUTS")) == len(
+        lay)  # one row a topology
+    warps, reg_threads = drift._define("WARPS"), drift._define("REG_THREADS")
+    assert warps == _build.cu_define("drift_epoch.cu", "WARPS") == 4
+    assert drift._define("HPL") == 4 and reg_threads == 128
+    for topo, g in lay.items():
+        assert g & (g - 1) == 0 and 1 <= g <= 32
+        assert reg_threads % g == 0  # 128 / G chains a block
+        assert g == min(32, 1 << (topo[1] - 1).bit_length())
+        assert drift.variant(topo) == ("register", g)
+        i, _h, o = topo
+        assert drift.smem_bytes(300, 1, topo) == 4 * 300 * (i + o)
+    for topo in ((5, 20, 3), (3, 128, 1)):
+        assert drift.variant(topo) == ("generic", None)
+        assert drift.smem_bytes(300, 1, topo) == 4 * (
+            300 * (topo[0] + topo[2]) + warps * fnn.w_size(topo))
+    with pytest.raises(ValueError, match="at most 128 hidden"):
+        drift.variant((3, 129, 1))
+    # the CPU path ignores the layout: the plain version, no launch
+    w, x, y = _inputs(np.random.default_rng(0), (5, 20, 3), "classification",
+                      c=3, n=9)
+    t = drift.make_targets(torch.from_numpy(y), 3, "classification")
+    before = drift.launches, dict(drift.variant_launches)
+    drift.sgd_epoch(torch.from_numpy(w), torch.from_numpy(x), t, (5, 20, 3),
+                    0.1)
+    assert (drift.launches, drift.variant_launches) == before

@@ -105,6 +105,42 @@ def test_fused_reason_scope():
             np.zeros((4, 5)), np.zeros((4, 5)), device="cpu")
 
 
+def test_topology_the_kernels_lack_falls_back_on_every_device():
+    """Cancer's (9, 12, 2) net: no CUDA block kernel is built for it, so a
+    fused config falls back to the per-step sampler with ptnn's warning on
+    the CPU as on the card; RW then runs per-step, MALA reaches the per-step
+    family that is not ported yet. The fused sampler refuses it alike."""
+    import dataclasses
+
+    prob = ptnn_torch.data.load_classification("Cancer")
+    assert prob.topology == (9, 12, 2)
+    rw = dataclasses.replace(
+        ptnn_torch.classification_preset((9, 12, 2), num_samples=8 * 6,
+                                         num_chains=8),
+        fused_step=True).validate()
+    assert tfused.fused_reason(rw) is None
+    n_tr, n_te = prob.train.shape[0], prob.test.shape[0]
+    assert tfused.working_set_reason(rw, n_tr, n_te) is None
+    assert "built for" in tfused.runtime_reason(rw, n_tr, n_te)
+    before = (block_step.launches, block_step.cls_launches)
+    with pytest.warns(UserWarning, match="falling back"):
+        res = ptnn_torch.sample(rw, prob.train, prob.test, device="cpu")
+    assert res.traces["acc_test"].shape == (6, 8)
+    assert (block_step.launches, block_step.cls_launches) == before
+    with pytest.raises(ValueError, match="built for"):
+        tfused.sample_fused(rw, prob.train, prob.test, device="cpu")
+    mala = dataclasses.replace(rw, proposal="precond_mala").validate()
+    with pytest.raises(NotImplementedError, match="per-step precond family"):
+        with pytest.warns(UserWarning, match="falling back"):
+            ptnn_torch.sample(mala, prob.train, prob.test, device="cpu")
+    # the topologies the kernels are built for pass the gate
+    for cfg in (ptnn_torch.PTConfig(**_kw()),
+                ptnn_torch.PTConfig(**_kw(proposal="precond_mala"))):
+        assert tfused.topology_reason(cfg.validate()) is None
+    assert tfused.topology_reason(ptnn_torch.PTConfig(**_kw(
+        topology=(4, 7, 1))).validate()) is None  # the RW kernel takes any
+
+
 def _ptnn_noise_fn(k_run, p_pad, c_pad, w_size):
     """ptnn.fused._Fused.block_body's noise for the block at ``start``,
     cut to the port's chains-major layout: ``kp, ke, ku, kue, ks =

@@ -115,3 +115,37 @@ def test_port_sources_stay_clear_of_jax_and_fallbacks():
             text = f.read()
         for word in banned:
             assert word not in text, (path, word)
+
+
+def test_port_exports_ptnn_surface_or_names_what_is_missing():
+    """Every name of ``ptnn.__all__`` is exported by ``ptnn_torch`` or listed
+    in ``ptnn_torch.NOT_PORTED`` with the ROADMAP item that brings it;
+    ``throughput_run`` keeps ptnn's contract (a warm-up, then one timed
+    run, ptnn's keys) and refuses ``mesh=``."""
+    import ptnn
+    import ptnn_torch
+    from ptnn_torch.data import load_regression
+
+    exported = set(ptnn_torch.__all__)
+    missing = set(ptnn.__all__) - exported
+    assert missing == set(ptnn_torch.NOT_PORTED), sorted(missing)
+    assert not exported & set(ptnn_torch.NOT_PORTED)
+    for name in exported:
+        assert hasattr(ptnn_torch, name), name
+    prob = load_regression("Sunspot")
+    cfg = ptnn_torch.PTConfig(task="regression", topology=(4, 10, 1),
+                              num_samples=8 * 12, num_chains=8,
+                              use_langevin_gradients=True).validate()
+    out = ptnn_torch.throughput_run(cfg, prob.train, prob.test, seed=1,
+                                    device="cpu")
+    assert {"trace_means", "elapsed_s", "steps", "chains",
+            "chain_steps_per_sec", "accept_pct", "swap_pct",
+            "final_rmse_test_cold"} <= set(out)
+    assert out["steps"] == 11.0 and out["chains"] == 8.0
+    again = ptnn_torch.sampler.throughput_runner(cfg, prob.train, prob.test,
+                                                 seed=1, device="cpu")()
+    assert out["trace_means"] == again["trace_means"]
+    import pytest
+
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ptnn_torch.throughput_run(cfg, prob.train, prob.test, mesh=object())

@@ -384,3 +384,60 @@ def test_do_swap_permutes_g_like_with_w_under_deo(rng):
                                           src[k][rid])
         for k in ("pc_mean", "pc_m2", "log_step_w", "log_traj"):
             np.testing.assert_array_equal(getattr(got, k).numpy(), src[k])
+
+
+@pytest.mark.parametrize("chains,rungs", [(8, 4), (52, 4), (96, 4),
+                                          (128, 4), (256, 4), (1024, 4),
+                                          (384, 8), (120, 3)])
+def test_hmc_panel_and_cluster_layout_match_ptnn(chains, rungs):
+    """The HMC kernel's ChEES layout (``hmc_layout``, ``exchange_reads``:
+    the arithmetic of csrc/hmc_block.cu) against ptnn's
+    ``rung_sum_matrix``: the chains a chain sums are exactly its rung's
+    replicas in its panel (one (128, 128) matrix per panel past 128 chains,
+    ``ptnn/fused.py:414-428``), each once, in replica order, and all in its
+    own panel's blocks, 8 chains a block and at most 16 blocks a panel."""
+    panel, n_lad = precond_step.panel_layout(chains, rungs)
+    blocks, cluster = precond_step.hmc_layout(chains, panel)
+    assert precond_step._hmc("HMC_WARPS") == 8
+    assert precond_step._common("WARPS") == 16
+    assert blocks == -(-chains // 8) and cluster == -(-panel // 8) <= 16
+    if chains > 128:
+        assert blocks % cluster == 0 and blocks // cluster == chains // 128
+        want = np.kron(np.eye(chains // 128), np.asarray(
+            ps.rung_sum_matrix(128, rungs, 128)))
+    else:
+        assert cluster == blocks
+        want = np.asarray(ps.rung_sum_matrix(chains, rungs, chains))
+    reads = precond_step.exchange_reads(chains, rungs)
+    assert reads.shape == (chains, n_lad)
+    got = np.zeros((chains, chains))
+    np.add.at(got, (np.arange(chains)[:, None], reads), 1.0)
+    np.testing.assert_array_equal(got, want)
+    assert (np.diff(reads, axis=1) == rungs).all()  # replica order
+    own = np.arange(chains) // 8 // cluster  # the panel of a chain's block
+    assert (reads // 8 // cluster == own[:, None]).all()
+    # the rung sums of the plain version agree with the same reads
+    x = torch.arange(chains, dtype=torch.float64) ** 1.5
+    torch.testing.assert_close(
+        precond_step.rung_sum(x, panel, rungs),
+        x[torch.from_numpy(reads)].sum(dim=1), rtol=0, atol=1e-9)
+
+
+def test_hmc_layouts_that_do_not_fit_are_refused():
+    """A panel that does not tile the chains, or a second panel of another
+    size than 128, is refused before any launch; without ChEES any chain
+    count runs. HMC blocks hold 8 chains, MALA's 16, and shared memory
+    follows."""
+    assert precond_step.hmc_layout(130) == (17, 1)
+    for chains, panel in ((256, 64), (100, 64), (200, 100)):
+        with pytest.raises(ValueError, match="does not tile"):
+            precond_step.hmc_layout(chains, panel)
+    with pytest.raises(ValueError, match="complete ladders"):
+        precond_step.panel_layout(160, 4)
+    rows = 496 * 5  # 496 rows of 4 inputs and a target, a multiple of 4
+    mala = precond_step.smem_bytes(496, 4, False)
+    hmc = precond_step.smem_bytes(496, 4, True, hmc=True)
+    assert mala == 4 * (rows + 16 * 6 * 64)
+    assert hmc == 4 * (rows + 8 * (6 * 64 + 2 * (2 * 64 + 4)))
+    assert precond_step.hmc_route("cpu", hmc, 1, 128, chees=False)[0] == (
+        "plain")

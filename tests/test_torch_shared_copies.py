@@ -135,3 +135,48 @@ def test_posterior_predict_matches_ptnn(rng):
     for k in ("mean", "low", "high", "std"):
         np.testing.assert_allclose(t[k], j[k], rtol=1e-5, atol=1e-6,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("model", ["cnn", "mlp", "mlp_regression"])
+def test_posterior_predict_with_a_spec_matches_ptnn(rng, model):
+    """``spec=`` serves draws of a zoo model, as ptnn's: a small digits CNN
+    and a deep MLP (classification), and an MLP regressor, on the same
+    numpy draws. Tolerance rtol 1e-5, atol 1e-6: the forward passes sum in
+    another order."""
+    from ptnn.models import cnn as jcnn
+    from ptnn.models import mlp as jmlp
+
+    if model == "cnn":
+        jspec = jcnn.digits_spec(channels=(4,), hidden=8)
+        tspec = ptnn_torch.cnn.digits_spec(channels=(4,), hidden=8)
+        cfg = ptnn.classification_preset((64, 8, 10), num_samples=1000)
+        x = tdata.load_digits(0).test[:40, :64]
+    elif model == "mlp":
+        jspec = jmlp.spec((64, 16, 12, 10))
+        tspec = ptnn_torch.mlp.spec((64, 16, 12, 10))
+        cfg = ptnn.classification_preset((64, 16, 10), num_samples=1000)
+        x = tdata.load_digits(0).test[:40, :64]
+    else:
+        jspec = jmlp.spec((4, 8, 6, 1), task="regression")
+        tspec = ptnn_torch.mlp.spec((4, 8, 6, 1), task="regression")
+        cfg = ptnn.regression_preset(num_samples=800, num_chains=8)
+        x = jdata.load_regression("Sunspot").test[:, :4]
+    assert tspec.w_size == jspec.w_size
+    draws = (rng.normal(size=(150, tspec.w_size)) * 0.3).astype(np.float32)
+    j = jpredict.posterior_predict(cfg, draws, x, batch=64, spec=jspec)
+    t = tpredict.posterior_predict(_port_cfg(cfg), draws, x, batch=64,
+                                   device="cpu", spec=tspec)
+    assert set(t) == set(j)
+    for k in t:
+        if k == "label":
+            np.testing.assert_array_equal(t[k], j[k])
+        else:
+            np.testing.assert_allclose(t[k], j[k], rtol=1e-5, atol=1e-6,
+                                       err_msg=k)
+    with pytest.raises(ValueError, match="draws must be"):
+        tpredict.posterior_predict(_port_cfg(cfg), draws[:, 1:], x,
+                                   device="cpu", spec=tspec)
+    for kw in (dict(noise="conditional"), dict(return_samples=True)):
+        with pytest.raises(NotImplementedError, match=next(iter(kw))):
+            tpredict.posterior_predict(_port_cfg(cfg), draws, x, device="cpu",
+                                       spec=tspec, **kw)

@@ -328,7 +328,10 @@ def test_throughput_runner_per_step_reps_repeat():
 
 
 def test_default_noise_depends_on_chunk_start_only():
-    from ptnn_torch.sampler import step_noise
+    """A step's default noise depends on its absolute index alone: the same
+    steps drawn as another chunk, or across a page boundary, are the same
+    numbers."""
+    from ptnn_torch.sampler import page_steps, step_noise
 
     fn = step_noise(3, "cpu", kernel.step_noise_names(
         ptnn_torch.PTConfig(**_sunspot_lg()).validate()))
@@ -338,6 +341,50 @@ def test_default_noise_depends_on_chunk_start_only():
     for k in a:
         assert torch.equal(a[k], b[k])
     assert not torch.equal(fn(0, 5, 8, 61)["u"], a["u"])
+    p = page_steps(8, 61)
+    wide = fn(37, p + 9, 8, 61)  # three pages
+    for k in a:
+        assert torch.equal(wide[k][3:8], a[k])
+        assert torch.equal(wide[k][p - 37:p - 37 + 4], fn(p, 4, 8, 61)[k])
+    # a page holds at most 64 MB of w-noise, whatever the chunking
+    assert page_steps(256, 3658) * 256 * 3658 * 4 <= 64 * 2**20
+
+
+def _digits_mlp():
+    from ptnn_torch.data import load_digits
+
+    kw = dict(ptnn_torch.classification_preset(
+        (64, 16, 10), num_samples=8 * 40, num_chains=8, maxtemp=3.0,
+        use_langevin_gradients=True, learn_rate=0.02).__dict__,
+        swap_interval=10, record_w=True, track_replicas=True)
+    prob = load_digits(0)
+    return kw, prob.train[:96], prob.test[:48], ptnn_torch.mlp.spec(
+        (64, 16, 12, 10))
+
+
+@pytest.mark.parametrize("model", ["sunspot_lg", "digits_mlp"])
+def test_default_noise_is_invariant_to_chunking(model):
+    """8 chains x 40 steps with chunk_steps 7 and 40 give the same traces
+    and counters (ptnn's tests/test_precond.py:80-83 holds its own sampler
+    to this)."""
+    if model == "sunspot_lg":
+        prob = load_regression("Sunspot")
+        kw, train, test, spec = _sunspot_lg(), prob.train, prob.test, None
+    else:
+        kw, train, test, spec = _digits_mlp()
+    runs = [ptnn_torch.sample(
+        ptnn_torch.PTConfig(**dict(kw, chunk_steps=chunk)).validate(), train,
+        test, seed=4, device="cpu", model_spec=spec) for chunk in (7, 40)]
+    a, b = runs
+    assert set(a.traces) == set(b.traces)
+    for k in a.traces:
+        np.testing.assert_array_equal(a.traces[k], b.traces[k], err_msg=k)
+    np.testing.assert_array_equal(a.accept_ratio_per_chain,
+                                  b.accept_ratio_per_chain)
+    np.testing.assert_array_equal(a.langevin_ratio_per_chain,
+                                  b.langevin_ratio_per_chain)
+    assert a.swap_percent == b.swap_percent
+    assert 0 < a.accept_ratio_per_chain.mean() < 100
 
 
 # ---------------------------------------------------------------------------
