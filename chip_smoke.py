@@ -8,7 +8,7 @@ Run from the root of a checkout, with no arguments:
 Two other modes print measurements and run no smoke: ``--walls [DIR]`` (the
 kernel times and walls of the checkout at DIR, to compare two checkouts on
 one card: ``walls``), and ``--precond-seeds SEED ...`` (the ChEES kernel
-comparisons on other inputs: ``precond_seeds``).
+comparisons, regression and iris, on other inputs: ``precond_seeds``).
 
 Phases, one line each or more (a failing phase raises and the exit code is
 not 0):
@@ -17,9 +17,12 @@ not 0):
   2. build: compiles the nine ptnn_torch/csrc/*.cu (six *_block.cu,
      drift_epoch.cu, fnn_eval.cu, conv1_relu_pool.cu) with nvcc into build/,
      one nvcc per source, all at once, with ptxas' register report; every
-     drift_epoch instantiation and the three HMC variants must spill
-     nothing; the HMC exchange route (cluster or cooperative grid) the
-     card's occupancy gives the ChEES layouts at 1024, 256 and 52 chains;
+     drift_epoch instantiation, the three regression HMC variants, the nine
+     classification HMC variants (warps a chain x route) and both conv
+     kernels must spill nothing; the regression HMC exchange route
+     (cluster or cooperative grid) the card's occupancy gives the ChEES
+     layouts at 1024, 256 and 52 chains, and the classification HMC launch
+     plan (warps a chain, route) at 64, 256, 52 and 1024 chains;
   3. kernel: each CUDA block kernel against its plain PyTorch version on the
      same CUDA tensors at the main paths' widths. Sunspot: RW at 1000 chains
      x 100 steps, adapt off and on; MALA at 1024 chains x 10 steps across
@@ -27,8 +30,10 @@ not 0):
      HMC with ChEES at 1024 chains (8 panels), leapfrog 16; HMC without
      ChEES at leapfrog 8; and the swap sweep against the CPU's. Iris: the
      RW classification branch at 1000 x 100, adapt off and on; MALA at 1024
-     x 10 across the phases; HMC with ChEES at 64 chains (one panel) and
-     256 (two), leapfrog 16; HMC without ChEES at leapfrog 8. (Sunspot HMC
+     x 10 across the phases; HMC with ChEES at 64 chains (one panel), 256
+     (two) and 52 (a half-empty last block), leapfrog 16, and without ChEES
+     at 130 and 1024 chains, leapfrog 8, each held with the float64
+     witness and checked to take its planned route. (Sunspot HMC
      with ChEES also at 256 chains, two panels, and 52, a half-empty last
      block.) The per-step sampler's kernels: the drift epoch at Sunspot
      (4, 10, 1) 64 chains (depth 1 and 2), Ionosphere (34, 50, 2) 10 chains
@@ -38,8 +43,9 @@ not 0):
      FNN eval
      at Sunspot 64 chains and Ionosphere 10, train and test rows. The
      CNN's fused stage 1, conv1_relu_pool, at the digits widths (256 chains
-     x 1257 and 540 images), ragged shapes, three input channels and the
-     MNIST side, and the fused CNN forward against the plain one;
+     x 1257 and 540 images, the fixed-shape kernel), ragged shapes, three
+     input channels and the MNIST side (the generic kernel), and the fused
+     CNN forward against the plain one;
   4. end to end, each path with its launch counts set to 0 just before it,
      through ptnn_torch.sample, each checked against the bands of the JAX
      package's records: the Sunspot rw_fused sampler (64 chains x 5000),
@@ -229,9 +235,11 @@ def phase_device():
 def phase_build():
     """Every source, one nvcc each, all at once; ptxas' report; and for the
     redesigned kernels (every drift_epoch instantiation, the three HMC
-    variants) the registers and spill bytes, which must be 0, and the HMC
-    exchange route the card gives the ChEES layouts."""
-    from ptnn_torch.ops import _build, precond_step
+    variants, the nine classification HMC variants, the conv kernels) the
+    registers and spill bytes, which must be 0, the HMC exchange route the
+    card gives the ChEES layouts, and the classification HMC kernel's launch
+    plans."""
+    from ptnn_torch.ops import _build, precond_cls_step, precond_step
 
     t0 = time.perf_counter()
     built = _build.build_all(list(KERNELS))
@@ -243,7 +251,8 @@ def phase_build():
                  if "registers" in ln or "spill" in ln or "Compiling" in ln]
         print(f"[2/6] build: {name}.cu -> {b.path.relative_to(ROOT)} (nvcc "
               f"{b.seconds:.2f} s); ptxas: {' | '.join(ptxas)}")
-    for name in ("drift_epoch", "hmc_block"):
+    for name in ("drift_epoch", "hmc_block", "hmc_cls_block",
+                 "conv1_relu_pool"):
         entries = _build.ptxas_report(built[name].log)
         check(entries, f"{name}: no ptxas report")
         for e in entries:
@@ -259,6 +268,14 @@ def phase_build():
         route, why = precond_step.hmc_route(DEVICE, smem, cluster, blocks)
         print(f"[2/6] build: hmc_block ChEES at {c} chains: {blocks} blocks, "
               f"panels of {cluster} blocks; route {route} ({why})")
+    for c, chees in ((64, True), (256, True), (52, True), (1024, True),
+                     (1024, False)):
+        plan = precond_cls_step.card_plan(
+            DEVICE, c, min(c, precond_step.PANEL) if chees else 0, 150)
+        print(f"[2/6] build: hmc_cls_block {'ChEES' if chees else 'plain'} at "
+              f"{c} chains: WPC {plan.wpc}, {plan.per_block} chains a block, "
+              f"{plan.blocks} blocks, route {plan.route} ({plan.why}), "
+              f"{plan.smem} bytes of shared memory")
 
 
 def demangle(name):
@@ -372,6 +389,36 @@ def time_ms(fn, reps, warm=2):
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def graph_ms(fn, calls=100, reps=5):
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, the graph replayed ``reps`` times between two CUDA events.
+    The host issues one replay, not ``calls`` wrappers, so a wrapper's host
+    work, which ``time_ms`` measures where it exceeds the kernel, is left
+    out; the graph's gap between two kernel nodes is in."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        graph.replay()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / (reps * calls)
 
 
 def time_block(c, k, record_w):
@@ -963,14 +1010,14 @@ def iris_cfg(chains, samples, proposal, **kw):
                                  num_chains=chains, maxtemp=5.0)
     extra = (dict(hmc_leapfrog=16, hmc_adapt_traj=True, step_w=0.01)
              if proposal == "hmc" else {})
-    extra.update(kw)
-    return dataclasses.replace(
-        base, proposal=proposal, n_ladders=chains // 4, adapt_rate=0.1,
+    fields = dict(
+        proposal=proposal, n_ladders=chains // 4, adapt_rate=0.1,
         swap_style="even_odd", swap_interval=10, swap_rule="metropolis",
         swap_payload="untempered", warmstart_frac=0.1,
         precond_start_frac=0.3, record_w=True, record_w_chains=chains // 4,
-        track_replicas=True, chunk_steps=1000, fused_step=True,
-        **extra).validate()
+        track_replicas=True, chunk_steps=1000, fused_step=True, **extra)
+    fields.update(kw)
+    return dataclasses.replace(base, **fields).validate()
 
 
 def iris_rw_cfg(samples=5000, chains=10, **kw):
@@ -1038,20 +1085,23 @@ def cls_call(kind, state, noise, start, length, kdata, at, scal, plain,
               record_w=record_w, **extra)
 
 
-def compare_cls(kind, cfg, k, length, start, phases):
+def compare_cls(kind, cfg, k, length, start, phases, seed=CLS_SEED):
     """One block of an iris kernel against its plain version on the same
     CUDA tensors. Chains within a decision margin (|u - a|, or the leapfrog
     count's boundary; under ChEES their whole (panel, rung) group) are left
-    out, at most 1 %. acc and rmse are exact functions of the argmax: they
-    must match exactly wherever their source proposal's every row keeps its
-    argmax through a 1e-5 move of the logits (block_step.argmax_fragile), at
-    most 1 % of the entries may not. Returns (excluded chains, excluded
-    groups, accepts, fragile entries, max |diff| of the floats)."""
+    out, at most 1 %. acc and rmse are exact functions
+    of the argmax: they must match exactly wherever their source proposal's
+    every row keeps its argmax through a 1e-5 move of the logits
+    (block_step.argmax_fragile), at most 1 % of the entries may not. HMC's
+    floats carry the float64 witness of compare_precond (WITNESS_R): the
+    kernel sums a chain's rows over several warps, in another order than
+    the plain version. Returns (excluded chains, excluded groups, accepts,
+    fragile entries, max |diff| of the floats, what it was, witness)."""
     import torch
 
     from ptnn_torch.models import fnn
 
-    state, noise, kdata, at, scal = cls_inputs(cfg, k, start, phases)
+    state, noise, kdata, at, scal = cls_inputs(cfg, k, start, phases, seed)
     name = KERNEL_OF[kind]
     before = launch_count(name)
     new_k, tr_k = cls_call(kind, state, noise, start, length, kdata, at,
@@ -1059,8 +1109,17 @@ def compare_cls(kind, cfg, k, length, start, phases):
     check(launch_count(name) == before + 1, f"{name} did not launch")
     new_r, tr_r = cls_call(kind, state, noise, start, length, kdata, at,
                            scal, plain=True, diagnostics=True)
-    torch.cuda.synchronize()
+    new_d = tr_d = None
     c = cfg.num_chains
+    same = torch.ones(c, dtype=torch.bool, device=DEVICE)
+    if kind == "hmc":  # the float64 witness: the same inputs in float64
+        new_d, tr_d = cls_call(kind, upcast(state), upcast(noise), start,
+                               length, upcast(kdata), at.double(), scal,
+                               plain=True)
+        same = new_d["n_accept"] == new_r["n_accept"]
+        for n in ("accept_count", "traj_len"):
+            same &= (tr_d[n] == tr_r[n]).all(dim=0)
+    torch.cuda.synchronize()
     close = tr_r["margin"] <= P_MARGIN
     if "traj_margin" in tr_r:
         close |= tr_r["traj_margin"] <= TRAJ_MARGIN
@@ -1074,6 +1133,9 @@ def compare_cls(kind, cfg, k, length, start, phases):
         tainted[group[close]] = True
         n_groups = int(tainted.sum())
         close = tainted[group]
+        apart = torch.zeros_like(tainted)
+        apart[group[~same]] = True
+        same = ~apart[group]
     ok = ~close
     n_close = int(close.sum())
     check(n_close <= 0.01 * c, f"{name}: {n_close} of {c} chains within the "
@@ -1096,35 +1158,55 @@ def compare_cls(kind, cfg, k, length, start, phases):
         check(bad == 0, f"{name}: {what} differs in {bad} entries")
     vec_scale = lambda v: v.abs().amax(dim=-1, keepdim=True).expand_as(v)
     rtol, atol = (RTOL, ATOL) if kind == "rw" else (P_RTOL, P_ATOL)
+    # (kernel, plain, float64 witness or None, scale, chain axis, what)
     pairs = []
     for n, v in new_r.items():
         if n in ("n_accept", "acc_train", "acc_test", "rmse_train",
                  "rmse_test"):
             continue
-        scale = vec_scale(v[ok]) if v.dim() == 2 else v[ok]
+        scale = vec_scale(v) if v.dim() == 2 else v
+        wit = None if new_d is None else new_d[n]
         if n == "chees_m1":
-            scale = v[ok].abs() + new_r["chees_v2"][ok].abs().sqrt()
-        if n == "g_like":  # the gradient at the kernel's own w
+            scale = v.abs() + new_r["chees_v2"].abs().sqrt()
+        if n == "g_like":  # the gradient at the kernel's own w: no witness
             v = fnn.multinomial_ll_grad(new_k["w"], kdata["x_tr"],
                                         kdata["yi_tr"], IRIS_TOPO)[1]
-            scale = vec_scale(v[ok])
-        pairs.append((new_k[n][ok], v[ok], scale, n))
+            scale, wit = vec_scale(v), None
+        pairs.append((new_k[n], v, wit, scale, 0, n))
     # the multinomial ll is a sum of negative terms: held on its own size
-    pairs.append((tr_k["ll"][:, ok], tr_r["ll"][:, ok], tr_r["ll"][:, ok],
-                  "trace ll"))
-    pairs.append((tr_k["w"][:, ok], tr_r["w"][:, ok],
-                  vec_scale(tr_r["w"][:, ok]), "trace w"))
-    err, err_of = 0.0, ""
-    for a, b, scale, what in pairs:
+    pairs.append((tr_k["ll"], tr_r["ll"], None if tr_d is None else tr_d["ll"],
+                  tr_r["ll"], 1, "trace ll"))
+    pairs.append((tr_k["w"], tr_r["w"], None if tr_d is None else tr_d["w"],
+                  vec_scale(tr_r["w"]), 1, "trace w"))
+    err, err_of, past, r_needed, worst = 0.0, "", {}, 0.0, None
+    for a, b, wit, scale, axis, what in pairs:
         check(bool(torch.isfinite(a).all()), f"{name}: {what} not finite")
+        shape = [1] * a.dim()
+        shape[axis] = c
+        keep = ok.reshape(shape).expand_as(a)
         diff = (a - b).abs()
-        bad = int((diff > atol + rtol * scale.abs()).sum())
+        tol = atol + rtol * scale.abs()
+        d = torch.zeros_like(diff)
+        if wit is not None:
+            d = (chain_max((b - wit).abs(), axis) * same).reshape(
+                shape).expand_as(a).to(diff.dtype)
+        bad = int(((diff > tol + WITNESS_R * d) & keep).sum())
         check(bad == 0, f"{name}: {what}: {bad} entries off, max |diff| "
-              f"{float(diff.max()):.3g}")
-        if float(diff.max()) > err:
-            err, err_of = float(diff.max()), (
-                f"{what}, of size {float(b.abs().max()):.3g}")
-    return n_close, n_groups, int(na.sum()), n_fragile, err, err_of
+              f"{float(diff[keep].max()):.3g}")
+        over = (diff > tol) & keep
+        if bool(over.any()):
+            past[what] = int(over.sum())
+            need = torch.where(over, (diff - tol) / d, torch.zeros_like(d))
+            at_max = int(need.argmax())
+            if float(need.flatten()[at_max]) > r_needed:
+                r_needed = float(need.flatten()[at_max])
+                worst = (what, float((a - wit).abs().flatten()[at_max]),
+                         float((b - wit).abs().flatten()[at_max]))
+        if float(diff[keep].max()) > err:
+            err, err_of = float(diff[keep].max()), (
+                f"{what}, of size {float(b[keep].abs().max()):.3g}")
+    return (n_close, n_groups, int(na.sum()), n_fragile, err, err_of,
+            dict(past=past, r_needed=r_needed, worst=worst))
 
 
 KERNEL_OF = {"rw": "rw_cls_block", "mala": "mala_cls_block",
@@ -1134,31 +1216,46 @@ KERNEL_OF = {"rw": "rw_cls_block", "mala": "mala_cls_block",
 def phase_cls_kernels():
     """The three iris kernels against their plain versions; returns the
     largest float difference of each."""
+    from ptnn_torch.ops import precond_cls_step
+
     out = {}
     phases = dict(warm_end=2, pc_start=4, burn_end=8)
+    hmc = lambda c, **kw: iris_cfg(c, 100, "hmc", step_w=CLS_STEP_HMC, **kw)
+    plain = dict(hmc_leapfrog=8, hmc_adapt_traj=False)
     cases = [("rw", iris_rw_cfg(1000, 1000), 100, 90, 0, dict(adapt=False)),
              ("rw", iris_rw_cfg(1000, 1000, adapt_step_size=True), 100, 90, 0,
               dict(adapt=True, burn_end=60)),
              ("mala", iris_cfg(1024, 100, "precond_mala",
                                step_w=CLS_STEP_MALA), 10, 10, 0,
               dict(warm_end=2, pc_start=5, burn_end=8)),
-             ("hmc", iris_cfg(64, 100, "hmc", step_w=CLS_STEP_HMC), 10, 10, 0,
-              phases),
-             ("hmc", iris_cfg(256, 100, "hmc", step_w=CLS_STEP_HMC), 10, 10, 0,
-              phases),
-             ("hmc", iris_cfg(1024, 100, "hmc", hmc_leapfrog=8,
-                              hmc_adapt_traj=False, step_w=CLS_STEP_HMC), 10,
-              10, 0, phases)]
+             # ChEES on one panel, on two, and on one of 13 ladders whose
+             # last block is half empty; without ChEES a ragged count and
+             # the full card
+             ("hmc", hmc(64), 10, 10, 0, phases),
+             ("hmc", hmc(256), 10, 10, 0, phases),
+             ("hmc", hmc(52), 10, 10, 0, phases),
+             ("hmc", hmc(130, n_ladders=26, record_w_chains=26, **plain), 10,
+              10, 0, phases),
+             ("hmc", hmc(1024, **plain), 10, 10, 0, phases)]
     for kind, cfg, k, length, start, phases in cases:
-        n_close, n_groups, n_acc, n_frag, err, err_of = compare_cls(
+        routes = dict(precond_cls_step.hmc_cls_routes)
+        n_close, n_groups, n_acc, n_frag, err, err_of, wit = compare_cls(
             kind, cfg, k, length, start, phases)
         name = KERNEL_OF[kind]
         out[name] = max(out.get(name, 0.0), err)
-        what = ""
+        what, wit_txt = "", ""
         if kind == "hmc":
-            what = (f"ChEES ({cfg.num_chains // min(cfg.num_chains, 128)} "
-                    "panels), " if cfg.hmc_adapt_traj else "")
-            what += f"leapfrog {cfg.hmc_leapfrog}, "
+            c = cfg.num_chains
+            panel = min(c, 128) if cfg.hmc_adapt_traj else 0
+            plan = precond_cls_step.card_plan(DEVICE, c, panel, 150)
+            taken = [r for r in routes
+                     if precond_cls_step.hmc_cls_routes[r] > routes[r]]
+            check(taken == [plan.route], f"hmc_cls_block took {taken}, "
+                  f"planned {plan.route}")
+            what = (f"ChEES ({c // panel} panels), " if panel else "")
+            what += (f"leapfrog {cfg.hmc_leapfrog}, WPC {plan.wpc}, "
+                     f"{plan.blocks} blocks, route {plan.route}, ")
+            wit_txt = f"; {witness_text(wit)}"
         print(f"[3/6] kernel: {name} {what}C={cfg.num_chains} K={k} "
               f"length={length} {phases}: {n_acc} accepts, counters"
               f"{' and traj_len' if kind == 'hmc' else ''} exact; {n_close} "
@@ -1166,7 +1263,7 @@ def phase_cls_kernels():
               f"acc and rmse exact outside {n_frag} trace entries with "
               f"fragile argmaxes; floats within rtol "
               f"{RTOL if kind == 'rw' else P_RTOL}, ll on its own size (max "
-              f"|diff| {err:.3g}: {err_of})")
+              f"|diff| {err:.3g}: {err_of}){wit_txt}")
     return out
 
 
@@ -1194,12 +1291,14 @@ def reset_launch_counts():
                                 precond_cls_step, precond_step)
 
     conv_stage.launches = 0
+    conv_stage.fixed_launches = 0
     block_step.launches = 0
     block_step.cls_launches = 0
     drift.launches = 0
     fnn_eval.launches = 0
     for counts in (precond_step.launches, precond_cls_step.launches,
-                   precond_step.hmc_routes, drift.variant_launches):
+                   precond_step.hmc_routes, precond_cls_step.hmc_cls_routes,
+                   drift.variant_launches):
         for key in counts:
             counts[key] = 0
 
@@ -1261,7 +1360,7 @@ def phase_iris_end_to_end():
     kernel's launches in its run (the flagship's first seed)."""
     import numpy as np
 
-    from ptnn_torch.ops import ess
+    from ptnn_torch.ops import ess, precond_cls_step
 
     prob = iris()
     launches = {}
@@ -1293,6 +1392,10 @@ def phase_iris_end_to_end():
     for seed in (1, 2, 3):
         res, n, n_blocks = run_counted("hmc_cls_block", cfg, prob, seed=seed)
         launches.setdefault("hmc_cls_block", n)
+        plan = precond_cls_step.card_plan(DEVICE, 64, 64, 150)
+        routes = {r: k for r, k in precond_cls_step.hmc_cls_routes.items() if k}
+        check(routes == {plan.route: n}, f"hmc_cls_block routes {routes}, "
+              f"planned {n} by {plan.route}")
         for name in ("ll", "acc_test", "traj_len", "replica"):
             check(np.isfinite(res.traces[name]).all(),
                   f"trace {name} not finite")
@@ -1315,7 +1418,8 @@ def phase_iris_end_to_end():
               f"trips {trips:.2f} per ladder per 1k steps; "
               f"pooled cold ESS/s {ess_s:.1f}; traj_len {tl.min():.0f}-"
               f"{tl.max():.0f} (mean {tl.mean():.2f}); kernel launches {n} "
-              f"for {n_blocks} planned blocks")
+              f"for {n_blocks} planned blocks, all by the {plan.route} route "
+              f"at WPC {plan.wpc}")
         check(tl.min() >= 1 and tl.max() <= 16 and len(np.unique(tl)) > 1,
               "traj_len stays in [1, 16] and varies")
     med = statistics.median(served)
@@ -1390,6 +1494,11 @@ def phase_cls_throughput():
         print(f"[5/6] throughput: {name}, one block at its path's widths: "
               f"kernel {t['ms']:.3f} ms, plain version {t['plain_ms']:.3f} "
               f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    t = time_cls_block("hmc", iris_cfg(256, 2000, "hmc"), 10, adapting, False)
+    print(f"[5/6] throughput: hmc_cls_block at 256 chains (chees16_fused_64x4"
+          f"'s widths): kernel {t['ms']:.3f} ms, plain version "
+          f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']})")
     return out
 
 
@@ -1760,16 +1869,18 @@ def phase_per_step_throughput():
         tau = torch.full((c,), 0.05, dtype=torch.float32, device=DEVICE)
         kern = lambda: fnn_eval.fnn_eval(w, x, y, tau, topo, task)
         plain = lambda: fnn_eval.fnn_eval_reference(w, x, y, tau, topo, task)
-        k_ms, p_ms = timing(kern, plain, 50, 20)
+        issue_ms, p_ms = timing(kern, plain, 50, 20)
+        dev_ms = min(graph_ms(kern), graph_ms(kern))
         n = x.shape[0]
         b_ms, b_by = bound(c * n * row_ops(topo, task != "regression", False),
                            4 * (w.numel() + x.numel() + y.numel() + 4 * c))
         print(f"[5/6] throughput: fnn_eval {label} {topo} C={c} N={n}: kernel "
-              f"{k_ms:.4f} ms, plain version {p_ms:.3f} ms, bound "
-              f"{b_ms:.6f} ms ({b_by})")
+              f"{dev_ms:.4f} ms of device time (a CUDA graph of 100 calls), "
+              f"{issue_ms:.4f} ms a call issued from the host loop, plain "
+              f"version {p_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})")
         if label == "Sunspot train":
-            out["fnn_eval"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                   bound_by=b_by)
+            out["fnn_eval"] = dict(ms=dev_ms, issue_ms=issue_ms, plain_ms=p_ms,
+                                   bound_ms=b_ms, bound_by=b_by)
     return out
 
 
@@ -1850,11 +1961,13 @@ def phase_conv_kernel():
     err = 0.0
     for c, n, hw, in_ch, out_ch in CONV_SHAPES:
         x, w1, b1 = conv_inputs(c, n, hw, in_ch, out_ch)
-        before = conv_stage.launches
+        before = conv_stage.launches, conv_stage.fixed_launches
         got = conv_stage.conv1_relu_pool(x, w1, b1, hw, in_ch, out_ch)
         torch.cuda.synchronize()
-        check(conv_stage.launches == before + 1, "conv1_relu_pool did not "
-              "launch")
+        kind = conv_stage.launch_plan(c, n, hw, in_ch, out_ch).kernel
+        check((conv_stage.launches, conv_stage.fixed_launches)
+              == (before[0] + 1, before[1] + (kind == "fixed")),
+              f"conv1_relu_pool did not launch its {kind} kernel")
         want = conv_stage.conv1_relu_pool_reference(x, w1, b1, hw, in_ch,
                                                     out_ch)
         check(got.shape == want.shape == (c, n, hw // 2, hw // 2, out_ch),
@@ -1866,8 +1979,8 @@ def phase_conv_kernel():
         check(float(want.abs().max()) > 0.1 and float((want == 0).float().mean())
               < 0.9, "conv comparison on a trivial output")
         err = max(err, diff)
-        print(f"[3/6] kernel: conv1_relu_pool C={c} N={n} hw={hw} {in_ch}->"
-              f"{out_ch}: within atol {C_ATOL} of F.conv2d + relu + "
+        print(f"[3/6] kernel: conv1_relu_pool ({kind}) C={c} N={n} hw={hw} "
+              f"{in_ch}->{out_ch}: within atol {C_ATOL} of F.conv2d + relu + "
               f"avg_pool2d, TF32 off (max |diff| {diff:.3g}, outputs up to "
               f"{float(want.abs().max()):.3g})")
     cfg = cnn.CnnConfig(image_hw=8, n_classes=10)
@@ -1908,6 +2021,10 @@ def run_zoo_counted(cfg, prob, spec, seed=0):
     got = {name: launch_count(name) for name in KERNELS}
     want = dict({name: 0 for name in KERNELS}, conv1_relu_pool=plan)
     check(got == want, f"model-zoo launches {got}, planned {want}")
+    from ptnn_torch.ops import conv_stage
+
+    check(conv_stage.fixed_launches == plan, f"{conv_stage.fixed_launches} "
+          f"of the {plan} conv launches took the fixed-shape kernel")
     return res, plan
 
 
@@ -2231,23 +2348,30 @@ def main() -> int:
 
 
 def precond_seeds(seeds):
-    """The ChEES comparisons of phase 3 off their default inputs: 256 chains
-    (two panels), 100 and 52 (one panel, the last block half empty), each
-    on the inputs of every seed in ``seeds``; one line each with the
-    verdict, the excluded chains and the float64 witness's readings.
-    Returns 1 if any failed."""
+    """The ChEES comparisons of phase 3 off their default inputs: Sunspot at
+    256 chains (two panels), 100 and 52 (one panel, the last block half
+    empty), and iris at 64, 256 and 52, each on the inputs of every seed in
+    ``seeds``; one line each with the verdict, the excluded chains and the
+    float64 witness's readings. Returns 1 if any failed."""
     from ptnn_torch.ops import _build
 
     phase_device()
-    _build.build_all(["hmc_block"])
+    _build.build_all(["hmc_block", "hmc_cls_block"])
+    phases = dict(warm_end=2, pc_start=4, burn_end=8)
     failed = 0
-    for c in (256, 100, 52):
+    for kernel, c in (("hmc_block", 256), ("hmc_block", 100),
+                      ("hmc_block", 52), ("hmc_cls_block", 64),
+                      ("hmc_cls_block", 256), ("hmc_cls_block", 52)):
         for seed in seeds:
-            head = f"[seeds] hmc_block ChEES C={c} inputs of seed {seed}:"
+            head = f"[seeds] {kernel} ChEES C={c} inputs of seed {seed}:"
             try:
-                n_close, n_groups, n_acc, err, wit = compare_precond(
-                    precond_cfg(c, 100, "hmc"), 10, 0,
-                    dict(warm_end=2, pc_start=4, burn_end=8), seed)
+                if kernel == "hmc_block":
+                    n_close, n_groups, n_acc, err, wit = compare_precond(
+                        precond_cfg(c, 100, "hmc"), 10, 0, phases, seed)
+                else:
+                    n_close, n_groups, n_acc, _f, err, _of, wit = compare_cls(
+                        "hmc", iris_cfg(c, 100, "hmc", step_w=CLS_STEP_HMC),
+                        10, 10, 0, phases, seed)
             except SmokeError as e:
                 failed += 1
                 print(f"{head} FAIL: {e}")
@@ -2263,15 +2387,17 @@ def walls(root):
     checkouts can be compared on one card by running this mode on each in
     turns (A, B, B, A, ...): the drift epoch at the per-step paths' widths
     (Sunspot (4, 10, 1) 64 chains x 298 rows, Ionosphere (34, 50, 2) 10 x
-    245, PenDigit (16, 30, 10) 10 x 7494) and one adapting 10-step ChEES-HMC
-    block at 1024 chains (CUDA events); the default per-step noise of the
-    64 x 5000 runs, drawn chunk by chunk and sliced a step at a time as the
-    sampler does (host clock around a synchronised loop); and the walls of
-    ptnn_torch.sample for lg_pallas 64 x 5000, rw per-step 64 x 5000,
-    Ionosphere legacy LG 10 x 5000 and chees16_fused_256x4 1024 x 8000
-    (host clock around a synchronised run, trace fetch included), each run
-    twice. Uses only what ``root``'s ptnn_torch has had since its per-step
-    sampler was ported."""
+    245, PenDigit (16, 30, 10) 10 x 7494), one adapting 10-step ChEES-HMC
+    block at 1024 chains (Sunspot) and at 64 (iris), and conv1_relu_pool at
+    256 chains x 1257 images (CUDA events); the default per-step noise of
+    the 64 x 5000 runs, drawn chunk by chunk and sliced a step at a time as
+    the sampler does (host clock around a synchronised loop); and the walls
+    of ptnn_torch.sample for lg_pallas 64 x 5000, rw per-step 64 x 5000,
+    Ionosphere legacy LG 10 x 5000, chees16_fused_256x4 1024 x 8000, iris
+    chees16_fused_16x4 64 x 8000 (seed 1) and the digits CNN (fused eval)
+    256 x 300 (host clock around a synchronised run, trace fetch included),
+    each run twice. Uses only what ``root``'s ptnn_torch has had since its
+    model zoo was ported."""
     import numpy as np
     import torch
 
@@ -2303,9 +2429,16 @@ def walls(root):
         out["drift_ms"][label] = min(
             time_ms(lambda: drift.sgd_epoch(w, x, t, topo, 0.01), reps)
             for _ in range(2))
-    out["hmc_ms"] = time_precond_block(
-        precond_cfg(1024, 2000, "hmc"),
-        dict(warm_end=0, pc_start=0, burn_end=1000))["ms"]
+    adapting = dict(warm_end=0, pc_start=0, burn_end=1000)
+    out["hmc_ms"] = time_precond_block(precond_cfg(1024, 2000, "hmc"),
+                                       adapting)["ms"]
+    out["hmc_cls_ms"] = time_cls_block("hmc", iris_cfg(64, 2000, "hmc"), 10,
+                                       adapting, False)["ms"]
+    from ptnn_torch.ops import conv_stage
+
+    x, w1, b1 = conv_inputs(*CONV_SHAPES[0])
+    out["conv_ms"] = min(time_ms(lambda: conv_stage.conv1_relu_pool(
+        x, w1, b1, *CONV_SHAPES[0][2:]), 20) for _ in range(2))
     lg = lg_cfg(64, 5000)
     rw = rw_fused_cfg(64, 5000, fused_step=False)
     for tag, cfg in (("lg_pallas", lg), ("rw per-step", rw)):
@@ -2329,18 +2462,25 @@ def walls(root):
             torch.cuda.synchronize()
             runs.append(1e3 * (time.perf_counter() - t0))
         out["noise_ms"][tag] = runs
+    from ptnn_torch.models import cnn
+
     sunspot_prob = data.load_regression("Sunspot")
     iono = data.load_classification("Ionosphere")
-    for tag, cfg, prob in (
-            ("lg_pallas", lg, sunspot_prob),
-            ("rw per-step", rw, sunspot_prob),
-            ("ionosphere_lg", iono_cfg(), iono),
+    for tag, cfg, prob, seed, spec in (
+            ("lg_pallas", lg, sunspot_prob, 0, None),
+            ("rw per-step", rw, sunspot_prob, 0, None),
+            ("ionosphere_lg", iono_cfg(), iono, 0, None),
             ("chees16_fused_256x4", precond_cfg(
                 1024, 8000, "hmc", record_w=True, record_w_chains=256,
-                track_replicas=True), sunspot_prob)):
+                track_replicas=True), sunspot_prob, 0, None),
+            ("iris chees16_fused_16x4", iris_cfg(64, 8000, "hmc"), iris(), 1,
+             None),
+            ("digits CNN 256x300", cnn_cfg(CNN_CHAINS, BAND_STEPS), digits(),
+             0, cnn.digits_spec(fused_eval=True))):
         out["walls_s"][tag] = [
-            ptnn_torch.sample(cfg, prob.train, prob.test, seed=0,
-                              device=DEVICE).elapsed_s for _ in range(2)]
+            ptnn_torch.sample(cfg, prob.train, prob.test, seed=seed,
+                              device=DEVICE, model_spec=spec).elapsed_s
+            for _ in range(2)]
     print(json.dumps(out))
     return 0
 

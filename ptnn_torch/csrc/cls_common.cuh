@@ -9,7 +9,8 @@
 // subtracts the biases. A row's class index is the float last column of the
 // data row.
 //
-// MALA/HMC layout: one warp per chain, CLS_WARPS chains per thread block. A
+// MALA layout: one warp per chain, CLS_WARPS chains per thread block (the HMC
+// kernel spreads a chain over several warps: hmc_cls_block.cu). A
 // chain's vectors of w_size entries sit in shared-memory slots of VEC = 32
 // * PER floats; lane l owns entries l, l + 32, ..., l + 32 (PER - 1), so the
 // slot index is the entry index, every lane-wide access is conflict-free and
@@ -33,7 +34,7 @@
 
 #include <cuda_runtime.h>
 
-#define CLS_WARPS 16  // chains per thread block (MALA, HMC)
+#define CLS_WARPS 16  // chains per thread block (MALA)
 #define CLS_THREADS (CLS_WARPS * 32)
 #define CLS_MASK 0xffffffffu
 
@@ -311,7 +312,7 @@ __device__ __forceinline__ ClsSums cls_fwd_metrics(const float* __restrict__ row
 }
 
 // ---------------------------------------------------------------------------
-// One warp per chain (MALA, HMC).
+// One warp per chain (MALA).
 
 // The warp's shared-memory slots: w, w_last, g_like, Welford mean and M2, the
 // broadcast slot wb the forward reads, and the record tile.

@@ -19,24 +19,32 @@
 // output is 165 MB against 0.3 MB of images and 0.08 MB of taps, and a
 // pooled value costs 4 * 9 * IC multiply-adds: the write of the output at
 // the card's memory rate and the arithmetic at its float32 rate take about
-// the same time, with the write slightly ahead. The pre-pool tensor (four
-// times the output) stays in registers.
+// the same time (0.049 and 0.052 ms on an H100 SXM). The pre-pool tensor
+// (four times the output) stays in registers. What is left to cut is every
+// instruction that is not one of those multiply-adds or stores.
 //
 // Design. The TPU kernel puts 128 chains on the lanes, reads im2col patches
-// that XLA materialised outside it and pads N to 8 and C to 128. Here:
-//   * a block owns a tile of images and CB consecutive chains. The tile sits
-//     in shared memory, channel-planar, with its one-pixel zero halo, so SAME
-//     padding costs no branch in the inner loop; the CB chains' taps and
-//     biases sit beside it and are read as broadcasts;
-//   * a thread owns one group of V = 4 neighbouring output channels of one
-//     pooled pixel (V = 1 when OC is not a multiple of 4): it reads the 4x4
-//     input patch of each input channel once, holds the 4 x V pre-pool sums
-//     in registers, and writes its V results as ONE 16-byte store. Threads
-//     are numbered in the output's own order (image, pooled pixel, channel
-//     group), so a warp writes 512 contiguous bytes and the whole block one
-//     contiguous run of the output per chain;
-//   * ragged edges (the last image tile, the last chain group) are masked;
-//     nothing is padded in memory.
+// that XLA materialised outside it and pads N to 8 and C to 128. Here a
+// block owns a tile of images and a group of consecutive chains; the tile
+// sits in shared memory, channel-planar, with its one-pixel zero halo (SAME
+// padding costs no branch), the group's taps and biases beside it, read as
+// broadcasts. A thread owns one group of V = 4 neighbouring output channels
+// of one pooled pixel (V = 1 when OC is not a multiple of 4), holds the 4 x V
+// pre-pool sums in registers and writes its V results as ONE 16-byte store.
+// Threads are numbered in the output's own order (image, pooled pixel,
+// channel group), so a warp writes 512 contiguous bytes. Ragged edges (the
+// last image tile, the last chain group) are masked; nothing is padded in
+// memory. Two kernels:
+//   * conv_fixed_kernel, for the bundled stage-1 shape (hw 8, IC 1, OC 8):
+//     the shape is compile-time, so all index math folds; chains are the
+//     INNER loop: a thread loads the 4x4 patches of its EPT elements into
+//     registers once, then for each of the block's chains reads the taps of
+//     its channel group (nine float4 broadcasts and the bias) and issues one
+//     16-byte streaming store (__stcs) an element; a store is in flight
+//     while the next chain is computed;
+//   * conv1_relu_pool_kernel, any other shape (MNIST's 28, other channel
+//     counts): runtime shape, chains the outer loop, the patch reloaded for
+//     each chain.
 // The public layout is ptnn's. Stage 2 of the port reads exactly this
 // layout (chains, images, pixels, channels), so there is no second entry.
 // No fast-math; the multiply-adds contract into FMAs, which the plain
@@ -45,6 +53,12 @@
 #include <cuda_runtime.h>
 
 #define THREADS 256
+// the compiled shape of conv_fixed_kernel (hw, in_ch, out_ch) and its plan
+#define FIXED_HW 8
+#define FIXED_IN 1
+#define FIXED_OUT 8
+#define FIXED_EPT 2      // output vectors a thread, one chain
+#define FIXED_CHAINS 16  // chains a block
 
 struct ConvParams {
   const float* x;  // (N, hw * hw * IC)
@@ -176,6 +190,115 @@ __global__ void __launch_bounds__(THREADS) conv1_relu_pool_kernel(const ConvPara
   }
 }
 
+// The bundled stage-1 shape, compile-time. A block covers TILE = THREADS *
+// EPT / (Q * G) images (16 at hw 8, OC 8) and p.chains_per_block chains;
+// thread t owns output vectors t + THREADS * e (e < EPT) of each chain's
+// run, all of one channel group g = t % G.
+template <int HW, int IC, int OC, int EPT>
+__global__ void __launch_bounds__(THREADS) conv_fixed_kernel(const ConvParams p) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int P = HW + 2, H2 = HW / 2, Q = H2 * H2, G = OC / 4;
+  constexpr int PER_IMG = Q * G;  // output vectors an image
+  constexpr int TILE = THREADS * EPT / PER_IMG;
+  constexpr int KW = 9 * IC * OC;
+  constexpr int PLANE = P * P;
+  static_assert(OC % 4 == 0 && THREADS % PER_IMG == 0, "fixed-shape layout");
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * TILE;
+  const int n_here = min(TILE, p.n_img - n0);
+  const int c0 = blockIdx.y * p.chains_per_block;
+  const int c_here = min(p.chains_per_block, p.chains - c0);
+  float* s_x = smem;                            // (TILE, IC, P, P)
+  float* s_w = smem + p.x_floats;               // (CB, KW)
+  float* s_b = s_w + p.chains_per_block * KW;   // (CB, OC)
+
+  for (int k = tid; k < TILE * IC * PLANE; k += THREADS) {
+    const int xx = k % P, yy = (k / P) % P;
+    const int ic = (k / PLANE) % IC, nl = k / (PLANE * IC);
+    float v = 0.f;
+    if (nl < n_here && yy >= 1 && yy <= HW && xx >= 1 && xx <= HW)
+      v = p.x[(size_t)(n0 + nl) * (HW * HW * IC) + ((yy - 1) * HW + (xx - 1)) * IC + ic];
+    s_x[k] = v;
+  }
+  for (int k = tid; k < c_here * KW; k += THREADS) s_w[k] = p.w[(size_t)c0 * KW + k];
+  for (int k = tid; k < c_here * OC; k += THREADS) s_b[k] = p.b[(size_t)c0 * OC + k];
+  __syncthreads();
+
+  // this thread's elements: their patches, once
+  const int g = tid % G;
+  float in[EPT][IC][4][4];
+  bool live[EPT];
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int el = tid + THREADS * e;
+    const int q = (el / G) % Q, nl = el / PER_IMG;
+    const int py = q / H2, px = q % H2;
+    live[e] = nl < n_here;
+#pragma unroll
+    for (int ic = 0; ic < IC; ++ic) {
+      const float* base = s_x + ((nl * IC + ic) * P + 2 * py) * P + 2 * px;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float2* row = reinterpret_cast<const float2*>(base + r * P);
+        const float2 lo = row[0], hi = row[1];
+        in[e][ic][r][0] = lo.x;
+        in[e][ic][r][1] = lo.y;
+        in[e][ic][r][2] = hi.x;
+        in[e][ic][r][3] = hi.y;
+      }
+    }
+  }
+  float4* out = reinterpret_cast<float4*>(p.out) + ((size_t)c0 * p.n_img + n0) * PER_IMG + tid;
+  const size_t chain_stride = (size_t)p.n_img * PER_IMG;  // float4s a chain
+  for (int cc = 0; cc < c_here; ++cc) {
+    const float* wc = s_w + cc * KW + g * 4;
+    float acc[EPT][4][4];
+#pragma unroll
+    for (int e = 0; e < EPT; ++e)
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[e][s][v] = 0.f;
+#pragma unroll
+    for (int ky = 0; ky < 3; ++ky) {
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx) {
+#pragma unroll
+        for (int ic = 0; ic < IC; ++ic) {
+          const float4 t = *reinterpret_cast<const float4*>(wc + ((ky * 3 + kx) * IC + ic) * OC);
+          const float wv[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+          for (int e = 0; e < EPT; ++e)
+#pragma unroll
+            for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+              for (int dx = 0; dx < 2; ++dx)
+#pragma unroll
+                for (int v = 0; v < 4; ++v)
+                  acc[e][dy * 2 + dx][v] += in[e][ic][dy + ky][dx + kx] * wv[v];
+        }
+      }
+    }
+    const float4 bt = *reinterpret_cast<const float4*>(s_b + cc * OC + g * 4);
+    const float bias[4] = {bt.x, bt.y, bt.z, bt.w};
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      float res[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        float s = 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) s += fmaxf(acc[e][k][v] + bias[v], 0.f);
+        res[v] = s * 0.25f;  // the mean of the 2x2 block: sum / 4.0, exactly
+      }
+      // streaming stores: the output (165 MB at the digits shape) passes
+      // through the 50 MB L2 once and is read by the next stage, not here
+      if (live[e]) __stcs(out + cc * chain_stride + THREADS * e,
+                          make_float4(res[0], res[1], res[2], res[3]));
+    }
+  }
+}
+
 template <int V>
 static int launch(const ConvParams* p, int smem_bytes, cudaStream_t stream) {
   if (smem_bytes > 48 * 1024) {
@@ -189,11 +312,36 @@ static int launch(const ConvParams* p, int smem_bytes, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+static int launch_fixed(const ConvParams* p, int smem_bytes, cudaStream_t stream) {
+  constexpr int tile = THREADS * FIXED_EPT / ((FIXED_HW / 2) * (FIXED_HW / 2) * (FIXED_OUT / 4));
+  auto kern = conv_fixed_kernel<FIXED_HW, FIXED_IN, FIXED_OUT, FIXED_EPT>;
+  if (p->tile_img != tile) return (int)cudaErrorInvalidValue;
+  if (smem_bytes > 48 * 1024) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((p->n_img + tile - 1) / tile,
+                  (p->chains + p->chains_per_block - 1) / p->chains_per_block);
+  kern<<<grid, THREADS, smem_bytes, stream>>>(*p);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 int ptnn_conv_params_size() { return (int)sizeof(ConvParams); }
 
-// Launches the grid (image tiles, chain groups) on `stream`; returns the
+int ptnn_conv_fixed(int* out) {  // (hw, in_ch, out_ch, ept, chains a block)
+  out[0] = FIXED_HW;
+  out[1] = FIXED_IN;
+  out[2] = FIXED_OUT;
+  out[3] = FIXED_EPT;
+  out[4] = FIXED_CHAINS;
+  return 5;
+}
+
+// Launches the grid (image tiles, chain groups) on `stream`: the fixed-shape
+// kernel for the bundled shape, the generic one otherwise; returns the
 // cudaError_t of the attribute call or of the launch (0 = success). Does not
 // synchronise.
 int ptnn_conv1_relu_pool(const ConvParams* p, int smem_bytes, void* stream) {
@@ -201,6 +349,8 @@ int ptnn_conv1_relu_pool(const ConvParams* p, int smem_bytes, void* stream) {
   if (p->hw < 2 || p->hw % 2 != 0 || p->in_ch < 1 || p->out_ch < 1 || p->tile_img < 1 ||
       p->chains_per_block < 1 || p->x_floats % 4 != 0)
     return (int)cudaErrorInvalidValue;
+  if (p->hw == FIXED_HW && p->in_ch == FIXED_IN && p->out_ch == FIXED_OUT)
+    return launch_fixed(p, smem_bytes, s);
   if (p->out_ch % 4 == 0) return launch<4>(p, smem_bytes, s);
   return launch<1>(p, smem_bytes, s);
 }

@@ -110,8 +110,12 @@ def working_set_reason(cfg: PTConfig, n_tr: int, n_te: int) -> Optional[str]:
     if cfg.task == "classification":
         if cfg.proposal == "reference":
             need = block_step.cls_smem_bytes(rows, n_in, w)
+        elif cfg.proposal == "hmc":  # the largest of the launch plan's layouts
+            need = max(precond_cls_step.hmc_smem_bytes(rows, cfg.topology,
+                                                       chees, wpc)
+                       for wpc in precond_cls_step.WPCS)
         else:
-            need = precond_cls_step.smem_bytes(rows, cfg.topology, chees)
+            need = precond_cls_step.smem_bytes(rows, cfg.topology)
     elif cfg.proposal == "reference":
         need = block_step.smem_bytes(rows, n_in, w)
     else:

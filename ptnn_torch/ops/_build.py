@@ -206,12 +206,26 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name in ("mala_cls_block", "hmc_cls_block"):
         from ptnn_torch.ops import precond_cls_step as pcs
 
-        launch = getattr(lib, f"ptnn_{name}")
-        launch.argtypes = [ctypes.POINTER(pcs.ClsPrecondParams),
-                           ctypes.c_int] + (
-            [ctypes.c_int] if name == "hmc_cls_block" else []) + [
-            ctypes.c_void_p]
-        launch.restype = ctypes.c_int
+        P = ctypes.POINTER(pcs.ClsPrecondParams)
+        if name == "mala_cls_block":
+            lib.ptnn_mala_cls_block.argtypes = [P, ctypes.c_int,
+                                                ctypes.c_void_p]
+            lib.ptnn_mala_cls_block.restype = ctypes.c_int
+        else:
+            i = ctypes.c_int
+            lib.ptnn_hmc_cls_block.argtypes = [P, ctypes.c_void_p, i, i, i, i,
+                                               ctypes.c_void_p]
+            lib.ptnn_hmc_cls_block.restype = i
+            lib.ptnn_hmc_cls_max_active_clusters.argtypes = [
+                i, i, i, ctypes.POINTER(i)]
+            lib.ptnn_hmc_cls_max_active_clusters.restype = i
+            lib.ptnn_hmc_cls_coop_blocks.argtypes = [i, i, ctypes.POINTER(i)]
+            lib.ptnn_hmc_cls_coop_blocks.restype = i
+            for query, define in (("ptnn_hmc_cls_threads", "HMC_CLS_THREADS"),
+                                  ("ptnn_hmc_cls_max_cluster",
+                                   "HMC_CLS_MAX_CLUSTER"),
+                                  ("ptnn_hmc_cls_part", "HMC_CLS_PART")):
+                _check_query(lib, name, query, pcs._hmc(define), define)
         _check_query(lib, name, "ptnn_cls_params_size",
                      ctypes.sizeof(pcs.ClsPrecondParams),
                      "ClsPrecondParams size")
@@ -275,6 +289,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.ptnn_conv1_relu_pool.restype = ctypes.c_int
         _check_query(lib, name, "ptnn_conv_params_size",
                      ctypes.sizeof(_ConvParams), "ConvParams size")
+        want = tuple(cu_define("conv1_relu_pool.cu", d) for d in (
+            "FIXED_HW", "FIXED_IN", "FIXED_OUT", "FIXED_EPT", "FIXED_CHAINS"))
+        buf = (ctypes.c_int * len(want))()
+        lib.ptnn_conv_fixed.argtypes = [ctypes.c_void_p]
+        lib.ptnn_conv_fixed.restype = ctypes.c_int
+        if lib.ptnn_conv_fixed(buf) != len(want) or tuple(buf) != want:
+            raise RuntimeError(f"the fixed conv shape of the built library "
+                               f"{tuple(buf)} differs from the source's {want}")
     if name == "rw_block":
         from ptnn_torch.ops.block_step import _RwParams, _THREADS
 

@@ -10,7 +10,9 @@ own taps, bias, ReLU and the 2x2 average pool (the sum of each block over
     b1 (C, out_ch)
     -> (C, N, hw/2, hw/2, out_ch)
 
-CUDA tensors launch the hand-written kernel ``csrc/conv1_relu_pool.cu``; CPU
+CUDA tensors launch the hand-written kernel ``csrc/conv1_relu_pool.cu`` (its
+fixed-shape kernel for the bundled stage-1 shape, hw 8, 1 -> 8 channels, its
+generic kernel for any other: ``launch_plan``); CPU
 tensors run ``conv1_relu_pool_reference``, the same function through
 ``F.conv2d`` (the C chains as C * out_ch output channels of one convolution,
 TF32 off), ``relu`` and ``F.avg_pool2d``. A CUDA tensor never takes the
@@ -22,17 +24,31 @@ an input that requires grad raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from ptnn_torch.ops import _build
 from ptnn_torch.ops.block_step import _SMEM_LIMIT, _check
 from ptnn_torch.ops.precision import full_float32
 
 launches = 0  # launches of csrc/conv1_relu_pool.cu (the plain version counts none)
+fixed_launches = 0  # of them, launches of its fixed-shape kernel
 
-_CHAINS_PER_BLOCK = 8  # chains that share one staged image tile
+_CHAINS_PER_BLOCK = 8  # chains that share one staged image tile (generic)
 _TILE_BYTES = 16384  # target size of a block's image tile (with its halo)
+
+
+def _define(name: str) -> int:
+    """A constant of csrc/conv1_relu_pool.cu (THREADS, FIXED_*), read from
+    the source at first use."""
+    return _build.cu_define("conv1_relu_pool.cu", name)
+
+
+def fixed_shape():
+    """(hw, in_ch, out_ch) the fixed-shape kernel is compiled for."""
+    return (_define("FIXED_HW"), _define("FIXED_IN"), _define("FIXED_OUT"))
 
 
 def _validate(w1: torch.Tensor, hw: int) -> None:
@@ -70,22 +86,42 @@ class _ConvParams(ctypes.Structure):
     ]
 
 
-def launch_plan(c: int, n: int, hw: int, in_ch: int, out_ch: int):
-    """(images per block, chains per block, floats of the image tile, bytes
-    of dynamic shared memory) for one launch: the tile holds as many
-    haloed, channel-planar images as fit ``_TILE_BYTES`` (at least one), the
-    taps and biases of the block's chains follow it."""
+class ConvPlan(NamedTuple):
+    """One launch: the kernel ("fixed" or "generic"), images a block
+    (``tile``), chains a block (``per_block``), floats of the image tile
+    (``x_floats``) and bytes of dynamic shared memory (``smem``)."""
+    kernel: str
+    tile: int
+    per_block: int
+    x_floats: int
+    smem: int
+
+
+def launch_plan(c: int, n: int, hw: int, in_ch: int, out_ch: int) -> ConvPlan:
+    """The launch for ``c`` chains on ``n`` images. The bundled stage-1
+    shape (``fixed_shape()``) takes the fixed-shape kernel: THREADS *
+    FIXED_EPT output vectors a block, so 16 images at hw 8 and 8 channels,
+    and FIXED_CHAINS chains. Any other shape takes the generic kernel: as
+    many haloed, channel-planar images as fit ``_TILE_BYTES`` (at least
+    one) and 8 chains. The taps and biases of the block's chains follow the
+    image tile."""
     img = in_ch * (hw + 2) * (hw + 2)
-    tile = max(1, min(n, _TILE_BYTES // (4 * img)))
-    cb = min(c, _CHAINS_PER_BLOCK)
+    if (hw, in_ch, out_ch) == fixed_shape():
+        per_img = (hw // 2) ** 2 * (out_ch // 4)
+        tile = _define("THREADS") * _define("FIXED_EPT") // per_img
+        cb = min(c, _define("FIXED_CHAINS"))
+        kernel = "fixed"
+    else:
+        tile = max(1, min(n, _TILE_BYTES // (4 * img)))
+        cb = min(c, _CHAINS_PER_BLOCK)
+        kernel = "generic"
     x_floats = -(-tile * img // 4) * 4
     smem = 4 * (x_floats + cb * (9 * in_ch * out_ch + out_ch))
-    return tile, cb, x_floats, smem
+    return ConvPlan(kernel, tile, cb, x_floats, smem)
 
 
 def _launch_cuda(x, w1, b1, hw, in_ch, out_ch) -> torch.Tensor:
-    global launches
-    from ptnn_torch.ops import _build
+    global launches, fixed_launches
 
     c, n = w1.shape[0], x.shape[0]
     dev = x.device
@@ -95,28 +131,30 @@ def _launch_cuda(x, w1, b1, hw, in_ch, out_ch) -> torch.Tensor:
     _check(x, "x", (n, hw * hw * in_ch), torch.float32, dev)
     _check(w1, "w1", (c, 3, 3, in_ch, out_ch), torch.float32, dev)
     _check(b1, "b1", (c, out_ch), torch.float32, dev)
-    tile, cb, x_floats, smem = launch_plan(c, n, hw, in_ch, out_ch)
-    if smem > _SMEM_LIMIT:
+    plan = launch_plan(c, n, hw, in_ch, out_ch)
+    if plan.smem > _SMEM_LIMIT:
         raise ValueError(
-            f"one {hw}x{hw}x{in_ch} image with its halo and {cb} chains' taps "
-            f"need {smem} bytes of shared memory per block; a Hopper block "
-            f"has {_SMEM_LIMIT}")
+            f"one {hw}x{hw}x{in_ch} image with its halo and {plan.per_block} "
+            f"chains' taps need {plan.smem} bytes of shared memory per block; "
+            f"a Hopper block has {_SMEM_LIMIT}")
     lib = _build.build("conv1_relu_pool").lib
     out = torch.empty((c, n, hw // 2, hw // 2, out_ch), dtype=torch.float32,
                       device=dev)
     params = _ConvParams(
         x=x.data_ptr(), w=w1.data_ptr(), b=b1.data_ptr(), out=out.data_ptr(),
-        chains=c, n_img=n, hw=hw, in_ch=in_ch, out_ch=out_ch, tile_img=tile,
-        chains_per_block=cb, x_floats=x_floats,
+        chains=c, n_img=n, hw=hw, in_ch=in_ch, out_ch=out_ch,
+        tile_img=plan.tile, chains_per_block=plan.per_block,
+        x_floats=plan.x_floats,
     )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ptnn_conv1_relu_pool(ctypes.byref(params), smem,
+        err = lib.ptnn_conv1_relu_pool(ctypes.byref(params), plan.smem,
                                        ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
             f"conv1_relu_pool launch failed: {_build.error_string(lib, err)}")
     launches += 1
+    fixed_launches += plan.kernel == "fixed"
     return out
 
 

@@ -38,13 +38,21 @@ Layout: chains-major, no padding, as ``precond_step``.
 ``fused_mala_cls_block`` / ``fused_hmc_cls_block`` launch the CUDA kernels
 (``csrc/mala_cls_block.cu``, ``csrc/hmc_cls_block.cu``) on CUDA tensors and
 run the plain versions on CPU tensors only.
+
+CUDA layout: the MALA kernel runs one warp per chain, ``CLS_WARPS`` (16)
+chains a block. The HMC kernel spreads each chain's rows over WPC warps (4,
+2 or 1) of a 256-thread block; ``launch_plan`` picks WPC and, under ChEES,
+the route of the panels' exchange (one thread-block cluster a panel, or a
+cooperative grid) from the card's occupancy. ``hmc_cls_routes`` counts the
+launches by route.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Dict
+from typing import Callable, Dict, NamedTuple
 
 import torch
 
@@ -53,17 +61,28 @@ from ptnn_torch.ops import _build
 from ptnn_torch.ops.block_step import (_check, argmax_fragile, cls_eval,
                                        cls_metrics, cls_prior_const, inv_rows)
 from ptnn_torch.ops.precond_step import (PANEL, _LOG_HI, _LOG_LO_W, _LOG09,
-                                         _LOG0999, _LOG_TRAJ_LO, _MAX_CLUSTER,
-                                         _SMEM_LIMIT, _clip_traj, _dispatch,
+                                         _LOG0999, _LOG_TRAJ_LO, _SMEM_LIMIT, _clip_traj, _dispatch,
                                          _precond_diag, rung_sum)
 
 launches = {"mala_cls_block": 0, "hmc_cls_block": 0}  # CUDA launches
+ROUTES = ("plain", "cluster", "grid")  # ROUTE_* of csrc/hmc_cls_block.cu
+hmc_cls_routes = {r: 0 for r in ROUTES}  # hmc_cls_block launches by route
+WPCS = (4, 2, 1)  # warps a chain the HMC kernel is built for, largest first
 
 
 def _warps() -> int:
-    """Chains a block of the classification MALA/HMC kernels (CLS_WARPS of
+    """Chains a block of the classification MALA kernel (CLS_WARPS of
     csrc/cls_common.cuh, read from the source at first use)."""
     return _build.cu_define("cls_common.cuh", "CLS_WARPS")
+
+
+def _hmc(name: str) -> int:
+    """A constant of csrc/hmc_cls_block.cu: HMC_CLS_THREADS (threads a
+    block), HMC_CLS_MAX_CLUSTER (blocks a panel's cluster may have),
+    HMC_CLS_PART (floats after the gradient in a partial slot)."""
+    return _build.cu_define("hmc_cls_block.cu", name)
+
+
 TOPOLOGIES = ((4, 12, 3),)  # the (I, H, O) the CUDA kernels instantiate
 
 Tensors = Dict[str, torch.Tensor]
@@ -348,18 +367,130 @@ class ClsPrecondParams(ctypes.Structure):
     ]
 
 
-def smem_bytes(n_rows: int, topo, chees: bool) -> int:
-    """Dynamic shared memory of one CUDA block: the data rows (padded to 16
-    bytes) and, per chain (one warp), six vector slots of ``vec`` floats
-    (w_size rounded up to 32), a 32-row tile of backprop records of ``2H +
-    O + I + 1`` fields at an odd stride and, under ChEES, two parities of
-    the exchange slot (w', w_old and two scalars)."""
+def smem_bytes(n_rows: int, topo) -> int:
+    """Dynamic shared memory of one block of the MALA kernel: the data rows
+    (padded to 16 bytes) and, per chain (one warp), six vector slots of
+    ``vec`` floats (w_size rounded up to 32) and a 32-row tile of backprop
+    records of ``2H + O + I + 1`` fields at an odd stride."""
     n_in, n_hid, n_out = topo
     vec = 32 * -(-fnn.w_size(topo) // 32)
     stride = (2 * n_hid + n_out + n_in + 1) | 1
     rows = (n_rows * (n_in + 1) + 3) // 4 * 4
-    per_chain = 6 * vec + 32 * stride + (2 * (2 * vec + 4) if chees else 0)
-    return 4 * (rows + _warps() * per_chain)
+    return 4 * (rows + _warps() * (6 * vec + 32 * stride))
+
+
+def hmc_smem_bytes(n_rows: int, topo, chees: bool, wpc: int) -> int:
+    """Dynamic shared memory of one block of the HMC kernel at ``wpc`` warps
+    a chain: the data rows (padded to 16 bytes); per warp a broadcast slot
+    of ``vec`` floats and a 32-row record tile; per warp two parities of its
+    partial slot (``vec`` + HMC_CLS_PART floats); and under ChEES, per chain,
+    two parities of the cluster route's exchange slot (w', w_old and two
+    scalars)."""
+    n_in, n_hid, n_out = topo
+    vec = 32 * -(-fnn.w_size(topo) // 32)
+    stride = (2 * n_hid + n_out + n_in + 1) | 1
+    rows = (n_rows * (n_in + 1) + 3) // 4 * 4
+    warps = _hmc("HMC_CLS_THREADS") // 32
+    floats = rows + warps * (vec + 32 * stride + 2 * (vec + _hmc("HMC_CLS_PART")))
+    if chees:
+        floats += warps // wpc * 2 * (2 * vec + 4)
+    return 4 * floats
+
+
+class HmcClsPlan(NamedTuple):
+    """One launch of the HMC kernel: ``wpc`` warps a chain, ``per_block``
+    chains a block, ``blocks``, ``cluster`` blocks a panel (1 without
+    ChEES), ``route`` (one of ROUTES), ``smem`` bytes a block, ``why``."""
+    wpc: int
+    per_block: int
+    blocks: int
+    cluster: int
+    route: str
+    smem: int
+    why: str
+
+
+def launch_plan(chains: int, panel: int, n_rows: int, topo,
+                fits: Callable[[int, int, int], int],
+                coop: Callable[[int, int], int]) -> HmcClsPlan:
+    """The HMC kernel's launch for ``chains`` chains on ``n_rows`` data
+    rows; ``panel`` > 0 under ChEES (the chains whose rung sums one
+    exchange couples), 0 without. ``fits(wpc, smem, cluster)`` is how many
+    clusters of ``cluster`` blocks the card holds at once, ``coop(wpc,
+    smem)`` how many blocks of the grid route (the card's occupancy
+    queries; tests give numbers).
+
+    Without ChEES nothing is exchanged: the largest WPC. Under ChEES, the
+    largest WPC at which every panel's exchange runs on the card at once,
+    by ``precond_step``'s rule: one cluster a panel when every panel's
+    cluster fits at once, else the cooperative grid when all its blocks fit;
+    if no WPC allows either, clusters in waves at one warp a chain. A panel
+    must tile the chains and, past one panel, cover whole blocks."""
+    warps, most = _hmc("HMC_CLS_THREADS") // 32, _hmc("HMC_CLS_MAX_CLUSTER")
+    if not panel:
+        wpc = WPCS[0]
+        per = warps // wpc
+        return HmcClsPlan(wpc, per, -(-chains // per), 1, "plain",
+                          hmc_smem_bytes(n_rows, topo, False, wpc),
+                          "no ChEES: no exchange")
+    if chains % panel or (panel != chains and panel != PANEL):
+        raise ValueError(f"ChEES panel of {panel} chains does not tile "
+                         f"{chains} chains")
+    n_panels = chains // panel
+    for wpc in WPCS:
+        per = warps // wpc
+        blocks, cluster = -(-chains // per), -(-panel // per)
+        if n_panels > 1 and panel % per:
+            continue
+        smem = hmc_smem_bytes(n_rows, topo, True, wpc)
+        if cluster <= most:
+            n_fit = fits(wpc, smem, cluster)
+            if n_fit >= n_panels:
+                return HmcClsPlan(wpc, per, blocks, cluster, "cluster", smem,
+                                  f"WPC {wpc}: {n_fit} clusters of "
+                                  f"{cluster} blocks fit at once, {n_panels} "
+                                  f"panels")
+        n_coop = coop(wpc, smem)
+        if blocks <= n_coop:
+            return HmcClsPlan(wpc, per, blocks, cluster, "grid", smem,
+                              f"WPC {wpc}: all {blocks} blocks fit "
+                              f"at once ({n_coop})")
+    per = warps
+    blocks, cluster = -(-chains // per), -(-panel // per)
+    smem = hmc_smem_bytes(n_rows, topo, True, 1)
+    if cluster <= most and fits(1, smem, cluster) >= 1:
+        return HmcClsPlan(1, per, blocks, cluster, "cluster", smem,
+                          f"WPC 1: {n_panels} clusters of {cluster} "
+                          f"blocks in waves")
+    raise ValueError(f"a ChEES panel of {panel} chains fits neither one "
+                     f"cluster of {most} blocks nor the card at once")
+
+
+@functools.lru_cache(maxsize=None)
+def _card_plan(device_index: int, chains: int, panel: int, n_rows: int,
+               topo) -> HmcClsPlan:
+    def query(fn, *args):
+        lib = _build.build("hmc_cls_block").lib
+        out = ctypes.c_int(0)
+        err = getattr(lib, fn)(*args, ctypes.byref(out))
+        if err != 0:
+            raise RuntimeError(f"{fn} failed: {_build.error_string(lib, err)}")
+        return out.value
+
+    return launch_plan(
+        chains, panel, n_rows, topo,
+        fits=lambda wpc, smem, cluster: query(
+            "ptnn_hmc_cls_max_active_clusters", wpc, smem, cluster),
+        coop=lambda wpc, smem: query("ptnn_hmc_cls_coop_blocks", wpc, smem))
+
+
+def card_plan(device, chains: int, panel: int, n_rows: int,
+              topo=TOPOLOGIES[0]) -> HmcClsPlan:
+    """``launch_plan`` with the occupancy of the card ``device``."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    with torch.cuda.device(index):
+        return _card_plan(index, chains, panel, n_rows, tuple(topo))
 
 
 def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
@@ -378,23 +509,22 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
         raise ValueError(f"noise width {w_dim} does not fit topology {topo}")
     if not 0 <= int(length) <= k_max:
         raise ValueError(f"length {length} outside [0, {k_max}]")
-    smem = smem_bytes(n_tr + n_te, topo, chees)
+    rungs = panel = 1
+    if chees:
+        rungs = int(scal["rungs"])
+        panel = rungs * int(scal["n_ladders"])
+    if hmc:
+        if int(scal["leapfrog"]) < 1:
+            raise ValueError(f"leapfrog {scal['leapfrog']} < 1")
+        plan = card_plan(dev, c, panel if chees else 0, n_tr + n_te, topo)
+        smem = plan.smem
+    else:
+        smem = smem_bytes(n_tr + n_te, topo)
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"{n_tr}+{n_te} data rows need {smem} bytes of shared memory per "
             f"block; a Hopper block has {_SMEM_LIMIT}"
         )
-    rungs = panel = cluster = 1
-    if chees:
-        rungs = int(scal["rungs"])
-        panel = rungs * int(scal["n_ladders"])
-        if c % panel or (panel != c and panel != PANEL):
-            raise ValueError(f"ChEES panel of {panel} chains does not tile "
-                             f"{c} chains")
-        cluster = -(-panel // _warps())
-        if cluster > _MAX_CLUSTER or (c > panel and panel % _warps()):
-            raise ValueError(f"a ChEES panel of {panel} chains does not fit "
-                             f"one cluster of {_MAX_CLUSTER} blocks")
     f32, i32 = torch.float32, torch.int32
     _check(data["rows"], "rows", (n_tr + n_te, n_in + 1), f32, dev)
     _check(adapttemp, "adapttemp", (c,), f32, dev)
@@ -469,8 +599,13 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         if hmc:
-            err = lib.ptnn_hmc_cls_block(ctypes.byref(params), smem, cluster,
-                                         stream)
+            exch = None
+            if plan.route == "grid":  # (C, 2, EX) slots in device memory
+                vec = 32 * -(-w_dim // 32)
+                exch = torch.empty((c, 2, 2 * vec + 4), dtype=f32, device=dev)
+            err = lib.ptnn_hmc_cls_block(
+                ctypes.byref(params), p(exch), smem, plan.wpc, plan.cluster,
+                ROUTES.index(plan.route), stream)
         else:
             err = lib.ptnn_mala_cls_block(ctypes.byref(params), smem, stream)
     if err != 0:
@@ -478,6 +613,8 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
             f"{name} launch failed: {_build.error_string(lib, err)}"
         )
     launches[name] += 1
+    if hmc:
+        hmc_cls_routes[plan.route] += 1
     new["eta"] = state["eta"]  # passed through: classification has no eta
     if hmc and not chees:  # passed through, as ptnn's kernel does
         for key in _CHEES_C:

@@ -84,7 +84,6 @@ _LOG_TRAJ_LO = math.log(1e-4)
 _LOG09, _LOG0999 = math.log(0.9), math.log(0.999)
 
 _SMEM_LIMIT = 232448
-_MAX_CLUSTER = 8  # portable thread-block cluster size on Hopper
 TOPOLOGIES = ((4, 10, 1),)  # the (I, H, 1) the CUDA kernels instantiate
 
 Tensors = Dict[str, torch.Tensor]

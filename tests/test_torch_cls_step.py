@@ -30,7 +30,8 @@ from ptnn.ops import pallas_step as ps
 from ptnn_torch import convert, kernel
 from ptnn_torch.data import load_classification
 from ptnn_torch.models import fnn
-from ptnn_torch.ops import block_step, likelihood, precond_cls_step
+from ptnn_torch.ops import (block_step, likelihood, precond_cls_step,
+                            precond_step)
 from ptnn_torch.sampler import make_dataset
 
 torch.set_num_threads(1)
@@ -414,3 +415,123 @@ def test_cls_init_state_matches_ptnn(rng, kw):
     # the state round-trips through ptnn's numpy arrays
     back = convert.chain_state_from_numpy(ref)
     np.testing.assert_array_equal(back.acc_test.numpy(), ref["acc_test"])
+
+
+# ---------------------------------------------------------------------------
+# The HMC kernel's launch plan (``precond_cls_step.launch_plan``): pure
+# Python, fed occupancy numbers in place of the card's queries. H100-like:
+# seven 16-block clusters fit at once (as the card reports for the
+# regression HMC kernel), smaller clusters fill the 132 SMs, and one block
+# an SM.
+IRIS, IRIS_ROWS = (4, 12, 3), 150
+
+
+def _h100_fits(wpc, smem, cluster):
+    return 7 if cluster == 16 else 132 // cluster
+
+
+def _plan(chains, chees, fits=_h100_fits, coop=lambda wpc, smem: 132):
+    panel = 0
+    if chees:
+        panel = precond_step.panel_layout(chains, 1 if chains == 1 else 4)[0]
+    seen = []
+
+    def fits_logged(wpc, smem, cluster):
+        seen.append((wpc, smem))
+        return fits(wpc, smem, cluster)
+
+    def coop_logged(wpc, smem):
+        seen.append((wpc, smem))
+        return coop(wpc, smem)
+
+    plan = precond_cls_step.launch_plan(chains, panel, IRIS_ROWS, IRIS,
+                                        fits_logged, coop_logged)
+    for wpc, smem in seen:  # each query at its layout's shared memory
+        assert smem == precond_cls_step.hmc_smem_bytes(IRIS_ROWS, IRIS, True,
+                                                       wpc)
+    return plan, panel
+
+
+@pytest.mark.parametrize("chees", [False, True])
+@pytest.mark.parametrize("chains", [1, 52, 64, 100, 130, 256, 1024])
+def test_hmc_cls_plan_covers_every_chain_once(chains, chees):
+    """Every chain sits in exactly one (block, chain slot); under ChEES every
+    block holds chains of one panel only, a panel spans whole blocks and, on
+    the cluster route, whole clusters; shared memory fits a Hopper block.
+    130 chains do not tile ChEES's 128-chain panels and are refused, as
+    ``precond_step.panel_layout`` refuses them."""
+    if chees and chains == 130:
+        with pytest.raises(ValueError, match="complete ladders"):
+            _plan(chains, chees)
+        return
+    plan, panel = _plan(chains, chees)
+    warps = precond_cls_step._hmc("HMC_CLS_THREADS") // 32
+    assert plan.wpc in precond_cls_step.WPCS
+    assert plan.per_block == warps // plan.wpc
+    assert plan.blocks == -(-chains // plan.per_block)
+    slots = np.arange(plan.blocks * plan.per_block)
+    chain_of = slots[slots < chains]
+    np.testing.assert_array_equal(np.sort(chain_of), np.arange(chains))
+    assert plan.smem <= precond_step._SMEM_LIMIT
+    assert plan.smem == precond_cls_step.hmc_smem_bytes(IRIS_ROWS, IRIS,
+                                                        chees, plan.wpc)
+    if not chees:
+        assert (plan.route, plan.cluster) == ("plain", 1)
+        return
+    block = np.arange(chains) // plan.per_block
+    for b in range(plan.blocks):  # a block's chains share one panel
+        assert len(np.unique(np.arange(chains)[block == b] // panel)) == 1
+    assert plan.cluster == -(-panel // plan.per_block)
+    if chains > panel:
+        assert panel % plan.per_block == 0
+    if plan.route == "cluster":
+        assert plan.blocks % plan.cluster == 0
+        assert plan.cluster <= precond_cls_step._hmc("HMC_CLS_MAX_CLUSTER")
+
+
+@pytest.mark.parametrize("chains, chees, want", [
+    (64, True, (4, 2, 32, "grid")), (256, True, (4, 2, 128, "grid")),
+    (52, True, (4, 2, 26, "grid")), (1024, True, (1, 8, 128, "grid")),
+    (1, True, (4, 2, 1, "cluster")), (1024, False, (4, 2, 512, "plain")),
+    (130, False, (4, 2, 65, "plain"))])
+def test_hmc_cls_plan_picks_warps_and_route_by_the_rule(chains, chees, want):
+    """On the H100-like numbers: the largest WPC at which every panel's
+    exchange runs at once, a cluster a panel when all panels' clusters fit,
+    else the cooperative grid when every block fits; without ChEES the
+    largest WPC."""
+    plan, _panel = _plan(chains, chees)
+    assert (plan.wpc, plan.per_block, plan.blocks, plan.route) == want
+
+
+def test_hmc_cls_plan_steps_down_when_the_card_holds_less():
+    # half the card for the grid: 256 chains at 4 warps a chain need 128
+    # blocks, at 2 warps 64
+    plan, _ = _plan(256, True, coop=lambda wpc, smem: 64)
+    assert (plan.wpc, plan.blocks, plan.route) == (2, 64, "grid")
+    # all eight 16-block clusters fit: 1024 chains take one a panel at 1
+    # warp a chain (the grid, 128 blocks, would fit too: clusters first)
+    plan, _ = _plan(1024, True, fits=lambda wpc, smem, cl: 8)
+    assert (plan.wpc, plan.cluster, plan.route) == (1, 16, "cluster")
+    # neither route at once: clusters in waves at 1 warp a chain
+    plan, _ = _plan(1024, True, fits=lambda wpc, smem, cl: 2,
+                    coop=lambda wpc, smem: 100)
+    assert (plan.wpc, plan.route) == (1, "cluster") and "waves" in plan.why
+    with pytest.raises(ValueError, match="fits neither"):
+        _plan(1024, True, fits=lambda wpc, smem, cl: 0,
+              coop=lambda wpc, smem: 0)
+
+
+def test_hmc_cls_shared_memory_layout():
+    """Rows padded to 16 bytes; per warp of the 8 a broadcast slot (128
+    floats), a 32-record tile at stride 33 and two parities of its partial
+    slot (128 + 8); under ChEES two parities of an exchange slot (2 * 128 +
+    4) a chain. The MALA layout is untouched: 16 chains a block."""
+    rows = (150 * 5 + 3) // 4 * 4
+    per_warp = 128 + 32 * 33 + 2 * (128 + 8)
+    for wpc in precond_cls_step.WPCS:
+        assert precond_cls_step.hmc_smem_bytes(150, IRIS, False, wpc) == 4 * (
+            rows + 8 * per_warp)
+        assert precond_cls_step.hmc_smem_bytes(150, IRIS, True, wpc) == 4 * (
+            rows + 8 * per_warp + 8 // wpc * 2 * 260)
+    assert precond_cls_step.smem_bytes(150, IRIS) == 4 * (
+        rows + 16 * (6 * 128 + 32 * 33))

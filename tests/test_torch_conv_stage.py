@@ -59,17 +59,52 @@ def test_conv1_relu_pool_refuses_what_ptnn_refuses():
         conv_stage.conv1_relu_pool(t(x), t(w1).requires_grad_(), t(b1), 8)
 
 
+SHAPES = ((256, 1257, 8, 1, 8), (256, 540, 8, 1, 8), (3, 19, 8, 1, 8),
+          (130, 8, 8, 1, 8), (4, 6, 8, 3, 8), (5, 7, 8, 2, 6),
+          (32, 64, 28, 1, 8), (9, 5, 28, 1, 8), (256, 77, 8, 1, 4),
+          (1, 1, 2, 1, 1))
+
+
 def test_launch_plan_fits_a_block_and_covers_every_image():
-    for c, n, hw, in_ch, out_ch in ((256, 1257, 8, 1, 8), (256, 540, 8, 1, 8),
-                                    (4, 6, 8, 3, 8), (32, 64, 28, 1, 8),
-                                    (1, 1, 2, 1, 1)):
-        tile, cb, x_floats, smem = conv_stage.launch_plan(c, n, hw, in_ch,
-                                                          out_ch)
-        assert 1 <= tile <= n and 1 <= cb <= min(c, 8)
-        assert x_floats % 4 == 0
-        assert x_floats >= tile * in_ch * (hw + 2) ** 2
-        assert smem == 4 * (x_floats + cb * (9 * in_ch + 1) * out_ch)
-        assert smem <= 48 * 1024
+    for c, n, hw, in_ch, out_ch in SHAPES:
+        plan = conv_stage.launch_plan(c, n, hw, in_ch, out_ch)
+        assert 1 <= plan.per_block <= c
+        assert plan.x_floats % 4 == 0
+        assert plan.x_floats >= plan.tile * in_ch * (hw + 2) ** 2
+        assert plan.smem == 4 * (plan.x_floats
+                                 + plan.per_block * (9 * in_ch + 1) * out_ch)
+        assert plan.smem <= 48 * 1024
+        if plan.kernel == "generic":
+            assert 1 <= plan.tile <= n and plan.per_block <= 8
+
+
+@pytest.mark.parametrize("c,n,hw,in_ch,out_ch", SHAPES)
+def test_conv_plan_takes_the_fixed_kernel_for_the_digits_shape_only(
+        c, n, hw, in_ch, out_ch):
+    """The fixed-shape kernel is compiled for the bundled stage-1 shape (hw
+    8, one input channel, 8 outputs: ``cnn.digits_spec``): a block of 256
+    threads, two output vectors a thread, so 16 images of 32 vectors, and
+    16 chains. Every other shape takes the generic kernel."""
+    plan = conv_stage.launch_plan(c, n, hw, in_ch, out_ch)
+    fixed = (hw, in_ch, out_ch) == (8, 1, 8)
+    assert conv_stage.fixed_shape() == (8, 1, 8)
+    assert plan.kernel == ("fixed" if fixed else "generic")
+    if fixed:
+        assert (plan.tile, plan.per_block) == (16, min(c, 16))
+
+
+@pytest.mark.parametrize("c,n,hw,in_ch,out_ch", SHAPES)
+def test_conv_plan_covers_every_chain_and_image_once(c, n, hw, in_ch, out_ch):
+    """The grid (image tiles, chain groups) of the launch, with the kernel's
+    masks of the ragged last tile and group, writes each (chain, image)
+    exactly once."""
+    plan = conv_stage.launch_plan(c, n, hw, in_ch, out_ch)
+    count = np.zeros((c, n), np.int64)
+    for bx in range(-(-n // plan.tile)):
+        for by in range(-(-c // plan.per_block)):
+            n0, c0 = bx * plan.tile, by * plan.per_block
+            count[c0:min(c, c0 + plan.per_block), n0:min(n, n0 + plan.tile)] += 1
+    np.testing.assert_array_equal(count, 1)
 
 
 def test_batched_forward_fused_matches_ptnn():
