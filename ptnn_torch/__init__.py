@@ -14,7 +14,7 @@ Two samplers run today, for regression and classification:
   without the paper's Langevin-gradient drift (``qratio`` "reference" or
   "ldpt_legacy"). Each step launches the drift kernel
   (``csrc/drift_epoch.cu``, twice with Langevin gradients) and the FNN eval
-  kernel (``csrc/fnn_eval.cu``, on the train and the test rows). With
+  kernel (``csrc/fnn_eval.cu``, once for the train and the test rows). With
   ``model_spec=`` it runs the model zoo instead: ``models.mlp.spec`` (a deep
   MLP) and ``models.cnn.spec`` (the Bayesian CNN), whose drift is a gradient
   step by autograd (``grad_drift``) and, for ``cnn.digits_spec(fused_eval=

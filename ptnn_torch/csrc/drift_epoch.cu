@@ -19,7 +19,8 @@
 // Two kernels, picked by topology (ops/drift.py `variant`):
 //
 // * The register kernel, `drift_reg_kernel<I, H, O, G>`, built for the
-//   topologies of DRIFT_REG_LAYOUTS (every network the repository bundles).
+//   topologies of FNN_LAYOUTS (fnn_layouts.cuh: every network the repository
+//   bundles), each with its column G.
 //   A lane group of G lanes (a power of two) owns one chain, 32 / G chains a
 //   warp. Hidden unit h = j * G + g lives on lane g of the group, U =
 //   ceil(H / G) units a lane, and the chain's weights stay in registers for
@@ -50,30 +51,13 @@
 
 #include <cuda_runtime.h>
 
+#include "fnn_layouts.cuh"  // FNN_LAYOUTS: the bundled networks and G
+
 #define WARPS 4  // generic kernel: chains per block
 #define THREADS (WARPS * 32)
 #define HPL 4  // generic kernel: hidden units per lane, n_hid <= 32 * HPL
 #define REG_THREADS 128  // register kernel: threads per block
 #define FULL_MASK 0xffffffffu
-
-// The register kernel's instantiations, one line each: (I, H, O) of a
-// bundled network and its lane-group size G. ops/drift.py reads this list
-// from this file, and checks it against `ptnn_drift_reg_layouts` when the
-// library loads. The sizes follow the timings on the H100: a row is bound by
-// the instructions one lane issues, so the widest group that leaves one or
-// two hidden units a lane wins (Sunspot: G = 16 over 8 and 4; Ionosphere: 32
-// over 16).
-#define DRIFT_REG_LAYOUTS(X) \
-  X(4, 10, 1, 16)            \
-  X(4, 12, 3, 16)            \
-  X(9, 12, 2, 16)            \
-  X(9, 25, 2, 32)            \
-  X(6, 25, 18, 32)           \
-  X(8, 30, 29, 32)           \
-  X(16, 30, 10, 32)          \
-  X(11, 50, 10, 32)          \
-  X(34, 50, 2, 32)           \
-  X(51, 50, 2, 32)
 
 struct DriftParams {
   const float* w;  // (C, W) flat codec [W1 (I x H), W2 (H x O), B1, B2]
@@ -358,12 +342,12 @@ int ptnn_drift_reg_threads() { return REG_THREADS; }
 // (room for `max` of them); returns how many there are.
 int ptnn_drift_reg_layouts(int* out, int max) {
   int n = 0;
-#define PUT(I, H, O, G)                                                        \
+#define PUT(I, H, O, G, HPW)                                                   \
   if (n < max) {                                                               \
     out[4 * n] = I; out[4 * n + 1] = H; out[4 * n + 2] = O; out[4 * n + 3] = G; \
   }                                                                            \
   ++n;
-  DRIFT_REG_LAYOUTS(PUT)
+  FNN_LAYOUTS(PUT)
 #undef PUT
   return n;
 }
@@ -374,10 +358,10 @@ int ptnn_drift_reg_layouts(int* out, int max) {
 // cudaError_t of the attribute call or of the launch (0 = success). Does
 // not synchronise.
 int ptnn_drift_epoch_reg(const DriftParams* p, int smem_bytes, void* stream) {
-#define TRY(I, H, O, G)                                                        \
+#define TRY(I, H, O, G, HPW)                                                   \
   if (p->n_in == I && p->n_hid == H && p->n_out == O)                          \
     return launch_reg<I, H, O, G>(p, smem_bytes, (cudaStream_t)stream);
-  DRIFT_REG_LAYOUTS(TRY)
+  FNN_LAYOUTS(TRY)
 #undef TRY
   return (int)cudaErrorInvalidValue;
 }

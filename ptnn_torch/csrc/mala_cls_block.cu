@@ -10,56 +10,89 @@
 // (4, 12, 3) FNN over the 105 iris train rows (about 400 flops a row), a
 // forward over the 45 test rows, a handful of warp reductions and one MH
 // decision. The steps of a chain are serial, so a block costs K times the
-// latency of one step: 105 rows on 32 lanes are 4 tiles, each a row's
-// forward and deltas per lane, then 32 x 4 record products per lane.
-// Device memory sees only the noise read and the trace rows written once a
-// step.
+// latency of one step, and the iris path has only 64 chains, too few to
+// fill the card with one warp each. Device memory sees only the noise read
+// and the trace rows written once a step.
 //
-// Design. One warp per chain, 16 chains per 512-thread block
-// (cls_common.cuh): the rows live in shared memory once per block, the
-// chain's w, w_last, g_like and Welford buffers in its warp's slots with
-// lane l owning entries l, l + 32, l + 64, l + 96, so the proposal, the
-// q-ratio and the Welford update are lane-local and every sum is a warp
-// shuffle reduction. Chains are independent, so no barrier crosses warps
-// after the rows are loaded.
+// Design: the iris HMC kernel's layout (cls_chain.cuh), without its ChEES
+// exchange: MALA couples no chains, so there is no cluster, no cooperative
+// launch and no exchange slot.
+//   * A block is MALA_CLS_THREADS = 256 threads, 8 warps: 8 / WPC chains of
+//     WPC warps each (4, 2 or 1; ops/precond_cls_step.py `mala_launch_plan`
+//     takes the largest WPC whose blocks fit one wave of the card's SMs).
+//     One block an SM, so a thread may use 255 registers: the 99 weights of
+//     an evaluation and the chain's state stay in registers, unspilled.
+//   * Each step evaluates the proposal once (`chain_eval`): each warp of the
+//     chain takes a contiguous share of the 105 train and 45 test rows (at
+//     WPC 4, one tile of <= 27 and <= 12 rows), and the chain's warps sum
+//     their partial gradients and sums in warp order after a named barrier
+//     of their own.
+//   * Every warp keeps a bit-identical copy of the chain's elementwise state
+//     (w, w_last, g_like, the Welford buffers) and of its carries; the
+//     chain's first warp writes the trace rows and the outputs.
+//
+// No fast-math: expf, logf, sqrtf and division are the IEEE-rounded
+// versions. The sums over rows run in another order than in the plain
+// version (per warp, then across warps), so ll and the gradient round
+// differently.
 
-#include "cls_common.cuh"
+#include "cls_chain.cuh"
 
-template <int NI, int NH, int NO>
-__global__ void __launch_bounds__(CLS_THREADS, 1) mala_cls_block_kernel(const ClsPrecondParams p) {
+#define MALA_CLS_THREADS 256  // threads a block: 8 warps, WPC of them a chain
+
+template <int NI, int NH, int NO, int WPC>
+__global__ void __launch_bounds__(MALA_CLS_THREADS, 1)
+    mala_cls_block_kernel(const ClsPrecondParams p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   using N = ClsNet<NI, NH, NO>;
-  constexpr int W = N::W, PER = N::PER;
+  using L = ChainCls<NI, NH, NO>;
+  constexpr int W = N::W, PER = N::PER, VEC = N::VEC;
+  constexpr int WARPS = MALA_CLS_THREADS / 32;
+  constexpr int CPB = WARPS / WPC;  // chains a block
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c = blockIdx.x * CLS_WARPS + warp;
+  const int cl = warp / WPC, sub = warp % WPC;
+  const int c = blockIdx.x * CPB + cl;
+  const bool lead = sub == 0;  // the warp that writes the chain's outputs
   const int n_rows = p.n_tr + p.n_te;
   float* s_rows = smem;
-  const ClsSlots s = cls_slots<NI, NH, NO>(smem, cls_rows_floats(n_rows, NI), warp);
-  cls_load_rows(p, s_rows, NI);
+  const int row_floats = cls_rows_floats(n_rows, NI);
+  float* wb = smem + row_floats + warp * L::WARP;
+  float* rec = wb + VEC;
+  float* part = smem + row_floats + WARPS * L::WARP + cl * 2 * WPC * L::PART;
+  for (int t = threadIdx.x; t < n_rows * (NI + 1); t += MALA_CLS_THREADS) s_rows[t] = p.rows[t];
   __syncthreads();
-  if (c >= p.chains) return;  // no barrier follows
+  if (c >= p.chains) return;  // a chain's warps go together; no block barrier follows
 
-  cls_load_chain<W, PER>(p, s, c, lane);
-  ClsCarry r = cls_load_carry(p, c);
   const float sq = p.sigma_sq;
   const float* te_rows = s_rows + p.n_tr * (NI + 1);
+  // this warp's share of the rows
+  const int tr_share = (p.n_tr + WPC - 1) / WPC, te_share = (p.n_te + WPC - 1) / WPC;
+  const int r0 = min(p.n_tr, sub * tr_share), r1 = min(p.n_tr, r0 + tr_share);
+  const int t0 = min(p.n_te, sub * te_share), t1 = min(p.n_te, t0 + te_share);
+  const int bar_id = 1 + cl;  // barrier 0 is __syncthreads'
+  const size_t cw = (size_t)c * W;
+  float w[PER], wl[PER], gl[PER], pm[PER], p2[PER];
+  cls_ld<W, PER>(p.w + cw, lane, w);
+  cls_ld<W, PER>(p.w_last + cw, lane, wl);
+  cls_ld<W, PER>(p.g_like + cw, lane, gl);
+  cls_ld<W, PER>(p.pc_mean + cw, lane, pm);
+  cls_ld<W, PER>(p.pc_m2 + cw, lane, p2);
+  ClsCarry r = cls_load_carry(p, c);
+  int epar = 0;  // parity of the partial slots
 
   for (int k = 0; k < p.k_max; ++k) {
     const int i = p.start + k;
     const size_t kc = (size_t)k * p.chains + c;
     if (k >= p.length) {  // dead step: carries into the trace rows
-      cls_write_trace<W, PER>(p, s, kc, lane, r.ll, r, r.na);
+      if (lead) write_trace<W, PER>(p, kc, lane, r.ll, r, r.na, wl);
       r.lsw = cls_clip(r.lsw, p.log_lo_w, p.log_hi);
       continue;
     }
     const bool warm = i < p.warm_end;
     const float sig = expf(r.lsw);
-    float m[PER], w[PER], gl[PER], g_cur[PER], sig2m[PER], mean_fwd[PER], w_prop[PER];
-    cls_precond_diag<PER>(s.p2, i, p, lane, m);
-    cls_get<PER>(s.w, lane, w);
-    cls_get<PER>(s.gl, lane, gl);
-    float nw[PER];
+    float m[PER], g_cur[PER], sig2m[PER], mean_fwd[PER], w_prop[PER], nw[PER];
+    precond_diag_reg<PER>(p2, i, p, m);
     cls_ld<W, PER>(p.noise_w + kc * W, lane, nw);
     // --- MALA under m (classification: g = g_like / T - w / sigma^2) -------
 #pragma unroll
@@ -77,10 +110,10 @@ __global__ void __launch_bounds__(CLS_THREADS, 1) mala_cls_block_kernel(const Cl
     }
     const float ssq = cls_dot<PER>(w_prop, w_prop);
     const float pr_p = p.prior_const - ssq / (2.f * sq);
-    cls_publish<PER>(s.wb, lane, w_prop);
     float g_rows[PER];
-    const ClsSums tr = cls_fwd_grad<NI, NH, NO>(s_rows, p.n_tr, s.wb, s.rec, lane, g_rows);
-    const ClsSums te = cls_fwd_metrics<NI, NH, NO>(te_rows, p.n_te, s.wb, lane);
+    ClsSums tr, te;
+    chain_eval<NI, NH, NO, WPC>(s_rows, r0, r1, te_rows, t0, t1, w_prop, wb, rec, part, epar,
+                                sub, bar_id, lane, g_rows, tr, te);
     const float ll_p = tr.ll;
     float qf = 0.f, qr = 0.f;
 #pragma unroll
@@ -99,39 +132,66 @@ __global__ void __launch_bounds__(CLS_THREADS, 1) mala_cls_block_kernel(const Cl
     const int na_before = r.na;
     if (accept) {
       cls_take_metrics(r, tr, te, p);
-      cls_put<PER>(s.w, lane, w_prop);
-      cls_put<PER>(s.wl, lane, w_prop);
-      cls_put<PER>(s.gl, lane, g_rows);
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        w[j] = w_prop[j];
+        wl[j] = w_prop[j];
+        gl[j] = g_rows[j];
+      }
       r.ll = ll_p;
       r.pr = pr_p;
       r.na += 1;
     }
-    cls_write_trace<W, PER>(p, s, kc, lane, ll_p, r, na_before);
+    if (lead) write_trace<W, PER>(p, kc, lane, ll_p, r, na_before, wl);
     // --- Welford and the Robbins-Monro w scale ------------------------------
     if (i >= p.warm_end && i < p.burn_end) {
-      cls_welford<PER>(s, lane, i, p);
+      const float cnt_new = (float)max(min(i + 1, p.burn_end) - p.warm_end, 1);
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        const float d = w[j] - pm[j];
+        pm[j] = pm[j] + d / cnt_new;
+        p2[j] = p2[j] + d * (w[j] - pm[j]);
+      }
       r.lsw = r.lsw + p.adapt_rate * (a - p.target);
     }
     r.lsw = cls_clip(r.lsw, p.log_lo_w, p.log_hi);
   }
 
-  cls_store_chain<W, PER>(p, s, c, lane);
-  if (lane == 0) cls_store_carry(p, r, c);
+  if (lead) {
+    st_vec<W, PER>(p.o_w + cw, lane, w);
+    st_vec<W, PER>(p.o_w_last + cw, lane, wl);
+    st_vec<W, PER>(p.o_g_like + cw, lane, gl);
+    st_vec<W, PER>(p.o_pc_mean + cw, lane, pm);
+    st_vec<W, PER>(p.o_pc_m2 + cw, lane, p2);
+    if (lane == 0) cls_store_carry(p, r, c);
+  }
+}
+
+template <int WPC>
+static int launch(const ClsPrecondParams* p, int smem_bytes, cudaStream_t stream) {
+  constexpr int CPB = MALA_CLS_THREADS / 32 / WPC;
+  auto kern = mala_cls_block_kernel<4, 12, 3, WPC>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (p->chains + CPB - 1) / CPB;
+  kern<<<grid, MALA_CLS_THREADS, smem_bytes, stream>>>(*p);
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-// Launches ceil(C / CLS_WARPS) blocks on `stream`; returns the cudaError_t
-// of the attribute call or of the launch (0 = success). Does not
-// synchronise.
-int ptnn_mala_cls_block(const ClsPrecondParams* p, int smem_bytes, void* stream) {
-  auto kern = mala_cls_block_kernel<4, 12, 3>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       smem_bytes);
-  if (e != cudaSuccess) return (int)e;
-  const int grid = (p->chains + CLS_WARPS - 1) / CLS_WARPS;
-  kern<<<grid, CLS_THREADS, smem_bytes, (cudaStream_t)stream>>>(*p);
-  return (int)cudaGetLastError();
+int ptnn_mala_cls_threads() { return MALA_CLS_THREADS; }
+
+// Launches ceil(C / (8 / wpc)) blocks of `wpc` warps a chain on `stream`;
+// returns the cudaError_t of the attribute call or of the launch (0 =
+// success). Does not synchronise.
+int ptnn_mala_cls_block(const ClsPrecondParams* p, int smem_bytes, int wpc, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (wpc == 4) return launch<4>(p, smem_bytes, st);
+  if (wpc == 2) return launch<2>(p, smem_bytes, st);
+  if (wpc == 1) return launch<1>(p, smem_bytes, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -115,7 +115,7 @@ def working_set_reason(cfg: PTConfig, n_tr: int, n_te: int) -> Optional[str]:
                                                        chees, wpc)
                        for wpc in precond_cls_step.WPCS)
         else:
-            need = precond_cls_step.smem_bytes(rows, cfg.topology)
+            need = precond_cls_step.mala_smem_bytes(rows, cfg.topology)
     elif cfg.proposal == "reference":
         need = block_step.smem_bytes(rows, n_in, w)
     else:

@@ -10,11 +10,13 @@ the optional Langevin-gradient drift and its q-ratio ("reference" or
 "ldpt_legacy"). ``step_precond`` (the per-step precond family) is not
 ported yet.
 
-Every evaluation of the network on data (the step's train and test evals,
-``train_loglik``, ``init_state``'s ll, ``recompute_ll``) goes through
-``spec_eval`` and the drift through the model spec's ``drift``. For the
-reference FNN those are ``ops.fnn_eval.fnn_eval`` and
-``ops.drift.sgd_epoch``, on the card the two hand-written kernels. Any
+Every evaluation of the network on data (``train_loglik``,
+``init_state``'s ll, ``recompute_ll``) goes through ``spec_eval``, the
+step's train and test evals through ``spec_eval_pair``, and the drift
+through the model spec's ``drift``. For the reference FNN those are
+``ops.fnn_eval.fnn_eval``, ``ops.fnn_eval.fnn_eval_pair`` (one launch for
+both row sets) and ``ops.drift.sgd_epoch``, on the card the two
+hand-written kernels. Any
 other spec (``models.mlp``, ``models.cnn``) evaluates with its
 ``batched_forward`` where it has one (the CNN's hand-written stage 1), else
 its ``forward``, then ``log_probs`` and the likelihood of
@@ -42,7 +44,7 @@ from ptnn_torch.models import api as model_api
 from ptnn_torch.models import fnn
 from ptnn_torch.ops import likelihood
 from ptnn_torch.ops.block_step import _LOG_STEP_HI, _LOG_STEP_LO
-from ptnn_torch.ops.fnn_eval import fnn_eval
+from ptnn_torch.ops.fnn_eval import fnn_eval, fnn_eval_pair
 from ptnn_torch.parallel import swap as swap_mod
 
 
@@ -128,6 +130,20 @@ def spec_eval(cfg: PTConfig, spec: model_api.ModelSpec, w: torch.Tensor,
         return ev.loglik, ev.rmse, torch.zeros_like(ev.rmse)
     ev = likelihood.classification_eval_from_logp(spec.log_probs(out), out, y)
     return ev.loglik, ev.rmse, ev.acc
+
+
+def spec_eval_pair(cfg: PTConfig, spec: model_api.ModelSpec,
+                   w: torch.Tensor, x_tr: torch.Tensor, y_tr: torch.Tensor,
+                   x_te: torch.Tensor, y_te: torch.Tensor,
+                   tau: Optional[torch.Tensor]):
+    """``spec_eval`` on the train rows and on the test rows: the reference
+    FNN evaluates both in one call (one kernel launch on the card), any
+    other spec in two."""
+    if spec.fnn_topology is not None:
+        return fnn_eval_pair(w, x_tr, y_tr, x_te, y_te, tau,
+                             spec.fnn_topology, cfg.task)
+    return (spec_eval(cfg, spec, w, x_tr, y_tr, tau),
+            spec_eval(cfg, spec, w, x_te, y_te, tau))
 
 
 def train_loglik(cfg: PTConfig, w: torch.Tensor, eta: torch.Tensor,
@@ -497,10 +513,9 @@ class StepFn:
             prior_prop = likelihood.regression_log_prior_dim(
                 w_prop, tau_prop, spec.prior_dim_regression, cfg.sigma_sq,
                 cfg.nu_1, cfg.nu_2)
-        ll_prop, rmse_tr, acc_tr = spec_eval(cfg, spec, w_prop, d.x_train,
-                                             d.y_train, tau_prop)
-        _ll, rmse_te, acc_te = spec_eval(cfg, spec, w_prop, d.x_test,
-                                         d.y_test, tau_prop)
+        (ll_prop, rmse_tr, acc_tr), (_ll, rmse_te, acc_te) = spec_eval_pair(
+            cfg, spec, w_prop, d.x_train, d.y_train, d.x_test, d.y_test,
+            tau_prop)
         log_mh = (ll_prop - state.ll) / at + (prior_prop - state.prior) \
             + diff_prop
         mh_prob = torch.exp(torch.clamp(log_mh, max=0.0))

@@ -208,9 +208,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
 
         P = ctypes.POINTER(pcs.ClsPrecondParams)
         if name == "mala_cls_block":
-            lib.ptnn_mala_cls_block.argtypes = [P, ctypes.c_int,
+            lib.ptnn_mala_cls_block.argtypes = [P, ctypes.c_int, ctypes.c_int,
                                                 ctypes.c_void_p]
             lib.ptnn_mala_cls_block.restype = ctypes.c_int
+            _check_query(lib, name, "ptnn_mala_cls_threads",
+                         32 * pcs._mala_warps(), "MALA_CLS_THREADS")
         else:
             i = ctypes.c_int
             lib.ptnn_hmc_cls_block.argtypes = [P, ctypes.c_void_p, i, i, i, i,
@@ -223,13 +225,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             lib.ptnn_hmc_cls_coop_blocks.restype = i
             for query, define in (("ptnn_hmc_cls_threads", "HMC_CLS_THREADS"),
                                   ("ptnn_hmc_cls_max_cluster",
-                                   "HMC_CLS_MAX_CLUSTER"),
-                                  ("ptnn_hmc_cls_part", "HMC_CLS_PART")):
+                                   "HMC_CLS_MAX_CLUSTER")):
                 _check_query(lib, name, query, pcs._hmc(define), define)
         _check_query(lib, name, "ptnn_cls_params_size",
                      ctypes.sizeof(pcs.ClsPrecondParams),
                      "ClsPrecondParams size")
-        _check_query(lib, name, "ptnn_cls_warps", pcs._warps(), "CLS_WARPS")
+        _check_query(lib, name, "ptnn_cls_part", pcs._part(), "CLS_PART")
         _check_query(lib, name, "ptnn_cls_w_size", 99, "the (4, 12, 3) w_size")
     if name == "rw_cls_block":
         from ptnn_torch.ops.block_step import _ClsRwParams, _THREADS
@@ -259,7 +260,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                               ("ptnn_drift_hid_per_lane", "HPL"),
                               ("ptnn_drift_reg_threads", "REG_THREADS")):
             _check_query(lib, name, query, drift._define(define), define)
-        rows = cu_rows("drift_epoch.cu", "DRIFT_REG_LAYOUTS")
+        rows = tuple(r[:4] for r in cu_rows("fnn_layouts.cuh", "FNN_LAYOUTS"))
         buf = (ctypes.c_int * (4 * len(rows)))()
         lib.ptnn_drift_reg_layouts.argtypes = [ctypes.c_void_p, ctypes.c_int]
         lib.ptnn_drift_reg_layouts.restype = ctypes.c_int
@@ -267,19 +268,42 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         got = tuple(tuple(buf[4 * k:4 * k + 4])
                     for k in range(min(n, len(rows))))
         if n != len(rows) or got != rows:
-            raise RuntimeError(f"DRIFT_REG_LAYOUTS of the built library "
-                               f"({n} rows) differs from the source's")
+            raise RuntimeError(f"FNN_LAYOUTS (I, H, O, G) of the built "
+                               f"library ({n} rows) differs from the source's")
     if name == "fnn_eval":
-        from ptnn_torch.ops.fnn_eval import _EvalParams, _MAX_OUT, _THREADS
+        from ptnn_torch.ops import fnn_eval as ev
 
         lib.ptnn_fnn_eval.argtypes = [
-            ctypes.POINTER(_EvalParams), ctypes.c_int, ctypes.c_void_p
+            ctypes.POINTER(ev._EvalParams), ctypes.c_int, ctypes.c_void_p
         ]
         lib.ptnn_fnn_eval.restype = ctypes.c_int
         _check_query(lib, name, "ptnn_eval_params_size",
-                     ctypes.sizeof(_EvalParams), "EvalParams size")
-        _check_query(lib, name, "ptnn_eval_threads", _THREADS, "THREADS")
-        _check_query(lib, name, "ptnn_eval_max_out", _MAX_OUT, "max outputs")
+                     ctypes.sizeof(ev._EvalParams), "EvalParams size")
+        _check_query(lib, name, "ptnn_eval_max_out", ev._MAX_OUT, "MAX_OUT")
+        _check_query(lib, name, "ptnn_eval_max_cluster", ev._MAX_CLUSTER,
+                     "MAX_CLUSTER")
+        rows = tuple(r[:3] + r[4:]
+                     for r in cu_rows("fnn_layouts.cuh", "FNN_LAYOUTS"))
+        buf = (ctypes.c_int * (4 * len(rows)))()
+        lib.ptnn_eval_layouts.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.ptnn_eval_layouts.restype = ctypes.c_int
+        n = lib.ptnn_eval_layouts(buf, len(rows))
+        got = tuple(tuple(buf[4 * k:4 * k + 4])
+                    for k in range(min(n, len(rows))))
+        if n != len(rows) or got != rows:
+            raise RuntimeError(f"FNN_LAYOUTS (I, H, O, HPW) of the built "
+                               f"library ({n} rows) differs from the source's")
+        _check_query(lib, name, "ptnn_eval_max_warps", ev._MAX_WARPS,
+                     "MAX_WARPS")
+        lib.ptnn_eval_smem_floats.argtypes = [ctypes.c_int] * 5
+        lib.ptnn_eval_smem_floats.restype = ctypes.c_int
+        for topo, groups in (((34, 50, 2), (1, 10)), ((5, 40, 32), (3, 5))):
+            want = ev.smem_floats(topo, *groups)
+            got = lib.ptnn_eval_smem_floats(*topo, *groups)
+            if got != want:
+                raise RuntimeError(f"eval shared memory of {topo} differs "
+                                   f"between fnn_eval.cu ({got}) and its "
+                                   f"Python mirror ({want})")
     if name == "conv1_relu_pool":
         from ptnn_torch.ops.conv_stage import _ConvParams
 

@@ -27,8 +27,9 @@ column (regression):
   A CUDA tensor never takes the plain version: it launches or raises.
 
 ``csrc/drift_epoch.cu`` has two kernels, picked by topology (``variant``),
-never by failure: the register kernel for the topologies of its
-``DRIFT_REG_LAYOUTS`` table (every network the repository bundles), with a
+never by failure: the register kernel for the topologies of the
+``FNN_LAYOUTS`` table of ``csrc/fnn_layouts.cuh`` (every network the
+repository bundles), with a
 lane group of G lanes per chain and the weights in registers; the generic
 kernel (one warp per chain, the weights in shared memory) for any other
 topology with at most ``32 * HPL`` hidden units. ``launches`` counts both;
@@ -71,9 +72,9 @@ def _define(name: str) -> int:
 @functools.lru_cache(maxsize=None)
 def reg_layouts() -> Mapping[Tuple[int, int, int], int]:
     """The topologies the register kernel is instantiated for, each with its
-    lane-group size G, from the ``DRIFT_REG_LAYOUTS`` table of
-    csrc/drift_epoch.cu (read once)."""
-    rows = _build.cu_rows(_SOURCE, "DRIFT_REG_LAYOUTS")
+    lane-group size G, from the ``FNN_LAYOUTS`` table of
+    csrc/fnn_layouts.cuh (read once)."""
+    rows = _build.cu_rows("fnn_layouts.cuh", "FNN_LAYOUTS")
     return types.MappingProxyType({r[:3]: r[3] for r in rows})
 
 

@@ -39,12 +39,13 @@ Layout: chains-major, no padding, as ``precond_step``.
 (``csrc/mala_cls_block.cu``, ``csrc/hmc_cls_block.cu``) on CUDA tensors and
 run the plain versions on CPU tensors only.
 
-CUDA layout: the MALA kernel runs one warp per chain, ``CLS_WARPS`` (16)
-chains a block. The HMC kernel spreads each chain's rows over WPC warps (4,
-2 or 1) of a 256-thread block; ``launch_plan`` picks WPC and, under ChEES,
-the route of the panels' exchange (one thread-block cluster a panel, or a
-cooperative grid) from the card's occupancy. ``hmc_cls_routes`` counts the
-launches by route.
+CUDA layout: both kernels spread each chain's rows over WPC warps (4, 2 or
+1) of a 256-thread block (``csrc/cls_chain.cuh``). ``mala_launch_plan``
+picks the MALA kernel's WPC from the card's SM count; ``launch_plan`` picks
+the HMC kernel's WPC and, under ChEES, the route of the panels' exchange
+(one thread-block cluster a panel, or a cooperative grid) from the card's
+occupancy. ``hmc_cls_routes`` counts the HMC launches by route,
+``mala_cls_wpcs`` the MALA launches by warps a chain.
 """
 
 from __future__ import annotations
@@ -67,20 +68,26 @@ from ptnn_torch.ops.precond_step import (PANEL, _LOG_HI, _LOG_LO_W, _LOG09,
 launches = {"mala_cls_block": 0, "hmc_cls_block": 0}  # CUDA launches
 ROUTES = ("plain", "cluster", "grid")  # ROUTE_* of csrc/hmc_cls_block.cu
 hmc_cls_routes = {r: 0 for r in ROUTES}  # hmc_cls_block launches by route
-WPCS = (4, 2, 1)  # warps a chain the HMC kernel is built for, largest first
-
-
-def _warps() -> int:
-    """Chains a block of the classification MALA kernel (CLS_WARPS of
-    csrc/cls_common.cuh, read from the source at first use)."""
-    return _build.cu_define("cls_common.cuh", "CLS_WARPS")
+WPCS = (4, 2, 1)  # warps a chain the kernels are built for, largest first
+mala_cls_wpcs = {w: 0 for w in WPCS}  # mala_cls_block launches by warps a chain
 
 
 def _hmc(name: str) -> int:
     """A constant of csrc/hmc_cls_block.cu: HMC_CLS_THREADS (threads a
-    block), HMC_CLS_MAX_CLUSTER (blocks a panel's cluster may have),
-    HMC_CLS_PART (floats after the gradient in a partial slot)."""
+    block), HMC_CLS_MAX_CLUSTER (blocks a panel's cluster may have)."""
     return _build.cu_define("hmc_cls_block.cu", name)
+
+
+def _part() -> int:
+    """CLS_PART of csrc/cls_chain.cuh: floats after the gradient in a
+    warp's partial slot."""
+    return _build.cu_define("cls_chain.cuh", "CLS_PART")
+
+
+def _mala_warps() -> int:
+    """Warps a block of the MALA kernel (MALA_CLS_THREADS / 32 of
+    csrc/mala_cls_block.cu)."""
+    return _build.cu_define("mala_cls_block.cu", "MALA_CLS_THREADS") // 32
 
 
 TOPOLOGIES = ((4, 12, 3),)  # the (I, H, O) the CUDA kernels instantiate
@@ -367,34 +374,84 @@ class ClsPrecondParams(ctypes.Structure):
     ]
 
 
-def smem_bytes(n_rows: int, topo) -> int:
-    """Dynamic shared memory of one block of the MALA kernel: the data rows
-    (padded to 16 bytes) and, per chain (one warp), six vector slots of
-    ``vec`` floats (w_size rounded up to 32) and a 32-row tile of backprop
-    records of ``2H + O + I + 1`` fields at an odd stride."""
+def _chain_smem_floats(n_rows: int, topo, warps: int) -> int:
+    """Shared memory of a block of ``warps`` warps in the layout of
+    csrc/cls_chain.cuh, in floats: the data rows (padded to 16 bytes); per
+    warp a broadcast slot of ``vec`` floats (w_size rounded up to 32) and a
+    32-row tile of backprop records of ``2H + O + I + 1`` fields at an odd
+    stride; per warp two parities of its partial slot (``vec`` + CLS_PART
+    floats)."""
     n_in, n_hid, n_out = topo
     vec = 32 * -(-fnn.w_size(topo) // 32)
     stride = (2 * n_hid + n_out + n_in + 1) | 1
     rows = (n_rows * (n_in + 1) + 3) // 4 * 4
-    return 4 * (rows + _warps() * (6 * vec + 32 * stride))
+    return rows + warps * (vec + 32 * stride + 2 * (vec + _part()))
 
 
 def hmc_smem_bytes(n_rows: int, topo, chees: bool, wpc: int) -> int:
     """Dynamic shared memory of one block of the HMC kernel at ``wpc`` warps
-    a chain: the data rows (padded to 16 bytes); per warp a broadcast slot
-    of ``vec`` floats and a 32-row record tile; per warp two parities of its
-    partial slot (``vec`` + HMC_CLS_PART floats); and under ChEES, per chain,
+    a chain: the layout of csrc/cls_chain.cuh and, under ChEES, per chain,
     two parities of the cluster route's exchange slot (w', w_old and two
     scalars)."""
-    n_in, n_hid, n_out = topo
     vec = 32 * -(-fnn.w_size(topo) // 32)
-    stride = (2 * n_hid + n_out + n_in + 1) | 1
-    rows = (n_rows * (n_in + 1) + 3) // 4 * 4
     warps = _hmc("HMC_CLS_THREADS") // 32
-    floats = rows + warps * (vec + 32 * stride + 2 * (vec + _hmc("HMC_CLS_PART")))
+    floats = _chain_smem_floats(n_rows, topo, warps)
     if chees:
         floats += warps // wpc * 2 * (2 * vec + 4)
     return 4 * floats
+
+
+def mala_smem_bytes(n_rows: int, topo) -> int:
+    """Dynamic shared memory of one block of the MALA kernel: the layout of
+    csrc/cls_chain.cuh, whatever the warps a chain."""
+    return 4 * _chain_smem_floats(n_rows, topo, _mala_warps())
+
+
+class MalaClsPlan(NamedTuple):
+    """One launch of the MALA kernel: ``wpc`` warps a chain, ``per_block``
+    chains a block, ``blocks``, ``smem`` bytes a block, ``why``."""
+    wpc: int
+    per_block: int
+    blocks: int
+    smem: int
+    why: str
+
+
+def mala_launch_plan(chains: int, n_rows: int, topo, sms: int) -> MalaClsPlan:
+    """The MALA kernel's launch for ``chains`` chains on ``n_rows`` data
+    rows, on a card of ``sms`` SMs (pure Python): the largest WPC whose
+    blocks fit one wave of the card, one block an SM (a block takes the SM's
+    registers); past that, WPC 1 in waves. More warps a chain shorten each
+    evaluation; more than one wave would run the blocks one after the
+    other."""
+    warps = _mala_warps()
+    smem = mala_smem_bytes(n_rows, topo)
+    for wpc in WPCS:
+        per = warps // wpc
+        blocks = -(-chains // per)
+        if blocks <= sms:
+            return MalaClsPlan(wpc, per, blocks, smem,
+                               f"WPC {wpc}: {blocks} blocks fit one wave of "
+                               f"{sms} SMs")
+    per = warps
+    blocks = -(-chains // per)
+    return MalaClsPlan(1, per, blocks, smem,
+                       f"WPC 1: {blocks} blocks in waves over {sms} SMs")
+
+
+@functools.lru_cache(maxsize=None)
+def _card_mala_plan(device_index: int, chains: int, n_rows: int,
+                    topo) -> MalaClsPlan:
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return mala_launch_plan(chains, n_rows, topo, sms)
+
+
+def card_mala_plan(device, chains: int, n_rows: int,
+                   topo=TOPOLOGIES[0]) -> MalaClsPlan:
+    """``mala_launch_plan`` with the SM count of the card ``device``."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _card_mala_plan(index, chains, n_rows, tuple(topo))
 
 
 class HmcClsPlan(NamedTuple):
@@ -517,9 +574,9 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
         if int(scal["leapfrog"]) < 1:
             raise ValueError(f"leapfrog {scal['leapfrog']} < 1")
         plan = card_plan(dev, c, panel if chees else 0, n_tr + n_te, topo)
-        smem = plan.smem
     else:
-        smem = smem_bytes(n_tr + n_te, topo)
+        plan = card_mala_plan(dev, c, n_tr + n_te, topo)
+    smem = plan.smem
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"{n_tr}+{n_te} data rows need {smem} bytes of shared memory per "
@@ -607,7 +664,8 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
                 ctypes.byref(params), p(exch), smem, plan.wpc, plan.cluster,
                 ROUTES.index(plan.route), stream)
         else:
-            err = lib.ptnn_mala_cls_block(ctypes.byref(params), smem, stream)
+            err = lib.ptnn_mala_cls_block(ctypes.byref(params), smem,
+                                          plan.wpc, stream)
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed: {_build.error_string(lib, err)}"
@@ -615,6 +673,8 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
     launches[name] += 1
     if hmc:
         hmc_cls_routes[plan.route] += 1
+    else:
+        mala_cls_wpcs[plan.wpc] += 1
     new["eta"] = state["eta"]  # passed through: classification has no eta
     if hmc and not chees:  # passed through, as ptnn's kernel does
         for key in _CHEES_C:

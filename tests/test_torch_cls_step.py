@@ -525,7 +525,8 @@ def test_hmc_cls_shared_memory_layout():
     """Rows padded to 16 bytes; per warp of the 8 a broadcast slot (128
     floats), a 32-record tile at stride 33 and two parities of its partial
     slot (128 + 8); under ChEES two parities of an exchange slot (2 * 128 +
-    4) a chain. The MALA layout is untouched: 16 chains a block."""
+    4) a chain. The MALA kernel has the same layout without the exchange,
+    whatever its warps a chain."""
     rows = (150 * 5 + 3) // 4 * 4
     per_warp = 128 + 32 * 33 + 2 * (128 + 8)
     for wpc in precond_cls_step.WPCS:
@@ -533,5 +534,45 @@ def test_hmc_cls_shared_memory_layout():
             rows + 8 * per_warp)
         assert precond_cls_step.hmc_smem_bytes(150, IRIS, True, wpc) == 4 * (
             rows + 8 * per_warp + 8 // wpc * 2 * 260)
-    assert precond_cls_step.smem_bytes(150, IRIS) == 4 * (
-        rows + 16 * (6 * 128 + 32 * 33))
+    assert precond_cls_step.mala_smem_bytes(150, IRIS) == 4 * (
+        rows + 8 * per_warp)
+
+
+# ---------------------------------------------------------------------------
+# The MALA kernel's launch plan (``precond_cls_step.mala_launch_plan``):
+# pure Python, fed the card's SM count (132 on the H100).
+
+
+@pytest.mark.parametrize("chains", [1, 52, 64, 100, 130, 256, 1024])
+def test_mala_cls_plan_covers_every_chain_once(chains):
+    """Every chain sits in exactly one (block, chain slot) of WPC warps; the
+    blocks are 8 warps; shared memory fits a Hopper block."""
+    plan = precond_cls_step.mala_launch_plan(chains, IRIS_ROWS, IRIS, 132)
+    assert plan.wpc in precond_cls_step.WPCS
+    assert plan.per_block * plan.wpc == 8
+    assert plan.blocks == -(-chains // plan.per_block)
+    slots = np.arange(plan.blocks * plan.per_block)
+    block, slot = slots // plan.per_block, slots % plan.per_block
+    chain = block * plan.per_block + slot
+    np.testing.assert_array_equal(np.sort(chain[chain < chains]),
+                                  np.arange(chains))
+    assert (plan.blocks - 1) * plan.per_block < chains  # no empty block
+    assert plan.smem == precond_cls_step.mala_smem_bytes(IRIS_ROWS, IRIS)
+    assert plan.smem <= precond_step._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("chains, sms, want", [
+    (64, 132, (4, 2, 32)), (256, 132, (4, 2, 128)), (1024, 132, (1, 8, 128)),
+    (52, 132, (4, 2, 26)), (1, 132, (4, 2, 1)), (130, 132, (4, 2, 65)),
+    (264, 132, (4, 2, 132)), (266, 132, (2, 4, 67)),
+    (2000, 132, (1, 8, 250)),
+    # fewer SMs: step down
+    (64, 16, (2, 4, 16)), (64, 8, (1, 8, 8)), (64, 4, (1, 8, 8))])
+def test_mala_cls_plan_picks_warps_by_the_rule(chains, sms, want):
+    """The largest WPC whose blocks fit one wave of the card's SMs (one
+    block an SM), else one warp a chain in waves: on the H100's 132 SMs WPC
+    4 at the path's 64 chains (32 blocks) and WPC 1 at 1024 (128 blocks);
+    on a card with fewer SMs the plan steps down."""
+    plan = precond_cls_step.mala_launch_plan(chains, IRIS_ROWS, IRIS, sms)
+    assert (plan.wpc, plan.per_block, plan.blocks) == want
+    assert ("waves" in plan.why) == (plan.blocks > sms)

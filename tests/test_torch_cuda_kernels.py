@@ -423,9 +423,22 @@ def test_rw_cls_block_kernel_matches_plain_version(cuda, adapt):
 
 
 @pytest.mark.cuda
-def test_mala_cls_block_kernel_matches_plain_version(cuda):
-    *args, cfg = _cls_inputs(cuda, 130, "precond_mala", start=1, step_w=0.3)
+@pytest.mark.parametrize("chains", [130, 64, 1024])
+def test_mala_cls_block_kernel_matches_plain_version(cuda, chains):
+    """A ragged count, the iris path's 64 chains and 1024, each at the warps
+    a chain the card's plan gives (``precond_cls_step.card_mala_plan``: on
+    the H100 4 at 64 and 130 chains, 1 at 1024), which the launch must
+    take."""
+    *args, cfg = _cls_inputs(cuda, chains, "precond_mala", start=1,
+                             step_w=0.3)
+    plan = precond_cls_step.card_mala_plan(cuda, chains, 150)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert plan == precond_cls_step.mala_launch_plan(chains, 150, CLS_TOPO,
+                                                     sms)
+    wpcs = dict(precond_cls_step.mala_cls_wpcs)
     _check_cls("mala", *args, cfg, length=12)
+    taken = [w for w in wpcs if precond_cls_step.mala_cls_wpcs[w] != wpcs[w]]
+    assert taken == [plan.wpc]
 
 
 @pytest.mark.cuda
@@ -525,34 +538,53 @@ def test_drift_kernel_matches_plain_version(cuda, topo, c, n, depth):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("topo,task,c,n", [
-    ((4, 10, 1), "regression", 64, 298),
-    ((4, 12, 3), "classification", 13, 105),
-    ((34, 50, 2), "classification", 10, 245),
+@pytest.mark.parametrize("topo,task,c,n,n_te", [
+    ((4, 10, 1), "regression", 64, 298, 198),
+    ((4, 12, 3), "classification", 13, 105, 45),
+    ((34, 50, 2), "classification", 10, 245, 109),
+    ((16, 30, 10), "classification", 10, 7494, 3498),  # PenDigit
+    ((5, 40, 4), "classification", 3, 70, 1),  # the generic layout
 ])
-def test_eval_kernel_matches_plain_version(cuda, topo, task, c, n):
+def test_eval_kernel_matches_plain_version(cuda, topo, task, c, n, n_te):
+    """One set and the pair (train and test rows), one launch each, against
+    the plain versions: ll on the size of its cancelling terms, regression
+    rmse within rtol 1e-4, classification acc and rmse exactly where no
+    row's argmax is fragile."""
     rng = np.random.default_rng(19)
     x, y = _rows(rng, cuda, n, topo, task)
+    xt, yt = _rows(rng, cuda, n_te, topo, task)
     w = torch.as_tensor(rng.normal(size=(c, fnn.w_size(topo))),
                         dtype=torch.float32, device=cuda)
     tau = torch.as_tensor(rng.uniform(0.01, 0.2, size=c), dtype=torch.float32,
                           device=cuda)
-    before = eval_ops.launches
-    ll, rmse, acc = eval_ops.fnn_eval(w, x, y, tau, topo, task)
-    assert eval_ops.launches == before + 1
-    r_ll, r_rmse, r_acc = eval_ops.fnn_eval_reference(w, x, y, tau, topo, task)
-    torch.cuda.synchronize()
-    if task == "regression":
-        terms = 0.5 * n * torch.log(2 * math.pi * tau).abs() \
-            + 0.5 * n * r_rmse ** 2 / tau
-        torch.testing.assert_close(rmse, r_rmse, rtol=1e-4, atol=1e-6)
-        assert not bool(acc.any())
-    else:
-        terms = r_ll.abs()
-        sure = ~block_step.argmax_fragile(w, x, topo)
-        assert torch.equal(acc[sure], r_acc[sure])
-        assert torch.equal(rmse[sure], r_rmse[sure])
-    assert bool(((ll - r_ll).abs() <= 1e-4 + 1e-4 * terms).all())
+    calls = [
+        (lambda: (eval_ops.fnn_eval(w, x, y, tau, topo, task),),
+         lambda: (eval_ops.fnn_eval_reference(w, x, y, tau, topo, task),),
+         ((x, y),)),
+        (lambda: eval_ops.fnn_eval_pair(w, x, y, xt, yt, tau, topo, task),
+         lambda: eval_ops.fnn_eval_pair_reference(w, x, y, xt, yt, tau, topo,
+                                                  task),
+         ((x, y), (xt, yt)))]
+    for kern, plain, sets in calls:
+        before = eval_ops.launches
+        got = kern()
+        assert eval_ops.launches == before + 1
+        want = plain()
+        torch.cuda.synchronize()
+        for (ll, rmse, acc), (r_ll, r_rmse, r_acc), (xs, _ys) in zip(
+                got, want, sets):
+            rows = xs.shape[0]
+            if task == "regression":
+                terms = 0.5 * rows * torch.log(2 * math.pi * tau).abs() \
+                    + 0.5 * rows * r_rmse ** 2 / tau
+                torch.testing.assert_close(rmse, r_rmse, rtol=1e-4, atol=1e-6)
+                assert not bool(acc.any())
+            else:
+                terms = r_ll.abs()
+                sure = ~block_step.argmax_fragile(w, xs, topo)
+                assert torch.equal(acc[sure], r_acc[sure])
+                assert torch.equal(rmse[sure], r_rmse[sure])
+            assert bool(((ll - r_ll).abs() <= 1e-4 + 1e-4 * terms).all())
 
 
 @pytest.mark.cuda

@@ -117,8 +117,8 @@ def test_dispatcher_and_kernel_gates():
 
 
 def test_kernel_layouts_follow_the_source():
-    """The register kernel's table (csrc/drift_epoch.cu DRIFT_REG_LAYOUTS,
-    read by ``reg_layouts``) covers every bundled network with one lane-group
+    """The register kernel's column of the table (csrc/fnn_layouts.cuh
+    FNN_LAYOUTS, read by ``reg_layouts``) covers every bundled network with one lane-group
     size each, under the rules the source states: G a power of two up to 32,
     128 / G chains a block, and the measured pick (one hidden unit a lane,
     or a whole warp for H > 32). Every other topology with at most 32 * HPL
@@ -131,7 +131,7 @@ def test_kernel_layouts_follow_the_source():
     bundled = set(data.CLASSIFICATION_TOPOLOGIES.values()) | {
         data.REGRESSION_TOPOLOGY}
     assert bundled == set(lay)
-    assert len(_build.cu_rows("drift_epoch.cu", "DRIFT_REG_LAYOUTS")) == len(
+    assert len(_build.cu_rows("fnn_layouts.cuh", "FNN_LAYOUTS")) == len(
         lay)  # one row a topology
     warps, reg_threads = drift._define("WARPS"), drift._define("REG_THREADS")
     assert warps == _build.cu_define("drift_epoch.cu", "WARPS") == 4
