@@ -16,21 +16,27 @@ not 0):
      and the toolchain's versions;
   2. build: compiles the nine ptnn_torch/csrc/*.cu (six *_block.cu,
      drift_epoch.cu, fnn_eval.cu, conv1_relu_pool.cu) with nvcc into build/,
-     one nvcc per source, all at once, with ptxas' register report; every
-     drift_epoch instantiation, the three regression HMC variants, the nine
+     one nvcc per source, all at once, with ptxas' register report; both
+     regression RW kernels (each warps a chain of the fixed-shape one), the
+     regression MALA variants (warps a chain), every drift_epoch
+     instantiation, the three regression HMC variants, the nine
      classification HMC variants (warps a chain x route), the three
      classification MALA variants (warps a chain), every fnn_eval
      instantiation and both conv kernels must spill nothing; the
-     regression HMC exchange route (cluster or cooperative grid) the card's
-     occupancy gives the ChEES layouts at 1024, 256 and 52 chains, the
-     classification HMC launch plan (warps a chain, route) at 64, 256, 52
-     and 1024 chains, the classification MALA plan at 64, 256 and 1024, and
-     the eval's plans (cluster, row tiles, warps) at the per-step paths'
-     widths;
+     regression MALA plan at 64, 130 and 1024 chains and the RW plan at 64
+     and 1024, the regression HMC exchange route (cluster or cooperative
+     grid) the card's occupancy gives the ChEES layouts at 1024, 256 and 52
+     chains, the classification HMC launch plan (warps a chain, route) at
+     64, 256, 52 and 1024 chains, the classification MALA plan at 64, 256
+     and 1024, and the eval's plans (cluster, row tiles, warps) at the
+     per-step paths' widths;
   3. kernel: each CUDA block kernel against its plain PyTorch version on the
      same CUDA tensors at the main paths' widths. Sunspot: RW at 1000 chains
-     x 100 steps, adapt off and on; MALA at 1024 chains x 10 steps across
-     the warm start, the preconditioner's start and the end of adaptation;
+     and at the path's 64 x 100 steps, adapt off and on, by the fixed-shape
+     kernel, and a (4, 7, 1) network by the generic kernel; MALA at the
+     path's 64 chains and at 1024 x 10 steps across the warm start, the
+     preconditioner's start and the end of adaptation, each checked to take
+     its planned warps a chain;
      HMC with ChEES at 1024 chains (8 panels), leapfrog 16; HMC without
      ChEES at leapfrog 8; and the swap sweep against the CPU's. Iris: the
      RW classification branch at 1000 x 100, adapt off and on; MALA at 64
@@ -54,9 +60,11 @@ not 0):
      CNN forward against the plain one;
   4. end to end, each path with its launch counts set to 0 just before it,
      through ptnn_torch.sample, each checked against the bands of the JAX
-     package's records: the Sunspot rw_fused sampler (64 chains x 5000),
-     the quality flagship chees16_fused_256x4 (1024 x 8000) and
-     mala_fused_16x4 (64 x 5000); the iris RW preset (10 x 5000); the iris
+     package's records: the Sunspot rw_fused sampler (64 chains x 5000,
+     every launch by the fixed-shape kernel), the quality flagship
+     chees16_fused_256x4 (1024 x 8000) and mala_fused_16x4 (64 x 5000,
+     every launch at the planned warps a chain); the iris RW preset (10 x
+     5000); the iris
      quality flagship chees16_fused_16x4 (64 x 8000, seeds 1-3) against the
      served-accuracy gate of 96.76; iris mala_fused_16x4 (64 x 8000);
      then the per-step sampler: Sunspot lg_pallas (64 x 5000, Langevin
@@ -74,14 +82,17 @@ not 0):
      rw_fused at 64 and 1024 chains, mala_fused_16x4, chees16_fused_256x4;
      iris chees16_fused_16x4 and chees16_fused_64x4; lg_pallas), and each
      kernel's time against its plain version's for one block (one epoch,
-     one eval) at its path's widths (the eval at Sunspot, Ionosphere and
+     one eval) at its path's widths (the RW and MALA blocks also as device
+     time, a CUDA graph of 100 calls; the RW block also at 1024 chains;
+     the eval at Sunspot, Ionosphere and
      PenDigit, one set and the pair; the iris MALA block also at 256 and
      1024 chains at 4 and at 1 warp a chain); the CNN's chain-steps/s, the conv
      kernel's time against its plain version's and the library's
      (F.conv2d + relu + F.avg_pool2d), one drift and one eval of a CNN
      step, and stage 2 as the port multiplies it against one grouped
      F.conv2d;
-  6. one JSON line listing the kernels (time, plain time, bound, launches,
+  6. one JSON line listing the kernels (time, device time where measured,
+     plain time, bound, launches,
      largest difference from the plain version), then the device line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -259,11 +270,12 @@ def phase_device():
 
 def phase_build():
     """Every source, one nvcc each, all at once; ptxas' report; and for the
-    redesigned kernels (every drift_epoch instantiation, the three HMC
-    variants, the nine classification HMC variants, the conv kernels) the
-    registers and spill bytes, which must be 0, the HMC exchange route the
-    card gives the ChEES layouts, and the classification HMC kernel's launch
-    plans."""
+    redesigned kernels (both regression RW kernels, every regression MALA
+    instantiation, every drift_epoch instantiation, the three HMC variants,
+    the nine classification HMC variants, the classification MALA
+    variants, the eval and conv kernels) the registers and spill bytes,
+    which must be 0, the HMC exchange route the card gives the ChEES
+    layouts, and the MALA, RW and classification HMC launch plans."""
     from ptnn_torch.ops import _build, precond_cls_step, precond_step
 
     t0 = time.perf_counter()
@@ -276,8 +288,9 @@ def phase_build():
                  if "registers" in ln or "spill" in ln or "Compiling" in ln]
         print(f"[2/6] build: {name}.cu -> {b.path.relative_to(ROOT)} (nvcc "
               f"{b.seconds:.2f} s); ptxas: {' | '.join(ptxas)}")
-    for name in ("drift_epoch", "hmc_block", "hmc_cls_block",
-                 "mala_cls_block", "fnn_eval", "conv1_relu_pool"):
+    for name in ("rw_block", "mala_block", "drift_epoch", "hmc_block",
+                 "hmc_cls_block", "mala_cls_block", "fnn_eval",
+                 "conv1_relu_pool"):
         entries = _build.ptxas_report(built[name].log)
         check(entries, f"{name}: no ptxas report")
         for e in entries:
@@ -301,6 +314,20 @@ def phase_build():
               f"{c} chains: WPC {plan.wpc}, {plan.per_block} chains a block, "
               f"{plan.blocks} blocks, route {plan.route} ({plan.why}), "
               f"{plan.smem} bytes of shared memory")
+    for c in (64, 130, 1024):
+        plan = precond_step.card_mala_plan(DEVICE, c, 496)
+        print(f"[2/6] build: mala_block at {c} chains: WPC {plan.wpc}, "
+              f"{plan.per_block} chains a block, {plan.blocks} blocks "
+              f"({plan.why}), {plan.smem} bytes of shared memory")
+    from ptnn_torch.ops import block_step
+
+    for c in (64, 1024):
+        plan = block_step.card_rw_plan(DEVICE, c)
+        print(f"[2/6] build: rw_block (4, 10, 1) at {c} chains: the "
+              f"{block_step.variant((4, 10, 1))} kernel, {plan.warps} warps "
+              f"a chain, {plan.blocks} blocks ({plan.why}), "
+              f"{block_step.smem_bytes(496, (4, 10, 1), plan.warps)} bytes of "
+              f"shared memory")
     for c in (64, 256, 1024):
         plan = precond_cls_step.card_mala_plan(DEVICE, c, 150)
         print(f"[2/6] build: mala_cls_block at {c} chains: WPC {plan.wpc}, "
@@ -336,9 +363,10 @@ def sunspot():
     return data.load_regression("Sunspot")
 
 
-def block_inputs(c, k, device, adapt, seed=7):
+def block_inputs(c, k, device, adapt, seed=7, topo=(4, 10, 1)):
     """Random state (with its true ll and prior), noise and uniforms for one
-    block of ``k`` steps over ``c`` chains on Sunspot, made with numpy."""
+    block of ``k`` steps over ``c`` chains of the (4, H, 1) network ``topo``
+    on Sunspot, made with numpy."""
     import numpy as np
     import torch
 
@@ -349,7 +377,7 @@ def block_inputs(c, k, device, adapt, seed=7):
 
     rng = np.random.default_rng(seed)
     prob = sunspot()
-    cfg = PTConfig(task="regression", topology=(4, 10, 1),
+    cfg = PTConfig(task="regression", topology=topo,
                    num_samples=c * 1000, num_chains=c).validate()
     ds = make_dataset(cfg, prob.train, prob.test, device)
     w_dim = fnn.w_size(cfg.topology)
@@ -374,21 +402,29 @@ def block_inputs(c, k, device, adapt, seed=7):
     return state, noise, kdata, adapttemp, cfg.topology, scal
 
 
-def compare_block(c, k, length, adapt):
+def compare_block(c, k, length, adapt, topo=(4, 10, 1)):
+    """One RW block against its plain version on the same CUDA tensors,
+    checked to run the kernel ``block_step.variant`` gives ``topo``;
+    returns (chains under the margin, accepts, max |diff|, the kernel)."""
     import torch
 
     from ptnn_torch.ops import block_step
 
-    state, noise, kdata, at, topo, scal = block_inputs(c, k, DEVICE, adapt)
+    state, noise, kdata, at, topo, scal = block_inputs(c, k, DEVICE, adapt,
+                                                       topo=topo)
     args = (state, *noise, 0, length, kdata, at, topo, scal)
+    kinds = dict(block_step.variant_launches)
     new_k, tr_k = block_step.fused_rw_block(*args, record_w=True)
+    taken = [v for v in kinds if block_step.variant_launches[v] > kinds[v]]
+    check(taken == [block_step.variant(topo)],
+          f"rw_block ran {taken} for {topo}")
     new_r, tr_r = block_step.rw_block_reference(*args, record_w=True,
                                                 diagnostics=True)
     torch.cuda.synchronize()
     ok = tr_r["margin"] > MARGIN
     n_close = int((~ok).sum())
-    check(n_close <= 0.01 * c, f"{n_close} of {c} chains within {MARGIN} of "
-          f"a decision boundary")
+    check(n_close <= max(0.01 * c, 1), f"{n_close} of {c} chains within "
+          f"{MARGIN} of a decision boundary")
     na = new_r["n_accept"]
     check(0 < int(na.sum()) < length * c, "block accepted all or nothing")
     check(torch.equal(new_k["n_accept"][ok], na[ok]), "n_accept differs")
@@ -411,7 +447,7 @@ def compare_block(c, k, length, adapt):
         check(bad == 0, f"{name}: {bad} entries off, max |diff| "
               f"{float(diff.max()):.3g}")
         err = max(err, float(diff.max()))
-    return n_close, int(na.sum()), err
+    return n_close, int(na.sum()), err, taken[0]
 
 
 def time_ms(fn, reps, warm=2):
@@ -460,33 +496,52 @@ def graph_ms(fn, calls=100, reps=5):
     return e0.elapsed_time(e1) / (reps * calls)
 
 
-def time_block(c, k, record_w):
-    """Times of one k-step Sunspot RW block at c chains and of its plain
-    version, both on the card, and the block's bound."""
+def rw_kernel_call(c, k, record_w):
+    """The kernel call of one k-step Sunspot RW block at c chains (no
+    adaptation) and its inputs."""
     from ptnn_torch.ops import block_step
 
     state, noise, kdata, at, topo, scal = block_inputs(c, k, DEVICE, False)
     args = (state, *noise, 0, k, kdata, at, topo, scal)
-    kern = lambda: block_step.fused_rw_block(*args, record_w=record_w)
+    return (lambda: block_step.fused_rw_block(*args, record_w=record_w),
+            args)
+
+
+def time_block(c, k, record_w):
+    """Times of one k-step Sunspot RW block at c chains, from the host loop
+    and as device time (``graph_ms``), and of its plain version, all on the
+    card, and the block's bound."""
+    from ptnn_torch.ops import block_step
+
+    kern, args = rw_kernel_call(c, k, record_w)
+    state, nw, ne, u, _s, _l, kdata, at, topo, _scal = args
     plain = lambda: block_step.rw_block_reference(*args, record_w=record_w)
     k_ms, p_ms = timing(kern, plain, 20, 3)
     new, tr = kern()
     ops = block_ops("rw", topo, c, k, kdata["n_tr"], kdata["n_te"])
-    b_ms, b_by = bound(ops, tensor_bytes(state, noise, kdata["rows"], at,
+    b_ms, b_by = bound(ops, tensor_bytes(state, nw, ne, u, kdata["rows"], at,
                                          new, tr))
-    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    return dict(ms=k_ms, graph_ms=min(graph_ms(kern) for _ in range(2)),
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def phase_kernel():
-    c, k, length = 1000, 100, 90
+    """The regression RW kernels against their plain version: the
+    fixed-shape kernel at 1000 and at the path's 64 chains, adapt off and
+    on, and the generic kernel on a network the repository does not bundle;
+    returns the largest float difference."""
+    k, length = 100, 90
     errs = []
-    for adapt in (False, True):
-        n_close, n_acc, err = compare_block(c, k, length, adapt)
+    for c, adapt, topo in ((1000, False, (4, 10, 1)), (1000, True, (4, 10, 1)),
+                           (64, False, (4, 10, 1)), (64, True, (4, 10, 1)),
+                           (64, True, (4, 7, 1))):
+        n_close, n_acc, err, kind = compare_block(c, k, length, adapt, topo)
         errs.append(err)
-        print(f"[3/6] kernel: adapt={adapt} C={c} K={k} length={length}: "
-              f"{n_acc} accepts, accept counters exact, {n_close} chains "
-              f"under the {MARGIN} margin, floats within rtol {RTOL} atol "
-              f"{ATOL}, ll's rtol on its terms (max |diff| {err:.3g})")
+        print(f"[3/6] kernel: rw_block {topo} by the {kind} kernel, "
+              f"adapt={adapt} C={c} K={k} length={length}: {n_acc} accepts, "
+              f"accept counters exact, {n_close} chains under the {MARGIN} "
+              f"margin, floats within rtol {RTOL} atol {ATOL}, ll's rtol on "
+              f"its terms (max |diff| {err:.3g})")
     return max(errs)
 
 
@@ -533,8 +588,13 @@ def phase_end_to_end():
 
     from ptnn_torch.ops import roundtrip
 
+    from ptnn_torch.ops import block_step
+
     cfg = rw_fused_cfg(64, 5000, record_w=True, track_replicas=True)
     res, launches, n_blocks = run_counted("rw_block", cfg)
+    kinds = {v: n for v, n in block_step.variant_launches.items() if n}
+    check(kinds == {"fixed": launches}, f"rw_block launches by kernel "
+          f"{kinds}, planned all by the fixed-shape kernel")
     tr = res.traces
     s, c = cfg.samples_per_chain, cfg.num_chains
     for name in ("ll", "rmse_train", "rmse_test", "accept_count", "replica"):
@@ -552,7 +612,7 @@ def phase_end_to_end():
           f"{cold_acc:.2f}%, mean accept {mean_acc:.2f}%, swap "
           f"{res.swap_percent:.2f}%, round trips {int(rt.round_trips.sum())} "
           f"({rt.rate_per_kstep:.3f}/1k steps); kernel launches {launches} "
-          f"for {n_blocks} planned blocks")
+          f"for {n_blocks} planned blocks, by kernel {kinds}")
     for name, v, (lo, hi) in (("cold test RMSE", cold_rmse, COLD_RMSE),
                               ("cold accept %", cold_acc, COLD_ACCEPT),
                               ("mean accept %", mean_acc, MEAN_ACCEPT),
@@ -575,9 +635,10 @@ def phase_throughput():
         print(f"[5/6] throughput: {c} chains x 2000 samples: median "
               f"{rate:.0f} chain-steps/s over 3 reps (accept "
               f"{reps[0]['accept_pct']:.1f}%, swap {reps[0]['swap_pct']:.1f}%); "
-              f"one 100-step block: kernel {t['ms']:.3f} ms, plain version "
-              f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']})")
+              f"one 100-step block: kernel {t['ms']:.4f} ms a call from the "
+              f"host loop, {t['graph_ms']:.4f} ms of device time (a CUDA "
+              f"graph of 100 calls), plain version {t['plain_ms']:.3f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
 
 
 def precond_cfg(chains, samples, proposal, **kw):
@@ -783,6 +844,9 @@ def phase_precond_kernels():
     largest float difference of each."""
     out = {}
     cases = (
+        # MALA at the path's width (WPC 8 on the H100) and at 1024 (WPC 1)
+        ("mala_block", precond_cfg(64, 100, "precond_mala"), 10, 0,
+         dict(warm_end=2, pc_start=5, burn_end=8)),
         ("mala_block", precond_cfg(1024, 100, "precond_mala"), 10, 0,
          dict(warm_end=2, pc_start=5, burn_end=8)),
         ("hmc_block", precond_cfg(1024, 100, "hmc"), 10, 0,
@@ -801,6 +865,7 @@ def phase_precond_kernels():
 
     for name, cfg, k, start, phases in cases:
         routes = dict(precond_step.hmc_routes)
+        wpcs = dict(precond_step.mala_wpcs)
         n_close, n_groups, n_acc, err, wit = compare_precond(cfg, k, start,
                                                              phases)
         route = [r for r in routes if precond_step.hmc_routes[r] > routes[r]]
@@ -809,6 +874,12 @@ def phase_precond_kernels():
                 else "") + (f"leapfrog {cfg.hmc_leapfrog}, route "
                             f"{'/'.join(route)}, "
                             if name == "hmc_block" else "")
+        if name == "mala_block":
+            plan = precond_step.card_mala_plan(DEVICE, cfg.num_chains, 496)
+            taken = [w for w in wpcs if precond_step.mala_wpcs[w] > wpcs[w]]
+            check(taken == [plan.wpc], f"mala_block took WPC {taken}, "
+                  f"planned {plan.wpc}")
+            what = f"WPC {plan.wpc}, {plan.blocks} blocks, "
         print(f"[3/6] kernel: {name} {what}C={cfg.num_chains} K={k} "
               f"steps {start}-{start + k - 1} across {phases}: {n_acc} "
               f"accepts, counters{' and traj_len' if name == 'hmc_block' else ''}"
@@ -899,40 +970,61 @@ def phase_flagship():
 
 
 def phase_mala_end_to_end():
+    from ptnn_torch.ops import precond_step
+
     cfg = precond_cfg(64, 5000, "precond_mala", track_replicas=True)
     res, launches, n_blocks = run_counted("mala_block", cfg)
+    wpcs = {w: n for w, n in precond_step.mala_wpcs.items() if n}
+    plan = precond_step.card_mala_plan(DEVICE, 64, 496)
     rmse, acc, trips = cold_stats(res, cfg)
     print(f"[4/6] end to end: mala_fused_16x4 64 chains x 5000 samples in "
           f"{res.elapsed_s:.3f} s ({res.chain_steps_per_sec:.0f} "
           f"chain-steps/s); cold test RMSE {rmse:.5f}, mean accept "
           f"{acc:.2f}%, swap {res.swap_percent:.2f}%, round trips "
           f"{trips:.2f} per ladder per 1k steps; kernel launches {launches} "
-          f"for {n_blocks} planned blocks")
+          f"for {n_blocks} planned blocks, by warps a chain {wpcs}")
     check(MALA_RMSE[0] <= rmse <= MALA_RMSE[1],
           f"mala cold test RMSE {rmse:.4f} outside {MALA_RMSE}")
+    check(wpcs == {plan.wpc: launches}, f"mala_block launches by WPC "
+          f"{wpcs}, planned all at {plan.wpc}")
     return launches
 
 
-def time_precond_block(cfg, phases):
-    """Times of one 10-step Sunspot MALA or HMC block at cfg's widths and of
-    its plain version, and the block's bound."""
+def precond_kernel_call(cfg, phases):
+    """The kernel call of one 10-step Sunspot MALA or HMC block at cfg's
+    widths from step 20, and its inputs."""
     from ptnn_torch.ops import precond_step
 
     state, noise, kdata, at, scal = precond_inputs(cfg, 10, 20, phases)
     args = (state, noise, 20, 10, kdata, at, cfg.topology, scal)
+    kern = (precond_step.fused_hmc_block if cfg.proposal == "hmc"
+            else precond_step.fused_mala_block)
+    return lambda: kern(*args, record_w=False), args
+
+
+def time_precond_block(cfg, phases):
+    """Times of one 10-step Sunspot MALA or HMC block at cfg's widths and of
+    its plain version, and the block's bound; for the MALA kernel, whose
+    call the host issues about as fast as the card runs it, also its device
+    time (``graph_ms``, a CUDA graph of 100 calls)."""
+    from ptnn_torch.ops import precond_step
+
+    kern, args = precond_kernel_call(cfg, phases)
+    state, noise, _start, _k, kdata, at, _topo, _scal = args
     hmc = cfg.proposal == "hmc"
-    kern = precond_step.fused_hmc_block if hmc else precond_step.fused_mala_block
     plain = (precond_step.hmc_block_reference if hmc
              else precond_step.mala_block_reference)
-    k_ms, p_ms = timing(lambda: kern(*args, record_w=False),
-                        lambda: plain(*args, record_w=False), 10, 2)
-    new, tr = kern(*args, record_w=False)
+    k_ms, p_ms = timing(kern, lambda: plain(*args, record_w=False), 10, 2)
+    new, tr = kern()
     evals = float(tr["traj_len"].sum()) if hmc else None
     ops = block_ops("hmc" if hmc else "mala", cfg.topology, cfg.num_chains,
                     10, kdata["n_tr"], kdata["n_te"], evals)
     b_ms, b_by = bound(ops, tensor_bytes(state, noise, kdata["rows"], at,
                                          new, tr))
-    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    out = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    if not hmc:
+        out["graph_ms"] = min(graph_ms(kern) for _ in range(2))
+    return out
 
 
 def phase_precond_throughput():
@@ -954,12 +1046,14 @@ def phase_precond_throughput():
 
             tag += " (route " + "/".join(
                 r for r, n in precond_step.hmc_routes.items() if n) + ")"
+        dev = (f" ({t['graph_ms']:.4f} ms of device time, a CUDA graph of "
+               f"100 calls)" if "graph_ms" in t else "")
         print(f"[5/6] throughput: {tag} {cfg.num_chains} chains x 2000 "
               f"samples: median {rate:.0f} chain-steps/s over 3 reps (accept "
               f"{reps[0]['accept_pct']:.1f}%, swap {reps[0]['swap_pct']:.1f}%);"
-              f" one adapting 10-step block: kernel {t['ms']:.3f} ms, plain "
-              f"version {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']})")
+              f" one adapting 10-step block: kernel {t['ms']:.4f} ms a call "
+              f"from the host loop{dev}, plain version {t['plain_ms']:.3f} "
+              f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     return out
 
 
@@ -1349,7 +1443,8 @@ def reset_launch_counts():
     fnn_eval.launches = 0
     for counts in (precond_step.launches, precond_cls_step.launches,
                    precond_step.hmc_routes, precond_cls_step.hmc_cls_routes,
-                   precond_cls_step.mala_cls_wpcs, drift.variant_launches):
+                   precond_step.mala_wpcs, precond_cls_step.mala_cls_wpcs,
+                   block_step.variant_launches, drift.variant_launches):
         for key in counts:
             counts[key] = 0
 
@@ -2528,15 +2623,20 @@ def walls(root):
     (Sunspot (4, 10, 1) 64 chains x 298 rows, Ionosphere (34, 50, 2) 10 x
     245, PenDigit (16, 30, 10) 10 x 7494), one adapting 10-step ChEES-HMC
     block at 1024 chains (Sunspot) and at 64 (iris), and conv1_relu_pool at
-    256 chains x 1257 images (CUDA events); one adapting 10-step iris MALA
-    block at 64 chains (device time, a CUDA graph of 100 calls, and the
-    host loop's time a call); the eval's device time (a CUDA graph of 100 calls)
+    256 chains x 1257 images (CUDA events); one adapting 10-step MALA block
+    (iris at 64 chains, Sunspot at 64 and 1024) and one 100-step Sunspot RW
+    block at 64 and at 1024 chains (device time, a CUDA graph of 100 calls,
+    and the host loop's time a call); the Sunspot rw_fused throughput at
+    1024 chains x
+    2000 samples (three reps of throughput_runner); the eval's device time
+    (a CUDA graph of 100 calls)
     at Ionosphere's train rows and for a step's evals (the train and the
     test rows: the pair where the checkout has it, else two calls) at
     Sunspot 64 chains and Ionosphere 10; the default per-step noise of
     the 64 x 5000 runs, drawn chunk by chunk and sliced a step at a time as
     the sampler does (host clock around a synchronised loop); and the walls
-    of ptnn_torch.sample for lg_pallas 64 x 5000, rw per-step 64 x 5000,
+    of ptnn_torch.sample for Sunspot rw_fused and mala_fused_16x4 64 x
+    5000, lg_pallas 64 x 5000, rw per-step 64 x 5000,
     Ionosphere legacy LG 10 x 5000, chees16_fused_256x4 1024 x 8000, iris
     chees16_fused_16x4 and mala_fused_16x4 64 x 8000 (seed 1) and the
     digits CNN (fused eval) 256 x 300 (host clock around a synchronised
@@ -2582,6 +2682,22 @@ def walls(root):
     t = time_cls_block("mala", iris_cfg(64, 2000, "precond_mala"), 10,
                        adapting, False)
     out["mala_cls_ms"], out["mala_cls_graph_ms"] = t["ms"], t["graph_ms"]
+    for key in ("mala_ms", "mala_graph_ms", "rw_ms", "rw_graph_ms"):
+        out[key] = {}
+    for c in (64, 1024):
+        kern = precond_kernel_call(precond_cfg(c, 2000, "precond_mala"),
+                                   adapting)[0]
+        out["mala_ms"][str(c)] = min(time_ms(kern, 20) for _ in range(2))
+        out["mala_graph_ms"][str(c)] = min(graph_ms(kern) for _ in range(2))
+        kern = rw_kernel_call(c, 100, False)[0]
+        out["rw_ms"][str(c)] = min(time_ms(kern, 20) for _ in range(2))
+        out["rw_graph_ms"][str(c)] = min(graph_ms(kern) for _ in range(2))
+    sunspot_prob = data.load_regression("Sunspot")
+    runner = ptnn_torch.throughput_runner(rw_fused_cfg(1024, 2000),
+                                          sunspot_prob.train,
+                                          sunspot_prob.test, device=DEVICE)
+    out["rw_fused_1024_rate"] = [runner()["chain_steps_per_sec"]
+                                 for _ in range(3)]
     from ptnn_torch.ops import fnn_eval
 
     out["eval_ms"] = {}
@@ -2636,9 +2752,14 @@ def walls(root):
         out["noise_ms"][tag] = runs
     from ptnn_torch.models import cnn
 
-    sunspot_prob = data.load_regression("Sunspot")
     iono = data.load_classification("Ionosphere")
     for tag, cfg, prob, seed, spec in (
+            ("rw_fused", rw_fused_cfg(64, 5000, record_w=True,
+                                      track_replicas=True), sunspot_prob, 0,
+             None),
+            ("mala_fused_16x4", precond_cfg(64, 5000, "precond_mala",
+                                            track_replicas=True),
+             sunspot_prob, 0, None),
             ("lg_pallas", lg, sunspot_prob, 0, None),
             ("rw per-step", rw, sunspot_prob, 0, None),
             ("ionosphere_lg", iono_cfg(), iono, 0, None),

@@ -22,7 +22,8 @@
 // two warps per scheduler, and one block an SM leaves a thread up to 255
 // registers. Each gradient evaluation publishes its weights to the warp's
 // broadcast slot once and loads all 61 into registers (16 float4 loads), so
-// the row loop reads no weight from shared memory. Each warp runs its own
+// the row loop reads no weight from shared memory (reg_chain.cuh, shared
+// with the MALA kernel). Each warp runs its own
 // chain's leapfrog count and skips the trajectory on warm-start and dead
 // steps; ptnn masks lanes past their count inside the block's longest
 // trajectory, which is the same arithmetic. The proposal's SSE and gradient
@@ -56,7 +57,7 @@
 
 #include <cooperative_groups.h>
 
-#include "precond_common.cuh"
+#include "reg_chain.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -67,91 +68,6 @@ namespace cg = cooperative_groups;
 #define ROUTE_PLAIN 0  // no ChEES: no exchange
 #define ROUTE_CLUSTER 1
 #define ROUTE_GRID 2
-
-// The chain's 61 weights (and 3 pad entries) from its broadcast slot into
-// registers: 16 float4 loads.
-__device__ __forceinline__ void load_weights(const float* wb, float (&wr)[VEC]) {
-  const float4* q = reinterpret_cast<const float4*>(wb);
-#pragma unroll
-  for (int e = 0; e < VEC / 4; ++e) {
-    const float4 v = q[e];
-    wr[4 * e] = v.x;
-    wr[4 * e + 1] = v.y;
-    wr[4 * e + 2] = v.z;
-    wr[4 * e + 3] = v.w;
-  }
-}
-
-// fwd_grad of precond_common.cuh with the weights in registers.
-template <int NI, int NH>
-__device__ __forceinline__ float2 fwd_grad_reg(const float* __restrict__ rows, int n_tr,
-                                               const float (&wr)[VEC], int lane,
-                                               float& sse_out) {
-  using N = Net<NI, NH>;
-  float acc[VEC];
-#pragma unroll
-  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
-  float sse = 0.f;
-  for (int r = lane; r < n_tr; r += 32) {
-    const float* xr = rows + r * (NI + 1);
-    float x[NI];
-#pragma unroll
-    for (int i = 0; i < NI; ++i) x[i] = xr[i];
-    const float y = xr[NI];
-    float s[NH];
-    float out = 0.f;
-#pragma unroll
-    for (int h = 0; h < NH; ++h) {
-      float z = -wr[N::S2 + h];
-#pragma unroll
-      for (int i = 0; i < NI; ++i) z += x[i] * wr[i * NH + h];
-      s[h] = sigmoid_f(z);
-      out += s[h] * wr[N::S1 + h];
-    }
-    const float fx = sigmoid_f(out - wr[N::B2]);
-    const float resid = y - fx;
-    sse += resid * resid;
-    const float delta = resid * fx * (1.f - fx);
-    acc[N::B2] -= delta;
-#pragma unroll
-    for (int h = 0; h < NH; ++h) {
-      acc[N::S1 + h] += delta * s[h];
-      const float dh = delta * wr[N::S1 + h] * s[h] * (1.f - s[h]);
-      acc[N::S2 + h] -= dh;
-#pragma unroll
-      for (int i = 0; i < NI; ++i) acc[i * NH + h] += dh * x[i];
-    }
-  }
-  acc[N::W] = sse;
-  reduce_scatter64(acc, lane);
-  sse_out = __shfl_sync(FULL_MASK, acc[N::W & 1], N::W >> 1);
-  float2 g = f2(acc[0], acc[1]);
-  if (2 * lane == N::W) g.x = 0.f;  // the slot that carried the SSE
-  if (2 * lane + 1 == N::W) g.y = 0.f;
-  return g;
-}
-
-// fwd_sse of precond_common.cuh with the weights in registers.
-template <int NI, int NH>
-__device__ __forceinline__ float fwd_sse_reg(const float* __restrict__ rows, int n,
-                                             const float (&wr)[VEC], int lane) {
-  using N = Net<NI, NH>;
-  float sse = 0.f;
-  for (int r = lane; r < n; r += 32) {
-    const float* xr = rows + r * (NI + 1);
-    float out = 0.f;
-#pragma unroll
-    for (int h = 0; h < NH; ++h) {
-      float z = -wr[N::S2 + h];
-#pragma unroll
-      for (int i = 0; i < NI; ++i) z += xr[i] * wr[i * NH + h];
-      out += sigmoid_f(z) * wr[N::S1 + h];
-    }
-    const float resid = xr[NI] - sigmoid_f(out - wr[N::B2]);
-    sse += resid * resid;
-  }
-  return warp_sum(sse);
-}
 
 // Reads of an exchange slot: distributed shared memory, or device memory
 // past the SM's L1 (another SM wrote it since this one last read it).
@@ -227,7 +143,7 @@ __global__ void __launch_bounds__(HMC_THREADS, 1) hmc_block_kernel(const Precond
     }
     if (k >= p.length) {  // dead step: carries into the trace rows
       if (active) {
-        write_trace(p, s, kc, lane, W, r.ll / r.at, r, r.na);
+        write_trace(p, s.wl[lane], kc, lane, W, r.ll / r.at, r, r.na);
         if (lane == 0) p.t_traj_len[kc] = 0.f;
         r.lse = clipf(r.lse, p.log_lo_eta, p.log_hi);
         if (CHEES) lt = clipf(lt, p.log_traj_lo, logf(eps * leap_f));
@@ -310,7 +226,7 @@ __global__ void __launch_bounds__(HMC_THREADS, 1) hmc_block_kernel(const Precond
         r.pr = pr_p;
         r.na += 1;
       }
-      write_trace(p, s, kc, lane, W, ll_p / r.at, r, na_before);
+      write_trace(p, s.wl[lane], kc, lane, W, ll_p / r.at, r, na_before);
       if (lane == 0) p.t_traj_len[kc] = l_steps;
       // --- the eta block ------------------------------------------------------
       eta_block(r.eta, r.ll, r.pr, r.lse, p.noise_eta[kc], p.u_eta[kc], r.at, i, p);

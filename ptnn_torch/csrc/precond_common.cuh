@@ -1,21 +1,21 @@
 // Device code shared by the preconditioned MALA and HMC block kernels
 // (mala_block.cu, hmc_block.cu), regression task, for Hopper (sm_90a).
 //
-// Layout: one warp per chain, WARPS chains per thread block (the MALA
-// kernel; hmc_block.cu sets its own HMC_WARPS). A chain's
-// vectors of w_size <= 63 entries sit in 64-float slots; lane l owns
-// entries 2l and 2l+1 (a float2), so elementwise work on w, momenta and
-// gradients is lane-local and a dot product is one warp reduction. The
-// data rows [x..., y] (train, then test) sit in shared memory once per
-// block; each lane walks rows lane, lane + 32, ... and reads the weights
-// it evaluates from the warp's broadcast slot `wb`.
+// A chain's vectors of w_size <= 63 entries sit in 64-float slots; lane l
+// of a warp owns entries 2l and 2l+1 (a float2), so elementwise work on w,
+// momenta and gradients is lane-local and a dot product is one warp
+// reduction. The data rows [x..., y] (train, then test) sit in shared
+// memory once per block. The HMC kernel runs one warp per chain and keeps
+// the chain's vectors in its warp's shared-memory slots (`ChainSlots`);
+// the MALA kernel spreads a chain's rows over several warps and keeps them
+// in registers (reg_chain.cuh).
 //
-// The FNN backprop (the port of ptnn/ops/pallas_step.py `_fwd_grad_reg`)
-// keeps its w_size gradient partial sums in registers and reduces them
-// with a recursive-halving reduce-scatter across the warp: 62 shuffles
-// leave lane l holding entries 2l and 2l+1, the lane-owned layout, where
-// one warp sum per entry would take 5 x 61. The SSE rides in the free slot
-// w_size of the same reduction.
+// The FNN backprop (reg_chain.cuh, the port of ptnn/ops/pallas_step.py
+// `_fwd_grad_reg`) keeps its w_size gradient partial sums in registers and
+// reduces them with a recursive-halving reduce-scatter across the warp
+// (`reduce_scatter64`): 62 shuffles leave lane l holding entries 2l and
+// 2l+1, the lane-owned layout, where one warp sum per entry would take 5 x
+// 61. The SSEs ride in the free slots past w_size of the same reduction.
 //
 // No fast-math: expf, sqrtf and division are the IEEE-rounded versions, so
 // a kernel stays within float rounding of its plain PyTorch version.
@@ -24,8 +24,6 @@
 
 #include <cuda_runtime.h>
 
-#define WARPS 16  // chains per thread block of the MALA kernel
-#define THREADS (WARPS * 32)
 #define VEC 64  // floats per chain vector slot
 #define FULL_MASK 0xffffffffu
 
@@ -132,92 +130,32 @@ __device__ __forceinline__ float dot2(float2 a, float2 b) {
   return warp_sum(a.x * b.x + a.y * b.y);
 }
 
+// One stage of the reduce-scatter: lanes whose bit HALF / 2 is set keep the
+// upper HALF entries and send the lower ones to their partner, the others
+// the reverse. HALF is a template argument so that the loop unrolls fully:
+// with a trip count that depends on an outer loop's counter, the inner loop
+// was unrolled by 4 before the outer one, which indexed the array with a
+// runtime pointer and put it in local memory (a 256-byte stack frame read
+// and written on every reduce-scatter).
+template <int HALF>
+__device__ __forceinline__ void reduce_scatter_stage(float (&v)[VEC], int lane) {
+  const bool upper = (lane & (HALF / 2)) != 0;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = upper ? v[i] : v[i + HALF];
+    const float keep = upper ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(FULL_MASK, send, HALF / 2);
+  }
+}
+
 // Recursive-halving reduce-scatter of 64 values per lane: afterwards
 // v[0], v[1] of lane l hold the warp sums of entries 2l and 2l+1.
 __device__ __forceinline__ void reduce_scatter64(float (&v)[VEC], int lane) {
-#pragma unroll
-  for (int s = 0; s < 5; ++s) {
-    const int off = 16 >> s;
-    const int half = 32 >> s;
-    const bool upper = (lane & off) != 0;
-#pragma unroll
-    for (int i = 0; i < half; ++i) {
-      const float send = upper ? v[i] : v[i + half];
-      const float keep = upper ? v[i + half] : v[i];
-      v[i] = keep + __shfl_xor_sync(FULL_MASK, send, off);
-    }
-  }
-}
-
-// Forward over the n_tr train rows at the weights in `wb`, the SSE, and
-// d(-SSE/2)/dw in the lane layout (the port of `_fwd_grad_reg`).
-template <int NI, int NH>
-__device__ __forceinline__ float2 fwd_grad(const float* __restrict__ rows, int n_tr,
-                                           const float* wb, int lane, float& sse_out) {
-  using N = Net<NI, NH>;
-  float acc[VEC];
-#pragma unroll
-  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
-  float sse = 0.f;
-  for (int r = lane; r < n_tr; r += 32) {
-    const float* xr = rows + r * (NI + 1);
-    float x[NI];
-#pragma unroll
-    for (int i = 0; i < NI; ++i) x[i] = xr[i];
-    const float y = xr[NI];
-    float s[NH];
-    float out = 0.f;
-#pragma unroll
-    for (int h = 0; h < NH; ++h) {
-      float z = -wb[N::S2 + h];
-#pragma unroll
-      for (int i = 0; i < NI; ++i) z += x[i] * wb[i * NH + h];
-      s[h] = sigmoid_f(z);
-      out += s[h] * wb[N::S1 + h];
-    }
-    const float fx = sigmoid_f(out - wb[N::B2]);
-    const float resid = y - fx;
-    sse += resid * resid;
-    const float delta = resid * fx * (1.f - fx);
-    acc[N::B2] -= delta;
-#pragma unroll
-    for (int h = 0; h < NH; ++h) {
-      acc[N::S1 + h] += delta * s[h];
-      const float dh = delta * wb[N::S1 + h] * s[h] * (1.f - s[h]);
-      acc[N::S2 + h] -= dh;
-#pragma unroll
-      for (int i = 0; i < NI; ++i) acc[i * NH + h] += dh * x[i];
-    }
-  }
-  acc[N::W] = sse;
-  reduce_scatter64(acc, lane);
-  sse_out = __shfl_sync(FULL_MASK, acc[N::W & 1], N::W >> 1);
-  float2 g = f2(acc[0], acc[1]);
-  if (2 * lane == N::W) g.x = 0.f;  // the slot that carried the SSE
-  if (2 * lane + 1 == N::W) g.y = 0.f;
-  return g;
-}
-
-// Forward and SSE over n rows (the test rmse).
-template <int NI, int NH>
-__device__ __forceinline__ float fwd_sse(const float* __restrict__ rows, int n,
-                                         const float* wb, int lane) {
-  using N = Net<NI, NH>;
-  float sse = 0.f;
-  for (int r = lane; r < n; r += 32) {
-    const float* xr = rows + r * (NI + 1);
-    float out = 0.f;
-#pragma unroll
-    for (int h = 0; h < NH; ++h) {
-      float z = -wb[N::S2 + h];
-#pragma unroll
-      for (int i = 0; i < NI; ++i) z += xr[i] * wb[i * NH + h];
-      out += sigmoid_f(z) * wb[N::S1 + h];
-    }
-    const float resid = xr[NI] - sigmoid_f(out - wb[N::B2]);
-    sse += resid * resid;
-  }
-  return warp_sum(sse);
+  reduce_scatter_stage<32>(v, lane);
+  reduce_scatter_stage<16>(v, lane);
+  reduce_scatter_stage<8>(v, lane);
+  reduce_scatter_stage<4>(v, lane);
+  reduce_scatter_stage<2>(v, lane);
 }
 
 // The diagonal preconditioner m at step i from the Welford M2 (lane layout).
@@ -260,8 +198,8 @@ __device__ __forceinline__ void welford(float2 w, float2& pm, float2& p2, int i,
   p2 = f2(p2.x + d.x * (w.x - pm.x), p2.y + d.y * (w.y - pm.y));
 }
 
-// Per-warp shared-memory slots: w, w_last, g_like, pc_mean, pc_m2 and the
-// broadcast slot wb that the forward reads.
+// Per-warp shared-memory slots of the HMC kernel: w, w_last, g_like,
+// pc_mean, pc_m2 and the broadcast slot wb that an evaluation publishes.
 struct ChainSlots {
   float2* w;
   float2* wl;
@@ -314,7 +252,7 @@ __device__ __forceinline__ void store_chain(const PrecondParams& p, const ChainS
   st2(p.o_pc_m2 + cw, lane, w, s.p2[lane]);
 }
 
-// The scalar carries of one chain; every lane of its warp holds the same
+// The scalar carries of one chain; every lane of its warps holds the same
 // values (they are computed from warp-wide sums that all lanes share).
 struct Carry {
   float eta, ll, pr, rtr, rte, lsw, lse, at;
@@ -349,16 +287,16 @@ __device__ __forceinline__ void store_carry(const PrecondParams& p, const Carry&
 // Trace rows of step k, after its decision: the rmse carries, the accept
 // count BEFORE the decision and the w row that follows w_last (lane 0
 // writes the scalars, every lane its w entries).
-__device__ __forceinline__ void write_trace(const PrecondParams& p, const ChainSlots& s,
-                                            size_t kc, int lane, int w, float ll_row,
-                                            const Carry& r, int na_before) {
+__device__ __forceinline__ void write_trace(const PrecondParams& p, float2 wl, size_t kc,
+                                            int lane, int w, float ll_row, const Carry& r,
+                                            int na_before) {
   if (lane == 0) {
     p.t_ll[kc] = ll_row;
     p.t_rmse_tr[kc] = r.rtr;
     p.t_rmse_te[kc] = r.rte;
     p.t_accept[kc] = na_before;
   }
-  if (p.t_w != nullptr) st2(p.t_w + kc * w, lane, w, s.wl[lane]);
+  if (p.t_w != nullptr) st2(p.t_w + kc * w, lane, w, wl);
 }
 
 __device__ __forceinline__ void load_rows(const PrecondParams& p, float* s_rows, int ni) {
@@ -371,8 +309,6 @@ __device__ __forceinline__ void load_rows(const PrecondParams& p, float* s_rows,
 extern "C" {
 
 int ptnn_precond_params_size() { return (int)sizeof(PrecondParams); }
-
-int ptnn_precond_warps() { return WARPS; }
 
 int ptnn_precond_w_size() { return Net<4, 10>::W; }
 

@@ -117,7 +117,8 @@ def working_set_reason(cfg: PTConfig, n_tr: int, n_te: int) -> Optional[str]:
         else:
             need = precond_cls_step.mala_smem_bytes(rows, cfg.topology)
     elif cfg.proposal == "reference":
-        need = block_step.smem_bytes(rows, n_in, w)
+        need = max(block_step.smem_bytes(rows, cfg.topology, warps)
+                   for warps in block_step.RW_WARPS)
     else:
         need = precond_step.smem_bytes(rows, n_in, chees,
                                        hmc=cfg.proposal == "hmc")

@@ -184,12 +184,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         hmc = name == "hmc_block"
         launch = getattr(lib, f"ptnn_{name}")
         launch.argtypes = [ctypes.POINTER(ps.PrecondParams), ctypes.c_int] + (
-            [ctypes.c_int, ctypes.c_int] if hmc else []) + [ctypes.c_void_p]
+            [ctypes.c_int, ctypes.c_int] if hmc else [ctypes.c_int]) + [
+            ctypes.c_void_p]
         launch.restype = ctypes.c_int
         _check_query(lib, name, "ptnn_precond_params_size",
                      ctypes.sizeof(ps.PrecondParams), "PrecondParams size")
-        _check_query(lib, name, "ptnn_precond_warps", ps._common("WARPS"),
-                     "WARPS")
+        if not hmc:
+            _check_query(lib, name, "ptnn_mala_threads",
+                         32 * ps._mala_warps(), "MALA_THREADS")
         _check_query(lib, name, "ptnn_precond_w_size", 61,
                      "the (4, 10, 1) w_size")
         if hmc:
@@ -322,15 +324,39 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             raise RuntimeError(f"the fixed conv shape of the built library "
                                f"{tuple(buf)} differs from the source's {want}")
     if name == "rw_block":
-        from ptnn_torch.ops.block_step import _RwParams, _THREADS
+        from ptnn_torch.models import fnn
+        from ptnn_torch.ops import block_step as bs
 
-        lib.ptnn_rw_block.argtypes = [
-            ctypes.POINTER(_RwParams), ctypes.c_int, ctypes.c_void_p
-        ]
-        lib.ptnn_rw_block.restype = ctypes.c_int
+        i = ctypes.c_int
+        lib.ptnn_rw_block.argtypes = [ctypes.POINTER(bs._RwParams), i, i, i,
+                                      ctypes.c_void_p]
+        lib.ptnn_rw_block.restype = i
         _check_query(lib, name, "ptnn_rw_params_size",
-                     ctypes.sizeof(_RwParams), "RwParams size")
-        _check_query(lib, name, "ptnn_rw_block_threads", _THREADS, "THREADS")
+                     ctypes.sizeof(bs._RwParams), "RwParams size")
+        _check_query(lib, name, "ptnn_rw_block_threads", bs._THREADS,
+                     "THREADS")
+        rows = tuple(t[:2] for t in bs.fixed_topologies())
+        buf = (i * (2 * len(rows)))()
+        lib.ptnn_rw_fixed_layouts.argtypes = [ctypes.c_void_p, i]
+        lib.ptnn_rw_fixed_layouts.restype = i
+        n = lib.ptnn_rw_fixed_layouts(buf, len(rows))
+        got = tuple(tuple(buf[2 * k:2 * k + 2])
+                    for k in range(min(n, len(rows))))
+        if n != len(rows) or got != rows:
+            raise RuntimeError(f"the fixed-shape (I, H) of the built library "
+                               f"({n} rows) differ from FNN_LAYOUTS'")
+        lib.ptnn_rw_fixed_smem_floats.argtypes = [i] * 4
+        lib.ptnn_rw_fixed_smem_floats.restype = i
+        for topo in bs.fixed_topologies():
+            for warps in bs.RW_WARPS:
+                want = bs.smem_bytes(497, topo, warps)
+                got = 4 * lib.ptnn_rw_fixed_smem_floats(
+                    497, topo[0], fnn.w_size(topo), warps)
+                if got != want:
+                    raise RuntimeError(f"rw_block shared memory of {topo} at "
+                                       f"{warps} warps differs between "
+                                       f"rw_block.cu ({got}) and its Python "
+                                       f"mirror ({want})")
 
 
 def _check_query(lib: ctypes.CDLL, name: str, fn: str, want: int,

@@ -30,14 +30,18 @@ uniforms and trace rows (K, C), w trace (K, C, W). No padding.
 
 ``fused_rw_block`` runs a CUDA kernel on CUDA tensors (``csrc/rw_block.cu``
 for regression, ``csrc/rw_cls_block.cu`` for classification) and the plain
-version, ``rw_block_reference``, on CPU tensors only.
+version, ``rw_block_reference``, on CPU tensors only. The regression file
+has two kernels (``variant``): a fixed-shape kernel for the bundled (I, H,
+1) networks, at the warps a chain ``rw_launch_plan`` gives, and a generic
+one for any other; ``variant_launches`` says which ran.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +50,7 @@ from ptnn_torch.models import fnn
 from ptnn_torch.ops import likelihood
 
 launches = 0  # launches of csrc/rw_block.cu (the plain version counts none)
+variant_launches = {"fixed": 0, "generic": 0}  # which rw_block kernel ran
 cls_launches = 0  # launches of csrc/rw_cls_block.cu
 
 _STATE_F32 = ("eta", "ll", "prior", "rmse_train", "rmse_test", "log_step_w")
@@ -54,6 +59,7 @@ _CLS_F32 = ("ll", "prior", "rmse_train", "rmse_test", "acc_train", "acc_test",
 _LOG_STEP_LO = math.log(1e-5)
 _LOG_STEP_HI = math.log(10.0)
 _THREADS = 128  # must equal THREADS in csrc/rw_block.cu
+RW_WARPS = (8, 4)  # warps a chain the fixed-shape kernel is built for
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 CLS_TOPOLOGIES = ((4, 12, 3),)  # the (I, H, O) rw_cls_block.cu instantiates
 
@@ -316,10 +322,71 @@ class _RwParams(ctypes.Structure):
     ]
 
 
-def smem_bytes(n_rows: int, n_in: int, w_size: int) -> int:
-    """Dynamic shared memory of one block: the data rows, three weight
-    vectors (current, last accepted, proposal) and the reduction slots."""
-    return 4 * (n_rows * (n_in + 1) + 3 * w_size + 3 * (_THREADS // 32))
+@functools.lru_cache(maxsize=None)
+def fixed_topologies() -> Tuple[Tuple[int, int, int], ...]:
+    """The (I, H, 1) networks csrc/rw_block.cu's fixed-shape kernel is built
+    for: the lines of csrc/fnn_layouts.cuh with one output."""
+    from ptnn_torch.ops import _build
+
+    return tuple((i, h, 1) for i, h, o, *_ in
+                 _build.cu_rows("fnn_layouts.cuh", "FNN_LAYOUTS") if o == 1)
+
+
+def variant(topo) -> str:
+    """The regression kernel that runs ``topo``: "fixed" (compile-time
+    shapes) for a bundled network, else "generic"."""
+    return "fixed" if tuple(topo) in fixed_topologies() else "generic"
+
+
+class RwPlan(NamedTuple):
+    """One launch of the fixed-shape regression kernel: ``warps`` a chain,
+    ``blocks`` (one a chain), ``why``."""
+    warps: int
+    blocks: int
+    why: str
+
+
+def rw_launch_plan(chains: int, sms: int) -> RwPlan:
+    """The fixed-shape kernel's warps a chain for ``chains`` chains on a
+    card of ``sms`` SMs (pure Python): 8 while the grid fits one wave of one
+    block an SM, so that the card's idle SMs shorten each step; else 4, so
+    that several blocks share an SM."""
+    if chains <= sms:
+        return RwPlan(8, chains, f"8 warps: {chains} blocks fit one wave of "
+                                 f"{sms} SMs")
+    return RwPlan(4, chains, f"4 warps: {chains} blocks exceed one wave of "
+                             f"{sms} SMs")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The SM count of the card ``device``, which the launch plans take."""
+    dev = torch.device(device)
+    return _sm_count(dev.index if dev.index is not None
+                     else torch.cuda.current_device())
+
+
+def card_rw_plan(device, chains: int) -> RwPlan:
+    """``rw_launch_plan`` with the SM count of the card ``device``."""
+    return rw_launch_plan(chains, sm_count(device))
+
+
+def smem_bytes(n_rows: int, topo, warps: int = _THREADS // 32) -> int:
+    """Dynamic shared memory of one block of the regression kernel that
+    runs ``topo``. Generic: the data rows, three weight vectors (current,
+    last accepted, proposal) and the reduction slots. Fixed-shape, at
+    ``warps`` warps: the data rows (padded to 16 bytes), two weight slots
+    and two noise slots of w_size + 2 floats padded to 16 bytes, and two
+    parities of a 4-float partial slot per warp."""
+    n_in, w = topo[0], fnn.w_size(topo)
+    if variant(topo) == "generic":
+        return 4 * (n_rows * (n_in + 1) + 3 * w + 3 * (_THREADS // 32))
+    slot = -(-(w + 2) // 4) * 4
+    return 4 * (-(-n_rows * (n_in + 1) // 4) * 4 + 4 * slot + 2 * warps * 4)
 
 
 def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
@@ -347,7 +414,10 @@ def _launch_cuda(state, noise_w, noise_eta, u_mh, start, length, data,
         raise ValueError(f"noise width {w_dim} does not fit topology {topo}")
     if not 0 <= int(length) <= k_max:
         raise ValueError(f"length {length} outside [0, {k_max}]")
-    smem = smem_bytes(n_tr + n_te, n_in, w_dim)
+    kind = variant(topo)
+    warps = (card_rw_plan(dev, c).warps if kind == "fixed"
+             else _THREADS // 32)
+    smem = smem_bytes(n_tr + n_te, topo, warps)
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"{n_tr}+{n_te} data rows need {smem} bytes of shared memory per "
@@ -405,12 +475,14 @@ def _launch_cuda(state, noise_w, noise_eta, u_mh, start, length, data,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ptnn_rw_block(ctypes.byref(params), smem,
+                                int(kind == "fixed"), warps,
                                 ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
             f"rw_block launch failed: {_build.error_string(lib, err)}"
         )
     launches += 1
+    variant_launches[kind] += 1
     return new, tr
 
 

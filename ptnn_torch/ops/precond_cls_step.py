@@ -60,10 +60,12 @@ import torch
 from ptnn_torch.models import fnn
 from ptnn_torch.ops import _build
 from ptnn_torch.ops.block_step import (_check, argmax_fragile, cls_eval,
-                                       cls_metrics, cls_prior_const, inv_rows)
+                                       cls_metrics, cls_prior_const, inv_rows,
+                                       sm_count)
 from ptnn_torch.ops.precond_step import (PANEL, _LOG_HI, _LOG_LO_W, _LOG09,
-                                         _LOG0999, _LOG_TRAJ_LO, _SMEM_LIMIT, _clip_traj, _dispatch,
-                                         _precond_diag, rung_sum)
+                                         _LOG0999, _LOG_TRAJ_LO, _SMEM_LIMIT,
+                                         MalaPlan, _clip_traj, _dispatch,
+                                         _precond_diag, rung_sum, warp_plan)
 
 launches = {"mala_cls_block": 0, "hmc_cls_block": 0}  # CUDA launches
 ROUTES = ("plain", "cluster", "grid")  # ROUTE_* of csrc/hmc_cls_block.cu
@@ -407,51 +409,19 @@ def mala_smem_bytes(n_rows: int, topo) -> int:
     return 4 * _chain_smem_floats(n_rows, topo, _mala_warps())
 
 
-class MalaClsPlan(NamedTuple):
-    """One launch of the MALA kernel: ``wpc`` warps a chain, ``per_block``
-    chains a block, ``blocks``, ``smem`` bytes a block, ``why``."""
-    wpc: int
-    per_block: int
-    blocks: int
-    smem: int
-    why: str
-
-
-def mala_launch_plan(chains: int, n_rows: int, topo, sms: int) -> MalaClsPlan:
+def mala_launch_plan(chains: int, n_rows: int, topo, sms: int) -> MalaPlan:
     """The MALA kernel's launch for ``chains`` chains on ``n_rows`` data
-    rows, on a card of ``sms`` SMs (pure Python): the largest WPC whose
-    blocks fit one wave of the card, one block an SM (a block takes the SM's
-    registers); past that, WPC 1 in waves. More warps a chain shorten each
-    evaluation; more than one wave would run the blocks one after the
-    other."""
-    warps = _mala_warps()
-    smem = mala_smem_bytes(n_rows, topo)
-    for wpc in WPCS:
-        per = warps // wpc
-        blocks = -(-chains // per)
-        if blocks <= sms:
-            return MalaClsPlan(wpc, per, blocks, smem,
-                               f"WPC {wpc}: {blocks} blocks fit one wave of "
-                               f"{sms} SMs")
-    per = warps
-    blocks = -(-chains // per)
-    return MalaClsPlan(1, per, blocks, smem,
-                       f"WPC 1: {blocks} blocks in waves over {sms} SMs")
-
-
-@functools.lru_cache(maxsize=None)
-def _card_mala_plan(device_index: int, chains: int, n_rows: int,
-                    topo) -> MalaClsPlan:
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return mala_launch_plan(chains, n_rows, topo, sms)
+    rows, on a card of ``sms`` SMs (pure Python): ``precond_step.warp_plan``'s
+    rule, the largest WPC whose blocks fit one wave of the card, one block
+    an SM; past that, WPC 1 in waves."""
+    return warp_plan(chains, _mala_warps(), sms, WPCS,
+                     mala_smem_bytes(n_rows, topo))
 
 
 def card_mala_plan(device, chains: int, n_rows: int,
-                   topo=TOPOLOGIES[0]) -> MalaClsPlan:
+                   topo=TOPOLOGIES[0]) -> MalaPlan:
     """``mala_launch_plan`` with the SM count of the card ``device``."""
-    dev = torch.device(device)
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return _card_mala_plan(index, chains, n_rows, tuple(topo))
+    return mala_launch_plan(chains, n_rows, topo, sm_count(device))
 
 
 class HmcClsPlan(NamedTuple):

@@ -50,13 +50,16 @@ Layout: chains-major, no padding. State (C, W) and (C,), noise ``w``
 plain versions, ``mala_block_reference`` / ``hmc_block_reference``, on CPU
 tensors only.
 
-CUDA layout: one warp per chain; the MALA kernel puts ``WARPS`` (16) chains
-in a block, the HMC kernel ``HMC_WARPS`` (8), both read from the sources
-(``_build.cu_define``). Under ChEES a panel's blocks exchange rung sums
-(``hmc_layout``, ``exchange_reads``) by one of two routes (``hmc_route``):
-one thread-block cluster a panel, or a cooperative launch of the whole
-grid with the exchange slots in device memory. ``hmc_routes`` counts the
-launches of each.
+CUDA layout: the MALA kernel spreads one chain's rows over WPC warps (8, 4,
+2 or 1) of a 256-thread block (``csrc/reg_chain.cuh``); ``mala_launch_plan``
+picks WPC from the card's SM count by the rule ``warp_plan`` states, which
+the iris MALA kernel shares, and ``mala_wpcs`` counts the launches by WPC.
+The HMC kernel runs one warp per chain, ``HMC_WARPS`` (8) chains a block,
+read from the source (``_build.cu_define``). Under ChEES a panel's blocks
+exchange rung sums (``hmc_layout``, ``exchange_reads``) by one of two routes
+(``hmc_route``): one thread-block cluster a panel, or a cooperative launch
+of the whole grid with the exchange slots in device memory. ``hmc_routes``
+counts the launches of each.
 """
 
 from __future__ import annotations
@@ -64,18 +67,20 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ptnn_torch.models import fnn
 from ptnn_torch.ops import _build, likelihood
-from ptnn_torch.ops.block_step import _check, _prior_const
+from ptnn_torch.ops.block_step import _check, _prior_const, sm_count
 
 launches = {"mala_block": 0, "hmc_block": 0}  # CUDA launches per kernel
 ROUTES = ("plain", "cluster", "grid")  # ROUTE_* of csrc/hmc_block.cu
 hmc_routes = {r: 0 for r in ROUTES}  # hmc_block launches by route
+MALA_WPCS = (8, 4, 2, 1)  # warps a chain of mala_block.cu, largest first
+mala_wpcs = {w: 0 for w in MALA_WPCS}  # mala_block launches by warps a chain
 
 ETA_TARGET_ACCEPT = 0.44  # 1-D random-walk optimum (ptnn's convention)
 PANEL = 128  # ChEES pools rung replicas within runs of this many chains
@@ -91,9 +96,14 @@ Tensors = Dict[str, torch.Tensor]
 
 def _common(name: str) -> int:
     """A constant of csrc/precond_common.cuh, read from the source at first
-    use: WARPS (the MALA kernel's chains a block), VEC (floats a vector
-    slot)."""
+    use: VEC (floats a vector slot)."""
     return _build.cu_define("precond_common.cuh", name)
+
+
+def _mala_warps() -> int:
+    """Warps a block of the MALA kernel (MALA_THREADS / 32 of
+    csrc/mala_block.cu)."""
+    return _build.cu_define("mala_block.cu", "MALA_THREADS") // 32
 
 
 def _hmc(name: str) -> int:
@@ -476,14 +486,61 @@ class PrecondParams(ctypes.Structure):
 
 
 def smem_bytes(n_rows: int, n_in: int, chees: bool, hmc: bool = False) -> int:
-    """Dynamic shared memory of one CUDA block (MALA, or HMC with ``hmc``):
-    the data rows (padded to 16 bytes), six 64-float vectors per chain and,
-    under ChEES, two parities of the exchange slots (w', w_old and two
-    scalars) per chain."""
+    """Dynamic shared memory of one CUDA block, the data rows (padded to 16
+    bytes) and then: for MALA, whatever the warps a chain, per warp a
+    broadcast slot and two parities of its partial slot (64 floats each);
+    for HMC (``hmc``), six 64-float vectors per chain and, under ChEES, two
+    parities of the exchange slots (w', w_old and two scalars) per chain."""
     rows = (n_rows * (n_in + 1) + 3) // 4 * 4
+    if not hmc:
+        return 4 * (rows + _mala_warps() * 3 * _common("VEC"))
     per_chain = 6 * _common("VEC") + (2 * _ex_floats() if chees else 0)
-    warps = _hmc("HMC_WARPS") if hmc else _common("WARPS")
-    return 4 * (rows + warps * per_chain)
+    return 4 * (rows + _hmc("HMC_WARPS") * per_chain)
+
+
+class MalaPlan(NamedTuple):
+    """One launch of a MALA kernel (regression or iris): ``wpc`` warps a
+    chain, ``per_block`` chains a block, ``blocks``, ``smem`` bytes a
+    block, ``why``."""
+    wpc: int
+    per_block: int
+    blocks: int
+    smem: int
+    why: str
+
+
+def warp_plan(chains: int, warps: int, sms: int, wpcs: Sequence[int],
+              smem: int) -> MalaPlan:
+    """The launch of a kernel that spreads a chain's rows over WPC of a
+    block's ``warps`` warps, for ``chains`` chains on a card of ``sms`` SMs
+    (pure Python): the largest of ``wpcs`` whose blocks fit one wave of the
+    card, one block an SM (a block takes the SM's registers); past that,
+    one warp a chain in waves. More warps a chain shorten each evaluation;
+    more than one wave would run the blocks one after the other. Both MALA
+    kernels take this rule."""
+    for wpc in wpcs:
+        per = warps // wpc
+        blocks = -(-chains // per)
+        if blocks <= sms:
+            return MalaPlan(wpc, per, blocks, smem,
+                            f"WPC {wpc}: {blocks} blocks fit one wave of "
+                            f"{sms} SMs")
+    blocks = -(-chains // warps)
+    return MalaPlan(1, warps, blocks, smem,
+                    f"WPC 1: {blocks} blocks in waves over {sms} SMs")
+
+
+def mala_launch_plan(chains: int, n_rows: int, sms: int) -> MalaPlan:
+    """The regression MALA kernel's launch for ``chains`` chains on
+    ``n_rows`` data rows of the (4, 10, 1) network, on a card of ``sms``
+    SMs (pure Python; ``warp_plan``'s rule)."""
+    return warp_plan(chains, _mala_warps(), sms, MALA_WPCS,
+                     smem_bytes(n_rows, TOPOLOGIES[0][0], False))
+
+
+def card_mala_plan(device, chains: int, n_rows: int) -> MalaPlan:
+    """``mala_launch_plan`` with the SM count of the card ``device``."""
+    return mala_launch_plan(chains, n_rows, sm_count(device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -547,6 +604,7 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
         raise ValueError(f"noise width {w_dim} does not fit topology {topo}")
     if not 0 <= int(length) <= k_max:
         raise ValueError(f"length {length} outside [0, {k_max}]")
+    plan = None if hmc else card_mala_plan(dev, c, n_tr + n_te)
     smem = smem_bytes(n_tr + n_te, n_in, chees, hmc)
     if smem > _SMEM_LIMIT:
         raise ValueError(
@@ -640,7 +698,8 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
             err = lib.ptnn_hmc_block(ctypes.byref(params), smem, cluster,
                                      ROUTES.index(route), stream)
         else:
-            err = lib.ptnn_mala_block(ctypes.byref(params), smem, stream)
+            err = lib.ptnn_mala_block(ctypes.byref(params), smem, plan.wpc,
+                                      stream)
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed: {_build.error_string(lib, err)}"
@@ -648,6 +707,8 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
     launches[name] += 1
     if hmc:
         hmc_routes[route] += 1
+    else:
+        mala_wpcs[plan.wpc] += 1
     if hmc and not chees:  # passed through, as ptnn's kernel does
         for key in _CHEES_C:
             if key in state:

@@ -48,24 +48,25 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(device, c, k, adapt, seed=3):
+def _inputs(device, c, k, adapt, seed=3, topo=TOPO):
     rng = np.random.default_rng(seed)
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
-    x_tr, y_tr = f(rng.normal(size=(37, 4))), f(rng.uniform(size=37))
-    x_te, y_te = f(rng.normal(size=(23, 4))), f(rng.uniform(size=23))
-    w = f(rng.normal(size=(c, fnn.w_size(TOPO))))
+    n_in = topo[0]
+    x_tr, y_tr = f(rng.normal(size=(37, n_in))), f(rng.uniform(size=37))
+    x_te, y_te = f(rng.normal(size=(23, n_in))), f(rng.uniform(size=23))
+    w = f(rng.normal(size=(c, fnn.w_size(topo))))
     eta = f(rng.normal(size=c) * 0.3 - 2.0)
-    fx = fnn.batched_forward(w, x_tr, TOPO)[:, :, 0]
+    fx = fnn.batched_forward(w, x_tr, topo)[:, :, 0]
     tau = torch.exp(eta)
     state = dict(
         w=w, w_last=torch.ones_like(w), eta=eta,
         ll=likelihood.regression_eval_from_fx(fx, y_tr, tau).loglik,
-        prior=likelihood.regression_log_prior(w, tau, TOPO),
+        prior=likelihood.regression_log_prior(w, tau, topo),
         rmse_train=torch.zeros_like(eta), rmse_test=torch.zeros_like(eta),
         n_accept=torch.zeros(c, dtype=torch.int32, device=device),
         log_step_w=f(math.log(0.025) + 0.2 * rng.normal(size=c)),
     )
-    noise = (f(rng.normal(size=(k, c, fnn.w_size(TOPO)))),
+    noise = (f(rng.normal(size=(k, c, fnn.w_size(topo)))),
              f(rng.normal(size=(k, c))), f(rng.uniform(size=(k, c))))
     scal = dict(step_w=0.025, step_eta=0.2, sigma_sq=25.0, nu_1=0.0,
                 nu_2=0.0, adapt=adapt, adapt_rate=0.1, adapt_target=0.234,
@@ -75,14 +76,24 @@ def _inputs(device, c, k, adapt, seed=3):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c, topo", [(130, TOPO), (64, TOPO),
+                                     (130, (3, 7, 1))])
 @pytest.mark.parametrize("adapt", [False, True])
-def test_rw_block_kernel_matches_plain_version(cuda, adapt):
-    c, k, length = 130, 12, 9  # a ragged chain count; dead rows at the end
-    state, noise, data, at, scal = _inputs(cuda, c, k, adapt)
-    args = (state, *noise, 2, length, data, at, TOPO, scal)
+def test_rw_block_kernel_matches_plain_version(cuda, adapt, c, topo):
+    """A ragged chain count (4 warps a chain on the H100), the Sunspot
+    path's 64 chains (8 warps) with the fixed-shape kernel, and a network
+    the repository does not bundle with the generic kernel, which the
+    launch must take."""
+    k, length = 12, 9  # dead rows at the end
+    state, noise, data, at, scal = _inputs(cuda, c, k, adapt, topo=topo)
+    args = (state, *noise, 2, length, data, at, topo, scal)
     before = block_step.launches
+    kinds = dict(block_step.variant_launches)
     new_k, tr_k = block_step.fused_rw_block(*args, record_w=True)
     assert block_step.launches == before + 1
+    taken = [v for v in kinds if block_step.variant_launches[v] != kinds[v]]
+    assert taken == [block_step.variant(topo)]
+    assert taken == ["fixed" if topo == TOPO else "generic"]
     new_r, tr_r = block_step.rw_block_reference(*args, record_w=True,
                                                 diagnostics=True)
     torch.cuda.synchronize()
@@ -228,9 +239,20 @@ def _check_precond(hmc, args, cfg):
 
 
 @pytest.mark.cuda
-def test_mala_block_kernel_matches_plain_version(cuda):
-    args, cfg = _precond_inputs(cuda, 130, "precond_mala", start=1)
-    _check_precond(False, args, cfg)  # ragged chain count; every phase
+@pytest.mark.parametrize("chains", [64, 130, 1024])
+def test_mala_block_kernel_matches_plain_version(cuda, chains):
+    """The Sunspot path's 64 chains, a ragged count and 1024, every phase,
+    each at the warps a chain the card's plan gives
+    (``precond_step.card_mala_plan``: on the H100 8 at 64 and 130 chains,
+    1 at 1024), which the launch must take."""
+    args, cfg = _precond_inputs(cuda, chains, "precond_mala", start=1)
+    plan = precond_step.card_mala_plan(cuda, chains, 60)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert plan == precond_step.mala_launch_plan(chains, 60, sms)
+    wpcs = dict(precond_step.mala_wpcs)
+    _check_precond(False, args, cfg)
+    taken = [w for w in wpcs if precond_step.mala_wpcs[w] != wpcs[w]]
+    assert taken == [plan.wpc]
 
 
 @pytest.mark.cuda

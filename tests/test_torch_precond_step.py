@@ -399,7 +399,7 @@ def test_hmc_panel_and_cluster_layout_match_ptnn(chains, rungs):
     panel, n_lad = precond_step.panel_layout(chains, rungs)
     blocks, cluster = precond_step.hmc_layout(chains, panel)
     assert precond_step._hmc("HMC_WARPS") == 8
-    assert precond_step._common("WARPS") == 16
+    assert precond_step._mala_warps() == 8
     assert blocks == -(-chains // 8) and cluster == -(-panel // 8) <= 16
     if chains > 128:
         assert blocks % cluster == 0 and blocks // cluster == chains // 128
@@ -426,8 +426,9 @@ def test_hmc_panel_and_cluster_layout_match_ptnn(chains, rungs):
 def test_hmc_layouts_that_do_not_fit_are_refused():
     """A panel that does not tile the chains, or a second panel of another
     size than 128, is refused before any launch; without ChEES any chain
-    count runs. HMC blocks hold 8 chains, MALA's 16, and shared memory
-    follows."""
+    count runs. HMC blocks hold 8 chains; MALA's 8 warps hold a broadcast
+    slot and two parities of a partial slot each, whatever the warps a
+    chain; shared memory follows."""
     assert precond_step.hmc_layout(130) == (17, 1)
     for chains, panel in ((256, 64), (100, 64), (200, 100)):
         with pytest.raises(ValueError, match="does not tile"):
@@ -437,7 +438,91 @@ def test_hmc_layouts_that_do_not_fit_are_refused():
     rows = 496 * 5  # 496 rows of 4 inputs and a target, a multiple of 4
     mala = precond_step.smem_bytes(496, 4, False)
     hmc = precond_step.smem_bytes(496, 4, True, hmc=True)
-    assert mala == 4 * (rows + 16 * 6 * 64)
+    assert mala == 4 * (rows + 8 * 3 * 64)
     assert hmc == 4 * (rows + 8 * (6 * 64 + 2 * (2 * 64 + 4)))
     assert precond_step.hmc_route("cpu", hmc, 1, 128, chees=False)[0] == (
         "plain")
+
+
+# ---------------------------------------------------------------------------
+# The MALA kernel's launch plan (``precond_step.mala_launch_plan``): pure
+# Python, fed the card's SM count (132 on the H100); the rule is
+# ``precond_step.warp_plan``, which the iris MALA kernel's plan shares.
+
+SUNSPOT_ROWS = 298 + 198
+
+
+@pytest.mark.parametrize("chains", [1, 52, 64, 130, 256, 1024, 2000])
+def test_mala_plan_covers_every_chain_once(chains):
+    """Every chain sits in exactly one (block, chain slot) of WPC warps; the
+    blocks are 8 warps; shared memory fits a Hopper block."""
+    plan = precond_step.mala_launch_plan(chains, SUNSPOT_ROWS, 132)
+    assert plan.wpc in precond_step.MALA_WPCS
+    assert plan.per_block * plan.wpc == 8
+    assert plan.blocks == -(-chains // plan.per_block)
+    slots = np.arange(plan.blocks * plan.per_block)
+    chain = (slots // plan.per_block) * plan.per_block + slots % plan.per_block
+    np.testing.assert_array_equal(np.sort(chain[chain < chains]),
+                                  np.arange(chains))
+    assert (plan.blocks - 1) * plan.per_block < chains  # no empty block
+    assert plan.smem == precond_step.smem_bytes(SUNSPOT_ROWS, 4, False)
+    assert plan.smem <= precond_step._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("chains, sms, want", [
+    (64, 132, (8, 1, 64)), (130, 132, (8, 1, 130)), (1024, 132, (1, 8, 128)),
+    (52, 132, (8, 1, 52)), (1, 132, (8, 1, 1)), (256, 132, (4, 2, 128)),
+    (264, 132, (4, 2, 132)), (266, 132, (2, 4, 67)),
+    (2000, 132, (1, 8, 250)),
+    # fewer SMs: step down
+    (64, 16, (2, 4, 16)), (64, 8, (1, 8, 8)), (130, 8, (1, 8, 17))])
+def test_mala_plan_picks_warps_by_the_rule(chains, sms, want):
+    """The largest WPC whose blocks fit one wave of the card's SMs (one
+    block an SM), else one warp a chain in waves: on the H100's 132 SMs
+    WPC 8 (one chain a block) at the path's 64 chains and at 130, WPC 4 at
+    256 (128 blocks), WPC 1 at 1024 (128 blocks); on a card with fewer SMs
+    the plan steps down."""
+    plan = precond_step.mala_launch_plan(chains, SUNSPOT_ROWS, sms)
+    assert (plan.wpc, plan.per_block, plan.blocks) == want
+    assert ("waves" in plan.why) == (plan.blocks > sms)
+
+
+@pytest.mark.parametrize("chains, sms", [(64, 132), (1024, 132), (266, 132),
+                                         (64, 16), (2000, 132), (130, 132)])
+def test_both_mala_plans_take_one_rule(chains, sms):
+    """The regression and the iris MALA plans are ``warp_plan`` over their
+    own kernels' WPCs (the regression kernel adds 8) at their own shared
+    memory; where one chain a block does not fit one wave, both take the
+    same warps a chain, blocks and reason."""
+    from ptnn_torch.ops import precond_cls_step
+
+    reg = precond_step.mala_launch_plan(chains, SUNSPOT_ROWS, sms)
+    cls = precond_cls_step.mala_launch_plan(chains, 150, (4, 12, 3), sms)
+    assert reg == precond_step.warp_plan(chains, 8, sms,
+                                         precond_step.MALA_WPCS, reg.smem)
+    assert cls == precond_step.warp_plan(chains, 8, sms,
+                                         precond_cls_step.WPCS, cls.smem)
+    assert precond_step.MALA_WPCS == (8,) + precond_cls_step.WPCS
+    if chains > sms:
+        assert reg[:3] == cls[:3] and reg.why == cls.why
+    else:
+        assert (reg.wpc, reg.blocks, cls.wpc) == (8, chains, 4)
+
+
+@pytest.mark.parametrize("wpc", [8, 4, 2, 1])
+def test_mala_smem_layout_matches_the_wrapper(wpc):
+    """csrc/mala_block.cu's offsets: the rows padded to 16 bytes, a
+    VEC-float broadcast slot per warp, then per chain two parities of WPC
+    VEC-float partial slots. The last chain's last partial slot ends where
+    the wrapper's shared memory ends, at every WPC; every slot starts on
+    16 bytes (float4 and float2 loads)."""
+    vec, warps = precond_step._common("VEC"), precond_step._mala_warps()
+    for n_rows, n_in in ((SUNSPOT_ROWS, 4), (37 + 23, 4), (7, 4)):
+        row_floats = (n_rows * (n_in + 1) + 3) & ~3
+        wb = [row_floats + w * vec for w in range(warps)]
+        part = [row_floats + warps * vec + cl * 2 * wpc * vec
+                for cl in range(warps // wpc)]
+        end = part[-1] + 2 * wpc * vec
+        assert all(o % 4 == 0 for o in wb + part)
+        assert wb[-1] + vec == part[0]
+        assert 4 * end == precond_step.smem_bytes(n_rows, n_in, False)

@@ -186,3 +186,50 @@ def test_fused_rw_block_routes_cpu_tensors_to_the_plain_version(rng):
     for a, b in zip(got, ref):
         for k in b:
             torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The regression kernel's variants and launch plan (pure Python).
+
+
+@pytest.mark.parametrize("chains, sms, warps", [
+    (1, 132, 8), (64, 132, 8), (132, 132, 8), (133, 132, 4), (1000, 132, 4),
+    (1024, 132, 4), (64, 16, 4), (16, 16, 8)])
+def test_rw_launch_plan_picks_warps_by_the_rule(chains, sms, warps):
+    """One block a chain: 8 warps while the grid fits one wave of one block
+    an SM (the Sunspot path's 64 chains on the H100's 132 SMs), else 4 (1000
+    and 1024 chains)."""
+    plan = block_step.rw_launch_plan(chains, sms)
+    assert (plan.warps, plan.blocks) == (warps, chains)
+    assert plan.warps in block_step.RW_WARPS
+    assert ("exceed" in plan.why) == (chains > sms)
+
+
+def test_rw_variant_follows_the_bundled_table():
+    """The fixed-shape kernel is built for the one-output lines of
+    csrc/fnn_layouts.cuh, (4, 10, 1), the topology of every bundled
+    regression set; any other (I, H, 1) takes the generic kernel."""
+    from ptnn_torch.ops import _build
+
+    table = _build.cu_rows("fnn_layouts.cuh", "FNN_LAYOUTS")
+    assert block_step.fixed_topologies() == tuple(
+        (i, h, 1) for i, h, o, *_ in table if o == 1) == ((4, 10, 1),)
+    assert block_step.variant(TOPO) == "fixed"
+    for topo in ((3, 7, 1), (4, 9, 1), (9, 12, 1)):
+        assert block_step.variant(topo) == "generic"
+
+
+@pytest.mark.parametrize("n_rows", [496, 60, 7])
+def test_rw_smem_layout_matches_the_wrapper(n_rows):
+    """csrc/rw_block.cu's shared memory: the generic kernel's rows, three
+    weight vectors and three reduction slots a warp of its 4; the
+    fixed-shape kernel's rows padded to 16 bytes, two weight and two noise
+    slots of w_size + 2 floats padded to 16 bytes (61 -> 64), and two
+    parities of a 4-float partial slot per warp."""
+    rows = n_rows * 5
+    for warps in block_step.RW_WARPS:
+        assert block_step.smem_bytes(n_rows, TOPO, warps) == 4 * (
+            -(-rows // 4) * 4 + 4 * 64 + 2 * warps * 4)
+    w = fnn.w_size((3, 7, 1))
+    assert block_step.smem_bytes(n_rows, (3, 7, 1)) == 4 * (
+        n_rows * 4 + 3 * w + 3 * 4)
