@@ -22,13 +22,16 @@ not 0):
      instantiation, the three regression HMC variants, the nine
      classification HMC variants (warps a chain x route), the three
      classification MALA variants (warps a chain), every fnn_eval
-     instantiation and both conv kernels must spill nothing; the
+     instantiation and both conv kernels must spill nothing, and every
+     classification RW instantiation (both kernels, each fixed-shape
+     network at each warps a chain) must have no stack frame either; the
      regression MALA plan at 64, 130 and 1024 chains and the RW plan at 64
      and 1024, the regression HMC exchange route (cluster or cooperative
      grid) the card's occupancy gives the ChEES layouts at 1024, 256 and 52
      chains, the classification HMC launch plan (warps a chain, route) at
      64, 256, 52 and 1024 chains, the classification MALA plan at 64, 256
-     and 1024, and the eval's plans (cluster, row tiles, warps) at the
+     and 1024, the classification RW plan at the four RW presets' widths
+     and at 1000 chains, and the eval's plans (cluster, row tiles, warps) at the
      per-step paths' widths;
   3. kernel: each CUDA block kernel against its plain PyTorch version on the
      same CUDA tensors at the main paths' widths. Sunspot: RW at 1000 chains
@@ -38,8 +41,12 @@ not 0):
      preconditioner's start and the end of adaptation, each checked to take
      its planned warps a chain;
      HMC with ChEES at 1024 chains (8 panels), leapfrog 16; HMC without
-     ChEES at leapfrog 8; and the swap sweep against the CPU's. Iris: the
-     RW classification branch at 1000 x 100, adapt off and on; MALA at 64
+     ChEES at leapfrog 8; and the swap sweep against the CPU's.
+     Classification: the RW kernel on iris at 1000 x 100, adapt off and on,
+     on all rows of Cancer (9, 12, 2), TicTac (9, 25, 2) and Ionosphere
+     (34, 50, 2) at 10 and 1000 chains, each by the fixed-shape kernel at
+     its planned warps a chain, and a (4, 7, 3) network on iris's rows by
+     the generic kernel; iris MALA at 64
      (the path's width) and 1024 x 10 across the phases, each checked to
      take its planned warps a chain; HMC with ChEES at 64 chains (one panel), 256
      (two) and 52 (a half-empty last block), leapfrog 16, and without ChEES
@@ -64,7 +71,10 @@ not 0):
      every launch by the fixed-shape kernel), the quality flagship
      chees16_fused_256x4 (1024 x 8000) and mala_fused_16x4 (64 x 5000,
      every launch at the planned warps a chain); the iris RW preset (10 x
-     5000); the iris
+     5000) and the Cancer, TicTac and Ionosphere RW presets (10 x 5000 on
+     all rows, seeds 0-4, their medians against bands around ptnn's
+     records), every launch by the fixed-shape kernel at its planned warps
+     a chain; the iris
      quality flagship chees16_fused_16x4 (64 x 8000, seeds 1-3) against the
      served-accuracy gate of 96.76; iris mala_fused_16x4 (64 x 8000);
      then the per-step sampler: Sunspot lg_pallas (64 x 5000, Langevin
@@ -82,8 +92,10 @@ not 0):
      rw_fused at 64 and 1024 chains, mala_fused_16x4, chees16_fused_256x4;
      iris chees16_fused_16x4 and chees16_fused_64x4; lg_pallas), and each
      kernel's time against its plain version's for one block (one epoch,
-     one eval) at its path's widths (the RW and MALA blocks also as device
-     time, a CUDA graph of 100 calls; the RW block also at 1024 chains;
+     one eval) at its path's widths (the RW and MALA blocks, both tasks,
+     also as device time, a CUDA graph of 100 calls; the RW blocks also at
+     1024 chains, the classification one also at the Cancer, TicTac and
+     Ionosphere presets' widths;
      the eval at Sunspot, Ionosphere and
      PenDigit, one set and the pair; the iris MALA block also at 256 and
      1024 chains at 4 and at 1 warp a chain); the CNN's chain-steps/s, the conv
@@ -183,6 +195,13 @@ PEAK_BYTES = 3.35e12
 SIGMOID_OPS = 4  # negate, exp, add, divide
 # iris (ptnn's CLS_GATE, bench.py:288-294) and its end-to-end bands
 IRIS_TOPO = (4, 12, 3)
+# the classification RW presets the fixed-shape kernel runs: (topology, all
+# rows, train + test)
+CLS_RW_SETS = {"iris": (IRIS_TOPO, 150), "Cancer": ((9, 12, 2), 699),
+               "TicTac": ((9, 25, 2), 958), "Ionosphere": ((34, 50, 2), 354)}
+CLS_ROWS = {name: rows for name, (_t, rows) in CLS_RW_SETS.items()}
+# the bundled sets whose networks the generic kernel runs
+GENERIC_SETS = {"winequality-red": (11, 50, 10), "abalone": (8, 30, 29)}
 IRIS_GATE = 96.76  # served posterior-predictive cold accuracy, median
 # the iris RW preset (classification_preset((4, 12, 3), 50_000), fused):
 # ptnn's fused sampler on the CPU, seeds 0-4 (python
@@ -194,6 +213,23 @@ IRIS_GATE = 96.76  # served posterior-predictive cold accuracy, median
 IRIS_RW_ACC = (55.0, 85.0)
 IRIS_RW_ACCEPT = (90.0, 98.0)
 IRIS_RW_SWAP = (65.0, 85.0)
+# the Cancer, TicTac and Ionosphere RW presets (classification_preset(topo,
+# 50_000), fused, 10 x 5000): bands of the medians over seeds 0-4 of (test
+# accuracy mean over every chain from row 2499 on, mean accept %, swap %).
+# ptnn's per-step sampler on the CPU, the record that matches the preset,
+# seeds 0-19 (PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_rw_cls.py
+# NAME 0 1 ... 19): means Cancer 93.81, 89.85, 76.94 (sd 3.86, 0.42, 2.59);
+# TicTac 75.53, 91.63, 74.34 (4.57, 0.53, 2.28); Ionosphere 55.44, 90.31,
+# 73.24 (8.68, 0.61, 2.17); each band the mean +- 4 sd of a median of five,
+# 1.2533 sd / sqrt(5), Cancer's accuracy capped at 100. (results/
+# cls_grid_rw.md reads Cancer 88.44 +- 0.89 in the six sets' envelope, where
+# Cancer's cell is padded; its small-sets bucket reads 95.14 +- 2.21.)
+CLS_RW_SEEDS = (0, 1, 2, 3, 4)
+CLS_RW_BANDS = {
+    "Cancer": ((85.15, 100.0), (88.91, 90.79), (71.12, 82.76)),
+    "TicTac": ((65.28, 85.79), (90.45, 92.81), (69.23, 79.46)),
+    "Ionosphere": ((35.98, 74.91), (88.94, 91.68), (68.39, 78.10)),
+}
 # iris chees16_fused_16x4, ptnn's fused sampler on the CPU, seeds 1-3
 # (python tests/test_torch_fused_driver.py flagship 1 2 3): served cold
 # accuracy over every second-half draw 95.56 / 97.78 / 97.78, over a
@@ -290,15 +326,18 @@ def phase_build():
               f"{b.seconds:.2f} s); ptxas: {' | '.join(ptxas)}")
     for name in ("rw_block", "mala_block", "drift_epoch", "hmc_block",
                  "hmc_cls_block", "mala_cls_block", "fnn_eval",
-                 "conv1_relu_pool"):
+                 "conv1_relu_pool", "rw_cls_block"):
         entries = _build.ptxas_report(built[name].log)
         check(entries, f"{name}: no ptxas report")
         for e in entries:
             print(f"[2/6] build: {name} {demangle(e.kernel)}: {e.registers} "
                   f"registers, {e.spill_stores} / {e.spill_loads} bytes of "
-                  f"spill stores / loads")
+                  f"spill stores / loads, {e.stack_frame}-byte stack frame")
             check(e.spill_stores == 0 and e.spill_loads == 0,
                   f"{name} {e.kernel} spills")
+            # a stack frame without spills is local memory all the same
+            check(name != "rw_cls_block" or e.stack_frame == 0,
+                  f"{name} {e.kernel} has a {e.stack_frame}-byte stack frame")
     for c in (1024, 256, 52):
         panel = min(c, precond_step.PANEL)
         blocks, cluster = precond_step.hmc_layout(c, panel)
@@ -328,6 +367,15 @@ def phase_build():
               f"a chain, {plan.blocks} blocks ({plan.why}), "
               f"{block_step.smem_bytes(496, (4, 10, 1), plan.warps)} bytes of "
               f"shared memory")
+    for name, c in [(n, 10) for n in CLS_RW_SETS] + [("iris", 1000),
+                                                     ("TicTac", 1000)]:
+        topo, rows = CLS_RW_SETS[name]
+        plan = block_step.card_rw_cls_plan(DEVICE, c, rows)
+        print(f"[2/6] build: rw_cls_block {name} {topo} at {c} chains: the "
+              f"{block_step.cls_variant(topo)} kernel, {plan.warps} warps a "
+              f"chain, {plan.blocks} blocks ({plan.why}), "
+              f"{block_step.cls_smem_bytes(rows, topo, 'fixed', plan.warps)} "
+              f"bytes of shared memory")
     for c in (64, 256, 1024):
         plan = precond_cls_step.card_mala_plan(DEVICE, c, 150)
         print(f"[2/6] build: mala_cls_block at {c} chains: WPC {plan.wpc}, "
@@ -1153,37 +1201,42 @@ def iris_cfg(chains, samples, proposal, **kw):
     return dataclasses.replace(base, **fields).validate()
 
 
-def iris_rw_cfg(samples=5000, chains=10, **kw):
-    """The iris RW preset, classification_preset((4, 12, 3), 50_000): 10
-    chains, maxtemp 10, swap every 100 (after steps 99, 199, ...), fused."""
+def rw_preset_cfg(name="iris", samples=5000, chains=10, topo=None, **kw):
+    """The classification RW preset of the bundled set ``name``,
+    classification_preset(topology, 50_000): 10 chains, maxtemp 10, swap
+    every 100 (after steps 99, 199, ...), fused; ``topo`` overrides the
+    set's network."""
     from ptnn_torch import classification_preset
 
-    cfg = classification_preset(IRIS_TOPO, num_samples=chains * samples,
+    cfg = classification_preset(topo or CLS_RW_SETS[name][0],
+                                num_samples=chains * samples,
                                 num_chains=chains)
     return dataclasses.replace(cfg, fused_step=True, **kw).validate()
 
 
-def cls_inputs(cfg, k, start, phases=None, seed=CLS_SEED):
-    """Random state at cfg's widths on iris (init_state at N(0, 1) weights,
-    so ll, prior and g_like are exact), per-chain jittered scales, noise and
-    uniforms for one block of ``k`` steps from ``start``, made with numpy;
-    ``phases`` overrides the block scalars."""
+def cls_inputs(cfg, k, start, phases=None, seed=CLS_SEED, name="iris"):
+    """Random state at cfg's widths on all rows of the bundled set ``name``
+    (init_state at N(0, 1) weights, so ll, prior and g_like are exact),
+    per-chain jittered scales, noise and uniforms for one block of ``k``
+    steps from ``start``, made with numpy; ``phases`` overrides the block
+    scalars."""
     import numpy as np
     import torch
 
-    from ptnn_torch import fused, kernel
+    from ptnn_torch import data, fused, kernel
+    from ptnn_torch.models import fnn
     from ptnn_torch.ops import block_step
     from ptnn_torch.sampler import make_dataset
 
     rng = np.random.default_rng(seed)
-    prob = iris()
-    c = cfg.num_chains
+    prob = data.load_classification(name)
+    c, w = cfg.num_chains, fnn.w_size(cfg.topology)
     ds = make_dataset(cfg, prob.train, prob.test, DEVICE)
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=DEVICE)
-    st = kernel.init_state(cfg, ds, init_w=f(rng.normal(size=(c, 99))))
+    st = kernel.init_state(cfg, ds, init_w=f(rng.normal(size=(c, w))))
     state = fused._to_kernel_state(st, cfg)
     state["log_step_w"] = f(np.log(cfg.step_w) + 0.3 * rng.normal(size=c))
-    noise = dict(w=f(rng.normal(size=(k, c, 99))),
+    noise = dict(w=f(rng.normal(size=(k, c, w))),
                  u=f(rng.uniform(size=(k, c))))
     if cfg.proposal == "hmc":
         noise["u_jit"] = f(rng.uniform(size=(k, c)))
@@ -1191,23 +1244,23 @@ def cls_inputs(cfg, k, start, phases=None, seed=CLS_SEED):
                                                     device=DEVICE))
     scal = dict(fused._scalars(cfg), **(phases or {}))
     kdata = block_step.prep_data(ds.x_train, ds.y_train, ds.x_test,
-                                 ds.y_test, n_classes=3)
+                                 ds.y_test, n_classes=cfg.topology[2])
     temps = np.geomspace(1.0, 5.0, cfg.rungs_per_ladder)
     at = f(np.tile(temps, cfg.n_ladders))
     return state, noise, kdata, at, scal
 
 
 def cls_call(kind, state, noise, start, length, kdata, at, scal, plain,
-             record_w=True, diagnostics=False):
-    """One block of the iris kernel ``kind`` (rw, mala, hmc), or of its plain
-    version."""
+             record_w=True, diagnostics=False, topo=IRIS_TOPO):
+    """One block of the classification kernel ``kind`` (rw, mala, hmc), or
+    of its plain version; MALA and HMC are built for iris's network."""
     from ptnn_torch.ops import block_step, precond_cls_step
 
     extra = dict(diagnostics=True) if diagnostics else {}
     if kind == "rw":
         fn = block_step.rw_block_reference if plain else block_step.fused_rw_block
         return fn(state, noise["w"], None, noise["u"], start, length, kdata,
-                  at, IRIS_TOPO, scal, record_w=record_w, **extra)
+                  at, topo, scal, record_w=record_w, **extra)
     if kind == "hmc":
         fn = (precond_cls_step.hmc_cls_block_reference if plain
               else precond_cls_step.fused_hmc_cls_block)
@@ -1218,30 +1271,43 @@ def cls_call(kind, state, noise, start, length, kdata, at, scal, plain,
               record_w=record_w, **extra)
 
 
-def compare_cls(kind, cfg, k, length, start, phases, seed=CLS_SEED):
-    """One block of an iris kernel against its plain version on the same
-    CUDA tensors. Chains within a decision margin (|u - a|, or the leapfrog
-    count's boundary; under ChEES their whole (panel, rung) group) are left
-    out, at most 1 %. acc and rmse are exact functions
-    of the argmax: they must match exactly wherever their source proposal's
+def compare_cls(kind, cfg, k, length, start, phases, seed=CLS_SEED,
+                name="iris"):
+    """One block of a classification kernel against its plain version on
+    the same CUDA tensors, on the rows of the bundled set ``name``. Chains
+    within a decision margin (|u - a|, or the leapfrog count's boundary;
+    under ChEES their whole (panel, rung) group) are left out, at most 1 %
+    (RW: or one chain). RW's chains whose plain float32 and float64 runs
+    decide apart count among them, and in each the kernel must decide as
+    the float64 run wherever that run's |u - a| stays above the margin
+    (``block_step.rw_cls_witness``). acc and rmse are exact functions of
+    the argmax: they must match exactly wherever their source proposal's
     every row keeps its argmax through a 1e-5 move of the logits
-    (block_step.argmax_fragile), at most 1 % of the entries may not. HMC's
-    floats carry the float64 witness of compare_precond (WITNESS_R): the
-    kernel sums a chain's rows over several warps, in another order than
-    the plain version. Returns (excluded chains, excluded groups, accepts,
-    fragile entries, max |diff| of the floats, what it was, witness)."""
+    (block_step.argmax_fragile), at most 1 % of the entries may not. RW's
+    are also held exactly to the plain evaluation at the kernel's own
+    weights, and the entries fragile there, or whose plain evaluation
+    differs between the two versions' weights, count among those 1 %
+    (``block_step.rw_cls_own_weights``). HMC's floats carry the float64
+    witness of compare_precond (WITNESS_R): the kernel sums a chain's rows
+    over several warps, in another order than the plain version; so do
+    RW's on the networks of ``block_step.RW_CLS_UNHELD``. Returns
+    (excluded chains, excluded groups, accepts, what each rule excluded,
+    max |diff| of the floats, what it was, witness)."""
     import torch
 
     from ptnn_torch.models import fnn
+    from ptnn_torch.ops import block_step
 
-    state, noise, kdata, at, scal = cls_inputs(cfg, k, start, phases, seed)
+    state, noise, kdata, at, scal = cls_inputs(cfg, k, start, phases, seed,
+                                               name)
+    topo = tuple(cfg.topology)
     name = KERNEL_OF[kind]
     before = launch_count(name)
     new_k, tr_k = cls_call(kind, state, noise, start, length, kdata, at,
-                           scal, plain=False)
+                           scal, plain=False, topo=topo)
     check(launch_count(name) == before + 1, f"{name} did not launch")
     new_r, tr_r = cls_call(kind, state, noise, start, length, kdata, at,
-                           scal, plain=True, diagnostics=True)
+                           scal, plain=True, diagnostics=True, topo=topo)
     new_d = tr_d = None
     c = cfg.num_chains
     same = torch.ones(c, dtype=torch.bool, device=DEVICE)
@@ -1256,6 +1322,21 @@ def compare_cls(kind, cfg, k, length, start, phases, seed=CLS_SEED):
     close = tr_r["margin"] <= P_MARGIN
     if "traj_margin" in tr_r:
         close |= tr_r["traj_margin"] <= TRAJ_MARGIN
+    excluded = dict(margin=int(close.sum()))
+    if kind == "rw":  # the float64 witness of the decisions
+        apart, off, run_d = block_step.rw_cls_witness(
+            state, noise["w"], noise["u"], start, length, kdata, at, topo,
+            scal, (new_k, tr_k), (new_r, tr_r), P_MARGIN)
+        check(not bool(off.any()), f"{name}: in {int(off.sum())} chains "
+              f"the kernel decides apart from the plain version's float64 "
+              f"run outside the {P_MARGIN} margin")
+        # on the networks of RW_CLS_UNHELD, |ll| of 1e3-1e4 lets the plain
+        # version's float32 rounding move an adapting chain's step, and so
+        # its weights, past the tolerance: their floats take the witness
+        if topo in block_step.RW_CLS_UNHELD:
+            (new_d, tr_d), same = run_d, ~apart
+        excluded["rounding"] = int((apart & ~close).sum())
+        close |= apart
     n_groups = 0
     if kind == "hmc" and scal["chees"]:
         panel = scal["rungs"] * scal["n_ladders"]
@@ -1271,7 +1352,9 @@ def compare_cls(kind, cfg, k, length, start, phases, seed=CLS_SEED):
         same = ~apart[group]
     ok = ~close
     n_close = int(close.sum())
-    check(n_close <= 0.01 * c, f"{name}: {n_close} of {c} chains within the "
+    # the RW blocks, as compare_block: 1 %, or one chain of fewer than 100
+    allowed = max(0.01 * c, 1) if kind == "rw" else 0.01 * c
+    check(n_close <= allowed, f"{name}: {n_close} of {c} chains within the "
           f"decision margins ({n_groups} ChEES groups)")
     na = new_r["n_accept"]
     check(0 < int(na.sum()) < length * c, f"{name}: accepted all or nothing")
@@ -1280,9 +1363,24 @@ def compare_cls(kind, cfg, k, length, start, phases, seed=CLS_SEED):
               for n in ("accept_count", "traj_len") if n in tr_r]
     sure = ok & ~tr_r["argmax_fragile_final"]
     t_sure = ok[None, :] & ~tr_r["argmax_fragile"]
+    excluded["fragile"] = int((~t_sure[:, ok]).sum())
+    if kind == "rw":  # also exact at the kernel's own weights
+        bad, frag, drift = block_step.rw_cls_own_weights(
+            state, (new_k, tr_k), (new_r, tr_r), kdata, topo)
+        check(bad == 0, f"{name}: acc or rmse differs from the plain "
+              f"evaluation at the kernel's own weights in {bad} entries")
+        for rule, mask in (("fragile_own", frag), ("drift", drift)):
+            excluded[rule] = int((mask[:-1] & t_sure)[:, ok].sum())
+            t_sure &= ~mask[:-1]
+            sure &= ~mask[-1]
     n_fragile = int((~t_sure[:, ok]).sum())
-    check(n_fragile <= 0.01 * t_sure[:, ok].numel(),
-          f"{name}: {n_fragile} trace entries from fragile argmaxes")
+    excluded["share"] = n_fragile / t_sure[:, ok].numel()
+    # a network whose share the 1 % cannot hold runs per-step: its case
+    # reports the share, and the fused gate must refuse it
+    held = kind != "rw" or topo not in block_step.RW_CLS_UNHELD
+    check(not held or excluded["share"] <= 0.01,
+          f"{name}: {n_fragile} trace entries from fragile argmaxes "
+          f"({excluded_text(excluded)})")
     for n in ("acc_train", "acc_test", "rmse_train", "rmse_test"):
         exact.append((new_k[n][sure], new_r[n][sure], n))
         exact.append((tr_k[n][t_sure], tr_r[n][t_sure], "trace " + n))
@@ -1338,7 +1436,7 @@ def compare_cls(kind, cfg, k, length, start, phases, seed=CLS_SEED):
         if float(diff[keep].max()) > err:
             err, err_of = float(diff[keep].max()), (
                 f"{what}, of size {float(b[keep].abs().max()):.3g}")
-    return (n_close, n_groups, int(na.sum()), n_fragile, err, err_of,
+    return (n_close, n_groups, int(na.sum()), excluded, err, err_of,
             dict(past=past, r_needed=r_needed, worst=worst))
 
 
@@ -1346,39 +1444,99 @@ KERNEL_OF = {"rw": "rw_cls_block", "mala": "mala_cls_block",
              "hmc": "hmc_cls_block"}
 
 
+def excluded_text(excluded):
+    """compare_cls's exclusions, rule by rule."""
+    chains = dict(margin="within the decision margins",
+                  rounding="more whose plain float32 and float64 runs decide "
+                           "apart (the kernel decides as the float64 run in "
+                           "each, outside its margin)")
+    entries = dict(fragile="fragile in the plain version",
+                   fragile_own="more fragile at the kernel's own weights",
+                   drift="more whose plain evaluation differs between the "
+                         "two versions' weights")
+    say = lambda rules: ", ".join(f"{excluded[r]} {text}"
+                                  for r, text in rules.items()
+                                  if r in excluded)
+    return (f"chains {say(chains)}; trace entries {say(entries)} "
+            f"({100 * excluded['share']:.3f} % of them)")
+
+
+def rw_cls_taken(kinds, warps, topo, chains, rows, n):
+    """Checks that the ``n`` rw_cls_block launches since the counts were
+    ``kinds`` (by kernel) and ``warps`` (the fixed kernel's, by warps a
+    chain) all took the kernel ``block_step.cls_variant`` gives ``topo`` at
+    the warps the card's plan gives; returns what ran, as text."""
+    from ptnn_torch.ops import block_step
+
+    kind = block_step.cls_variant(topo)
+    ran = {v: block_step.cls_variant_launches[v] - kinds.get(v, 0)
+           for v in block_step.cls_variant_launches}
+    check(ran == {"fixed": n if kind == "fixed" else 0,
+                  "generic": n if kind == "generic" else 0},
+          f"rw_cls_block ran {ran} for {tuple(topo)}, planned {n} {kind}")
+    if kind == "generic":
+        return "the generic kernel"
+    plan = block_step.card_rw_cls_plan(DEVICE, chains, rows)
+    by = {w: m - warps.get(w, 0) for w, m in block_step.rw_cls_warps.items()
+          if m != warps.get(w, 0)}
+    check(by == {plan.warps: n}, f"rw_cls_block launches by warps {by}, "
+          f"planned {n} at {plan.warps}")
+    return f"the fixed kernel at {plan.warps} warps a chain"
+
+
 def phase_cls_kernels():
-    """The three iris kernels against their plain versions; returns the
-    largest float difference of each."""
-    from ptnn_torch.ops import precond_cls_step
+    """The three classification kernels against their plain versions (RW on
+    every fixed-shape network, and by the generic kernel on winequality-red,
+    abalone and a (4, 7, 3); MALA and HMC on iris); returns the largest
+    float difference of each. The networks of ``block_step.RW_CLS_UNHELD``
+    are held to everything but the 1 % of fragile trace entries, which
+    their share reaches: the fused gate must refuse them."""
+    from ptnn_torch import fused
+    from ptnn_torch.ops import block_step, precond_cls_step
 
     out = {}
     phases = dict(warm_end=2, pc_start=4, burn_end=8)
     hmc = lambda c, **kw: iris_cfg(c, 100, "hmc", step_w=CLS_STEP_HMC, **kw)
     plain = dict(hmc_leapfrog=8, hmc_adapt_traj=False)
-    cases = [("rw", iris_rw_cfg(1000, 1000), 100, 90, 0, dict(adapt=False)),
-             ("rw", iris_rw_cfg(1000, 1000, adapt_step_size=True), 100, 90, 0,
-              dict(adapt=True, burn_end=60)),
+    rw = lambda name, c, adapt, topo=None: (
+        "rw", rw_preset_cfg(name, 1000, c, topo, adapt_step_size=adapt), 100,
+        90, 0, dict(adapt=adapt, burn_end=60) if adapt else dict(adapt=False),
+        name)
+    # iris at 1000 chains, adapt off and on; the other fixed-shape networks
+    # on their sets' rows at the presets' 10 chains and at 1000; networks
+    # the generic kernel runs: winequality-red's and abalone's on their
+    # rows, and a (4, 7, 3)
+    cases = [rw("iris", 1000, False), rw("iris", 1000, True)]
+    cases += [rw(name, c, c > 10) for name in ("Cancer", "TicTac",
+                                               "Ionosphere")
+              for c in (10, 1000)]
+    cases += [rw(name, c, c > 10, topo) for name, topo in GENERIC_SETS.items()
+              for c in (10, 1000)]
+    cases += [rw("iris", 64, True, (4, 7, 3))]
+    cases += [
              # MALA at the path's width (WPC 4 on the H100) and at 1024
              ("mala", iris_cfg(64, 100, "precond_mala",
                                step_w=CLS_STEP_MALA), 10, 10, 0,
-              dict(warm_end=2, pc_start=5, burn_end=8)),
+              dict(warm_end=2, pc_start=5, burn_end=8), "iris"),
              ("mala", iris_cfg(1024, 100, "precond_mala",
                                step_w=CLS_STEP_MALA), 10, 10, 0,
-              dict(warm_end=2, pc_start=5, burn_end=8)),
+              dict(warm_end=2, pc_start=5, burn_end=8), "iris"),
              # ChEES on one panel, on two, and on one of 13 ladders whose
              # last block is half empty; without ChEES a ragged count and
              # the full card
-             ("hmc", hmc(64), 10, 10, 0, phases),
-             ("hmc", hmc(256), 10, 10, 0, phases),
-             ("hmc", hmc(52), 10, 10, 0, phases),
+             ("hmc", hmc(64), 10, 10, 0, phases, "iris"),
+             ("hmc", hmc(256), 10, 10, 0, phases, "iris"),
+             ("hmc", hmc(52), 10, 10, 0, phases, "iris"),
              ("hmc", hmc(130, n_ladders=26, record_w_chains=26, **plain), 10,
-              10, 0, phases),
-             ("hmc", hmc(1024, **plain), 10, 10, 0, phases)]
-    for kind, cfg, k, length, start, phases in cases:
+              10, 0, phases, "iris"),
+             ("hmc", hmc(1024, **plain), 10, 10, 0, phases, "iris")]
+    for kind, cfg, k, length, start, phases, set_name in cases:
         routes = dict(precond_cls_step.hmc_cls_routes)
         wpcs = dict(precond_cls_step.mala_cls_wpcs)
-        n_close, n_groups, n_acc, n_frag, err, err_of, wit = compare_cls(
-            kind, cfg, k, length, start, phases)
+        kinds = dict(block_step.cls_variant_launches)
+        warps = dict(block_step.rw_cls_warps)
+        n_close, n_groups, n_acc, excluded, err, err_of, wit = compare_cls(
+            kind, cfg, k, length, start, phases, name=set_name)
         name = KERNEL_OF[kind]
         out[name] = max(out.get(name, 0.0), err)
         what, wit_txt = "", ""
@@ -1401,12 +1559,22 @@ def phase_cls_kernels():
             check(taken == [plan.wpc], f"mala_cls_block took WPC {taken}, "
                   f"planned {plan.wpc}")
             what = f"WPC {plan.wpc}, {plan.blocks} blocks, "
+        if kind == "rw":
+            what = rw_cls_taken(kinds, warps, cfg.topology, cfg.num_chains,
+                                CLS_ROWS.get(set_name), 1)
+            what = f"{set_name} {tuple(cfg.topology)} by {what}, "
+            if tuple(cfg.topology) in block_step.RW_CLS_UNHELD:
+                reason = fused.topology_reason(cfg)
+                check(reason is not None, f"{set_name}'s RW preset runs "
+                      f"fused, unheld")
+                what += f"not held ({reason}), "
+                wit_txt = f"; {witness_text(wit)}"
         print(f"[3/6] kernel: {name} {what}C={cfg.num_chains} K={k} "
               f"length={length} {phases}: {n_acc} accepts, counters"
               f"{' and traj_len' if kind == 'hmc' else ''} exact; {n_close} "
-              f"chains ({n_groups} ChEES groups) excluded under the margins; "
-              f"acc and rmse exact outside {n_frag} trace entries with "
-              f"fragile argmaxes; floats within rtol "
+              f"chains ({n_groups} ChEES groups) excluded, acc and rmse "
+              f"exact elsewhere but in the entries excluded: "
+              f"{excluded_text(excluded)}; floats within rtol "
               f"{RTOL if kind == 'rw' else P_RTOL}, ll on its own size (max "
               f"|diff| {err:.3g}: {err_of}){wit_txt}")
     return out
@@ -1444,7 +1612,8 @@ def reset_launch_counts():
     for counts in (precond_step.launches, precond_cls_step.launches,
                    precond_step.hmc_routes, precond_cls_step.hmc_cls_routes,
                    precond_step.mala_wpcs, precond_cls_step.mala_cls_wpcs,
-                   block_step.variant_launches, drift.variant_launches):
+                   block_step.variant_launches, block_step.cls_variant_launches,
+                   block_step.rw_cls_warps, drift.variant_launches):
         for key in counts:
             counts[key] = 0
 
@@ -1511,8 +1680,9 @@ def phase_iris_end_to_end():
     prob = iris()
     launches = {}
     # --- the RW preset ------------------------------------------------------
-    cfg = iris_rw_cfg(record_w=True, track_replicas=True)
+    cfg = rw_preset_cfg(record_w=True, track_replicas=True)
     res, n, n_blocks = run_counted("rw_cls_block", cfg, prob)
+    taken = rw_cls_taken({}, {}, cfg.topology, cfg.num_chains, 150, n)
     launches["rw_cls_block"] = n
     tr = res.traces
     s, c = cfg.samples_per_chain, cfg.num_chains
@@ -1527,7 +1697,7 @@ def phase_iris_end_to_end():
           f"incl. trace fetch); cold test accuracy {acc:.2f}% (ptnn 67.93-"
           f"73.51), mean accept {mean_acc:.2f}% (94.54-95.31), swap "
           f"{res.swap_percent:.2f}% (72.56-76.87); kernel launches {n} for "
-          f"{n_blocks} planned blocks")
+          f"{n_blocks} planned blocks, all by {taken}")
     for what, v, (lo, hi) in (("cold test accuracy", acc, IRIS_RW_ACC),
                               ("mean accept %", mean_acc, IRIS_RW_ACCEPT),
                               ("swap %", res.swap_percent, IRIS_RW_SWAP)):
@@ -1621,24 +1791,79 @@ def phase_iris_end_to_end():
     return launches
 
 
-def time_cls_block(kind, cfg, k, phases, record_w):
-    """Times of one block of an iris kernel (from the host loop) and its
-    plain version, and the block's bound; for the MALA kernel, whose call
-    the host issues more slowly than the card runs it, also its device time
+def phase_cls_rw_end_to_end():
+    """The Cancer, TicTac and Ionosphere RW presets at full width and data,
+    each run on seeds 0-4 and held to its launch plan and, on the medians
+    over those seeds, to its bands (the statistic of ptnn's records: the
+    test accuracy over every chain from row samples * burn_in - 1 on; mean
+    accept %; swap %)."""
+    import numpy as np
+
+    from ptnn_torch.models import fnn
+
+    def run(name, seed):
+        topo, rows = CLS_RW_SETS[name]
+        prob = cls_set(name)
+        cfg = rw_preset_cfg(name, record_w=True)
+        res, n, n_blocks = run_counted("rw_cls_block", cfg, prob, seed=seed)
+        taken = rw_cls_taken({}, {}, topo, cfg.num_chains, rows, n)
+        tr = res.traces
+        s, c = cfg.samples_per_chain, cfg.num_chains
+        for t in ("ll", "acc_train", "acc_test", "rmse_test", "accept_count"):
+            check(tr[t].shape == (s, c), f"{name} trace {t} shape "
+                  f"{tr[t].shape}")
+            check(np.isfinite(tr[t]).all(), f"{name} trace {t} not finite")
+        check(tr["w"].shape == (s, c, fnn.w_size(topo)),
+              f"{name} trace w shape {tr['w'].shape}")
+        first = int(s * cfg.burn_in) - 1
+        stats = (float(np.mean(tr["acc_test"][first:, :])),
+                 float(np.mean(res.accept_ratio_per_chain)),
+                 float(res.swap_percent))
+        print(f"[4/6] end to end: {name} RW preset {topo} seed {seed}, {c} "
+              f"chains x {s} samples in {res.elapsed_s:.3f} s: test accuracy "
+              f"mean {stats[0]:.2f}%, mean accept {stats[1]:.2f}%, swap "
+              f"{stats[2]:.2f}% (bands {CLS_RW_BANDS[name]}); kernel launches "
+              f"{n} for {n_blocks} planned blocks, all by {taken}")
+        return stats
+
+    for name in ("Cancer", "TicTac", "Ionosphere"):
+        runs = [run(name, seed) for seed in CLS_RW_SEEDS]
+        stats = tuple(statistics.median(r[i] for r in runs) for i in range(3))
+        print(f"[4/6] end to end: {name} RW preset, medians over seeds "
+              f"{CLS_RW_SEEDS[0]}-{CLS_RW_SEEDS[-1]}: "
+              f"{', '.join(f'{v:.2f}' for v in stats)}")
+        for what, v, (lo, hi) in zip(("test accuracy mean", "mean accept %",
+                                      "swap %"), stats, CLS_RW_BANDS[name]):
+            check(lo <= v <= hi, f"{name} RW {what} median {v:.4f} outside "
+                  f"[{lo}, {hi}]")
+
+
+def cls_set(name):
+    from ptnn_torch import data
+
+    return data.load_classification(name)
+
+
+def time_cls_block(kind, cfg, k, phases, record_w, name="iris"):
+    """Times of one block of a classification kernel on the rows of the
+    bundled set ``name`` (from the host loop) and its plain version, and
+    the block's bound; for the MALA and RW kernels, whose calls the host
+    may issue more slowly than the card runs them, also the device time
     (``graph_ms``, a CUDA graph of 100 calls)."""
-    state, noise, kdata, at, scal = cls_inputs(cfg, k, 20, phases)
+    state, noise, kdata, at, scal = cls_inputs(cfg, k, 20, phases, name=name)
+    topo = tuple(cfg.topology)
     args = (kind, state, noise, 20, k, kdata, at, scal)
-    kern = lambda: cls_call(*args, plain=False, record_w=record_w)
-    plain = lambda: cls_call(*args, plain=True, record_w=record_w)
+    kern = lambda: cls_call(*args, plain=False, record_w=record_w, topo=topo)
+    plain = lambda: cls_call(*args, plain=True, record_w=record_w, topo=topo)
     k_ms, p_ms = timing(kern, plain, 10, 2)
     new, tr = kern()
     evals = float(tr["traj_len"].sum()) if kind == "hmc" else None
-    ops = block_ops(kind, IRIS_TOPO, cfg.num_chains, k, kdata["n_tr"],
+    ops = block_ops(kind, topo, cfg.num_chains, k, kdata["n_tr"],
                     kdata["n_te"], evals)
     b_ms, b_by = bound(ops, tensor_bytes(state, noise, kdata["rows"], at,
                                          new, tr))
     out = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
-    if kind == "mala":
+    if kind in ("mala", "rw"):
         out["graph_ms"] = min(graph_ms(kern), graph_ms(kern))
     return out
 
@@ -1659,7 +1884,7 @@ def phase_cls_throughput():
               f"samples: median {rate:.0f} chain-steps/s over 3 reps (accept "
               f"{reps[0]['accept_pct']:.1f}%, swap {reps[0]['swap_pct']:.1f}%)")
     out = {
-        "rw_cls_block": time_cls_block("rw", iris_rw_cfg(), 100,
+        "rw_cls_block": time_cls_block("rw", rw_preset_cfg(), 100,
                                        dict(adapt=False), True),
         "mala_cls_block": time_cls_block(
             "mala", iris_cfg(64, 2000, "precond_mala"), 10, adapting, False),
@@ -1672,6 +1897,21 @@ def phase_cls_throughput():
         print(f"[5/6] throughput: {name}, one block at its path's widths: "
               f"kernel {t['ms']:.4f} ms{dev}, plain version "
               f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']})")
+    from ptnn_torch.ops import block_step
+
+    for name, c in (("iris", 1024), ("Cancer", 10), ("Cancer", 1024),
+                    ("TicTac", 10), ("TicTac", 1024), ("Ionosphere", 10),
+                    ("Ionosphere", 1024)):
+        topo, rows = CLS_RW_SETS[name]
+        plan = block_step.card_rw_cls_plan(DEVICE, c, rows)
+        t = time_cls_block("rw", rw_preset_cfg(name, 2000, c), 100,
+                           dict(adapt=False), False, name=name)
+        print(f"[5/6] throughput: rw_cls_block {name} {topo} at {c} chains "
+              f"({plan.warps} warps a chain), K 100, no w trace: kernel "
+              f"{t['graph_ms']:.4f} ms of device time (a CUDA graph of 100 "
+              f"calls), {t['ms']:.4f} ms a call from the host loop, plain "
+              f"version {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']})")
     t = time_cls_block("hmc", iris_cfg(256, 2000, "hmc"), 10, adapting, False)
     print(f"[5/6] throughput: hmc_cls_block at 256 chains (chees16_fused_64x4"
@@ -2552,6 +2792,7 @@ def main() -> int:
                 "hmc_block": phase_flagship(),
                 "mala_block": phase_mala_end_to_end()}
     launches.update(phase_iris_end_to_end())
+    phase_cls_rw_end_to_end()
     lg = phase_per_step_end_to_end()
     launches.update(drift_epoch=lg["drift_epoch"], fnn_eval=lg["fnn_eval"])
     launches["conv1_relu_pool"] = phase_zoo_end_to_end()
@@ -2641,24 +2882,75 @@ def walls(root):
     chees16_fused_16x4 and mala_fused_16x4 64 x 8000 (seed 1) and the
     digits CNN (fused eval) 256 x 300 (host clock around a synchronised
     run, trace fetch included),
-    each run twice. Uses only what ``root``'s ptnn_torch has had since its
-    model zoo was ported."""
-    import numpy as np
+    each run twice. Also the classification RW block (``rw_cls_walls``).
+    Uses only what ``root``'s
+    ptnn_torch has had since its model zoo was ported."""
     import torch
 
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     sys.path.insert(0, str(root))
     import ptnn_torch
-    from ptnn_torch import data, kernel, sampler
-    from ptnn_torch.models import fnn
-    from ptnn_torch.ops import _build, drift
+    from ptnn_torch.ops import _build
 
     check(Path(ptnn_torch.__file__).resolve().is_relative_to(root),
           f"ptnn_torch imported from {ptnn_torch.__file__}, not {root}")
     _build.build_all(list(KERNELS))
-    rng = np.random.default_rng(31)
     out = {"root": str(root), "device": torch.cuda.get_device_name(0),
-           "drift_ms": {}, "noise_ms": {}, "walls_s": {}}
+           "walls_s": {}}
+    rw_cls_walls(out)
+    other_walls(out)
+    print(json.dumps(out))
+    return 0
+
+
+def rw_cls_walls(out):
+    """The classification RW block's device time (a CUDA graph of 100
+    calls) and host-loop time, K 100, no w trace, at 10 and 1024 chains:
+    iris, and Cancer, TicTac and Ionosphere where the checkout's kernel
+    takes them (``rw_cls_graph_ms``, ``rw_cls_ms``, keyed "set chains");
+    and the walls of the iris and Cancer RW presets (10 x 5000, record_w),
+    each run twice: Cancer runs per-step where the checkout has no fused
+    kernel for it."""
+    import ptnn_torch
+    from ptnn_torch.ops import block_step
+
+    sets = ["iris"]
+    if hasattr(block_step, "cls_fixed_topologies"):
+        sets += ["Cancer", "TicTac", "Ionosphere"]
+    out["rw_cls_graph_ms"], out["rw_cls_ms"] = {}, {}
+    for name in sets:
+        for c in (10, 1024):
+            cfg = rw_preset_cfg(name, 2000, c)
+            state, noise, kdata, at, scal = cls_inputs(cfg, 100, 20,
+                                                       dict(adapt=False),
+                                                       name=name)
+            kern = lambda: cls_call("rw", state, noise, 20, 100, kdata, at,
+                                    scal, plain=False, record_w=False,
+                                    topo=cfg.topology)
+            out["rw_cls_ms"][f"{name} {c}"] = min(time_ms(kern, 20)
+                                                  for _ in range(2))
+            out["rw_cls_graph_ms"][f"{name} {c}"] = min(graph_ms(kern)
+                                                        for _ in range(2))
+    for name in ("iris", "Cancer"):
+        prob = cls_set(name)
+        cfg = rw_preset_cfg(name, record_w=True)
+        out["walls_s"][f"{name} RW preset"] = [
+            ptnn_torch.sample(cfg, prob.train, prob.test, seed=0,
+                              device=DEVICE).elapsed_s for _ in range(2)]
+
+
+def other_walls(out):
+    """``walls``' measurements of the other kernels and paths."""
+    import numpy as np
+    import torch
+
+    import ptnn_torch
+    from ptnn_torch import data, kernel, sampler
+    from ptnn_torch.models import fnn
+    from ptnn_torch.ops import drift
+
+    rng = np.random.default_rng(31)
+    out.update(drift_ms={}, noise_ms={})
     f = lambda a: torch.as_tensor(a, dtype=torch.float32,
                                   device=DEVICE).contiguous()
     for label, prob, c in (
@@ -2776,8 +3068,6 @@ def walls(root):
             ptnn_torch.sample(cfg, prob.train, prob.test, seed=seed,
                               device=DEVICE, model_spec=spec).elapsed_s
             for _ in range(2)]
-    print(json.dumps(out))
-    return 0
 
 
 if __name__ == "__main__":

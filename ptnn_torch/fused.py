@@ -82,17 +82,21 @@ def fused_reason(cfg: PTConfig) -> Optional[str]:
 def topology_reason(cfg: PTConfig) -> Optional[str]:
     """Why the CUDA block kernel of ``cfg``'s proposal is not built for its
     FNN topology (None: it is), on every device, so that a configuration
-    runs or falls back alike on the CPU and on the card. The regression
-    random walk takes any (I, H, 1); the other kernels are instantiated for
-    the topologies their modules list."""
+    runs or falls back alike on the CPU and on the card. The random walk
+    takes any topology (a fixed-shape kernel for the bundled networks, a
+    generic one for the others) but the classification networks its
+    comparison with the plain version cannot hold
+    (``block_step.RW_CLS_UNHELD``); the MALA and HMC kernels are
+    instantiated for the topologies their modules list."""
     topo = tuple(cfg.topology)
-    if cfg.task == "classification":
-        built = (block_step.CLS_TOPOLOGIES if cfg.proposal == "reference"
-                 else precond_cls_step.TOPOLOGIES)
-    elif cfg.proposal == "reference":
+    if cfg.proposal == "reference":
+        if cfg.task == "classification" and topo in block_step.RW_CLS_UNHELD:
+            return (f"the CUDA classification RW block kernel is not held "
+                    f"against its plain version at {topo}: its argmax ties "
+                    f"exceed the comparison's 1 % of trace entries")
         return None
-    else:
-        built = precond_step.TOPOLOGIES
+    built = (precond_cls_step.TOPOLOGIES if cfg.task == "classification"
+             else precond_step.TOPOLOGIES)
     if topo in built:
         return None
     return (f"the CUDA {cfg.task} {cfg.proposal} block kernel is built for "
@@ -108,8 +112,12 @@ def working_set_reason(cfg: PTConfig, n_tr: int, n_te: int) -> Optional[str]:
     rows = n_tr + n_te
     chees = cfg.proposal == "hmc" and cfg.hmc_adapt_traj
     if cfg.task == "classification":
-        if cfg.proposal == "reference":
-            need = block_step.cls_smem_bytes(rows, n_in, w)
+        if cfg.proposal == "reference":  # the larger of the two kernels'
+            need = max([block_step.cls_smem_bytes(rows, cfg.topology,
+                                                  "generic")]
+                       + [block_step.cls_smem_bytes(rows, cfg.topology,
+                                                    "fixed", warps)
+                          for warps in block_step.cls_warps()])
         elif cfg.proposal == "hmc":  # the largest of the launch plan's layouts
             need = max(precond_cls_step.hmc_smem_bytes(rows, cfg.topology,
                                                        chees, wpc)

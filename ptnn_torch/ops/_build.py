@@ -72,26 +72,28 @@ class PtxasEntry(NamedTuple):
     registers: int
     spill_stores: int  # bytes
     spill_loads: int  # bytes
+    stack_frame: int = 0  # bytes of local memory a thread, spills or not
 
 
 def ptxas_report(log: str) -> List[PtxasEntry]:
-    """Registers and spill bytes of each kernel entry in nvcc's ``-Xptxas
-    -v`` output."""
-    out, entry, spills = [], None, (0, 0)
+    """Registers, spill bytes and stack frame of each kernel entry in
+    nvcc's ``-Xptxas -v`` output."""
+    out, entry, props = [], None, (0, 0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             entry = m.group(1)
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            spills = (int(m.group(1)), int(m.group(2)))
+            props = tuple(int(v) for v in m.groups())
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and entry is not None:
-            out.append(PtxasEntry(entry, int(m.group(1)), *spills))
-            entry, spills = None, (0, 0)
+            out.append(PtxasEntry(entry, int(m.group(1)), props[1], props[2],
+                                  props[0]))
+            entry, props = None, (0, 0, 0)
     return out
 
 
@@ -235,16 +237,43 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         _check_query(lib, name, "ptnn_cls_part", pcs._part(), "CLS_PART")
         _check_query(lib, name, "ptnn_cls_w_size", 99, "the (4, 12, 3) w_size")
     if name == "rw_cls_block":
-        from ptnn_torch.ops.block_step import _ClsRwParams, _THREADS
+        from ptnn_torch.ops import block_step as bs
 
-        lib.ptnn_rw_cls_block.argtypes = [
-            ctypes.POINTER(_ClsRwParams), ctypes.c_int, ctypes.c_void_p
-        ]
-        lib.ptnn_rw_cls_block.restype = ctypes.c_int
+        i = ctypes.c_int
+        lib.ptnn_rw_cls_block.argtypes = [ctypes.POINTER(bs._ClsRwParams), i,
+                                          i, i, ctypes.c_void_p]
+        lib.ptnn_rw_cls_block.restype = i
         _check_query(lib, name, "ptnn_rw_cls_params_size",
-                     ctypes.sizeof(_ClsRwParams), "ClsRwParams size")
-        _check_query(lib, name, "ptnn_rw_cls_block_threads", _THREADS,
+                     ctypes.sizeof(bs._ClsRwParams), "ClsRwParams size")
+        _check_query(lib, name, "ptnn_rw_cls_block_threads", bs._THREADS,
                      "RW_THREADS")
+        for query, want, width in (
+                ("ptnn_rw_cls_fixed_layouts", bs.cls_fixed_topologies(), 3),
+                ("ptnn_rw_cls_warps", tuple(
+                    (w,) for w in sorted(bs.cls_warps(), reverse=True)), 1)):
+            buf = (i * (width * len(want)))()
+            fn = getattr(lib, query)
+            fn.argtypes = [ctypes.c_void_p, i]
+            fn.restype = i
+            n = fn(buf, len(want))
+            got = tuple(tuple(buf[width * k:width * (k + 1)])
+                        for k in range(min(n, len(want))))
+            if n != len(want) or got != want:
+                raise RuntimeError(f"{query} of the built library ({n} rows) "
+                                   f"differs from rw_cls_block.cu's table")
+        lib.ptnn_rw_cls_smem_floats.argtypes = [i] * 6
+        lib.ptnn_rw_cls_smem_floats.restype = i
+        for topo in bs.cls_fixed_topologies() + ((11, 50, 10),):
+            for kind, warps in [("generic", 0)] + [
+                    ("fixed", w) for w in bs.cls_warps()]:
+                want = bs.cls_smem_bytes(699, topo, kind, warps)
+                got = 4 * lib.ptnn_rw_cls_smem_floats(
+                    699, *topo, int(kind == "fixed"), warps)
+                if got != want:
+                    raise RuntimeError(f"rw_cls_block shared memory of {topo} "
+                                       f"({kind}, {warps} warps) differs "
+                                       f"between rw_cls_block.cu ({got}) and "
+                                       f"its Python mirror ({want})")
     if name == "drift_epoch":
         from ptnn_torch.ops import drift
 

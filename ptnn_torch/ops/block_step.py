@@ -30,10 +30,13 @@ uniforms and trace rows (K, C), w trace (K, C, W). No padding.
 
 ``fused_rw_block`` runs a CUDA kernel on CUDA tensors (``csrc/rw_block.cu``
 for regression, ``csrc/rw_cls_block.cu`` for classification) and the plain
-version, ``rw_block_reference``, on CPU tensors only. The regression file
-has two kernels (``variant``): a fixed-shape kernel for the bundled (I, H,
-1) networks, at the warps a chain ``rw_launch_plan`` gives, and a generic
-one for any other; ``variant_launches`` says which ran.
+version, ``rw_block_reference``, on CPU tensors only. Each file has two
+kernels: a fixed-shape kernel, at the warps a chain its launch plan gives,
+for the bundled (I, H, 1) networks (``variant``, ``rw_launch_plan``) or the
+classification networks of ``cls_fixed_topologies`` (``cls_variant``,
+``rw_cls_launch_plan``), and a generic one for any other network whose
+block fits shared memory; ``variant_launches`` and
+``cls_variant_launches`` say which ran, ``rw_cls_warps`` at which warps.
 """
 
 from __future__ import annotations
@@ -52,16 +55,27 @@ from ptnn_torch.ops import likelihood
 launches = 0  # launches of csrc/rw_block.cu (the plain version counts none)
 variant_launches = {"fixed": 0, "generic": 0}  # which rw_block kernel ran
 cls_launches = 0  # launches of csrc/rw_cls_block.cu
+cls_variant_launches = {"fixed": 0, "generic": 0}  # which rw_cls_block kernel
+rw_cls_warps: Dict[int, int] = {}  # fixed-kernel launches by warps a chain
 
 _STATE_F32 = ("eta", "ll", "prior", "rmse_train", "rmse_test", "log_step_w")
 _CLS_F32 = ("ll", "prior", "rmse_train", "rmse_test", "acc_train", "acc_test",
             "log_step_w")
 _LOG_STEP_LO = math.log(1e-5)
 _LOG_STEP_HI = math.log(10.0)
-_THREADS = 128  # must equal THREADS in csrc/rw_block.cu
-RW_WARPS = (8, 4)  # warps a chain the fixed-shape kernel is built for
+# threads a block of the generic kernels: THREADS in csrc/rw_block.cu and
+# RW_THREADS in csrc/rw_cls_block.cu
+_THREADS = 128
+RW_WARPS = (8, 4)  # warps a chain the regression fixed-shape kernel is built for
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
-CLS_TOPOLOGIES = ((4, 12, 3),)  # the (I, H, O) rw_cls_block.cu instantiates
+# bundled classification networks at which the comparison of the RW kernel
+# with its plain version cannot hold acc and rmse: on the set's rows their
+# argmaxes are fragile (near-ties among many sigmoid outputs) in about or
+# more than the 1 % of trace entries that comparison may leave unchecked.
+# winequality-red's 10 outputs on 1599 rows (about 1 %), abalone's 29 on
+# 4177 (about 5 % in the plain version alone). Their fused configs run
+# per-step (fused.topology_reason).
+RW_CLS_UNHELD = ((11, 50, 10), (8, 30, 29))
 
 
 def prep_data(x_tr, y_tr, x_te, y_te, n_classes: int = 0) -> dict:
@@ -129,6 +143,73 @@ def argmax_fragile(w: torch.Tensor, x: torch.Tensor, topo,
     moved = (a_wins(za - dz, zb + dz) != base) | (a_wins(za + dz, zb - dz)
                                                    != base)
     return moved.any(dim=-1)
+
+
+def rw_cls_witness(state, noise_w, u_mh, start, length, data, adapttemp,
+                   topo, scal, kernel, plain, margin: float):
+    """The float64 witness of a comparison of the classification RW kernel
+    with its plain version on the same inputs: ``kernel`` and ``plain`` are
+    their ``(new_state, traces)``. Runs the plain version in float64 on
+    those inputs, with the w trace, and returns ``(apart, off, run)``:
+    ``run`` that run's ``(new_state, traces)``, and two (C,) bool masks:
+    ``apart``,
+    the chains whose float32 and float64 plain runs decide apart, so that
+    float32 rounding takes a decision (an adapting chain moves its step with
+    every acceptance probability, so rounding, amplified, can flip a
+    decision whose |u - a| is well above the margin) and any other float32
+    summation order may take either side; ``off``, those of them in which
+    the kernel's decisions differ from the float64 run's although that run's
+    |u - a| stays above ``margin`` throughout."""
+    up = lambda d: {n: v.double() if torch.is_tensor(v)
+                    and v.is_floating_point() else v for n, v in d.items()}
+    wit = rw_block_reference(up(state), noise_w.double(), None,
+                             u_mh.double(), start, length, up(data),
+                             adapttemp.double(), topo, scal, record_w=True,
+                             diagnostics=True)
+
+    def apart_from(run):
+        return ((run[0]["n_accept"] != wit[0]["n_accept"])
+                | (run[1]["accept_count"] != wit[1]["accept_count"]).any(0))
+
+    apart = apart_from(plain)
+    return (apart, apart & apart_from(kernel) & (wit[1]["margin"] > margin),
+            wit)
+
+
+def rw_cls_own_weights(state, kernel, plain, data, topo):
+    """The classification RW kernel's acc and rmse against the plain
+    evaluation (``cls_eval``) at the kernel's own carried weights, for the
+    entries carried from a proposal of the block: ``kernel`` and ``plain``
+    are the two versions' ``(new_state, traces)`` with the w trace. Returns
+    ``(bad, fragile, drift)``: the number of entries that differ where no
+    row's argmax at the kernel's weights is fragile (``argmax_fragile``);
+    and two (K + 1, C) bool masks, the last row the final state's: the
+    entries whose argmax is fragile at the kernel's weights, and those whose
+    plain evaluation differs between the kernel's and the plain version's
+    weights (under step adaptation a chain's weights drift from the plain
+    version's within the float tolerance, which can move a logit by more
+    than ``ARGMAX_DZ``)."""
+    (new_k, tr_k), (new_r, tr_r) = kernel, plain
+    sets = ((data["x_tr"], data["yi_tr"], "train"),
+            (data["x_te"], data["yi_te"], "test"))
+    count = torch.cat([tr_k["accept_count"], new_k["n_accept"][None]])
+    moved = count[1:] > state["n_accept"][None]  # carried from this block
+    moved = torch.cat([moved, moved[-1:]])  # the final state: the last row's
+    w_k = torch.cat([tr_k["w"], new_k["w_last"][None]])
+    w_r = torch.cat([tr_r["w"], new_r["w_last"][None]])
+    got = {n: torch.cat([tr_k[n], new_k[n][None]])
+           for s in ("train", "test") for n in (f"acc_{s}", f"rmse_{s}")}
+    fragile, drift, bad = torch.zeros_like(moved), torch.zeros_like(moved), 0
+    for t in range(w_k.shape[0]):
+        for x, _yi, _s in sets:
+            fragile[t] |= argmax_fragile(w_k[t], x, topo)
+        for x, yi, s in sets:
+            _ll, rmse, acc = cls_eval(w_k[t], x, yi, topo)
+            _ll, rmse_r, acc_r = cls_eval(w_r[t], x, yi, topo)
+            drift[t] |= (acc != acc_r) | (rmse != rmse_r)
+            for n, v in ((f"acc_{s}", acc), (f"rmse_{s}", rmse)):
+                bad += int(((got[n][t] != v) & moved[t] & ~fragile[t]).sum())
+    return bad, fragile & moved, drift & moved
 
 
 def inv_rows(n: int, num: float = 1.0) -> float:
@@ -339,7 +420,7 @@ def variant(topo) -> str:
 
 
 class RwPlan(NamedTuple):
-    """One launch of the fixed-shape regression kernel: ``warps`` a chain,
+    """One launch of a fixed-shape RW kernel: ``warps`` a chain,
     ``blocks`` (one a chain), ``why``."""
     warps: int
     blocks: int
@@ -502,20 +583,80 @@ class _ClsRwParams(ctypes.Structure):
         )
     ] + [
         (name, ctypes.c_int)
-        for name in ("n_tr", "n_te", "chains", "k_max", "start", "length",
-                     "adapt", "burn_end")
+        for name in ("n_tr", "n_te", "n_in", "n_hid", "n_out", "w_size",
+                     "chains", "k_max", "start", "length", "adapt",
+                     "burn_end")
     ] + [
         (name, ctypes.c_float)
-        for name in ("step_w", "prior_const", "two_sigma_sq", "adapt_rate",
-                     "adapt_target", "log_step_lo", "log_step_hi", "inv_n_tr",
-                     "inv_n_te", "acc_n_tr", "acc_n_te")
-    ]
+        for name in ("step_w", "adapt_rate", "adapt_target", "log_step_lo",
+                     "log_step_hi", "inv_n_tr", "inv_n_te", "acc_n_tr",
+                     "acc_n_te")
+    ] + [(name, ctypes.c_double)
+         for name in ("prior_const", "inv_two_sigma_sq")]
 
 
-def cls_smem_bytes(n_rows: int, n_in: int, w_size: int) -> int:
-    """Dynamic shared memory of one block of the classification kernel: the
-    data rows, three weight vectors and six reduction slots per warp."""
-    return 4 * (n_rows * (n_in + 1) + 3 * w_size + 6 * (_THREADS // 32))
+@functools.lru_cache(maxsize=None)
+def cls_fixed_topologies() -> Tuple[Tuple[int, int, int], ...]:
+    """The (I, H, O) networks csrc/rw_cls_block.cu's fixed-shape kernel is
+    built for (its RW_CLS_FIXED table): the classification sets ptnn fuses."""
+    from ptnn_torch.ops import _build
+
+    return _build.cu_rows("rw_cls_block.cu", "RW_CLS_FIXED")
+
+
+@functools.lru_cache(maxsize=None)
+def cls_warps() -> Tuple[int, ...]:
+    """The warps a chain the classification fixed-shape kernel is built for
+    (RW_CLS_WARPS), in increasing order."""
+    from ptnn_torch.ops import _build
+
+    return tuple(sorted(w for (w,) in _build.cu_rows("rw_cls_block.cu",
+                                                     "RW_CLS_WARPS")))
+
+
+def cls_variant(topo) -> str:
+    """The classification kernel that runs ``topo``: "fixed" (compile-time
+    shapes) for a network of ``cls_fixed_topologies``, else "generic"."""
+    return "fixed" if tuple(topo) in cls_fixed_topologies() else "generic"
+
+
+def rw_cls_launch_plan(chains: int, n_rows: int, sms: int) -> RwPlan:
+    """The classification fixed-shape kernel's warps a chain for ``chains``
+    chains of ``n_rows`` data rows on a card of ``sms`` SMs (pure Python):
+    while the grid fits one wave of one block an SM, the fewest warps that
+    give every row a thread of its own (at most the largest built), so that
+    no thread runs a second row; else the fewest built, so that several
+    blocks share an SM."""
+    built = cls_warps()
+    if chains <= sms:
+        need = -(-n_rows // 32)
+        warps = next((w for w in built if w >= need), built[-1])
+        return RwPlan(warps, chains, f"{warps} warps: {chains} blocks fit one "
+                                     f"wave of {sms} SMs; {n_rows} rows")
+    return RwPlan(built[0], chains, f"{built[0]} warps: {chains} blocks exceed "
+                                    f"one wave of {sms} SMs")
+
+
+def card_rw_cls_plan(device, chains: int, n_rows: int) -> RwPlan:
+    """``rw_cls_launch_plan`` with the SM count of the card ``device``."""
+    return rw_cls_launch_plan(chains, n_rows, sm_count(device))
+
+
+def cls_smem_bytes(n_rows: int, topo, kind: str, warps: int = 0) -> int:
+    """Dynamic shared memory of one block of the classification kernel
+    ``kind`` for ``topo``. Both have an 8-float partial slot per warp (two
+    float64 sums and four float32 ones). Generic: with the data rows, three
+    weight vectors (current, last accepted, proposal) and a column of hidden
+    and output activations per thread. Fixed-shape, at ``warps`` warps:
+    with the data rows (padded to 16 bytes) and the proposal's slot in the
+    padded layout (W1, B1 and W2's columns in rows of H rounded up to 4,
+    then B2 in 4 floats)."""
+    n_in, n_hid, n_out = topo
+    if kind == "generic":
+        return 4 * (n_rows * (n_in + 1) + 3 * fnn.w_size(topo)
+                    + 8 * (_THREADS // 32) + (n_hid + n_out) * _THREADS)
+    slot = (n_in + 1 + n_out) * (-(-n_hid // 4) * 4) + -(-n_out // 4) * 4
+    return 4 * (-(-n_rows * (n_in + 1) // 4) * 4 + slot + warps * 8)
 
 
 def _launch_cls_cuda(state, noise_w, u_mh, start, length, data, adapttemp,
@@ -525,20 +666,21 @@ def _launch_cls_cuda(state, noise_w, u_mh, start, length, data, adapttemp,
 
     dev = noise_w.device
     k_max, c, w_dim = noise_w.shape
-    n_in = topo[0]
+    n_in, n_hid, n_out = topo
     n_tr, n_te = int(data["n_tr"]), int(data["n_te"])
-    if tuple(topo) not in CLS_TOPOLOGIES:
-        raise ValueError(f"the CUDA rw_cls_block kernel is instantiated for "
-                         f"topologies {CLS_TOPOLOGIES}, not {tuple(topo)}")
     if w_dim != fnn.w_size(topo):
         raise ValueError(f"noise width {w_dim} does not fit topology {topo}")
     if not 0 <= int(length) <= k_max:
         raise ValueError(f"length {length} outside [0, {k_max}]")
-    smem = cls_smem_bytes(n_tr + n_te, n_in, w_dim)
+    kind = cls_variant(topo)
+    warps = (card_rw_cls_plan(dev, c, n_tr + n_te).warps if kind == "fixed"
+             else _THREADS // 32)
+    smem = cls_smem_bytes(n_tr + n_te, topo, kind, warps)
     if smem > _SMEM_LIMIT:
         raise ValueError(
-            f"{n_tr}+{n_te} data rows need {smem} bytes of shared memory per "
-            f"block; a Hopper block has {_SMEM_LIMIT}"
+            f"{n_tr}+{n_te} data rows of topology {tuple(topo)} need {smem} "
+            f"bytes of shared memory per block; a Hopper block has "
+            f"{_SMEM_LIMIT}"
         )
     f32, i32 = torch.float32, torch.int32
     _check(data["rows"], "rows", (n_tr + n_te, n_in + 1), f32, dev)
@@ -576,11 +718,13 @@ def _launch_cls_cuda(state, noise_w, u_mh, start, length, data, adapttemp,
         t_rmse_te=p(tr["rmse_test"]), t_acc_tr=p(tr["acc_train"]),
         t_acc_te=p(tr["acc_test"]), t_accept=p(tr["accept_count"]),
         t_w=p(tr["w"]) if record_w else None,
-        n_tr=n_tr, n_te=n_te, chains=c, k_max=k_max, start=int(start),
+        n_tr=n_tr, n_te=n_te, n_in=n_in, n_hid=n_hid, n_out=n_out,
+        w_size=w_dim, chains=c, k_max=k_max, start=int(start),
         length=int(length), adapt=int(bool(scal["adapt"])),
         burn_end=int(scal["burn_end"]), step_w=float(scal["step_w"]),
         prior_const=cls_prior_const(topo, sigma_sq),
-        two_sigma_sq=2.0 * sigma_sq, adapt_rate=float(scal["adapt_rate"]),
+        inv_two_sigma_sq=1.0 / (2.0 * sigma_sq),
+        adapt_rate=float(scal["adapt_rate"]),
         adapt_target=float(scal["adapt_target"]),
         log_step_lo=_LOG_STEP_LO, log_step_hi=_LOG_STEP_HI,
         inv_n_tr=inv_rows(n_tr), inv_n_te=inv_rows(n_te),
@@ -589,12 +733,16 @@ def _launch_cls_cuda(state, noise_w, u_mh, start, length, data, adapttemp,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ptnn_rw_cls_block(ctypes.byref(params), smem,
+                                    int(kind == "fixed"), warps,
                                     ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
             f"rw_cls_block launch failed: {_build.error_string(lib, err)}"
         )
     cls_launches += 1
+    cls_variant_launches[kind] += 1
+    if kind == "fixed":
+        rw_cls_warps[warps] = rw_cls_warps.get(warps, 0) + 1
     new["eta"] = state["eta"]  # passed through: classification has no eta
     return new, tr
 

@@ -38,26 +38,27 @@ torch.set_num_threads(1)
 
 TOPO = (4, 5, 3)
 W = fnn.w_size(TOPO)  # 43
-P_PAD, LANES = 48, ps.LANES
+LANES = ps.LANES
 RTOL, ATOL = 2e-4, 2e-5
 K = 12
 
 
-def _data(rng, ntr=37, nte=23):
-    x_tr = rng.normal(size=(ntr, 4)).astype(np.float32)
-    y_tr = rng.integers(0, 3, size=(ntr,)).astype(np.float32)
-    x_te = rng.normal(size=(nte, 4)).astype(np.float32)
-    y_te = rng.integers(0, 3, size=(nte,)).astype(np.float32)
+def _data(rng, ntr=37, nte=23, topo=TOPO):
+    n_in, n_classes = topo[0], topo[2]
+    x_tr = rng.normal(size=(ntr, n_in)).astype(np.float32)
+    y_tr = rng.integers(0, n_classes, size=(ntr,)).astype(np.float32)
+    x_te = rng.normal(size=(nte, n_in)).astype(np.float32)
+    y_te = rng.integers(0, n_classes, size=(nte,)).astype(np.float32)
     return x_tr, y_tr, x_te, y_te
 
 
-def _state(rng, c, data, log_step, precond=False, chees=False):
+def _state(rng, c, data, log_step, precond=False, chees=False, topo=TOPO):
     """Numpy state whose ll, prior (and g_like) are the true values at w."""
-    w = rng.normal(size=(c, W)).astype(np.float32)
+    w = rng.normal(size=(c, fnn.w_size(topo))).astype(np.float32)
     ll, g, _out = fnn.multinomial_ll_grad(
         torch.from_numpy(w), torch.from_numpy(data[0]),
-        torch.from_numpy(data[1]), TOPO)
-    prior = likelihood.classification_log_prior(torch.from_numpy(w), TOPO)
+        torch.from_numpy(data[1]), topo)
+    prior = likelihood.classification_log_prior(torch.from_numpy(w), topo)
     z = lambda: np.zeros(c, np.float32)
     state = dict(w=w, w_last=np.ones_like(w), eta=z(), ll=ll.numpy(),
                  prior=prior.numpy(), rmse_train=z(), rmse_test=z(),
@@ -72,9 +73,9 @@ def _state(rng, c, data, log_step, precond=False, chees=False):
     return state
 
 
-def _noise(rng, c, hmc=False):
+def _noise(rng, c, hmc=False, w=W):
     f = lambda a: np.asarray(a, np.float32)
-    noise = dict(w=f(rng.normal(size=(K, c, W))), u=f(rng.uniform(size=(K, c))))
+    noise = dict(w=f(rng.normal(size=(K, c, w))), u=f(rng.uniform(size=(K, c))))
     if hmc:
         noise["u_jit"] = f(rng.uniform(size=(K, c)))
         noise["u_traj"] = f(rng.uniform(size=(K,)))
@@ -86,10 +87,12 @@ def _temps(c, rungs):
         np.float32)
 
 
-def _run_ptnn(kind, data, state, noise, at, start, length, scal, record_w):
+def _run_ptnn(kind, data, state, noise, at, start, length, scal, record_w,
+              topo=TOPO):
     """ptnn's Pallas kernel in interpret mode on the padded planes."""
-    c = state["w"].shape[0]
+    c, W = state["w"].shape
     c_pad = -(-c // LANES) * LANES
+    P_PAD = -(-W // 8) * 8
 
     def pc(a):  # (C, W) -> (P, C_pad)
         out = np.zeros((P_PAD, c_pad), a.dtype)
@@ -112,8 +115,8 @@ def _run_ptnn(kind, data, state, noise, at, start, length, scal, record_w):
             jstate[k] = c1(np.zeros(c, np.float32))
     nw = np.zeros((K, P_PAD, c_pad), np.float32)
     nw[:, :W, :c] = noise["w"].transpose(0, 2, 1)
-    jdata = ps.prep_data(*[jnp.asarray(a) for a in data], n_classes=3)
-    args = (start, length, jdata, c1(at, 1.0), TOPO, scal)
+    jdata = ps.prep_data(*[jnp.asarray(a) for a in data], n_classes=topo[2])
+    args = (start, length, jdata, c1(at, 1.0), topo, scal)
     kw = dict(record_w=record_w, interpret=True)
     if kind == "rw":
         new, tr = ps.fused_rw_block_impl(
@@ -144,19 +147,19 @@ def _run_ptnn(kind, data, state, noise, at, start, length, scal, record_w):
 
 
 def _run_port(kind, data, state, noise, at, start, length, scal, record_w,
-              fn=None):
+              fn=None, topo=TOPO):
     t = lambda a: torch.from_numpy(np.array(a))
-    kdata = block_step.prep_data(*map(t, data), n_classes=3)
+    kdata = block_step.prep_data(*map(t, data), n_classes=topo[2])
     st = {k: t(v) for k, v in state.items()}
     if kind == "rw":
         fn = fn or block_step.rw_block_reference
         new, tr = fn(st, t(noise["w"]), None, t(noise["u"]), start, length,
-                     kdata, t(at), TOPO, scal, record_w=record_w)
+                     kdata, t(at), topo, scal, record_w=record_w)
     else:
         fn = fn or (precond_cls_step.hmc_cls_block_reference if kind == "hmc"
                     else precond_cls_step.mala_cls_block_reference)
         new, tr = fn(st, {k: t(v) for k, v in noise.items()}, start, length,
-                     kdata, t(at), TOPO, scal, record_w=record_w)
+                     kdata, t(at), topo, scal, record_w=record_w)
     return ({k: v.numpy() for k, v in new.items()},
             {k: v.numpy() for k, v in tr.items()})
 
@@ -191,17 +194,29 @@ def _rw_scal(adapt):
                 task_cls=True)
 
 
-@pytest.mark.parametrize("adapt", [False, True])
-def test_rw_cls_block_reference_matches_ptnn(rng, adapt):
+# the classification RW kernel's fixed-shape networks (iris's, Cancer's,
+# TicTac's, Ionosphere's) beside (4, 5, 3); the (4, 5, 3) cases keep their
+# ids
+RW_CLS_CASES = [pytest.param(adapt, TOPO, id=str(adapt))
+                for adapt in (False, True)] + [
+    pytest.param(adapt, topo, id=f"{adapt}-{'-'.join(map(str, topo))}")
+    for topo in ((9, 12, 2), (9, 25, 2), (34, 50, 2)) for adapt in (False, True)]
+
+
+@pytest.mark.parametrize("adapt, topo", RW_CLS_CASES)
+def test_rw_cls_block_reference_matches_ptnn(rng, adapt, topo):
     c = 6
-    data = _data(rng)
-    state = _state(rng, c, data, 0.5)
-    noise = _noise(rng, c)
+    step = 0.5 if fnn.w_size(topo) < 1000 else 0.05  # some accepts, not all
+    data = _data(rng, topo=topo)
+    state = _state(rng, c, data, step, topo=topo)
+    noise = _noise(rng, c, w=fnn.w_size(topo))
     at = _temps(c, c)
     start, length = 30, 9  # length < K; RM adaptation stops at step 37
-    scal = _rw_scal(adapt)
-    ref = _run_ptnn("rw", data, state, noise, at, start, length, scal, True)
-    got = _run_port("rw", data, state, noise, at, start, length, scal, True)
+    scal = dict(_rw_scal(adapt), step_w=step)
+    ref = _run_ptnn("rw", data, state, noise, at, start, length, scal, True,
+                    topo=topo)
+    got = _run_port("rw", data, state, noise, at, start, length, scal, True,
+                    topo=topo)
     na = got[0]["n_accept"]
     assert 0 < na.sum() < length * c, na  # both branches of every carry
     _assert_match(got, ref, length)

@@ -305,15 +305,19 @@ def test_precond_kernels_reject_what_they_cannot_take(cuda):
 CLS_TOPO = (4, 12, 3)
 
 
-def _cls_inputs(device, c, proposal, k=12, start=0, seed=9, **kw):
-    """init_state at N(0, 1) weights on iris, noise, per-chain jittered
+def _cls_inputs(device, c, proposal, k=12, start=0, seed=9, name="iris",
+                topo=None, **kw):
+    """init_state at N(0, 1) weights on the bundled set ``name`` (all its
+    rows; ``topo`` overrides its network), noise, per-chain jittered
     scales, and the block scalars (MALA/HMC: warm start to 3,
     preconditioner from 6, adaptation to 9)."""
     rng = np.random.default_rng(seed)
-    prob = ptnn_torch.data.load_classification("iris")
+    prob = ptnn_torch.data.load_classification(name)
+    topo = tuple(topo or prob.topology)
+    w_dim = fnn.w_size(topo)
     n_lad = kw.pop("n_ladders", 1)
     cfg = ptnn_torch.PTConfig(
-        task="classification", topology=CLS_TOPO, num_samples=c * 100,
+        task="classification", topology=topo, num_samples=c * 100,
         num_chains=c, proposal=proposal, n_ladders=n_lad,
         swap_style="even_odd", swap_interval=10,
         warmstart_frac=0.0 if proposal == "reference" else 0.1,
@@ -321,10 +325,11 @@ def _cls_inputs(device, c, proposal, k=12, start=0, seed=9, **kw):
         adapt_rate=0.1, fused_step=True, **kw).validate()
     ds = make_dataset(cfg, prob.train, prob.test, device)
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
-    st = kernel.init_state(cfg, ds, init_w=f(rng.normal(size=(c, 99))))
+    st = kernel.init_state(cfg, ds, init_w=f(rng.normal(size=(c, w_dim))))
     state = fused._to_kernel_state(st, cfg)
     state["log_step_w"] = f(np.log(cfg.step_w) + 0.3 * rng.normal(size=c))
-    noise = dict(w=f(rng.normal(size=(k, c, 99))), u=f(rng.uniform(size=(k, c))),
+    noise = dict(w=f(rng.normal(size=(k, c, w_dim))),
+                 u=f(rng.uniform(size=(k, c))),
                  u_jit=f(rng.uniform(size=(k, c))),
                  u_traj=kernel.vdc_u(torch.arange(start, start + k,
                                                   device=device)))
@@ -332,21 +337,29 @@ def _cls_inputs(device, c, proposal, k=12, start=0, seed=9, **kw):
     if proposal != "reference":
         scal.update(warm_end=3, pc_start=6, burn_end=9)
     data = block_step.prep_data(ds.x_train, ds.y_train, ds.x_test, ds.y_test,
-                                n_classes=3)
+                                n_classes=topo[2])
     temps = np.geomspace(1.0, 4.0, cfg.rungs_per_ladder)
     at = f(np.tile(temps, cfg.n_ladders))
     return state, noise, start, k, data, at, scal, cfg
 
 
 def _check_cls(kind, state, noise, start, k, data, at, scal, cfg, length):
+    topo = tuple(cfg.topology)
     if kind == "rw":
         args = (state, noise["w"], None, noise["u"], start, length, data, at,
-                CLS_TOPO, scal)
+                topo, scal)
         before = block_step.cls_launches
         new_k, tr_k = block_step.fused_rw_block(*args, record_w=True)
         assert block_step.cls_launches == before + 1
         new_r, tr_r = block_step.rw_block_reference(*args, record_w=True,
                                                     diagnostics=True)
+        # the chains whose decisions the plain version's float32 rounding
+        # takes count as close; in each the kernel decides as the float64
+        # run, outside that run's margin
+        decided, off, run_d = block_step.rw_cls_witness(
+            state, noise["w"], noise["u"], start, length, data, at, topo,
+            scal, (new_k, tr_k), (new_r, tr_r), MARGIN)
+        assert not bool(off.any())
         tr_r["traj_margin"] = torch.full_like(tr_r["margin"], math.inf)
         rtol, atol = RTOL, ATOL
     else:
@@ -367,9 +380,14 @@ def _check_cls(kind, state, noise, start, k, data, at, scal, cfg, length):
         rtol, atol = P_RTOL, P_ATOL
     c = cfg.num_chains
     # HMC's float64 witness (chip_smoke.py's WITNESS_R): the chains whose
-    # float64 run took the float32 run's decisions, and that run's values
+    # float64 run took the float32 run's decisions, and that run's values;
+    # also RW's on the networks of RW_CLS_UNHELD, whose |ll| of 1e3-1e4
+    # lets the plain version's float32 rounding move an adapting chain's
+    # step, and so its weights, past the tolerance
     new_d = tr_d = None
     same = torch.ones(c, dtype=torch.bool, device=at.device)
+    if kind == "rw" and topo in block_step.RW_CLS_UNHELD:
+        (new_d, tr_d), same = run_d, ~decided
     if kind == "hmc":
         new_d, tr_d = plain(_upcast(state), _upcast(nz), start, length,
                             _upcast(data), at.double(), CLS_TOPO, scal,
@@ -379,6 +397,8 @@ def _check_cls(kind, state, noise, start, k, data, at, scal, cfg, length):
             same &= (tr_d[n] == tr_r[n]).all(dim=0)
     torch.cuda.synchronize()
     close = (tr_r["margin"] <= MARGIN) | (tr_r["traj_margin"] <= MARGIN)
+    if kind == "rw":
+        close |= decided
     group_size = 1
     if kind == "hmc" and scal["chees"]:
         panel = scal["rungs"] * scal["n_ladders"]
@@ -397,7 +417,17 @@ def _check_cls(kind, state, noise, start, k, data, at, scal, cfg, length):
     # the argmax metrics: exact where their source is not fragile
     sure = ok & ~tr_r["argmax_fragile_final"]
     t_sure = ok[None, :] & ~tr_r["argmax_fragile"]
-    assert int((~t_sure[:, ok]).sum()) <= 0.01 * t_sure[:, ok].numel()
+    if kind == "rw":  # also exact at the kernel's own weights
+        bad, frag, drift = block_step.rw_cls_own_weights(
+            state, (new_k, tr_k), (new_r, tr_r), data, topo)
+        assert bad == 0
+        t_sure &= ~(frag | drift)[:-1]
+        sure &= ~(frag | drift)[-1]
+    # a network whose fragile share the 1 % cannot hold runs per-step
+    if kind != "rw" or topo not in block_step.RW_CLS_UNHELD:
+        assert int((~t_sure[:, ok]).sum()) <= 0.01 * t_sure[:, ok].numel()
+    else:
+        assert fused.topology_reason(cfg) is not None
     for n in ("acc_train", "acc_test", "rmse_train", "rmse_test"):
         assert torch.equal(new_k[n][sure], new_r[n][sure]), n
         assert torch.equal(tr_k[n][t_sure], tr_r[n][t_sure]), n
@@ -423,7 +453,7 @@ def _check_cls(kind, state, noise, start, k, data, at, scal, cfg, length):
             scale = v.abs() + new_r["chees_v2"].abs().sqrt()
         if n == "g_like":  # the gradient at the kernel's own w: no witness
             v = fnn.multinomial_ll_grad(new_k["w"], data["x_tr"],
-                                        data["yi_tr"], CLS_TOPO)[1]
+                                        data["yi_tr"], topo)[1]
             scale, wit = vec(v), None
         allowed = atol + rtol * scale + witness(v, wit, 0)
         assert bool(((new_k[n] - v).abs() <= allowed)[ok].all()), n
@@ -436,12 +466,93 @@ def _check_cls(kind, state, noise, start, k, data, at, scal, cfg, length):
     return new_k, tr_k
 
 
+# the RW kernel's networks, with the kernel that runs them: the four
+# fixed-shape ones on their data sets, winequality-red's and abalone's on
+# their rows (block_step.RW_CLS_UNHELD: held to all but the 1 % of fragile
+# trace entries) and one the repository does not bundle, on iris's rows
+RW_CLS_NETS = [("iris", None, "fixed"), ("Cancer", None, "fixed"),
+               ("TicTac", None, "fixed"), ("Ionosphere", None, "fixed"),
+               ("winequality-red", None, "generic"),
+               ("abalone", None, "generic"),
+               ("iris", (4, 7, 3), "generic")]
+
+
+def _rw_cls_inputs(device, c, name, topo, adapt, k=100):
+    """The RW block's inputs at a step scale that rejects some proposals
+    and accepts others on every network (Ionosphere's 1852 weights take a
+    smaller one); blocks of K = 100, as the path's, so that the fragile
+    argmaxes' 1 % is a share of several hundred entries at 10 chains."""
+    step = 0.005 if name == "Ionosphere" else 0.025
+    *args, cfg = _cls_inputs(device, c, "reference", k=k, name=name,
+                             topo=topo, step_w=step, adapt_step_size=adapt)
+    args[-1] = dict(args[-1], adapt=adapt, burn_end=60)
+    return args, cfg
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("name, topo, kind", RW_CLS_NETS)
+@pytest.mark.parametrize("chains", [10, 130, 1000])
 @pytest.mark.parametrize("adapt", [False, True])
-def test_rw_cls_block_kernel_matches_plain_version(cuda, adapt):
-    *args, cfg = _cls_inputs(cuda, 130, "reference", adapt_step_size=adapt)
-    args[-1] = dict(args[-1], adapt=adapt, burn_end=7)
-    _check_cls("rw", *args, cfg, length=9)
+def test_rw_cls_block_kernel_matches_plain_version(cuda, adapt, chains, name,
+                                                   topo, kind):
+    """Each fixed-shape network at the warps a chain the card's plan gives
+    (``block_step.card_rw_cls_plan``) and three others by the generic
+    kernel, which the launch must take; the preset's 10 chains, a ragged
+    count and 1000."""
+    args, cfg = _rw_cls_inputs(cuda, chains, name, topo, adapt)
+    assert block_step.cls_variant(cfg.topology) == kind
+    rows = args[4]["n_tr"] + args[4]["n_te"]
+    plan = block_step.card_rw_cls_plan(cuda, chains, rows)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert plan == block_step.rw_cls_launch_plan(chains, rows, sms)
+    kinds = dict(block_step.cls_variant_launches)
+    warps = dict(block_step.rw_cls_warps)
+    _check_cls("rw", *args, cfg, length=90)
+    taken = [v for v in kinds if block_step.cls_variant_launches[v] != kinds[v]]
+    assert taken == [kind]
+    ran = {w: n - warps.get(w, 0) for w, n in block_step.rw_cls_warps.items()
+           if n != warps.get(w, 0)}
+    assert ran == ({plan.warps: 1} if kind == "fixed" else {})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, topo", [("Cancer", None), ("iris", (4, 7, 3))])
+def test_rw_cls_zero_length_block_changes_nothing(cuda, name, topo):
+    (state, noise, start, k, data, at, scal), cfg = _rw_cls_inputs(
+        cuda, 10, name, topo, True)
+    new, tr = block_step.fused_rw_block(state, noise["w"], None, noise["u"],
+                                        start, 0, data, at, cfg.topology,
+                                        scal, record_w=True)
+    torch.cuda.synchronize()
+    for n, v in state.items():
+        assert torch.equal(new[n], v), n
+    for n, carried in (("ll", "ll"), ("rmse_train", "rmse_train"),
+                       ("acc_test", "acc_test"), ("accept_count", "n_accept")):
+        assert torch.equal(tr[n], state[carried][None].expand_as(tr[n])), n
+    assert torch.equal(tr["w"], state["w_last"][None].expand_as(tr["w"]))
+
+
+@pytest.mark.cuda
+def test_rw_cls_kernel_rejects_only_an_oversized_working_set(cuda):
+    """Any topology runs (the generic kernel beyond the fixed-shape ones);
+    a working set over a Hopper block's shared memory and a wrong width
+    are refused."""
+    (state, noise, start, k, data, at, scal), cfg = _rw_cls_inputs(
+        cuda, 8, "iris", (4, 11, 3), False, k=4)
+    before = block_step.cls_variant_launches["generic"]
+    block_step.fused_rw_block(state, noise["w"], None, noise["u"], 0, 4, data,
+                              at, cfg.topology, scal)
+    assert block_step.cls_variant_launches["generic"] == before + 1
+    with pytest.raises(ValueError, match="does not fit topology"):
+        block_step.fused_rw_block(state, noise["w"], None, noise["u"], 0, 4,
+                                  data, at, (4, 12, 3), scal)
+    reps = block_step._SMEM_LIMIT // (4 * 5 * data["n_tr"]) + 1  # 5 floats a row
+    big = block_step.prep_data(data["x_tr"].repeat(reps, 1),
+                               data["y_tr"].repeat(reps), data["x_te"],
+                               data["y_te"], n_classes=3)
+    with pytest.raises(ValueError, match="shared memory"):
+        block_step.fused_rw_block(state, noise["w"], None, noise["u"], 0, 4,
+                                  big, at, cfg.topology, scal)
 
 
 @pytest.mark.cuda
@@ -495,12 +606,17 @@ def test_hmc_cls_block_kernel_matches_plain_version(cuda, chains, chees):
 
 @pytest.mark.cuda
 def test_cls_kernels_reject_other_topologies(cuda):
+    """The MALA and HMC kernels are built for iris's (4, 12, 3) alone."""
     *args, cfg = _cls_inputs(cuda, 8, "precond_mala", k=4)
     state, noise = args[0], dict(args[1])
     del noise["u_jit"], noise["u_traj"]
     with pytest.raises(ValueError, match="topolog"):
         precond_cls_step.fused_mala_cls_block(state, noise, 0, 4, args[4],
                                               args[5], (4, 11, 3), args[6])
+    *args, cfg = _cls_inputs(cuda, 8, "hmc", k=4, hmc_leapfrog=4)
+    with pytest.raises(ValueError, match="topolog"):
+        precond_cls_step.fused_hmc_cls_block(args[0], args[1], 0, 4, args[4],
+                                             args[5], (4, 11, 3), args[6])
 
 
 # ---------------------------------------------------------------------------

@@ -106,11 +106,15 @@ def test_fused_reason_scope():
 
 
 def test_topology_the_kernels_lack_falls_back_on_every_device():
-    """Cancer's (9, 12, 2) net: no CUDA block kernel is built for it, so a
-    fused config falls back to the per-step sampler with ptnn's warning on
-    the CPU as on the card; RW then runs per-step, MALA reaches the per-step
-    family that is not ported yet. The fused sampler refuses it alike."""
+    """Cancer's (9, 12, 2) net. The RW kernels take every topology (a
+    fixed-shape classification kernel is built for it), so a fused RW
+    config runs fused, with no warning, on the CPU (the plain version) as
+    on the card. No MALA or HMC kernel is built for it, so those fall back
+    to the per-step sampler with ptnn's warning on every device and reach
+    the per-step family that is not ported yet; the fused sampler refuses
+    them alike."""
     import dataclasses
+    import warnings
 
     prob = ptnn_torch.data.load_classification("Cancer")
     assert prob.topology == (9, 12, 2)
@@ -118,27 +122,39 @@ def test_topology_the_kernels_lack_falls_back_on_every_device():
         ptnn_torch.classification_preset((9, 12, 2), num_samples=8 * 6,
                                          num_chains=8),
         fused_step=True).validate()
-    assert tfused.fused_reason(rw) is None
     n_tr, n_te = prob.train.shape[0], prob.test.shape[0]
-    assert tfused.working_set_reason(rw, n_tr, n_te) is None
-    assert "built for" in tfused.runtime_reason(rw, n_tr, n_te)
+    assert tfused.runtime_reason(rw, n_tr, n_te) is None
+    assert block_step.cls_variant(rw.topology) == "fixed"
     before = (block_step.launches, block_step.cls_launches)
-    with pytest.warns(UserWarning, match="falling back"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # no "falling back"
         res = ptnn_torch.sample(rw, prob.train, prob.test, device="cpu")
     assert res.traces["acc_test"].shape == (6, 8)
     assert (block_step.launches, block_step.cls_launches) == before
-    with pytest.raises(ValueError, match="built for"):
-        tfused.sample_fused(rw, prob.train, prob.test, device="cpu")
-    mala = dataclasses.replace(rw, proposal="precond_mala").validate()
-    with pytest.raises(NotImplementedError, match="per-step precond family"):
-        with pytest.warns(UserWarning, match="falling back"):
-            ptnn_torch.sample(mala, prob.train, prob.test, device="cpu")
+    # the fused sampler's own run: the same chain, so sample took it
+    fused_res = tfused.sample_fused(rw, prob.train, prob.test, device="cpu")
+    np.testing.assert_array_equal(res.traces["accept_count"],
+                                  fused_res.traces["accept_count"])
+    np.testing.assert_array_equal(res.traces["ll"], fused_res.traces["ll"])
+    for proposal in ("precond_mala", "hmc"):
+        cfg = dataclasses.replace(rw, proposal=proposal).validate()
+        assert tfused.fused_reason(cfg) is None
+        assert tfused.working_set_reason(cfg, n_tr, n_te) is None
+        assert "built for" in tfused.runtime_reason(cfg, n_tr, n_te)
+        with pytest.raises(NotImplementedError,
+                           match="per-step precond family"):
+            with pytest.warns(UserWarning, match="falling back"):
+                ptnn_torch.sample(cfg, prob.train, prob.test, device="cpu")
+        with pytest.raises(ValueError, match="built for"):
+            tfused.sample_fused(cfg, prob.train, prob.test, device="cpu")
     # the topologies the kernels are built for pass the gate
     for cfg in (ptnn_torch.PTConfig(**_kw()),
                 ptnn_torch.PTConfig(**_kw(proposal="precond_mala"))):
         assert tfused.topology_reason(cfg.validate()) is None
-    assert tfused.topology_reason(ptnn_torch.PTConfig(**_kw(
-        topology=(4, 7, 1))).validate()) is None  # the RW kernel takes any
+    for topo in ((4, 7, 1), (9, 12, 2), (4, 7, 3)):  # RW takes any
+        task = "regression" if topo[2] == 1 else "classification"
+        assert tfused.topology_reason(ptnn_torch.PTConfig(**_kw(
+            task=task, topology=topo)).validate()) is None
 
 
 def _ptnn_noise_fn(k_run, p_pad, c_pad, w_size):
