@@ -58,11 +58,11 @@ not 0):
      on 245 rows and PenDigit (16, 30, 10) 10 chains on all 7494 train
      rows, then every distinct bundled topology and one the generic kernel
      runs, 10 chains on 64 random rows, each checking which kernel ran; the
-     FNN eval at Sunspot 64 chains, Ionosphere 10 and PenDigit 10 (all 7494
-     / 3498 rows), on the train rows, on the test rows and on both in one
-     launch (the pair). The
-     CNN's fused stage 1, conv1_relu_pool, at the digits widths (256 chains
-     x 1257 and 540 images, the fixed-shape kernel), ragged shapes, three
+     FNN eval at Sunspot 64 chains, Ionosphere 10 and 64 and PenDigit 10
+     (all 7494 / 3498 rows), on the train rows, on the test rows and on both
+     in one launch (the pair). The
+     CNN's fused stage 1, conv1_relu_pool, at the digits widths (256 and
+     128 chains x 1257 and 540 images, the fixed-shape kernel), ragged shapes, three
      input channels and the MNIST side (the generic kernel), and the fused
      CNN forward against the plain one;
   4. end to end, each path with its launch counts set to 0 just before it,
@@ -88,6 +88,27 @@ not 0):
      package's run on the CPU; the fused eval against the plain eval on the
      same noise; a deep MLP; and the cnn_digits command line as a
      subprocess, with its artifact tree;
+     then the per-step preconditioned family, each path with one eval
+     launch a step (the test rows under MALA and HMC) plus init_state's and
+     the temper switch's, every other kernel 0: Sunspot's fused twin
+     chees16_fused_16x4 (64 x 5000; mala_fused_16x4's run above is the
+     other twin), then bench.py's per-step mala, hmc, mala_16x4 and
+     chees16_16x4 (64 x 5000, seed 0), the MALA runs' cold RMSE in
+     0.01-0.04 and the HMC runs' in 0.005-0.0239, the twinned runs' mean
+     accept and swap within 3 points of their twin's, the others' accept in
+     40-75 %;
+     Ionosphere's mala_fused_16x4 (bench.py's _cls_variants, 64 x 8000,
+     seeds 1-3), which must fall back with ptnn's warning (w 1852 does not
+     fit the fused block) and run per step, medians per-draw cold accuracy
+     68-80 % and 14-28 round trips per ladder per 1k steps (BENCH_r05.json:
+     73.72, 20.8), served accuracy printed; the digits CNN with
+     digits_spec(fused_eval=True) at scripts/cnn_convergence.py's
+     configuration, 128 chains = 32 ladders x 4 rungs x 1000 steps, seeds 1
+     and 2, 16 cold rungs' w recorded, MALA and ChEES (8 leapfrog steps):
+     medians served accuracy >= 95 % (the cold draws thinned along the draw
+     axis, then pooled), per-draw 80-92 % (MALA) / 86-96 % (ChEES), pooled
+     function-space R-hat <= 1.15 (ptnn's 1k rows: 96.76 / 98.24, 86.63 /
+     91.71, 1.067 / 1.042), ChEES traj_len in [1, 8] and varying;
   5. throughput: throughput_runner at 2000 samples per chain (Sunspot
      rw_fused at 64 and 1024 chains, mala_fused_16x4, chees16_fused_256x4;
      iris chees16_fused_16x4 and chees16_fused_64x4; lg_pallas), and each
@@ -102,7 +123,10 @@ not 0):
      kernel's time against its plain version's and the library's
      (F.conv2d + relu + F.avg_pool2d), one drift and one eval of a CNN
      step, and stage 2 as the port multiplies it against one grouped
-     F.conv2d;
+     F.conv2d; the per-step preconditioned family's chain-steps/s (the CNN
+     with MALA and ChEES at 128 chains x 50 steps, Sunspot mala_16x4 and
+     chees16_16x4 at 64 x 500) and one CNN value-and-grad beside one
+     Langevin drift at 128 and 256 chains;
   6. one JSON line listing the kernels (time, device time where measured,
      plain time, bound, launches,
      largest difference from the plain version), then the device line
@@ -1018,6 +1042,9 @@ def phase_flagship():
 
 
 def phase_mala_end_to_end():
+    """mala_fused_16x4 on Sunspot (64 x 5000, seed 0); returns its
+    launches and its cold RMSE, mean accept and swap, which the per-step
+    mala_16x4 is held to."""
     from ptnn_torch.ops import precond_step
 
     cfg = precond_cfg(64, 5000, "precond_mala", track_replicas=True)
@@ -1035,7 +1062,7 @@ def phase_mala_end_to_end():
           f"mala cold test RMSE {rmse:.4f} outside {MALA_RMSE}")
     check(wpcs == {plan.wpc: launches}, f"mala_block launches by WPC "
           f"{wpcs}, planned all at {plan.wpc}")
-    return launches
+    return launches, dict(rmse=rmse, accept=acc, swap=res.swap_percent)
 
 
 def precond_kernel_call(cfg, phases):
@@ -2074,8 +2101,9 @@ def phase_drift_kernel():
 
 def eval_cases():
     """(label, topology, task, chains, (x_tr, y_tr), (x_te, y_te)) at the
-    per-step paths' widths: Sunspot 64 chains, Ionosphere 10 and PenDigit
-    10 (the drift's third width), train and test rows."""
+    per-step paths' widths: Sunspot 64 chains, Ionosphere 10 and 64 (the
+    fused MALA config's fallback) and PenDigit 10 (the drift's third
+    width), train and test rows."""
     import torch
 
     from ptnn_torch import data
@@ -2084,6 +2112,7 @@ def eval_cases():
     for label, prob, c in (
             ("Sunspot", sunspot(), 64),
             ("Ionosphere", data.load_classification("Ionosphere"), 10),
+            ("Ionosphere", data.load_classification("Ionosphere"), 64),
             ("PenDigit", data.load_classification("PenDigit"), 10)):
         topo = prob.topology if prob.task == "classification" else (4, 10, 1)
         i = topo[0]
@@ -2382,9 +2411,11 @@ CHANCE = 10.0  # ten classes
 CNN_ABOVE_CHANCE = 5.0  # the full-width run's cold test accuracy over chance
 C_ATOL = 1e-5  # conv kernel against plain: FMA contraction, summation order
 F_ATOL = 1e-4  # the fused CNN forward against the plain one (logits)
-# (chains, images, side, in_ch, out_ch) of the conv kernel's comparisons
-CONV_SHAPES = ((256, 1257, 8, 1, 8), (256, 540, 8, 1, 8), (130, 19, 8, 1, 8),
-               (4, 6, 8, 3, 8), (32, 64, 28, 1, 8))
+# (chains, images, side, in_ch, out_ch) of the conv kernel's comparisons:
+# the model zoo's runs (256 chains), the CNN's MALA / ChEES runs (128), ragged
+CONV_SHAPES = ((256, 1257, 8, 1, 8), (256, 540, 8, 1, 8), (128, 1257, 8, 1, 8),
+               (128, 540, 8, 1, 8), (130, 19, 8, 1, 8), (4, 6, 8, 3, 8),
+               (32, 64, 28, 1, 8))
 
 
 def digits():
@@ -2653,6 +2684,342 @@ def phase_zoo_end_to_end():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The per-step preconditioned family (precond_mala, hmc with and without
+# ChEES) through ptnn_torch.sample: plain PyTorch around the eval kernels,
+# fnn_eval for the FNN's test rows (grad mode) and conv1_relu_pool for the
+# CNN's; the fused gate's fallback (Ionosphere); the fused twins beside
+# their per-step runs (Sunspot).
+
+# the digits CNN as scripts/cnn_convergence.py:68-95 samples it at 1000
+# steps a chain: ptnn's records (results/cnn_convergence.md, the 1k rows):
+# served accuracy, per-draw cold accuracy, pooled function-space R-hat
+CNN_PC_CHAINS, CNN_PC_STEPS, CNN_PC_SEEDS = 128, 1000, (1, 2)
+CNN_PC_REF = {"mala": (96.76, 86.63, 1.067), "chees": (98.24, 91.71, 1.042)}
+CNN_PC_SERVED = 95.0  # median served accuracy over the seeds, at least
+CNN_PC_DRAW = {"mala": (80.0, 92.0), "chees": (86.0, 96.0)}
+CNN_PC_RHAT = 1.15  # pooled function-space R-hat, at most
+CNN_PC_SERVE_ROWS = 1000  # cold draws the served predictor pools, about
+# Ionosphere: bench.py's _cls_variants(...)["mala_fused_16x4"] (64 x 8000,
+# seeds 1-3), which the fused gate refuses (w 1852): BENCH_r05.json
+# classification.Ionosphere.mala_16x4 reads per-draw 73.72, 332.75 round
+# trips per 1k steps over 16 ladders (20.8 each) and served 77.98, the last
+# from replica 0 alone (bench.py:433 strides the pooled rows by a multiple
+# of the replica count): printed, not gated
+IONO_PC_SEEDS = (1, 2, 3)
+IONO_PC_DRAW = (68.0, 80.0)  # median per-draw cold accuracy
+IONO_PC_TRIPS = (14.0, 28.0)  # median round trips per ladder per 1k steps
+IONO_PC_REF = (73.72, 332.75 / 16, 77.98)
+# Sunspot: bench.py's per-step mala, hmc, mala_16x4 and chees16_16x4 at 64 x
+# 5000, seed 0; a fused twin's accept and swap within TWIN_POINTS of the
+# per-step run's (ptnn/fused.py:37-42), the runs without a twin accepting
+# PER_STEP_ACCEPT; the MALA runs' cold RMSE in MALA_RMSE (ptnn's MALA
+# replicas 0.0203-0.0292), the HMC runs' in HMC_RMSE: ptnn's ChEES replicas
+# land in 0.0092-0.0111 (results/mala_basins.md:17), under MALA_RMSE's
+# floor; the band runs from about half the lowest replica to bench.py's
+# flagship gate (FLAGSHIP_RMSE's ceiling)
+TWIN_POINTS = 3.0
+HMC_RMSE = (0.005, FLAGSHIP_RMSE[1])
+PER_STEP_ACCEPT = (40.0, 75.0)
+PC_THR_CNN_STEPS = 50  # phase 5's CNN throughput runs, steps a chain
+PC_THR_SUNSPOT_SAMPLES = 500  # and the Sunspot per-step ones
+
+
+def sunspot_variant(name, chains=64, samples=5000):
+    """bench.py's _variants (bench.py:160-224) per step (and its fused
+    twins) at ``chains`` x ``samples``, replicas tracked."""
+    common = dict(adapt_rate=0.1, swap_style="even_odd", swap_interval=10,
+                  warmstart_frac=0.1, precond_start_frac=0.3,
+                  track_replicas=True)
+    if name == "mala":
+        return rw_fused_cfg(chains, samples, proposal="precond_mala",
+                            fused_step=False, **common)
+    if name == "hmc":
+        return rw_fused_cfg(chains, samples, proposal="hmc", hmc_leapfrog=8,
+                            step_w=0.01, fused_step=False, **common)
+    proposal = "hmc" if name.startswith("chees16") else "precond_mala"
+    return precond_cfg(chains, samples, proposal, track_replicas=True,
+                       fused_step="fused" in name)
+
+
+def cnn_precond_cfg(sampler, chains=CNN_PC_CHAINS, steps=CNN_PC_STEPS, **kw):
+    """scripts/cnn_convergence.py:68-95: the classification preset at
+    maxtemp 5, 4-rung replicated ladders, DEO metropolis swaps of
+    untempered energies every 10, warm start to 10 %, preconditioner from
+    30 %, step 0.01, 16 cold rungs' w recorded (record_thin 1 at 1000
+    steps); ChEES with 8 leapfrog steps."""
+    from ptnn_torch import classification_preset
+
+    base = classification_preset((64, 32, 10), num_samples=chains * steps,
+                                 num_chains=chains, maxtemp=5.0)
+    extra = (dict(hmc_leapfrog=8, hmc_adapt_traj=True) if sampler == "chees"
+             else {})
+    fields = dict(
+        proposal="hmc" if sampler == "chees" else "precond_mala",
+        n_ladders=chains // 4, adapt_rate=0.1, swap_style="even_odd",
+        swap_interval=10, swap_rule="metropolis", swap_payload="untempered",
+        warmstart_frac=0.1, precond_start_frac=0.3, step_w=0.01,
+        record_w=True, record_w_chains=min(16, chains // 4), chunk_steps=150,
+        **extra)
+    fields.update(kw)
+    return dataclasses.replace(base, **fields).validate()
+
+
+def run_precond_counted(cfg, prob, spec=None, seed=0, fallback=False):
+    """One per-step run of the preconditioned family through
+    ptnn_torch.sample with every launch count set to 0 just before it. The
+    plan: one eval launch a step (the test rows under a gradient proposal,
+    whose train ll comes from the value-and-grad; both row sets in one
+    launch for precond_rw and pcn), plus init_state's and the temper
+    switch's recompute; fnn_eval for the FNN, conv1_relu_pool (the
+    fixed-shape kernel) for the CNN with the fused eval, every other kernel
+    0. ``fallback``: the config is fused and must fall back with ptnn's
+    warning."""
+    import warnings
+
+    import numpy as np
+
+    import ptnn_torch
+    from ptnn_torch.ops import conv_stage
+
+    n = cfg.n_steps
+    plan = n + 1 + int(0 < cfg.temper_switch_step < n)
+    name = "fnn_eval" if spec is None else "conv1_relu_pool"
+    reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = ptnn_torch.sample(cfg, prob.train, prob.test, seed=seed,
+                                device=DEVICE, model_spec=spec)
+    fell = [str(w.message) for w in caught if "falling back" in
+            str(w.message)]
+    check(bool(fell) == fallback, f"fallback warnings {fell}, expected "
+          f"{'one' if fallback else 'none'}")
+    got = {k: launch_count(k) for k in KERNELS}
+    want = dict({k: 0 for k in KERNELS}, **{name: plan})
+    check(got == want, f"{cfg.proposal} per-step launches {got}, planned "
+          f"{want}")
+    if spec is not None:
+        check(conv_stage.fixed_launches == plan, f"{conv_stage.fixed_launches}"
+              f" of the {plan} conv launches took the fixed-shape kernel")
+    for k in ("ll", "rmse_test", "acc_test", "accept_count"):
+        check(np.isfinite(res.traces[k]).all(), f"trace {k} not finite")
+    return res, plan, fell
+
+
+def phase_per_step_precond_end_to_end(mala_twin):
+    """The per-step preconditioned family on the card: Sunspot's four
+    per-step variants beside their fused twins (``mala_twin``:
+    phase_mala_end_to_end's mala_fused_16x4 statistics; chees16_fused_16x4
+    runs here), Ionosphere's fused MALA config falling back, the digits CNN
+    with MALA and ChEES; returns the launches of each path."""
+    import numpy as np
+
+    from ptnn_torch import data, predict
+    from ptnn_torch.models import cnn
+    from ptnn_torch.ops import ess
+
+    out = {}
+    # --- Sunspot: four per-step variants, two fused twins -------------------
+    prob = sunspot()
+    cfg = sunspot_variant("chees16_fused_16x4")
+    res, n_l, n_blocks = run_counted("hmc_block", cfg, prob)
+    rmse, acc, _trips = cold_stats(res, cfg)
+    stats = {"mala_fused_16x4": mala_twin,
+             "chees16_fused_16x4": dict(rmse=rmse, accept=acc,
+                                        swap=res.swap_percent)}
+    print(f"[4/6] end to end: Sunspot chees16_fused_16x4 (fused twin) "
+          f"{cfg.num_chains} chains x {cfg.samples_per_chain} samples in "
+          f"{res.elapsed_s:.3f} s: cold test RMSE {rmse:.5f}, mean accept "
+          f"{acc:.2f}%, swap {res.swap_percent:.2f}%; hmc_block launches "
+          f"{n_l} for {n_blocks} planned blocks")
+    for name, twin in (("mala", None), ("hmc", None),
+                       ("mala_16x4", "mala_fused_16x4"),
+                       ("chees16_16x4", "chees16_fused_16x4")):
+        cfg = sunspot_variant(name)
+        res, plan, _ = run_precond_counted(cfg, prob)
+        rmse, acc, _trips = cold_stats(res, cfg)
+        out[name] = plan
+        band = HMC_RMSE if cfg.proposal == "hmc" else MALA_RMSE
+        line = (f"[4/6] end to end: Sunspot {name} per step, "
+                f"{cfg.num_chains} chains x {cfg.samples_per_chain} samples "
+                f"in {res.elapsed_s:.3f} s "
+                f"({res.chain_steps_per_sec:.0f} chain-steps/s incl. trace "
+                f"fetch): cold test RMSE {rmse:.5f} (band {band}), mean "
+                f"accept {acc:.2f}%, swap {res.swap_percent:.2f}%")
+        if cfg.hmc_adapt_traj:
+            tl = res.traces["traj_len"][1:]
+            line += f", traj_len {tl.min():.0f}-{tl.max():.0f}"
+            check(tl.min() >= 1 and tl.max() <= 16 and len(np.unique(tl)) > 1,
+                  f"{name} traj_len stays in [1, 16] and varies")
+        if twin:
+            t = stats[twin]
+            line += (f"; fused twin accept {t['accept']:.2f}%, swap "
+                     f"{t['swap']:.2f}% (within {TWIN_POINTS} points)")
+            for what, v in (("accept", acc), ("swap", res.swap_percent)):
+                check(abs(v - t[what]) <= TWIN_POINTS, f"{name} {what} "
+                      f"{v:.2f} is {abs(v - t[what]):.2f} points from "
+                      f"{twin}'s {t[what]:.2f}")
+        else:
+            check(PER_STEP_ACCEPT[0] <= acc <= PER_STEP_ACCEPT[1],
+                  f"{name} mean accept {acc:.2f} outside {PER_STEP_ACCEPT}")
+        print(line + f"; fnn_eval launches {plan} (as planned), every other "
+              f"kernel 0")
+        check(band[0] <= rmse <= band[1],
+              f"{name} cold test RMSE {rmse:.4f} outside {band}")
+    # --- Ionosphere: the fused MALA config falls back -----------------------
+    prob = data.load_classification("Ionosphere")
+    cfg = dataclasses.replace(iris_cfg(64, 8000, "precond_mala"),
+                              topology=(34, 50, 2)).validate()
+    rows = []
+    nx = cfg.topology[0]
+    y = prob.test[:, nx].astype(np.int64)
+    for seed in IONO_PC_SEEDS:
+        res, plan, fell = run_precond_counted(cfg, prob, seed=seed,
+                                              fallback=True)
+        draw, accept, trips = iris_stats(cfg, res)
+        cold = res.traces["w"][cfg.samples_per_chain // 2:]
+        step = max(1, cold.shape[0] // max(1, 2000 // cold.shape[1]))
+        pred = predict.posterior_predict(
+            cfg, cold[::step].reshape(-1, cold.shape[-1]), prob.test[:, :nx],
+            device=DEVICE)
+        served = float(np.mean(pred["label"] == y)) * 100.0
+        rows.append((draw, trips, served))
+        print(f"[4/6] end to end: Ionosphere mala_fused_16x4 seed {seed}, "
+              f"{cfg.num_chains} chains x {cfg.samples_per_chain} samples per "
+              f"step in {res.elapsed_s:.3f} s "
+              f"(\"{fell[0]}\"): per-draw cold accuracy {draw:.2f}%, served "
+              f"{served:.2f}%, mean accept {accept:.2f}%, swap "
+              f"{res.swap_percent:.2f}%, round trips {trips:.2f} per ladder "
+              f"per 1k steps; fnn_eval launches {plan} (as planned)")
+        out["ionosphere"] = plan
+    draw, trips, served = (statistics.median(r[i] for r in rows)
+                           for i in range(3))
+    print(f"[4/6] end to end: Ionosphere mala_fused_16x4 medians over seeds "
+          f"1-3: per-draw {draw:.2f}% (band {IONO_PC_DRAW}; ptnn "
+          f"{IONO_PC_REF[0]}), round trips {trips:.2f} (band "
+          f"{IONO_PC_TRIPS}; ptnn {IONO_PC_REF[1]:.2f}), served {served:.2f}%"
+          f" over the pooled replicas (not gated; ptnn {IONO_PC_REF[2]} from "
+          f"replica 0 alone)")
+    for what, v, (lo, hi) in (("per-draw accuracy", draw, IONO_PC_DRAW),
+                              ("round trips per ladder", trips,
+                               IONO_PC_TRIPS)):
+        check(lo <= v <= hi, f"Ionosphere mala median {what} {v:.4f} "
+              f"outside [{lo}, {hi}]")
+    # --- the digits CNN, MALA and ChEES --------------------------------------
+    prob = digits()
+    spec = cnn.digits_spec(fused_eval=True)
+    nx = 64
+    y = prob.test[:, nx].astype(np.int64)
+    for sampler in ("mala", "chees"):
+        cfg = cnn_precond_cfg(sampler)
+        cold_idx = np.arange(0, cfg.num_chains, cfg.rungs_per_ladder)
+        colds, rows = [], []
+        for seed in CNN_PC_SEEDS:
+            res, plan, _ = run_precond_counted(cfg, prob, spec, seed)
+            b = int(res.traces["acc_test"].shape[0] * cfg.burn_in)
+            cold = res.traces["w"][b:]  # (draws, 16, W)
+            colds.append(cold)
+            draw = float(np.mean(res.traces["acc_test"][b:, cold_idx]))
+            # thin along the draw axis, then pool the replicas
+            step = max(1, cold.shape[0]
+                       // max(1, CNN_PC_SERVE_ROWS // cold.shape[1]))
+            pool = cold[::step].reshape(-1, cold.shape[-1])
+            pred = predict.posterior_predict(cfg, pool, prob.test[:, :nx],
+                                             device=DEVICE, spec=spec)
+            served = float(np.mean(pred["label"] == y)) * 100.0
+            rows.append((served, draw))
+            line = (f"[4/6] end to end: digits CNN {sampler} seed {seed}, "
+                    f"{cfg.num_chains} chains x {cfg.samples_per_chain} steps in "
+                    f"{res.elapsed_s:.3f} s ({res.chain_steps_per_sec:.0f} "
+                    f"chain-steps/s incl. trace fetch): served {served:.2f}% "
+                    f"over {pool.shape[0]} pooled cold draws, per-draw "
+                    f"{draw:.2f}%, mean accept "
+                    f"{float(np.mean(res.accept_ratio_per_chain)):.2f}%, swap "
+                    f"{res.swap_percent:.2f}%")
+            if sampler == "chees":
+                tl = res.traces["traj_len"][1:]
+                line += (f", traj_len {tl.min():.0f}-{tl.max():.0f} (mean "
+                         f"{tl.mean():.2f})")
+                check(tl.min() >= 1 and tl.max() <= 8
+                      and len(np.unique(tl)) > 1,
+                      "CNN ChEES traj_len stays in [1, 8] and varies")
+            print(line + f"; conv1_relu_pool launches {plan} (as planned)")
+            out[f"cnn_{sampler}"] = plan
+        rhat = ess.function_space_rhat(colds, prob.test, cfg, spec=spec,
+                                       device=DEVICE)
+        served, draw = (statistics.median(r[i] for r in rows)
+                        for i in range(2))
+        ref = CNN_PC_REF[sampler]
+        print(f"[4/6] end to end: digits CNN {sampler} medians over seeds "
+              f"1-2: served {served:.2f}% (gate >= {CNN_PC_SERVED}; ptnn "
+              f"{ref[0]}), per-draw {draw:.2f}% (band {CNN_PC_DRAW[sampler]};"
+              f" ptnn {ref[1]}), pooled function-space R-hat {rhat:.3f} (gate "
+              f"<= {CNN_PC_RHAT}; ptnn {ref[2]})")
+        lo, hi = CNN_PC_DRAW[sampler]
+        check(served >= CNN_PC_SERVED, f"CNN {sampler} served {served:.2f}% "
+              f"under {CNN_PC_SERVED}")
+        check(lo <= draw <= hi, f"CNN {sampler} per-draw accuracy "
+              f"{draw:.2f} outside [{lo}, {hi}]")
+        check(rhat <= CNN_PC_RHAT, f"CNN {sampler} function-space R-hat "
+              f"{rhat:.3f} over {CNN_PC_RHAT}")
+    return out
+
+
+def phase_per_step_precond_throughput():
+    """Chain-steps/s of the per-step preconditioned family
+    (throughput_runner, median of 2 reps after its warm-up): the digits CNN
+    with MALA and ChEES at 128 chains x PC_THR_CNN_STEPS, Sunspot
+    mala_16x4 and chees16_16x4 per step at 64 x PC_THR_SUNSPOT_SAMPLES;
+    one value-and-grad of the CNN (the MALA step's one, ChEES's 8) beside
+    one Langevin drift, at 128 and 256 chains."""
+    import numpy as np
+    import torch
+
+    import ptnn_torch
+    from ptnn_torch import kernel
+    from ptnn_torch.models import cnn
+    from ptnn_torch.ops import drift
+
+    prob = digits()
+    spec = cnn.digits_spec(fused_eval=True)
+    for sampler in ("mala", "chees"):
+        cfg = cnn_precond_cfg(sampler, steps=PC_THR_CNN_STEPS)
+        runner = ptnn_torch.throughput_runner(cfg, prob.train, prob.test,
+                                              device=DEVICE, model_spec=spec)
+        reps = [runner() for _ in range(2)]
+        rate = statistics.median(r["chain_steps_per_sec"] for r in reps)
+        print(f"[5/6] throughput: digits CNN {sampler} per step, "
+              f"{cfg.num_chains} chains x {PC_THR_CNN_STEPS} steps: median "
+              f"{rate:.0f} chain-steps/s over 2 reps "
+              f"({1e3 * cfg.num_chains / rate:.2f} ms a step)")
+    prob_s = sunspot()
+    for name in ("mala_16x4", "chees16_16x4"):
+        cfg = sunspot_variant(name, samples=PC_THR_SUNSPOT_SAMPLES)
+        runner = ptnn_torch.throughput_runner(cfg, prob_s.train, prob_s.test,
+                                              device=DEVICE)
+        reps = [runner() for _ in range(2)]
+        rate = statistics.median(r["chain_steps_per_sec"] for r in reps)
+        print(f"[5/6] throughput: Sunspot {name} per step, 64 chains x "
+              f"{PC_THR_SUNSPOT_SAMPLES} samples: median {rate:.0f} "
+              f"chain-steps/s over 2 reps ({1e3 * 64 / rate:.3f} ms a step)")
+    rng = np.random.default_rng(43)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+    x_tr, y_tr = f(prob.train[:, :64]), f(prob.train[:, 64])
+    t_tr = drift.make_targets(y_tr, 10, "classification")
+    parts = []
+    for c in (128, 256):
+        cfg = cnn_precond_cfg("mala", chains=c)
+        data = kernel.Dataset(x_tr, y_tr, x_tr[:1], y_tr[:1])
+        vg = kernel.like_value_and_grad(cfg, spec, data)
+        w = f(rng.normal(size=(c, spec.w_size)) * 0.2)
+        vg_ms = time_ms(lambda: vg(w), 5, warm=1)
+        d_ms = time_ms(lambda: spec.drift(w, x_tr, t_tr, 5e-5), 5, warm=1)
+        parts.append(f"{c} chains: value-and-grad {vg_ms:.2f} ms, drift "
+                     f"{d_ms:.2f} ms")
+    print("[5/6] throughput: CNN gradient passes on 1257 rows (autograd, "
+          "full float32): " + "; ".join(parts))
+
+
 def conv_ops(c, n, hw, in_ch, out_ch):
     """Arithmetic of conv1_relu_pool: per pre-pool value 9 * in_ch
     multiply-adds, the bias and the ReLU, and its share of the pool (three
@@ -2789,18 +3156,20 @@ def main() -> int:
     phase_swap()
     times = {"rw_block": time_block(64, 100, record_w=True)}
     launches = {"rw_block": phase_end_to_end(),
-                "hmc_block": phase_flagship(),
-                "mala_block": phase_mala_end_to_end()}
+                "hmc_block": phase_flagship()}
+    launches["mala_block"], mala_twin = phase_mala_end_to_end()
     launches.update(phase_iris_end_to_end())
     phase_cls_rw_end_to_end()
     lg = phase_per_step_end_to_end()
     launches.update(drift_epoch=lg["drift_epoch"], fnn_eval=lg["fnn_eval"])
     launches["conv1_relu_pool"] = phase_zoo_end_to_end()
+    phase_per_step_precond_end_to_end(mala_twin)
     phase_throughput()
     times.update(phase_precond_throughput())
     times.update(phase_cls_throughput())
     times.update(phase_per_step_throughput())
     times.update(phase_zoo_throughput())
+    phase_per_step_precond_throughput()
     import torch
 
     print(json.dumps({"kernels": [dict({

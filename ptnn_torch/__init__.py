@@ -12,9 +12,12 @@ Two samplers run today, for regression and classification:
 * the per-step sampler (``fused_step=False``, and the fallback for fused
   configs the fused path cannot run): the reference proposal with or
   without the paper's Langevin-gradient drift (``qratio`` "reference" or
-  "ldpt_legacy"). Each step launches the drift kernel
-  (``csrc/drift_epoch.cu``, twice with Langevin gradients) and the FNN eval
-  kernel (``csrc/fnn_eval.cu``, once for the train and the test rows). With
+  "ldpt_legacy"), and the preconditioned family (``precond_rw``,
+  ``precond_mala``, ``hmc`` with or without ChEES, ``pcn``). Each step
+  launches the drift kernel (``csrc/drift_epoch.cu``, twice with Langevin
+  gradients) and the FNN eval kernel (``csrc/fnn_eval.cu``, once for the
+  train and the test rows; the test rows alone under MALA and HMC, whose
+  train likelihood comes with its gradient). With
   ``model_spec=`` it runs the model zoo instead: ``models.mlp.spec`` (a deep
   MLP) and ``models.cnn.spec`` (the Bayesian CNN), whose drift is a gradient
   step by autograd (``grad_drift``) and, for ``cnn.digits_spec(fused_eval=

@@ -10,8 +10,10 @@ the CPU).
     python -m ptnn_torch.experiments.cnn_digits --chains 256 --steps 2000
 
 The default run is the reference proposal with Langevin gradients (``--adapt``
-ties the drift rate to each chain's adapted step). ``--mala``, ``--hmc``,
-``--sgld-batch``, ``--mesh`` and ``--checkpoint`` parse as in ptnn and raise
+ties the drift rate to each chain's adapted step); ``--mala`` runs
+preconditioned MALA and ``--hmc L`` preconditioned HMC with L leapfrog steps,
+both per step (Langevin and ``--adapt`` off, as in ptnn). ``--sgld-batch``,
+``--mesh`` and ``--checkpoint`` parse as in ptnn and raise
 ``NotImplementedError`` naming the ROADMAP item that brings them. The plots
 are written when matplotlib is installed.
 """
@@ -32,10 +34,6 @@ from ptnn_torch.models import cnn
 # the flags whose samplers are not ported yet, with the ROADMAP item (Queue 1)
 # that brings each
 _NOT_PORTED = {
-    "mala": "--mala (proposal='precond_mala' per step): ROADMAP Queue 1 "
-            "item 9, the per-step preconditioned family",
-    "hmc": "--hmc (proposal='hmc' per step): ROADMAP Queue 1 item 9, the "
-           "per-step preconditioned family",
     "sgld_batch": "--sgld-batch (proposal='sgld'): ROADMAP Queue 1 item 12, "
                   "the model zoo's stochastic-gradient proposals",
     "mesh": "--mesh (chain-sharded runs): ROADMAP Queue 1 item 14, the "
@@ -207,7 +205,7 @@ def main(argv=None) -> None:
             num_samples=args.chains * args.steps,
             num_chains=args.chains,
             maxtemp=args.maxtemp,
-            use_langevin_gradients=True,
+            use_langevin_gradients=not (args.mala or args.hmc),
             learn_rate=args.lr,
         ),
         swap_interval=args.swap_interval,
@@ -223,8 +221,11 @@ def main(argv=None) -> None:
                 if args.chains >= 1024 and args.chains % m == 0
             ) if args.chains >= 1024 else 1
         ),
-        adapt_step_size=args.adapt,
-        proposal="reference",  # --mala, --hmc and --sgld-batch raised above
+        adapt_step_size=args.adapt and not (args.mala or args.hmc),
+        # --sgld-batch raised above
+        proposal=("hmc" if args.hmc
+                  else "precond_mala" if args.mala else "reference"),
+        hmc_leapfrog=args.hmc or 8,
         precond_power=args.precond_power,
         precond_start_frac=args.precond_start,
         warmstart_frac=args.warmstart_frac,

@@ -61,7 +61,7 @@ def fused_reason(cfg: PTConfig) -> Optional[str]:
     if cfg.use_langevin_gradients or cfg.proposal not in (
             "reference", "precond_mala", "hmc"):
         return ("the reference random-walk, precond_mala and hmc proposals "
-                "only (Langevin and the other proposals are not yet ported)")
+                "only (ptnn fuses no other proposal, nor Langevin gradients)")
     if cfg.proposal == "hmc" and cfg.hmc_adapt_traj:
         # ptnn/fused.py:72-96 without the mesh
         try:

@@ -1,14 +1,16 @@
-"""Chain state, initialisation, the per-step MH step, the swap event and the
-temper-switch recompute.
+"""Chain state, initialisation, the per-step MH steps, the swap event and
+the temper-switch recompute.
 
 Port of ``ptnn/kernel.py``: ``ChainState`` (the fields the ported paths
 read), ``Dataset``, ``init_state`` (regression and classification, with the
-preconditioned MALA/HMC branch), ``swap_due``, ``vdc_u``, the ``do_swap``
-and ``recompute_ll`` closures of ``make_step_fn`` as plain functions, and
-``make_step_fn`` for the reference proposal: the per-step random walk with
-the optional Langevin-gradient drift and its q-ratio ("reference" or
-"ldpt_legacy"). ``step_precond`` (the per-step precond family) is not
-ported yet.
+preconditioned family's state), ``like_value_and_grad``, ``swap_due``,
+``vdc_u``, the ``do_swap`` and ``recompute_ll`` closures of
+``make_step_fn`` as plain functions, and ``make_step_fn``: ``StepFn`` for
+the reference proposal (the per-step random walk with the optional
+Langevin-gradient drift and its q-ratio, "reference" or "ldpt_legacy"), and
+``PrecondStepFn`` for the preconditioned family (``precond_rw``,
+``precond_mala``, ``hmc`` with and without ChEES, ``pcn``: ptnn's
+``step_precond``).
 
 Every evaluation of the network on data (``train_loglik``,
 ``init_state``'s ll, ``recompute_ll``) goes through ``spec_eval``, the
@@ -21,7 +23,9 @@ other spec (``models.mlp``, ``models.cnn``) evaluates with its
 ``batched_forward`` where it has one (the CNN's hand-written stage 1), else
 its ``forward``, then ``log_probs`` and the likelihood of
 ``ops.likelihood``; on the card and on the CPU alike (``ptnn`` takes
-``batched_forward`` only on a TPU).
+``batched_forward`` only on a TPU). The gradient proposals take the
+likelihood's value and gradient from ``like_value_and_grad``: the FNN's
+hand-written backprops, autograd over ``spec.forward`` for the zoo.
 
 Semantics kept from ``ptnn``: the chain carries its UNTEMPERED train
 log-likelihood and divides by the adaptive temperature at decision time;
@@ -34,7 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,10 +46,17 @@ import torch
 from ptnn_torch.config import PTConfig
 from ptnn_torch.models import api as model_api
 from ptnn_torch.models import fnn
-from ptnn_torch.ops import likelihood
+from ptnn_torch.ops import likelihood, precond_step
 from ptnn_torch.ops.block_step import _LOG_STEP_HI, _LOG_STEP_LO
 from ptnn_torch.ops.fnn_eval import fnn_eval, fnn_eval_pair
+from ptnn_torch.ops.precision import full_float32
 from ptnn_torch.parallel import swap as swap_mod
+
+
+# the preconditioned family (ptnn's ``step_precond``), and its members that
+# take the likelihood's gradient
+PRECOND = ("precond_rw", "precond_mala", "hmc", "pcn")
+GRAD_PROPOSALS = ("precond_mala", "hmc")
 
 
 @dataclasses.dataclass
@@ -62,10 +73,11 @@ class ChainState:
     acc_train: torch.Tensor  # (C,) trace carry, percent (0 for regression)
     acc_test: torch.Tensor  # (C,) trace carry
     log_step_w: Optional[torch.Tensor]  # (C,) or None unless adapt_step_size
-    #                                     or a precond_mala/hmc proposal
-    # preconditioned MALA/HMC state (None otherwise). g_like is the gradient
-    # of the likelihood term at w (-SSE/2, or the multinomial ll) and travels
-    # with w on swaps; the Welford buffers and the scales stay with the rung.
+    #                                     or a preconditioned proposal
+    # preconditioned family's state (None otherwise). g_like (precond_mala,
+    # hmc) is the gradient of the likelihood term at w (-SSE/2, or the
+    # multinomial ll) and travels with w on swaps; the Welford buffers and
+    # the scales stay with the rung.
     g_like: Optional[torch.Tensor]  # (C, W)
     pc_mean: Optional[torch.Tensor]  # (C, W) Welford running mean of w
     pc_m2: Optional[torch.Tensor]  # (C, W) Welford sum of squared deviations
@@ -179,6 +191,59 @@ def vdc_u(i) -> torch.Tensor:
     return x.to(torch.float32) / 4294967296.0
 
 
+ValueAndGrad = Callable[[torch.Tensor],
+                        Tuple[Tuple[torch.Tensor, Optional[torch.Tensor]],
+                              torch.Tensor]]
+
+
+def like_value_and_grad(cfg: PTConfig, spec: model_api.ModelSpec,
+                        data: Dataset) -> ValueAndGrad:
+    """ptnn's ``_like_value_and_grad``: ``fn(w (C, W)) -> ((val, aux), g)``.
+    ``val`` (C,) is the temperature- and tau-free likelihood term, -SSE/2
+    for regression and the multinomial log-likelihood for classification;
+    ``aux`` the raw outputs (C, N, O) the classification metrics need (None
+    for the FNN's regression, whose metrics come from ``val``); ``g`` (C, W)
+    is d val / d w. The reference FNN takes its hand-written backprops
+    (``fnn.neg_half_sse_grad``, ``fnn.multinomial_ll_grad``), any other
+    spec autograd over ``spec.forward`` in full float32 (ptnn runs at
+    ``Precision.HIGHEST``). With ``drift_chain_microbatch`` > 1 the chains
+    go in that many sequential chunks, as the drift does."""
+    x, y = data.x_train, data.y_train
+    reg = cfg.task == "regression"
+    topo = spec.fnn_topology
+
+    def one(w):
+        if topo is not None:
+            if reg:
+                val, g = fnn.neg_half_sse_grad(w, x, y, topo)
+                return (val, None), g
+            val, g, out = fnn.multinomial_ll_grad(w, x, y, topo)
+            return (val, out), g
+        with torch.enable_grad(), full_float32():
+            wg = w.detach().requires_grad_(True)
+            out = spec.forward(wg, x)
+            if reg:
+                val = -0.5 * torch.sum(torch.square(y - out[:, :, 0]), dim=-1)
+            else:
+                logp = spec.log_probs(out)
+                idx = y.to(torch.int64).expand(logp.shape[:-1])[..., None]
+                val = torch.sum(torch.gather(logp, -1, idx)[..., 0], dim=-1)
+            (g,) = torch.autograd.grad(val.sum(), wg)
+        return (val.detach(), out.detach()), g
+
+    mb = cfg.drift_chain_microbatch
+    if mb <= 1:
+        return one
+
+    def chunked(w):
+        parts = [one(wk) for wk in w.chunk(mb)]
+        cat = lambda xs: None if xs[0] is None else torch.cat(xs)
+        return ((cat([p[0][0] for p in parts]), cat([p[0][1] for p in parts])),
+                cat([p[1] for p in parts]))
+
+    return chunked
+
+
 def init_state(
     cfg: PTConfig,
     data: Dataset,
@@ -195,11 +260,7 @@ def init_state(
     cls = cfg.task == "classification"
     dev = data.x_train.device
     spec = spec or default_spec(cfg)
-    precond = cfg.proposal in ("precond_mala", "hmc")
-    if precond and spec.fnn_topology is None:
-        raise NotImplementedError(
-            f"ptnn_torch runs proposal={cfg.proposal!r} on the reference FNN "
-            f"only, not on {spec.name}: not yet ported")
+    precond = cfg.proposal in PRECOND
     c, w_dim = cfg.num_chains, spec.w_size
     if init_w is None:
         w = torch.randn((c, w_dim), generator=generator, device=dev,
@@ -239,14 +300,11 @@ def init_state(
     if precond:
         pc_mean = torch.zeros_like(w)
         pc_m2 = torch.zeros_like(w)
-        if cls:
-            g_like = fnn.multinomial_ll_grad(w, data.x_train, data.y_train,
-                                             cfg.topology)[1]
-        else:
+        if not cls:
             log_step_eta = torch.full((c,), math.log(cfg.step_eta),
                                       dtype=torch.float32, device=dev)
-            g_like = fnn.neg_half_sse_grad(w, data.x_train, data.y_train,
-                                           cfg.topology)[1]
+        if cfg.proposal in GRAD_PROPOSALS:
+            g_like = like_value_and_grad(cfg, spec, data)(w)[1]
     log_traj = chees_m1 = chees_v2 = None
     if cfg.proposal == "hmc" and cfg.hmc_adapt_traj:
         # half the static bound: with the vdc jitter (mean 1/2) the realized
@@ -370,8 +428,9 @@ def step_reason(cfg: PTConfig,
                 spec: Optional[model_api.ModelSpec] = None) -> Optional[str]:
     """The feature of ``cfg`` the per-step sampler does not run yet on
     ``spec`` (default: the reference FNN); None: it runs ``cfg``."""
-    if cfg.proposal != "reference":
-        return f"proposal={cfg.proposal!r} (the per-step precond family)"
+    if cfg.proposal == "sgld":
+        return ("proposal='sgld' (the model zoo's stochastic-gradient "
+                "proposals)")
     for flag in ("use_surrogate", "variational_reference", "record_fx",
                  "record_ll_state"):
         if getattr(cfg, flag):
@@ -394,12 +453,21 @@ def step_noise_names(cfg: PTConfig) -> Tuple[str, ...]:
     """The per-step noise a run of ``cfg`` reads: "w" normal (C, W), "u"
     uniform (C,) for the MH test, "u_swap" uniform (C-1,) for the swap
     event; "l" uniform (C,), the Langevin choice, with Langevin gradients;
-    "eta" normal (C,) for regression."""
+    "eta" normal (C,) for regression. The preconditioned family: "w" is
+    the proposal's (pCN: the prior draw's, HMC: the momentum's) standard
+    normal; regression adds "u_eta" uniform (C,) for the eta block's test;
+    HMC with a step jitter "jit" uniform (C,). ptnn draws them from
+    ``kp, ke, ku, kue, ks = split(key, 5)`` (HMC: ``kp, kj = split(kp)``):
+    w, eta, u, u_eta, u_swap, and jit from kj."""
     names = ("w", "u", "u_swap")
     if cfg.use_langevin_gradients:
         names += ("l",)
     if cfg.task == "regression":
         names += ("eta",)
+        if cfg.proposal in PRECOND:
+            names += ("u_eta",)
+    if cfg.proposal == "hmc" and cfg.hmc_eps_jitter > 0.0:
+        names += ("jit",)
     return names
 
 
@@ -435,6 +503,17 @@ class StepFn:
             * torch.log(torch.tensor(2.0 * np.pi * cfg.step_w,
                                      dtype=torch.float32))
         self.log_norm = self.log_norm.to(temps.device)
+
+    def _prior(self, w, tau):
+        """The log prior of (w, tau) for every chain (tau: regression's
+        noise variance)."""
+        cfg, spec = self.cfg, self.spec
+        if self.cls:
+            return likelihood.classification_log_prior_dim(
+                w, spec.prior_dim_classification, cfg.sigma_sq)
+        return likelihood.regression_log_prior_dim(
+            w, tau, spec.prior_dim_regression, cfg.sigma_sq, cfg.nu_1,
+            cfg.nu_2)
 
     def _drift(self, w: torch.Tensor, lrate: model_api.Rate) -> torch.Tensor:
         """The spec's drift of every chain, in ``drift_chain_microbatch``
@@ -505,14 +584,10 @@ class StepFn:
         if self.cls:
             eta_prop = state.eta
             tau_prop = None
-            prior_prop = likelihood.classification_log_prior_dim(
-                w_prop, spec.prior_dim_classification, cfg.sigma_sq)
         else:
             eta_prop = state.eta + cfg.step_eta * noise["eta"]
             tau_prop = torch.exp(eta_prop)
-            prior_prop = likelihood.regression_log_prior_dim(
-                w_prop, tau_prop, spec.prior_dim_regression, cfg.sigma_sq,
-                cfg.nu_1, cfg.nu_2)
+        prior_prop = self._prior(w_prop, tau_prop)
         (ll_prop, rmse_tr, acc_tr), (_ll, rmse_te, acc_te) = spec_eval_pair(
             cfg, spec, w_prop, d.x_train, d.y_train, d.x_test, d.y_test,
             tau_prop)
@@ -572,10 +647,327 @@ class StepFn:
         return recompute_ll(self.cfg, state, self.data, self.spec)
 
 
+class PrecondStepFn(StepFn):
+    """ptnn's ``step_precond`` (ptnn/kernel.py:1616-2150): one step of the
+    preconditioned family for every chain, two Metropolis-within-Gibbs
+    blocks and the adaptation, then the swap event when it is due.
+
+    * **the w block** at fixed eta, with the diagonal preconditioner ``m``
+      from the Welford buffers (``ops.precond_step._precond_diag``) and the
+      tempered posterior gradient ``g = g_like / (tau T) - w / sigma^2``
+      from the cached ``g_like``:
+      - ``precond_rw``: ``w' = w + sig sqrt(m) z``; ``precond_mala`` adds
+        ``sig^2 m g / 2`` and the exact reverse-kernel q-ratio;
+      - ``hmc``: momentum ``z / sqrt(m)``, ``hmc_leapfrog`` leapfrog steps
+        under ``diag(1/m)`` at ``eps = sig (1 + jitter (2 jit - 1))``, the
+        kinetic-energy difference in the ratio; under ChEES each chain's
+        trajectory ends after ``clip(ceil(exp(log_traj) vdc_u(i) / eps), 1,
+        leapfrog)`` steps and is carried through the rest, so every chain
+        pays ``hmc_leapfrog`` gradient evaluations, as ptnn's scan does;
+      - ``pcn``: ``w' = sqrt(1 - rho^2) w + rho sigma z`` with ``rho =
+        min(sig, 1)``, its q-ratio the negated prior difference.
+      Until ``warm_end`` (gradient proposals) the proposal is the warm start
+      ``w + warmstart_step g / rms(g)``, accepted whatever the ratio, with
+      its likelihood and gradient evaluated there. ptnn runs the HMC
+      trajectory in those steps too and discards it; here it does not run.
+    * **the metrics**: gradient proposals take the train ll and metrics
+      from the value-and-grad and evaluate the test rows (``spec_eval``,
+      one ``fnn_eval`` launch for the FNN); ``precond_rw`` and ``pcn``
+      evaluate both row sets (``spec_eval_pair``).
+    * **the eta block** (regression): a random walk on eta with its own
+      scale ``log_step_eta``, its likelihood recovered from the carried ll.
+    * **adaptation** while ``warm_end <= i < burn_end``: Welford, Robbins-
+      Monro on ``log_step_w`` (toward the proposal's target) and
+      ``log_step_eta`` (0.44; until burn_end), and under ChEES Adam on
+      ``log_traj`` from the acceptance-weighted criterion with rung means
+      over the ``n_ladders`` replicas of each rung.
+
+    With ``diagnostics`` set, the trace carries "margin": each chain's
+    distance from a flipped outcome, the smallest of |u - a| of the w and
+    eta blocks and, under ChEES, the distance of ``tau_traj / eps`` from a
+    leapfrog-count boundary."""
+
+    def __init__(self, cfg: PTConfig, data: Dataset, temps: torch.Tensor,
+                 spec: model_api.ModelSpec):
+        super().__init__(cfg, data, temps, spec)
+        p = cfg.proposal
+        self.is_mala, self.is_hmc, self.is_pcn = (
+            p == "precond_mala", p == "hmc", p == "pcn")
+        self.grad = p in GRAD_PROPOSALS
+        self.chees = self.is_hmc and cfg.hmc_adapt_traj
+        s = cfg.samples_per_chain
+        self.warm_end = int(s * cfg.warmstart_frac) if self.grad else 0
+        self.target = (cfg.hmc_target_accept if self.is_hmc else
+                       cfg.mala_target_accept if self.is_mala else
+                       cfg.adapt_target_accept)
+        self.n_train = data.y_train.shape[0]
+        # the keys ops.precond_step._precond_diag reads
+        self.scal = dict(burn_end=self.burn_end, warm_end=self.warm_end,
+                         pc_start=int(s * cfg.precond_start_frac),
+                         precond_power=cfg.precond_power)
+        self.vg = like_value_and_grad(cfg, spec, data) if self.grad else None
+
+    def _g_post(self, g_like, w, tau, at):
+        """The tempered posterior gradient from the likelihood term's."""
+        g = g_like if self.cls else g_like / tau[:, None]
+        return g / at[:, None] - w / self.cfg.sigma_sq
+
+    def _leapfrog(self, state, m, g_cur, tau, at, epsw, l_steps, p0):
+        """``hmc_leapfrog`` leapfrog steps from (w, p0); a chain whose
+        trajectory has ended (ChEES, ``n >= l_steps``) carries through.
+        Returns (w', p', g_like', val', aux')."""
+        w_c, p_c, g_c, gl_c = state.w, p0, g_cur, state.g_like
+        v_c = a_c = None
+        for n in range(self.cfg.hmc_leapfrog):
+            p_half = p_c + 0.5 * epsw * g_c
+            w_n = w_c + epsw * m * p_half
+            (v_n, a_n), gl_n = self.vg(w_n)
+            g_n = self._g_post(gl_n, w_n, tau, at)
+            p_n = p_half + 0.5 * epsw * g_n
+            if l_steps is not None:
+                upd = n < l_steps
+                uw = upd[:, None]
+                w_n = torch.where(uw, w_n, w_c)
+                p_n = torch.where(uw, p_n, p_c)
+                g_n = torch.where(uw, g_n, g_c)
+                gl_n = torch.where(uw, gl_n, gl_c)
+                if n:  # the first step moves every chain (l_steps >= 1)
+                    v_n = torch.where(upd, v_n, v_c)
+                    if a_n is not None:
+                        a_n = torch.where(upd[:, None, None], a_n, a_c)
+            w_c, p_c, g_c, gl_c, v_c, a_c = w_n, p_n, g_n, gl_n, v_n, a_n
+        return w_c, p_c, gl_c, v_c, a_c
+
+    def _train_metrics(self, val, aux, eta, tau, w_prop):
+        """The proposal's (ll, rmse_train, acc_train) from the value-and-
+        grad, and (rmse_test, acc_test) from one eval of the test rows."""
+        d = self.data
+        _ll, rmse_te, acc_te = spec_eval(self.cfg, self.spec, w_prop,
+                                         d.x_test, d.y_test,
+                                         None if self.cls else tau)
+        if not self.cls:
+            ll = (-0.5 * self.n_train) * (likelihood._LOG_2PI + eta) \
+                + val / tau
+            rmse_tr = torch.sqrt(-2.0 * val / self.n_train)
+            zero = torch.zeros_like(val)
+            return ll, rmse_tr, zero, rmse_te, zero
+        pred = fnn.predict_class(aux).to(torch.float32)
+        yf = d.y_train[None, :]
+        rmse_tr = torch.sqrt(torch.mean(torch.square(pred - yf), dim=-1))
+        acc_tr = 100.0 * torch.mean((pred == yf).to(torch.float32), dim=-1)
+        return val, rmse_tr, acc_tr, rmse_te, acc_te
+
+    def step(self, state: ChainState, i: int,
+             noise: Noise) -> Tuple[ChainState, Dict[str, torch.Tensor]]:
+        cfg, d = self.cfg, self.data
+        at = self.temps if i < cfg.temper_switch_step else self.ones
+        warm = i < self.warm_end
+        adapting = self.warm_end <= i < self.burn_end
+        sig = torch.exp(state.log_step_w)
+        m = precond_step._precond_diag(state.pc_m2, i, self.scal,
+                                       self.spec.w_size)
+        tau = torch.exp(state.eta)
+        margin = None
+        if self.grad:
+            g_cur = self._g_post(state.g_like, state.w, tau, at)
+        if self.is_hmc:
+            eps = sig
+            if cfg.hmc_eps_jitter > 0.0:
+                eps = eps * (1.0 + cfg.hmc_eps_jitter
+                             * (2.0 * noise["jit"] - 1.0))
+            l_steps = None
+            if self.chees:
+                u_traj = vdc_u(i).to(sig.device)
+                tau_traj = torch.exp(state.log_traj) * u_traj
+                steps = tau_traj / eps
+                l_steps = torch.clamp(torch.ceil(steps), 1.0,
+                                      float(cfg.hmc_leapfrog)).to(torch.int32)
+                inside = (steps > 1.0) & (steps < cfg.hmc_leapfrog)
+                margin = torch.where(inside,
+                                     torch.abs(steps - torch.round(steps)),
+                                     math.inf)
+            p0 = noise["w"] / torch.sqrt(m)
+            k_init = 0.5 * torch.sum(m * torch.square(p0), dim=-1)
+            if not warm:
+                w_prop, p_end, g_like_prop, val, aux = self._leapfrog(
+                    state, m, g_cur, tau, at, eps[:, None], l_steps, p0)
+                diff = k_init - 0.5 * torch.sum(m * torch.square(p_end),
+                                                dim=-1)
+            else:  # the forced warm-start move below: no ratio is read
+                diff = torch.zeros_like(sig)
+        elif self.is_pcn:
+            rho = torch.clamp(sig, max=1.0)[:, None]
+            xi = math.sqrt(cfg.sigma_sq) * noise["w"]
+            w_prop = torch.sqrt(1.0 - rho * rho) * state.w + rho * xi
+        else:
+            nz = noise["w"] * sig[:, None] * torch.sqrt(m)
+            if self.is_mala:
+                sig2m = (sig * sig)[:, None] * m
+                mean_fwd = state.w + 0.5 * sig2m * g_cur
+            else:
+                mean_fwd = state.w
+            w_prop = mean_fwd + nz
+        if warm:
+            # deterministic warm start: RMS-normalised gradient ascent on the
+            # tempered log posterior, accepted whatever the ratio
+            g_rms = torch.sqrt(torch.mean(torch.square(g_cur), dim=-1,
+                                          keepdim=True))
+            w_prop = state.w + cfg.warmstart_step * g_cur \
+                / torch.clamp(g_rms, min=1e-12)
+        prior_prop = self._prior(w_prop, tau)
+        if self.grad:
+            if self.is_mala or warm:
+                (val, aux), g_like_prop = self.vg(w_prop)
+            ll_prop, rmse_tr, acc_tr, rmse_te, acc_te = self._train_metrics(
+                val, aux, state.eta, tau, w_prop)
+            if self.is_mala:
+                g_prop = self._g_post(g_like_prop, w_prop, tau, at)
+                mean_rev = w_prop + 0.5 * sig2m * g_prop
+                diff = (torch.sum(torch.square(w_prop - mean_fwd) / m, dim=-1)
+                        - torch.sum(torch.square(state.w - mean_rev) / m,
+                                    dim=-1)) / (2.0 * sig * sig)
+        else:
+            (ll_prop, rmse_tr, acc_tr), (_ll, rmse_te, acc_te) = \
+                spec_eval_pair(cfg, self.spec, w_prop, d.x_train, d.y_train,
+                               d.x_test, d.y_test, None if self.cls else tau)
+            if self.is_pcn:
+                # log q(w|w') - log q(w'|w): the negated Gaussian prior
+                # difference, so the ratio is the tempered likelihood's
+                diff = (torch.sum(torch.square(w_prop), dim=-1)
+                        - torch.sum(torch.square(state.w), dim=-1)) \
+                    / (2.0 * cfg.sigma_sq)
+            else:
+                diff = torch.zeros_like(sig)
+
+        log_mh = (ll_prop - state.ll) / at + (prior_prop - state.prior) + diff
+        mh_prob = torch.exp(torch.clamp(log_mh, max=0.0))
+        accept = noise["u"] < mh_prob
+        if warm:
+            accept = torch.ones_like(accept)
+        elif self.diagnostics:
+            m_w = torch.abs(noise["u"] - mh_prob)
+            margin = m_w if margin is None else torch.minimum(margin, m_w)
+        acc_w = accept[:, None]
+
+        def carry(new, old):
+            return torch.where(accept, new, old)
+
+        trace = {
+            # regression records the TEMPERED proposal ll, classification
+            # the untempered one
+            "ll": ll_prop if self.cls else ll_prop / at,
+            "rmse_train": carry(rmse_tr, state.rmse_train),
+            "rmse_test": carry(rmse_te, state.rmse_test),
+            "acc_train": carry(acc_tr, state.acc_train),
+            "acc_test": carry(acc_te, state.acc_test),
+            "accept_count": state.n_accept,
+        }
+        new = state.replace(
+            w=torch.where(acc_w, w_prop, state.w),
+            ll=carry(ll_prop, state.ll),
+            prior=carry(prior_prop, state.prior),
+            w_last=torch.where(acc_w, w_prop, state.w_last),
+            rmse_train=trace["rmse_train"],
+            rmse_test=trace["rmse_test"],
+            acc_train=trace["acc_train"],
+            acc_test=trace["acc_test"],
+            n_accept=state.n_accept + accept.to(torch.int32),
+        )
+        if self.grad:
+            new = new.replace(g_like=torch.where(acc_w, g_like_prop,
+                                                 state.g_like))
+        if cfg.record_w:
+            trace["w"] = new.w_last[self.rec]
+        if cfg.record_eta and not self.cls:
+            # the post-w-block, pre-eta-block eta, paired with this row's w
+            trace["eta"] = new.eta[self.rec]
+        if not self.cls:
+            new, m_e = self._eta_block(state, new, i, at, noise)
+            if self.diagnostics:
+                margin = m_e if margin is None else torch.minimum(margin, m_e)
+        new = self._adapt(state, new, i, adapting, mh_prob)
+        if self.chees:
+            new = self._chees(state, new, i, adapting, mh_prob, m, w_prop,
+                              None if warm else p_end, u_traj, tau_traj, eps)
+            trace["traj_len"] = l_steps.to(torch.float32)
+        if self.diagnostics:
+            trace["margin"] = (margin if margin is not None
+                               else torch.full_like(sig, math.inf))
+        if swap_due(cfg, i):
+            new = do_swap(cfg, new, self.temps, i, noise["u_swap"],
+                          self.pair_mask)
+        if cfg.track_replicas:
+            trace["replica"] = new.replica_id
+        return new, trace
+
+    def _eta_block(self, state, new, i, at, noise):
+        """The regression eta block: a random walk on eta, its likelihood
+        recovered from the carried ll without a data pass, its scale adapted
+        until burn-in ends. Returns the state and each chain's
+        |u_eta - a|."""
+        cfg = self.cfg
+        eta_prop, ll_eta, dprior, prob = precond_step.eta_move(
+            state.eta, new.ll, state.log_step_eta, noise["eta"], self.n_train,
+            at, cfg.nu_1, cfg.nu_2)
+        acc = noise["u_eta"] < prob
+        lse = state.log_step_eta
+        if i < self.burn_end:
+            lse = lse + cfg.adapt_rate * (prob
+                                          - precond_step.ETA_TARGET_ACCEPT)
+        new = new.replace(
+            eta=torch.where(acc, eta_prop, state.eta),
+            ll=torch.where(acc, ll_eta, new.ll),
+            prior=new.prior + torch.where(acc, dprior, 0.0),
+            log_step_eta=torch.clamp(lse, precond_step._LOG_LO_ETA,
+                                     precond_step._LOG_HI))
+        return new, torch.abs(noise["u_eta"] - prob)
+
+    def _adapt(self, state, new, i, adapting, mh_prob):
+        """Welford accumulation of the post-decision w and Robbins-Monro on
+        the w block's scale, both between the warm start's end and burn-in's
+        end."""
+        lsw = state.log_step_w
+        mean, m2 = state.pc_mean, state.pc_m2
+        if adapting:
+            mean, m2, lsw = precond_step.adapt_w(
+                mean, m2, lsw, new.w, mh_prob, i, self.warm_end,
+                self.burn_end, self.cfg.adapt_rate, self.target)
+        return new.replace(
+            log_step_w=torch.clamp(lsw, precond_step._LOG_LO_W,
+                                   precond_step._LOG_HI),
+            pc_mean=mean, pc_m2=m2)
+
+    def _chees(self, state, new, i, adapting, mh_prob, m, w_prop, p_end,
+               u_traj, tau_traj, eps):
+        """ChEES's Adam step on ``log_traj`` over rung means of the
+        ladder-major chains (chain = ladder * rungs + rung), then the clip
+        to what the static bound can realise."""
+        cfg = self.cfg
+        m1, v2, lt = state.chees_m1, state.chees_v2, state.log_traj
+        if adapting:
+            k = cfg.rungs_per_ladder
+            t_ad = torch.tensor(
+                float(max(min(i, self.burn_end) - self.warm_end, 0)) + 1.0,
+                dtype=torch.float32, device=lt.device)
+            lt, m1, v2 = precond_step.chees_adam(
+                lt, m1, v2, w_prop, state.w, m, p_end, mh_prob, u_traj,
+                tau_traj, lambda x: precond_step.rung_sum(x, cfg.num_chains,
+                                                          k),
+                float(cfg.n_ladders), 1.0 - 0.9**t_ad, 1.0 - 0.999**t_ad,
+                cfg.chees_rate)
+        return new.replace(
+            log_traj=precond_step._clip_traj(lt, eps, cfg.hmc_leapfrog),
+            chees_m1=m1, chees_v2=v2)
+
+
 def make_step_fn(cfg: PTConfig, data: Dataset, temps: torch.Tensor,
                  spec: Optional[model_api.ModelSpec] = None) -> StepFn:
-    """The per-step sampler's step for ``cfg`` (reference proposal, with or
+    """The per-step sampler's step for ``cfg``: ``PrecondStepFn`` for the
+    preconditioned family, else ``StepFn`` (the reference proposal, with or
     without Langevin gradients); ``spec`` defaults to the reference FNN
     with ``cfg.drift_mode``. Raises NotImplementedError naming a feature
     that is not ported (``step_reason``)."""
-    return StepFn(cfg, data, temps, spec or default_spec(cfg))
+    spec = spec or default_spec(cfg)
+    if cfg.proposal in PRECOND:
+        return PrecondStepFn(cfg, data, temps, spec)
+    return StepFn(cfg, data, temps, spec)

@@ -1,7 +1,8 @@
 """Effective sample size — the quality-per-second numerator.
 
-The port's own copy of ``ptnn/ops/ess.py`` (same names), without
-``function_space_rhat``, which runs the network in JAX there.
+The port's own copy of ``ptnn/ops/ess.py`` (same names); its
+``function_space_rhat`` runs the network's forward in PyTorch, where ptnn's
+runs it in JAX.
 
 BASELINE.json names "chain-steps/sec/chip and ESS/sec" as the benchmark
 metrics; the reference computes neither. Standard autocorrelation-based ESS
@@ -88,6 +89,66 @@ def split_rhat(x: np.ndarray, rank_normalize: bool = True) -> float:
     bulk = _rhat(_zscale(halves))
     folded = _rhat(_zscale(np.abs(halves - np.median(halves))))
     return max(bulk, folded)
+
+
+FS_BATCH = 2048  # draws a forward of function_space_rhat takes at a time
+
+
+def function_space_rhat(colds, test: np.ndarray, cfg, n_points: int = 16,
+                        spec=None, device="cuda") -> float:
+    """Worst rank-normalized split R-hat over posterior-PREDICTIVE
+    coordinates (ptnn/ops/ess.py:90-160): every recorded cold draw's
+    forward at ``n_points`` test inputs, the seed runs stacked as chains,
+    the max over points x outputs. W-space R-hat conflates weight-symmetry
+    multimodality with predictive disagreement; this is the replication
+    gate.
+
+    ``colds``: one array per seed run, (draws, W) or (draws, R, W): the R
+    cold replicas of a replicated-ladder run are thinned along the DRAW
+    axis first (at least 32 draws a replica, about 2000 rows) and then
+    pooled time-major, so split halves are early against late draws.
+    ``test``: the test matrix, inputs its first ``cfg.topology[0]``
+    columns. ``spec``: a ``ModelSpec`` (the CNN, an MLP): its class
+    probabilities (classification) or outputs; None: the reference FNN's
+    sigmoid outputs. The forward runs on ``device`` in full float32,
+    ``FS_BATCH`` draws at a time."""
+    import torch
+
+    from ptnn_torch.models import fnn
+    from ptnn_torch.ops.precision import full_float32
+
+    i_dim = cfg.topology[0]
+    test = np.asarray(test)
+    xi = np.linspace(0, test.shape[0] - 1, n_points).astype(int)
+    x_pts = torch.as_tensor(np.ascontiguousarray(test[xi, :i_dim]),
+                            dtype=torch.float32, device=device)
+
+    def fwd(w):
+        with torch.no_grad(), full_float32():
+            if spec is None:
+                out = fnn.batched_forward(w, x_pts, cfg.topology)
+            elif cfg.task == "classification":
+                out = torch.exp(spec.log_probs(spec.forward(w, x_pts)))
+            else:
+                out = spec.forward(w, x_pts)
+        return out.reshape(w.shape[0], -1).cpu().numpy()
+
+    preds = []
+    for c in colds:
+        c = np.asarray(c)
+        if c.ndim == 3:
+            target = max(2000, 32 * c.shape[1])
+            step = max(1, c.shape[0] // max(1, target // c.shape[1]))
+            c = c[::step].reshape(-1, c.shape[-1])
+        else:
+            c = c[:: max(1, c.shape[0] // 2000)]
+        w = torch.as_tensor(np.ascontiguousarray(c), dtype=torch.float32,
+                            device=device)
+        preds.append(np.concatenate([fwd(w[a:a + FS_BATCH]) for a in
+                                     range(0, w.shape[0], FS_BATCH)]))
+    n = min(p.shape[0] for p in preds)
+    stack = np.stack([p[:n] for p in preds], axis=1)  # (n, seeds, pts*out)
+    return max(split_rhat(stack[:, :, j]) for j in range(stack.shape[2]))
 
 
 def multi_ess(samples: np.ndarray, max_params: int = 64) -> float:

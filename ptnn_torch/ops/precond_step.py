@@ -190,6 +190,57 @@ def _clip_traj(lt, eps, leap):
                          torch.log(eps * float(leap)))
 
 
+def eta_move(eta, ll, log_step_eta, z, n_tr, at, nu1, nu2):
+    """The regression eta block's random-walk proposal and its likelihood,
+    recovered from the carried ``ll`` without a data pass (ptnn's float32
+    order); returns (eta', ll at eta', the prior's change, MH probability).
+    Shared by the fused blocks' plain version and the per-step sampler."""
+    eta_prop = eta + torch.exp(log_step_eta) * z
+    val_cur = (ll + 0.5 * n_tr * (likelihood._LOG_2PI + eta)) * torch.exp(eta)
+    ll_eta = (-0.5 * n_tr) * (likelihood._LOG_2PI + eta_prop) \
+        + val_cur * torch.exp(-eta_prop)
+    # the prior's tau terms: -(1 + nu_1) log tau^2 - nu_2 / tau^2
+    dprior = -(1.0 + nu1) * (eta_prop - eta) - nu2 * (
+        torch.exp(-eta_prop) - torch.exp(-eta))
+    prob = torch.exp(torch.clamp((ll_eta - ll) / at + dprior, max=0.0))
+    return eta_prop, ll_eta, dprior, prob
+
+
+def adapt_w(mean, m2, log_step_w, w, prob, i, warm_end, burn_end, rate,
+            target):
+    """One adapting step (``warm_end <= i < burn_end``): Welford
+    accumulation of the post-decision ``w`` into (mean, m2) and
+    Robbins-Monro on ``log_step_w`` towards ``target`` acceptance; the
+    caller clips the scale."""
+    cnt = float(max(min(i + 1, burn_end) - warm_end, 1))
+    delta = w - mean
+    mean = mean + delta / cnt
+    m2 = m2 + delta * (w - mean)
+    return mean, m2, log_step_w + rate * (prob - target)
+
+
+def chees_adam(log_traj, m1, v2, w_prop, w_old, m, p_end, prob, u_traj,
+               tau_traj, rung_sum_fn, n_lad, bc1, bc2, rate):
+    """ChEES's Adam step on ``log_traj`` (Hoffman et al. 2021, eq. 8,
+    adapted to tempering): each chain's criterion from rung means over the
+    ``n_lad`` replicas of its rung, weighted by its acceptance probability
+    and pooled over the rung; ``rung_sum_fn(x)`` is each chain's rung sum
+    of ``x`` (the caller's chain layout), ``bc1`` / ``bc2`` the Adam bias
+    corrections in the caller's arithmetic. Returns (log_traj, m1, v2)
+    before the clip."""
+    dxp = w_prop - rung_sum_fn(w_prop) / n_lad
+    dx = w_old - rung_sum_fn(w_old) / n_lad
+    dsq = torch.sum(m * dxp * dxp, dim=-1) - torch.sum(m * dx * dx, dim=-1)
+    inner = torch.sum(dxp * p_end, dim=-1)
+    g_ch = prob * dsq * inner * u_traj
+    wsum = torch.clamp(rung_sum_fn(prob), min=1e-6)
+    g_log = rung_sum_fn(g_ch) / wsum * tau_traj
+    m1 = 0.9 * m1 + 0.1 * g_log
+    v2 = 0.999 * v2 + 0.001 * g_log * g_log
+    log_traj = log_traj + rate * (m1 / bc1) / (torch.sqrt(v2 / bc2) + 1e-8)
+    return log_traj, m1, v2
+
+
 def _sse(w, x, y, topo):
     fx = fnn.batched_forward(w, x, topo)[:, :, 0]
     return torch.sum(torch.square(y - fx), dim=-1)
@@ -346,17 +397,12 @@ def _block_reference(hmc: bool, state: Tensors, noise: Tensors, start: int,
         gl = torch.where(acc2, g_rows, gl)
         na = na + accept.to(torch.int32)
         # --- the eta block (dataset-free) -----------------------------------
-        eta_prop = eta + torch.exp(lse) * noise["eta"][k]
-        half_norm = 0.5 * n_tr * (likelihood._LOG_2PI + eta)
-        val_cur = (ll + half_norm) * torch.exp(eta)
-        ll_eta = ll_c * (likelihood._LOG_2PI + eta_prop) + val_cur * torch.exp(
-            -eta_prop)
-        dprior = -(1.0 + nu1) * (eta_prop - eta) - nu2 * (
-            torch.exp(-eta_prop) - torch.exp(-eta))
-        mh_e = torch.exp(torch.clamp((ll_eta - ll) / at + dprior, max=0.0))
+        eta_prop, ll_eta, dprior, mh_e = eta_move(
+            eta, ll, lse, noise["eta"][k], n_tr, at, nu1, nu2)
         acc_e = noise["u_eta"][k] < mh_e
         if diagnostics:
             margin = torch.minimum(margin, torch.abs(noise["u_eta"][k] - mh_e))
+            half_norm = 0.5 * n_tr * (likelihood._LOG_2PI + eta)
             scale_eta = (torch.abs(ll_c * (likelihood._LOG_2PI + eta_prop))
                          + (scale + torch.abs(half_norm))
                          * torch.exp(eta - eta_prop))
@@ -371,29 +417,17 @@ def _block_reference(hmc: bool, state: Tensors, noise: Tensors, start: int,
         # --- ChEES: Adam on log_traj from the panel's rung means -------------
         if chees:
             if adapting:
-                dxp = w_prop - rung_sum(w_prop, panel, rungs) / n_lad
-                dx = w_old - rung_sum(w_old, panel, rungs) / n_lad
-                dsq = (torch.sum(m * dxp * dxp, dim=-1)
-                       - torch.sum(m * dx * dx, dim=-1))
-                inner = torch.sum(dxp * p_c, dim=-1)
-                g_ch = a * dsq * inner * u_t
-                wsum = torch.clamp(rung_sum(a, panel, rungs), min=1e-6)
-                g_log = rung_sum(g_ch, panel, rungs) / wsum * tau_traj
                 t_ad = float(max(min(i, burn_end) - warm_end, 0) + 1)
-                m1 = 0.9 * m1 + 0.1 * g_log
-                v2 = 0.999 * v2 + 0.001 * g_log * g_log
-                bc1 = 1.0 - math.exp(t_ad * _LOG09)
-                bc2 = 1.0 - math.exp(t_ad * _LOG0999)
-                lt = lt + scal["chees_rate"] * (m1 / bc1) / (
-                    torch.sqrt(v2 / bc2) + 1e-8)
+                lt, m1, v2 = chees_adam(
+                    lt, m1, v2, w_prop, w_old, m, p_c, a, u_t, tau_traj,
+                    lambda x: rung_sum(x, panel, rungs), n_lad,
+                    1.0 - math.exp(t_ad * _LOG09),
+                    1.0 - math.exp(t_ad * _LOG0999), scal["chees_rate"])
             lt = _clip_traj(lt, eps, leap)
         # --- Welford accumulation and the Robbins-Monro w scale --------------
         if adapting:
-            cnt_new = float(max(min(i + 1, burn_end) - warm_end, 1))
-            delta = w - pm
-            pm = pm + delta / cnt_new
-            p2 = p2 + delta * (w - pm)
-            lsw = lsw + rate * (a - target)
+            pm, p2, lsw = adapt_w(pm, p2, lsw, w, a, i, warm_end, burn_end,
+                                  rate, target)
         lsw = torch.clamp(lsw, _LOG_LO_W, _LOG_HI)
 
     new = dict(w=w, w_last=wl, g_like=gl, pc_mean=pm, pc_m2=p2, eta=eta,

@@ -4,7 +4,8 @@
 (``ptnn_torch.fused``) when ``cfg.fused_step`` is set and the fused path can
 run ``cfg`` (``fused.runtime_reason``); otherwise, with a warning for a
 fused config, the per-step sampler here: the reference proposal, with or
-without the Langevin-gradient drift. ``model_spec`` names the model
+without the Langevin-gradient drift, and the preconditioned family
+(``precond_rw``, ``precond_mala``, ``hmc`` with or without ChEES, ``pcn``). ``model_spec`` names the model
 (``models.cnn.digits_spec()``, ``models.mlp.spec(...)``; default: the
 reference FNN of ``cfg.topology``); a spec that is not the reference FNN
 never takes the fused path. Every entry point takes an explicit ``device``;
@@ -17,11 +18,13 @@ chunks of about ``cfg.chunk_steps`` steps (``_pick_chunk``). Each chunk's
 traces stay on the device until the chunk ends. Noise is drawn per chunk by
 ``noise_fn(start, length, c, w) -> dict`` of (length, ...) tensors:
 "w" (L, C, W) normal, "u" (L, C) uniform, "u_swap" (L, C-1) uniform, with
-Langevin "l" (L, C) uniform, for regression "eta" (L, C) normal
-(``kernel.step_noise_names``). The default (``step_noise``) draws pages of
+Langevin "l" (L, C) uniform, for regression "eta" (L, C) normal, and for
+the preconditioned family "u_eta" (L, C) (regression) and "jit" (L, C)
+(HMC) uniform (``kernel.step_noise_names``). The default (``step_noise``) draws pages of
 steps from a ``torch.Generator`` on the run's device seeded from (seed, page
 index), so a step's noise does not depend on ``chunk_steps``. ``ptnn``
-derives each step's noise from ``split(fold_in(k_run, i), 6)`` instead, so
+derives each step's noise from ``split(fold_in(k_run, i), 6)`` (the
+preconditioned family: 5) instead, so
 runs of the two packages agree in distribution, and exactly when ptnn's
 draws are fed in through ``noise_fn`` (``tests/test_torch_step.py``).
 """
@@ -243,6 +246,8 @@ def step_noise(seed: int, device, names) -> NoiseFn:
                 l=lambda: torch.rand((steps, c), **f32),
                 eta=lambda: torch.randn((steps, c), **f32),
                 u=lambda: torch.rand((steps, c), **f32),
+                u_eta=lambda: torch.rand((steps, c), **f32),
+                jit=lambda: torch.rand((steps, c), **f32),
                 u_swap=lambda: torch.rand((steps, max(c - 1, 0)), **f32),
             )
             cache.clear()

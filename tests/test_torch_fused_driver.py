@@ -97,12 +97,14 @@ def test_fused_reason_scope():
     with pytest.raises(ValueError, match="shared memory"):
         tfused.sample_fused(iono, np.zeros((245, 36)), np.zeros((106, 36)),
                             device="cpu")
-    # the per-step sampler runs the reference proposal; its precond family
-    # is not ported yet
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ptnn_torch.sample(ptnn_torch.PTConfig(**_kw(
-            fused_step=False, proposal="precond_mala")).validate(),
-            np.zeros((4, 5)), np.zeros((4, 5)), device="cpu")
+    # the per-step sampler runs what the fused one refuses: the reference
+    # proposal and the preconditioned family
+    from ptnn_torch import kernel
+
+    for proposal in ("precond_rw", "precond_mala", "hmc", "pcn"):
+        cfg = ptnn_torch.PTConfig(**_kw(fused_step=False,
+                                        proposal=proposal)).validate()
+        assert kernel.step_reason(cfg) is None
 
 
 def test_topology_the_kernels_lack_falls_back_on_every_device():
@@ -110,9 +112,8 @@ def test_topology_the_kernels_lack_falls_back_on_every_device():
     fixed-shape classification kernel is built for it), so a fused RW
     config runs fused, with no warning, on the CPU (the plain version) as
     on the card. No MALA or HMC kernel is built for it, so those fall back
-    to the per-step sampler with ptnn's warning on every device and reach
-    the per-step family that is not ported yet; the fused sampler refuses
-    them alike."""
+    to the per-step sampler with ptnn's warning on every device, which runs
+    them; the fused sampler refuses them alike."""
     import dataclasses
     import warnings
 
@@ -141,10 +142,10 @@ def test_topology_the_kernels_lack_falls_back_on_every_device():
         assert tfused.fused_reason(cfg) is None
         assert tfused.working_set_reason(cfg, n_tr, n_te) is None
         assert "built for" in tfused.runtime_reason(cfg, n_tr, n_te)
-        with pytest.raises(NotImplementedError,
-                           match="per-step precond family"):
-            with pytest.warns(UserWarning, match="falling back"):
-                ptnn_torch.sample(cfg, prob.train, prob.test, device="cpu")
+        with pytest.warns(UserWarning, match="falling back"):
+            res = ptnn_torch.sample(cfg, prob.train, prob.test, device="cpu")
+        assert res.traces["acc_test"].shape == (6, 8)
+        assert np.isfinite(res.traces["ll"]).all()
         with pytest.raises(ValueError, match="built for"):
             tfused.sample_fused(cfg, prob.train, prob.test, device="cpu")
     # the topologies the kernels are built for pass the gate

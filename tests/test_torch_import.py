@@ -117,6 +117,26 @@ def test_port_sources_stay_clear_of_jax_and_fallbacks():
             assert word not in text, (path, word)
 
 
+def test_chip_smoke_defines_each_function_once_and_runs_every_phase():
+    """A second ``def`` of a name in chip_smoke.py silently replaces the
+    first, and ``main`` would then run one phase in place of another: every
+    top-level function is defined once, and every ``phase_*`` function is
+    called by ``main``."""
+    import ast
+
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    defs = [n.name for n in tree.body if isinstance(n, ast.FunctionDef)]
+    assert len(defs) == len(set(defs)), sorted(
+        {d for d in defs if defs.count(d) > 1})
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    called = {n.func.id for n in ast.walk(main)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+    phases = {d for d in defs if d.startswith("phase_")}
+    assert phases <= called, sorted(phases - called)
+
+
 def test_port_exports_ptnn_surface_or_names_what_is_missing():
     """Every name of ``ptnn.__all__`` is exported by ``ptnn_torch`` or listed
     in ``ptnn_torch.NOT_PORTED`` with the ROADMAP item that brings it;

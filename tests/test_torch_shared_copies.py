@@ -113,7 +113,9 @@ def test_roundtrip_and_ess_match_ptnn(rng):
     x = np.cumsum(rng.normal(size=(600, 3, 5)), axis=0)
     assert tess.pooled_multi_ess(x) == jess.pooled_multi_ess(x)
     assert tess.split_rhat(x[:, :, 0]) == jess.split_rhat(x[:, :, 0])
-    assert not hasattr(tess, "function_space_rhat")
+    # the copy's function_space_rhat runs its forward in PyTorch, held to
+    # ptnn's in tests/test_torch_precond_zoo.py
+    assert callable(tess.function_space_rhat)
 
 
 def test_posterior_predict_matches_ptnn(rng):

@@ -301,7 +301,9 @@ def test_fused_langevin_config_is_refused_and_others_fall_back():
 
 
 @pytest.mark.parametrize("feature", [
-    dict(proposal="precond_mala", use_langevin_gradients=False),
+    dict(proposal="sgld", use_langevin_gradients=False, sg_batch=16,
+         swap_payload="untempered", swap_rule="metropolis",
+         stale_likelihood_after_swap=False, pt_phase_frac=1.0),
     dict(record_fx=True),
     dict(record_ll_state=True), dict(record_thin=2, track_replicas=False),
     dict(adapt_step_size=True), dict(eval_dtype="bfloat16"),

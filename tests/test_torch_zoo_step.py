@@ -278,8 +278,7 @@ def test_zoo_refusals_name_the_feature():
     train, test = _digits_rows()
     spec = mlp.spec((64, 8, 10))
     for kw, word in ((dict(eval_dtype="bfloat16"), "eval_dtype"),
-                     (dict(proposal="precond_mala",
-                           use_langevin_gradients=False), "precond")):
+                     (dict(record_fx=True), "record_fx")):
         cfg = ptnn_torch.PTConfig(**_digits_cfg(**kw)).validate()
         with pytest.raises(NotImplementedError, match=word):
             ptnn_torch.sample(cfg, train[:16], test[:8], device="cpu",
