@@ -91,24 +91,48 @@ not 0):
      then the per-step preconditioned family, each path with one eval
      launch a step (the test rows under MALA and HMC) plus init_state's and
      the temper switch's, every other kernel 0: Sunspot's fused twin
-     chees16_fused_16x4 (64 x 5000; mala_fused_16x4's run above is the
+     chees16_fused_16x4 (64 x 2000; mala_fused_16x4's run above is the
      other twin), then bench.py's per-step mala, hmc, mala_16x4 and
-     chees16_16x4 (64 x 5000, seed 0), the MALA runs' cold RMSE in
+     chees16_16x4 (64 chains, seed 0; mala and mala_16x4 at 5000 samples,
+     hmc and chees16_16x4 at 2000), the MALA runs' cold RMSE in
      0.01-0.04 and the HMC runs' in 0.005-0.0239, the twinned runs' mean
      accept and swap within 3 points of their twin's, the others' accept in
      40-75 %;
-     Ionosphere's mala_fused_16x4 (bench.py's _cls_variants, 64 x 8000,
+     Ionosphere's mala_fused_16x4 (bench.py's _cls_variants at 64 x 4000,
      seeds 1-3), which must fall back with ptnn's warning (w 1852 does not
      fit the fused block) and run per step, medians per-draw cold accuracy
      68-80 % and 14-28 round trips per ladder per 1k steps (BENCH_r05.json:
      73.72, 20.8), served accuracy printed; the digits CNN with
      digits_spec(fused_eval=True) at scripts/cnn_convergence.py's
-     configuration, 128 chains = 32 ladders x 4 rungs x 1000 steps, seeds 1
-     and 2, 16 cold rungs' w recorded, MALA and ChEES (8 leapfrog steps):
-     medians served accuracy >= 95 % (the cold draws thinned along the draw
-     axis, then pooled), per-draw 80-92 % (MALA) / 86-96 % (ChEES), pooled
-     function-space R-hat <= 1.15 (ptnn's 1k rows: 96.76 / 98.24, 86.63 /
-     91.71, 1.067 / 1.042), ChEES traj_len in [1, 8] and varying;
+     configuration, 128 chains = 32 ladders x 4 rungs, seeds 1 and 2, 16
+     cold rungs' w recorded every steps // 512: MALA at 4000 steps
+     (record_thin 7) and ChEES (8 leapfrog steps) at 1000: medians served
+     accuracy >= 97 % (MALA) / 95 % (ChEES) (the cold draws thinned along
+     the draw axis, then pooled), per-draw 90-96 % / 86-96 %, pooled
+     function-space R-hat <= 1.15 (ptnn's rows: 99.17 / 98.24, 93.59 /
+     91.71, 1.034 / 1.042), ChEES traj_len in [1, 8] and varying
+     (hmc, chees16_16x4 and its fused twin at 2000 samples, not 5000, and
+     Ionosphere at 4000, not 8000, keep the smoke inside its time);
+     then the run lifecycle: record_thin on the card (rw_fused 64 x 5000 at
+     thin 3, the gather regime, and at the longest block + 3, the sparse
+     one, lg_pallas 64 x 5000 at thin 7: every kept row equal to the
+     unthinned run's at ptnn's positions bit for bit, the final state
+     equal, peak device memory and trace host copy printed); the paper's
+     command lines as five subprocesses at once, python -m
+     ptnn_torch.experiments.regression --problem Sunspot (Langevin, 10 x
+     10,000), the same with --no-langevin --fused --roundtrip and with
+     --no-langevin --fused --replicate 2, and
+     ptnn_torch.experiments.classification --problem iris (10 x 5000) and
+     --fused, each with its artifact tree, master row, launches against the
+     plan and test / swap / accept against bands from ptnn's own command
+     line on the CPU, seeds 0-4; python -m ptnn_torch.predict --calibrate
+     --ic on the Sunspot and iris trees, the served RMSE / accuracy inside
+     the run's band; cnn_digits --checkpoint at 64 x 100; and the
+     regression command line's default run with checkpoints every 2 chunks
+     in a subprocess, SIGKILLed after its first checkpoint, run again on
+     the same path, and held to an uninterrupted run bit for bit (every
+     trace and state tensor), with a whole-run checkpoint's size and save
+     time;
   5. throughput: throughput_runner at 2000 samples per chain (Sunspot
      rw_fused at 64 and 1024 chains, mala_fused_16x4, chees16_fused_256x4;
      iris chees16_fused_16x4 and chees16_fused_64x4; lg_pallas), and each
@@ -2691,22 +2715,27 @@ def phase_zoo_end_to_end():
 # CNN's; the fused gate's fallback (Ionosphere); the fused twins beside
 # their per-step runs (Sunspot).
 
-# the digits CNN as scripts/cnn_convergence.py:68-95 samples it at 1000
-# steps a chain: ptnn's records (results/cnn_convergence.md, the 1k rows):
-# served accuracy, per-draw cold accuracy, pooled function-space R-hat
-CNN_PC_CHAINS, CNN_PC_STEPS, CNN_PC_SEEDS = 128, 1000, (1, 2)
-CNN_PC_REF = {"mala": (96.76, 86.63, 1.067), "chees": (98.24, 91.71, 1.042)}
-CNN_PC_SERVED = 95.0  # median served accuracy over the seeds, at least
-CNN_PC_DRAW = {"mala": (80.0, 92.0), "chees": (86.0, 96.0)}
+# the digits CNN as scripts/cnn_convergence.py:68-95 samples it, at its
+# budgets (MALA at 4000 with record_thin 4000 // 512 = 7, the script's
+# thinning; ChEES at 1000, record_thin 1): ptnn's records
+# (results/cnn_convergence.md, one pooled run each, hence bands): served
+# accuracy, per-draw cold accuracy, pooled function-space R-hat
+CNN_PC_CHAINS, CNN_PC_SEEDS = 128, (1, 2)
+CNN_PC_STEPS = {"mala": 4000, "chees": 1000}
+CNN_PC_REF = {"mala": (99.17, 93.59, 1.034), "chees": (98.24, 91.71, 1.042)}
+# median served accuracy over the seeds, at least
+CNN_PC_SERVED = {"mala": 97.0, "chees": 95.0}
+CNN_PC_DRAW = {"mala": (90.0, 96.0), "chees": (86.0, 96.0)}
 CNN_PC_RHAT = 1.15  # pooled function-space R-hat, at most
 CNN_PC_SERVE_ROWS = 1000  # cold draws the served predictor pools, about
-# Ionosphere: bench.py's _cls_variants(...)["mala_fused_16x4"] (64 x 8000,
-# seeds 1-3), which the fused gate refuses (w 1852): BENCH_r05.json
+# Ionosphere: bench.py's _cls_variants(...)["mala_fused_16x4"] (64 chains,
+# seeds 1-3; 4000 samples, cut from bench's 8000 to keep the smoke inside
+# its time), which the fused gate refuses (w 1852): BENCH_r05.json
 # classification.Ionosphere.mala_16x4 reads per-draw 73.72, 332.75 round
 # trips per 1k steps over 16 ladders (20.8 each) and served 77.98, the last
 # from replica 0 alone (bench.py:433 strides the pooled rows by a multiple
 # of the replica count): printed, not gated
-IONO_PC_SEEDS = (1, 2, 3)
+IONO_PC_SEEDS, IONO_PC_SAMPLES = (1, 2, 3), 4000
 IONO_PC_DRAW = (68.0, 80.0)  # median per-draw cold accuracy
 IONO_PC_TRIPS = (14.0, 28.0)  # median round trips per ladder per 1k steps
 IONO_PC_REF = (73.72, 332.75 / 16, 77.98)
@@ -2721,6 +2750,11 @@ IONO_PC_REF = (73.72, 332.75 / 16, 77.98)
 TWIN_POINTS = 3.0
 HMC_RMSE = (0.005, FLAGSHIP_RMSE[1])
 PER_STEP_ACCEPT = (40.0, 75.0)
+# samples of each per-step variant: hmc (4-7 ms a step) and chees16_16x4
+# (about 10 ms, host-bound, and its fused twin with it) cut from 5000 to
+# keep the smoke inside its time
+PER_STEP_SAMPLES = {"mala": 5000, "hmc": 2000, "mala_16x4": 5000,
+                    "chees16_16x4": 2000}
 PC_THR_CNN_STEPS = 50  # phase 5's CNN throughput runs, steps a chain
 PC_THR_SUNSPOT_SAMPLES = 500  # and the Sunspot per-step ones
 
@@ -2742,14 +2776,16 @@ def sunspot_variant(name, chains=64, samples=5000):
                        fused_step="fused" in name)
 
 
-def cnn_precond_cfg(sampler, chains=CNN_PC_CHAINS, steps=CNN_PC_STEPS, **kw):
+def cnn_precond_cfg(sampler, chains=CNN_PC_CHAINS, steps=None, **kw):
     """scripts/cnn_convergence.py:68-95: the classification preset at
     maxtemp 5, 4-rung replicated ladders, DEO metropolis swaps of
     untempered energies every 10, warm start to 10 %, preconditioner from
-    30 %, step 0.01, 16 cold rungs' w recorded (record_thin 1 at 1000
-    steps); ChEES with 8 leapfrog steps."""
+    30 %, step 0.01, 16 cold rungs' w recorded every max(1, steps // 512)
+    steps (record_thin), chunks of 150 steps (its --chunk default); ChEES
+    with 8 leapfrog steps. ``steps``: CNN_PC_STEPS[sampler] by default."""
     from ptnn_torch import classification_preset
 
+    steps = steps if steps is not None else CNN_PC_STEPS[sampler]
     base = classification_preset((64, 32, 10), num_samples=chains * steps,
                                  num_chains=chains, maxtemp=5.0)
     extra = (dict(hmc_leapfrog=8, hmc_adapt_traj=True) if sampler == "chees"
@@ -2759,8 +2795,8 @@ def cnn_precond_cfg(sampler, chains=CNN_PC_CHAINS, steps=CNN_PC_STEPS, **kw):
         n_ladders=chains // 4, adapt_rate=0.1, swap_style="even_odd",
         swap_interval=10, swap_rule="metropolis", swap_payload="untempered",
         warmstart_frac=0.1, precond_start_frac=0.3, step_w=0.01,
-        record_w=True, record_w_chains=min(16, chains // 4), chunk_steps=150,
-        **extra)
+        record_w=True, record_w_chains=min(16, chains // 4),
+        record_thin=max(1, steps // 512), chunk_steps=150, **extra)
     fields.update(kw)
     return dataclasses.replace(base, **fields).validate()
 
@@ -2821,7 +2857,8 @@ def phase_per_step_precond_end_to_end(mala_twin):
     out = {}
     # --- Sunspot: four per-step variants, two fused twins -------------------
     prob = sunspot()
-    cfg = sunspot_variant("chees16_fused_16x4")
+    cfg = sunspot_variant("chees16_fused_16x4",
+                          samples=PER_STEP_SAMPLES["chees16_16x4"])
     res, n_l, n_blocks = run_counted("hmc_block", cfg, prob)
     rmse, acc, _trips = cold_stats(res, cfg)
     stats = {"mala_fused_16x4": mala_twin,
@@ -2835,7 +2872,7 @@ def phase_per_step_precond_end_to_end(mala_twin):
     for name, twin in (("mala", None), ("hmc", None),
                        ("mala_16x4", "mala_fused_16x4"),
                        ("chees16_16x4", "chees16_fused_16x4")):
-        cfg = sunspot_variant(name)
+        cfg = sunspot_variant(name, samples=PER_STEP_SAMPLES[name])
         res, plan, _ = run_precond_counted(cfg, prob)
         rmse, acc, _trips = cold_stats(res, cfg)
         out[name] = plan
@@ -2868,7 +2905,7 @@ def phase_per_step_precond_end_to_end(mala_twin):
               f"{name} cold test RMSE {rmse:.4f} outside {band}")
     # --- Ionosphere: the fused MALA config falls back -----------------------
     prob = data.load_classification("Ionosphere")
-    cfg = dataclasses.replace(iris_cfg(64, 8000, "precond_mala"),
+    cfg = dataclasses.replace(iris_cfg(64, IONO_PC_SAMPLES, "precond_mala"),
                               topology=(34, 50, 2)).validate()
     rows = []
     nx = cfg.topology[0]
@@ -2950,14 +2987,16 @@ def phase_per_step_precond_end_to_end(mala_twin):
         served, draw = (statistics.median(r[i] for r in rows)
                         for i in range(2))
         ref = CNN_PC_REF[sampler]
-        print(f"[4/6] end to end: digits CNN {sampler} medians over seeds "
-              f"1-2: served {served:.2f}% (gate >= {CNN_PC_SERVED}; ptnn "
+        print(f"[4/6] end to end: digits CNN {sampler} {cfg.samples_per_chain}"
+              f" steps (record_thin {cfg.record_thin}) medians over seeds "
+              f"1-2: served {served:.2f}% (gate >= {CNN_PC_SERVED[sampler]}; "
+              f"ptnn "
               f"{ref[0]}), per-draw {draw:.2f}% (band {CNN_PC_DRAW[sampler]};"
               f" ptnn {ref[1]}), pooled function-space R-hat {rhat:.3f} (gate "
               f"<= {CNN_PC_RHAT}; ptnn {ref[2]})")
         lo, hi = CNN_PC_DRAW[sampler]
-        check(served >= CNN_PC_SERVED, f"CNN {sampler} served {served:.2f}% "
-              f"under {CNN_PC_SERVED}")
+        check(served >= CNN_PC_SERVED[sampler], f"CNN {sampler} served "
+              f"{served:.2f}% under {CNN_PC_SERVED[sampler]}")
         check(lo <= draw <= hi, f"CNN {sampler} per-draw accuracy "
               f"{draw:.2f} outside [{lo}, {hi}]")
         check(rhat <= CNN_PC_RHAT, f"CNN {sampler} function-space R-hat "
@@ -3144,6 +3183,436 @@ def phase_zoo_throughput():
     return out
 
 
+# ---------------------------------------------------------------------------
+# The run lifecycle: the paper's command lines (python -m
+# ptnn_torch.experiments.regression / classification) in subprocesses, the
+# served runs (python -m ptnn_torch.predict), a checkpointed run killed and
+# resumed, and record_thin on both samplers.
+
+# ptnn's command lines at their defaults on the CPU, seeds 0-4 (my CPU run
+# of ptnn: ``python tests/test_torch_experiments.py NAME 0 1 2 3 4``): each
+# band is the mean +- 4 sample standard deviations of the five, rounded
+# outward. test: the test RMSE / accuracy pooled over every chain after
+# burn-in (the master row's test_mean); served: the RMSE of the posterior
+# mean / the accuracy of the mean class probabilities over the cold chain's
+# draws, as ptnn.predict serves the run. The fused RW runs take the bands
+# of ptnn's per-step RW runs (the same sampler).
+CLI_BANDS = {
+    # regression --problem Sunspot: Langevin-gradient PT, 10 x 10,000
+    "Sunspot LG": dict(test=(0.0177, 0.0277), swap=(49.5, 58.1),
+                       accept=(8.3, 12.4), served=(0.0169, 0.0253)),
+    # regression --problem Sunspot --no-langevin (and --fused)
+    "Sunspot RW": dict(test=(0.0177, 0.0274), swap=(45.0, 65.5),
+                       accept=(9.7, 13.1), served=(0.0163, 0.0258)),
+    # classification --problem iris: the random walk, 10 x 5,000
+    "iris RW": dict(test=(46.5, 73.7), swap=(59.9, 92.3),
+                    accept=(94.0, 95.7), served=(71.4, 84.1)),
+}
+# each command line run, with the flags after --problem and its band; they
+# run at once, five processes on one card
+CLI_RUNS = (
+    ("Sunspot LG", "Sunspot LG", "regression", ["--problem", "Sunspot"]),
+    ("Sunspot RW fused roundtrip", "Sunspot RW", "regression",
+     ["--problem", "Sunspot", "--no-langevin", "--fused", "--roundtrip"]),
+    ("Sunspot RW fused replicate", "Sunspot RW", "regression",
+     ["--problem", "Sunspot", "--no-langevin", "--fused", "--replicate",
+      "2"]),
+    ("iris RW", "iris RW", "classification", ["--problem", "iris"]),
+    ("iris RW fused", "iris RW", "classification",
+     ["--problem", "iris", "--fused"]),
+)
+# runs a module as ``python -m`` does, then prints the launch counts of the
+# process on a line of its own
+CLI_PROBE = """
+import json, runpy, sys
+from ptnn_torch.ops import (block_step, conv_stage, drift, fnn_eval,
+                            precond_cls_step, precond_step)
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+print("launches " + json.dumps(dict(
+    rw_block=block_step.launches, rw_cls_block=block_step.cls_launches,
+    drift_epoch=drift.launches, fnn_eval=fnn_eval.launches,
+    conv1_relu_pool=conv_stage.launches, **precond_step.launches,
+    **precond_cls_step.launches)))
+"""
+# the checkpointed run: ptnn_torch.sample of a config (JSON) on Sunspot,
+# seed 0, checkpoint path, checkpoint every N chunks
+CKPT_PROBE = """
+import json, os, sys
+import ptnn_torch
+from ptnn_torch.config import from_json_dict
+from ptnn_torch.data import load_regression
+cfg = from_json_dict(json.loads(sys.argv[1]))
+prob = load_regression("Sunspot")
+ptnn_torch.sample(cfg, prob.train, prob.test, seed=0,
+                  device=os.environ.get("PTNN_DEVICE", "cuda"),
+                  checkpoint_path=sys.argv[2], checkpoint_every=int(sys.argv[3]))
+"""
+CKPT_EVERY = 2  # chunks of 1000 / 1333 steps between checkpoints
+CKPT_SAMPLES = 100_000  # the regression command line's default, 10 chains
+CKPT_CNN = ("64", "100")  # cnn_digits --checkpoint: chains, steps
+THIN_SHAPE = (64, 5000)  # chains, samples of the thinned runs
+LIFE_OUT = ROOT / "build" / "chip_smoke_lifecycle"
+
+
+def cli_plan(cfg, replicate):
+    """The launches a command line run of ``cfg`` plans, for the run and
+    each replication: per step, 2 drift epochs a step with Langevin
+    gradients and one eval a step; fused, one block launch a block; both,
+    one eval for init_state's ll and one for the temper switch's
+    recompute."""
+    from ptnn_torch import fused
+
+    n, runs = cfg.n_steps, 1 + replicate
+    evals = 1 + int(0 < cfg.temper_switch_step < n)
+    if cfg.fused_step:
+        kern = "rw_cls_block" if cfg.task == "classification" else "rw_block"
+        blocks = sum(len(seg) for seg in fused.block_plan(cfg))
+        return {kern: blocks * runs, "fnn_eval": evals * runs}
+    plan = {"fnn_eval": (n + evals) * runs}
+    if cfg.use_langevin_gradients:
+        plan["drift_epoch"] = 2 * n * runs
+    return plan
+
+
+def check_cli_run(tag, band, module, args, out, stdout, stderr, rc, wall):
+    """One finished command line run: exit code, the artifact tree, the
+    master row, the statistics against the band, the launches against the
+    plan; returns (run dir, statistics)."""
+    import numpy as np
+
+    from ptnn_torch.config import from_json_dict
+
+    check(rc == 0, f"{tag}: exited with {rc}: {stderr[-2000:]}")
+    lines = stdout.strip().splitlines()
+    check(lines[-1].startswith("launches "), f"{tag}: no launch line")
+    got = {k: v for k, v in json.loads(lines[-1][len("launches "):]).items()
+           if v}
+    summary = lines[-2]
+    problem = args[1]
+    check(summary.startswith(f"[{problem}] test_mean="), f"{tag}: {summary}")
+    run = out / f"{problem}_0"
+    with open(run / "config.json") as f:
+        cfg = from_json_dict(json.load(f))
+    replicate = int(args[args.index("--replicate") + 1]) \
+        if "--replicate" in args else 0
+    want = cli_plan(cfg, replicate)
+    check(got == want, f"{tag}: launches {got}, planned {want}")
+    files = ["config.json", "metrics.jsonl", "likelihood.txt",
+             "accept_list.txt", "acceptpercent.txt"]
+    files += ["roundtrip.txt"] if "--roundtrip" in args else []
+    files += ["replication.txt"] if replicate else []
+    for rel in files:
+        check((run / rel).is_file(), f"{tag}: no {rel}")
+    n_chain = {d: len(list((run / d).glob("*.txt"))) for d in (
+        "posterior/pos_w", "posterior/pos_likelihood", "predictions")}
+    check(n_chain == {"posterior/pos_w": cfg.num_chains,
+                      "posterior/pos_likelihood": cfg.num_chains,
+                      "predictions": 4 * cfg.num_chains},
+          f"{tag}: per-chain files {n_chain}")
+    with open(run / "posterior" / "pos_w" / "chain_1.0.txt") as f:
+        rows = f.read().splitlines()
+    last = np.array(rows[-1].split(), dtype=np.float64)
+    check(len(rows) == cfg.samples_per_chain and last.shape == (cfg.w_size,)
+          and np.isfinite(last).all(), f"{tag}: cold pos_w has {len(rows)} "
+          f"rows, the last {last.shape}")
+    with open(out / "master_result_file.txt") as f:
+        row = f.read().split()
+    check(len(row) == 16 and row[-1] == f"{problem}_0", f"{tag}: master row "
+          f"{row}")
+    with open(run / "metrics.jsonl") as f:
+        m = json.loads(f.read().splitlines()[-1])
+    st = dict(test=m["test_mean"], swap=m["swap_percent"],
+              accept=m["accept_per"], rate=m["chain_steps_per_sec"])
+    band = CLI_BANDS[band]
+    line = (f"[4/6] lifecycle: python -m ptnn_torch.experiments.{module} "
+            f"{' '.join(args)} --no-plots exited 0 in {wall:.1f} s "
+            f"({st['rate']:.0f} chain-steps/s sampling): test "
+            f"{st['test']:.5g} (band {band['test']}), swap {st['swap']:.2f}% "
+            f"({band['swap']}), accept {st['accept']:.2f}% "
+            f"({band['accept']}); launches {got} (as planned)")
+    if "--roundtrip" in args:
+        with open(run / "roundtrip.txt") as f:
+            line += f"; roundtrip.txt {len(f.read().splitlines())} lines"
+    if replicate:
+        with open(run / "replication.txt") as f:
+            rhat = [r for r in f.read().splitlines()
+                    if r.startswith("rhat_cold_max")][0]
+        line += f"; replication.txt {rhat}"
+    print(line)
+    for what in ("test", "swap", "accept"):
+        lo, hi = band[what]
+        check(lo <= st[what] <= hi, f"{tag}: {what} {st[what]:.5g} outside "
+              f"[{lo}, {hi}]")
+    return run, st
+
+
+def served_line(tag, proc, band, t0):
+    """The predict command line's output on a run: exit code, the served
+    RMSE / accuracy against the run's band, the calibration and the
+    criteria lines."""
+    import re
+
+    import numpy as np
+
+    stdout, stderr = proc.communicate(timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{tag} predict exited with "
+          f"{proc.returncode}: {stderr[-2000:]}")
+    lines = stdout.strip().splitlines()
+    head = lines[0]
+    m = re.search(r"RMSE\(mean\) ([0-9.]+)|accuracy\(mean probs\) ([0-9.]+)%",
+                  head)
+    check(m is not None, f"{tag}: {head}")
+    served = float(m.group(1) or m.group(2))
+    for key in ("calibration (test)", "WAIC: elpd", "PSIS-LOO: elpd",
+                "test lppd"):
+        check(any(x.startswith(key) for x in lines), f"{tag}: no {key!r} "
+              f"line")
+    numbers = [float(x) for x in re.findall(r"-?[0-9]+\.[0-9]+",
+                                            " ".join(lines))]
+    check(bool(np.isfinite(numbers).all()), f"{tag}: a served number is not "
+          f"finite")
+    print(f"[4/6] lifecycle: python -m ptnn_torch.predict --run {tag} "
+          f"--calibrate --ic exited 0 in {wall:.1f} s: "
+          + " | ".join(lines))
+    lo, hi = band
+    check(lo <= served <= hi, f"{tag}: served {served} outside [{lo}, {hi}]")
+    return served
+
+
+def kept_rows(cfg):
+    """Trace rows (1-based) the thinned run keeps, as ptnn keeps them: per
+    step, each chunk's local positions thin-1, 2 thin-1, ...; fused, each
+    group of blocks' (fused.thin_groups)."""
+    from ptnn_torch import fused, sampler
+
+    thin, n = cfg.record_thin, cfg.n_steps
+    if cfg.fused_step:
+        plan = fused.block_plan(cfg)
+        k_max = max(ln for seg in plan for (_s, ln, _f) in seg)
+        group = max(1, -(-cfg.chunk_steps // k_max))
+        groups = [[s + p for (s, ln, _f) in seg[gi:gi + group]
+                   for p in range(ln)]
+                  for seg in plan for gi in range(0, len(seg), group)]
+    else:
+        switch = cfg.temper_switch_step
+        segments = [(0, switch), (switch, n)] if 0 < switch < n else [(0, n)]
+        groups = []
+        for a, b in segments:
+            chunk = sampler._pick_chunk(b - a, max(1, min(cfg.chunk_steps, n)))
+            groups += [list(range(lo, min(lo + chunk, b)))
+                       for lo in range(a, b, chunk)]
+    return [s + 1 for g in groups for s in g[thin - 1::thin]]
+
+
+def thinned_pair(tag, cfg, thin, kern, full=None):
+    """``cfg`` unthinned (or ``full``, its result and peak) and thinned by
+    ``thin`` on the same seed; the kept rows must be the unthinned run's at
+    ptnn's positions bit for bit, the final states equal, the launches
+    the plan's."""
+    import numpy as np
+    import torch
+
+    import ptnn_torch
+    from ptnn_torch import fused
+
+    prob = sunspot()
+    plan = (sum(len(seg) for seg in fused.block_plan(cfg)) if cfg.fused_step
+            else cfg.n_steps + 2)
+
+    def run(c):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # by the phases before
+        res = ptnn_torch.sample(c, prob.train, prob.test, seed=0,
+                                device=DEVICE)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+        check(launch_count(kern) == plan, f"{tag} thin {c.record_thin}: "
+              f"{launch_count(kern)} {kern} launches, planned {plan}")
+        return res, peak
+
+    out = [full if full is not None else run(cfg),
+           run(dataclasses.replace(cfg, record_thin=thin).validate())]
+    (a, peak_a), (b, peak_b) = out
+    rows = kept_rows(b.config)
+    check(b.traces["ll"].shape[0] == len(rows) + 1, f"{tag}: "
+          f"{b.traces['ll'].shape[0]} rows, ptnn keeps {len(rows)} + 1")
+    for k, v in b.traces.items():
+        check(np.array_equal(v[1:], a.traces[k][rows]), f"{tag} thin {thin}: "
+              f"trace {k} differs from the unthinned run's kept rows")
+    for k in ("w", "n_accept", "n_swap_accepted", "ll"):
+        check(torch.equal(getattr(a.final_state, k), getattr(b.final_state, k)),
+              f"{tag} thin {thin}: final {k} differs")
+    k_max = max(ln for seg in fused.block_plan(cfg) for (_s, ln, _f) in seg) \
+        if cfg.fused_step else None
+    regime = ("" if k_max is None else
+              " (sparse: one row a block at most)" if thin >= k_max else
+              " (gather)")
+    print(f"[4/6] lifecycle: record_thin {thin}{regime}, {tag} "
+          f"{cfg.num_chains} x {cfg.samples_per_chain}: {len(rows)} kept "
+          f"rows equal the unthinned run's at ptnn's positions bit for bit, "
+          f"final state equal; wall {b.elapsed_s:.3f} s (unthinned "
+          f"{a.elapsed_s:.3f}), trace host copy {1e3 * b.fetch_s:.2f} ms "
+          f"({1e3 * a.fetch_s:.2f}), peak device memory over what was held "
+          f"before the run {peak_b:.1f} MiB ({peak_a:.1f}); {kern} launches "
+          f"{plan} each (as planned)")
+    return out[0]
+
+
+def popen(cmd):
+    return subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finished(proc, what):
+    """The output of a finished subprocess; fails unless it exited 0."""
+    stdout, stderr = proc.communicate(timeout=900)
+    check(proc.returncode == 0, f"{what} exited with {proc.returncode}: "
+          f"{stderr[-2000:]}")
+    return stdout
+
+
+def phase_run_lifecycle():
+    """The paper's command lines on the card, serving their runs, a
+    checkpointed run killed and resumed, cnn_digits --checkpoint, and
+    record_thin on both samplers. The subprocesses run in two groups at
+    once: the five command lines with the run to kill (this process runs
+    the uninterrupted one meanwhile), then the two served runs, cnn_digits
+    and the resumed run. Returns nothing: every kernel launched here also
+    runs on a main path above."""
+    import os
+    import shutil
+    import signal
+    import threading
+
+    import numpy as np
+
+    import ptnn_torch
+    from ptnn_torch import checkpoint, config, kernel
+    from ptnn_torch.models import cnn
+
+    shutil.rmtree(LIFE_OUT, ignore_errors=True)
+    LIFE_OUT.mkdir(parents=True)
+    # --- record_thin: fused (gather, sparse) and per step -----------------
+    rw = rw_fused_cfg(*THIN_SHAPE, record_w=True)
+    full = thinned_pair("rw_fused", rw, 3, "rw_block")
+    k_max = max(ln for seg in ptnn_torch.fused.block_plan(rw)
+                for (_s, ln, _f) in seg)
+    thinned_pair("rw_fused", rw, k_max + 3, "rw_block", full)
+    thinned_pair("lg_pallas", lg_cfg(*THIN_SHAPE, record_w=True), 7,
+                 "fnn_eval")
+    # --- group 1: the command lines and the run to kill ---------------------
+    # the checkpointed run: the regression command line's default config
+    cfg = dataclasses.replace(
+        ptnn_torch.regression_preset(num_samples=CKPT_SAMPLES,
+                                     num_chains=10),
+        drift_mode="sequential", n_ladders=1).validate()
+    ck = LIFE_OUT / "sunspot_lg.npz"
+    ck_cmd = [sys.executable, "-c", CKPT_PROBE,
+              json.dumps(config.to_json_dict(cfg)), str(ck), str(CKPT_EVERY)]
+    t0 = time.perf_counter()
+    procs, walls = {}, {}
+
+    def wall_of(tag):  # each command line's wall from the common start
+        procs[tag].wait()
+        walls[tag] = time.perf_counter() - t0
+
+    for tag, _band, module, args in CLI_RUNS:
+        procs[tag] = popen([sys.executable, "-c", CLI_PROBE,
+                            f"ptnn_torch.experiments.{module}", *args,
+                            "--no-plots", "--out",
+                            str(LIFE_OUT / tag.replace(" ", "_"))])
+    victim = popen(ck_cmd)
+
+    def kill_after_a_save():
+        while victim.poll() is None and not ck.exists():
+            time.sleep(0.01)
+        victim.send_signal(signal.SIGKILL)
+
+    threads = [threading.Thread(target=wall_of, args=(tag,))
+               for tag in procs] + [threading.Thread(target=kill_after_a_save)]
+    for t in threads:
+        t.start()
+    prob = sunspot()
+    want = ptnn_torch.sample(cfg, prob.train, prob.test, seed=0,
+                             device=DEVICE)  # uninterrupted, meanwhile
+    for t in threads:
+        t.join(timeout=900)
+    check(not any(t.is_alive() for t in threads), "a subprocess hangs")
+    runs = {}
+    for tag, band, module, args in CLI_RUNS:
+        stdout, stderr = procs[tag].communicate()
+        runs[tag] = check_cli_run(tag, band, module, args,
+                                  LIFE_OUT / tag.replace(" ", "_"), stdout,
+                                  stderr, procs[tag].returncode, walls[tag])
+    victim.communicate(timeout=60)
+    check(victim.returncode == -signal.SIGKILL, f"the run to kill ended "
+          f"with {victim.returncode} before a checkpoint was seen")
+    spec_name = kernel.default_spec(cfg).name
+    killed_at = checkpoint.load(str(ck), cfg, 0, spec_name)[1]
+    check(0 < killed_at < cfg.n_steps, f"killed at step {killed_at}")
+    # --- group 2: serving, cnn_digits --checkpoint, the resumed run ---------
+    cnn_out = LIFE_OUT / "cnn"
+    cnn_ck = LIFE_OUT / "cnn_checkpoint.npz"
+    t0 = time.perf_counter()
+    served = [(tag, popen([sys.executable, "-m", "ptnn_torch.predict",
+                           "--run", str(runs[tag][0]), "--problem", problem,
+                           "--calibrate", "--ic"]))
+              for tag, problem in (("Sunspot LG", "Sunspot"),
+                                   ("iris RW", "iris"))]
+    cnn_proc = popen([sys.executable, "-m",
+                      "ptnn_torch.experiments.cnn_digits", "--chains",
+                      CKPT_CNN[0], "--steps", CKPT_CNN[1], "--checkpoint",
+                      str(cnn_ck), "--out", str(cnn_out)])
+    resumed = popen(ck_cmd)
+    for tag, proc in served:
+        served_line(f"{runs[tag][0].relative_to(ROOT)}", proc,
+                    CLI_BANDS[tag]["served"], t0)
+    cnn_line = finished(cnn_proc, "cnn_digits --checkpoint")
+    with open(cnn_out / "digits_0" / "config.json") as f:
+        cnn_cfg_ = config.from_json_dict(json.load(f))
+    loaded = checkpoint.load(str(cnn_ck), cnn_cfg_, 0,
+                             cnn.digits_spec().name)
+    check(loaded is not None and loaded[1] == cnn_cfg_.n_steps,
+          "cnn_digits --checkpoint: no finished checkpoint")
+    print(f"[4/6] lifecycle: python -m ptnn_torch.experiments.cnn_digits "
+          f"--chains {CKPT_CNN[0]} --steps {CKPT_CNN[1]} --checkpoint exited "
+          f"0 in {time.perf_counter() - t0:.1f} s: "
+          f"{cnn_line.strip().splitlines()[-1].split(' -> ')[0]}; "
+          f"checkpoint at step {loaded[1]} of {cnn_cfg_.n_steps}, "
+          f"{os.path.getsize(cnn_ck) / 2**20:.2f} MiB")
+    finished(resumed, "the resumed run")
+    resume_wall = time.perf_counter() - t0
+    state, done, traces = checkpoint.load(str(ck), cfg, 0, spec_name)
+    check(done == cfg.n_steps, f"the resumed run's checkpoint at {done}")
+    check(set(traces) == set(want.traces), f"traces {sorted(traces)}")
+    for k, v in traces.items():
+        check(np.array_equal(v, want.traces[k][1:]), f"resumed trace {k} "
+              f"differs from the uninterrupted run's")
+    fin = want.final_state
+    for k, v in vars(state).items():
+        ref = getattr(fin, k)
+        check((v is None) == (ref is None) and (
+            v is None or np.array_equal(v.cpu().numpy(), ref.numpy())),
+            f"resumed state {k} differs")
+    t0 = time.perf_counter()
+    save_to = LIFE_OUT / "save_timing.npz"
+    checkpoint.save(str(save_to), fin, cfg.n_steps,
+                    {k: v[1:] for k, v in want.traces.items()}, cfg, 0,
+                    spec_name)
+    save_s = time.perf_counter() - t0
+    print(f"[4/6] lifecycle: Sunspot LG per step {cfg.num_chains} x "
+          f"{cfg.samples_per_chain}, checkpoint every {CKPT_EVERY} chunks: "
+          f"SIGKILLed with its last checkpoint at step {killed_at}, resumed "
+          f"in {resume_wall:.1f} s; every trace ({len(traces)}) and every "
+          f"state tensor equal the uninterrupted run's bit for bit; a "
+          f"checkpoint of the whole run "
+          f"{os.path.getsize(save_to) / 2**20:.2f} MiB, saved in "
+          f"{save_s:.3f} s")
+
+
 def main() -> int:
     phase_device()
     phase_build()
@@ -3164,6 +3633,7 @@ def main() -> int:
     launches.update(drift_epoch=lg["drift_epoch"], fnn_eval=lg["fnn_eval"])
     launches["conv1_relu_pool"] = phase_zoo_end_to_end()
     phase_per_step_precond_end_to_end(mala_twin)
+    phase_run_lifecycle()
     phase_throughput()
     times.update(phase_precond_throughput())
     times.update(phase_cls_throughput())

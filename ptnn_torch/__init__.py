@@ -25,16 +25,24 @@ Two samplers run today, for regression and classification:
   ``python -m ptnn_torch.experiments.cnn_digits`` is the CNN's driver and
   ``results`` writes a run's artifact tree.
 
+Both keep every ``record_thin``-th trace row when asked. The per-step
+sampler checkpoints (``checkpoint``: ``sample(checkpoint_path=...)``) and
+resumes bit-identically. ``python -m ptnn_torch.experiments.regression`` and
+``.classification`` are the paper's command lines (``experiments.runner``),
+and ``python -m ptnn_torch.predict`` serves a finished run, with WAIC /
+PSIS-LOO (``ops.ic``) and calibration scores (``ops.calibrate``).
+
 The kernels are built with ``nvcc`` for Hopper at first use. On CPU tensors
 the same functions run their plain PyTorch versions. The served predictor
 is ``predict.posterior_predict``. The package imports ``torch`` and never
 ``jax``, and keeps its own copies of ptnn's NumPy modules (``config``,
-``data``, ``ops.ladder``, ``ops.roundtrip``, ``ops.ess``).
+``data``, ``ops.ladder``, ``ops.roundtrip``, ``ops.ess``,
+``ops.calibrate``, the NumPy half of ``ops.ic``).
 """
 
 from ptnn_torch.config import (PTConfig, classification_preset,
                                regression_preset)
-from ptnn_torch import data, results
+from ptnn_torch import checkpoint, data, results
 from ptnn_torch.kernel import ChainState, Dataset, init_state, make_step_fn
 from ptnn_torch.models import cnn, mlp
 from ptnn_torch.models.api import ModelSpec, fnn_spec, grad_drift
@@ -50,6 +58,7 @@ __all__ = [
     "grad_drift",
     "cnn",
     "mlp",
+    "checkpoint",
     "data",
     "results",
     "ChainState",
@@ -67,8 +76,7 @@ __all__ = [
 # brings each (tests/test_torch_import.py holds ptnn.__all__ to this set
 # and __all__ together)
 NOT_PORTED = {
-    "checkpoint": "Queue 1 item 10: bit-exact checkpoints",
-    "mcmc": "Queue 1 item 10: the single-chain samplers",
+    "mcmc": "Queue 1 item 13: the single-chain samplers (need record_fx)",
     "profiling": "Queue 1 item 15: jax.profiler's wrapper, not to be ported",
     "sweeps": "Queue 1 item 13: sweeps",
     "tuning": "Queue 1 item 13: ladder tuning",

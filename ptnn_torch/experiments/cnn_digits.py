@@ -12,10 +12,11 @@ the CPU).
 The default run is the reference proposal with Langevin gradients (``--adapt``
 ties the drift rate to each chain's adapted step); ``--mala`` runs
 preconditioned MALA and ``--hmc L`` preconditioned HMC with L leapfrog steps,
-both per step (Langevin and ``--adapt`` off, as in ptnn). ``--sgld-batch``,
-``--mesh`` and ``--checkpoint`` parse as in ptnn and raise
-``NotImplementedError`` naming the ROADMAP item that brings them. The plots
-are written when matplotlib is installed.
+both per step (Langevin and ``--adapt`` off, as in ptnn). ``--checkpoint
+FILE`` saves the run every few chunks and resumes it from FILE after a
+crash, bit-identically. ``--sgld-batch`` and ``--mesh`` parse as in ptnn and
+raise ``NotImplementedError`` naming the ROADMAP item that brings them. The
+plots are written when matplotlib is installed.
 """
 
 from __future__ import annotations
@@ -38,8 +39,6 @@ _NOT_PORTED = {
                   "the model zoo's stochastic-gradient proposals",
     "mesh": "--mesh (chain-sharded runs): ROADMAP Queue 1 item 14, the "
             "multi-GPU mesh",
-    "checkpoint": "--checkpoint (bit-exact resume): ROADMAP Queue 1 item 10, "
-                  "run lifecycle",
 }
 
 
@@ -239,6 +238,7 @@ def main(argv=None) -> None:
     res = ptnn_torch.sample(
         cfg, prob.train, prob.test, seed=args.seed, model_spec=spec,
         device=os.environ.get("PTNN_DEVICE", "cuda"),
+        checkpoint_path=args.checkpoint,
     )
     os.makedirs(args.out, exist_ok=True)
     path = results_mod.versioned_dir(args.out, prob.name)

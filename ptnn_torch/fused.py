@@ -23,9 +23,16 @@ derives its noise from ``jax.random`` keys instead, so runs of the two
 packages agree in distribution, and exactly when ``ptnn``'s noise is fed in
 through ``noise_fn``.
 
+``cfg.record_thin > 1`` keeps every ``record_thin``-th executed row of a
+group of ``ceil(chunk_steps / k_max)`` blocks, as ptnn's scan chunks do
+(``Thinner``): the group's rows gathered on the device when ``record_thin``
+is below the longest block, else at most one row a block written into a
+small preallocated device buffer, so that a long group never holds its
+whole trace.
+
 Scope (``fused_reason``): the reference random-walk, preconditioned-MALA
-and HMC/ChEES proposals, regression and classification, float32, every
-trace row kept, one device; (``topology_reason``) a network the CUDA block
+and HMC/ChEES proposals, regression and classification, float32, one
+device; (``topology_reason``) a network the CUDA block
 kernels are built for; and (``working_set_reason``) a network and dataset
 whose block fits the kernel's shared memory.
 """
@@ -74,8 +81,6 @@ def fused_reason(cfg: PTConfig) -> Optional[str]:
         return "no fx/ll_cur traces"
     if cfg.eval_dtype != "float32":
         return "float32 only"
-    if cfg.record_thin != 1:
-        return "record_thin=1 only (thinned traces are not yet ported)"
     return None
 
 
@@ -401,6 +406,83 @@ def _engine(cfg: PTConfig, train, test, device, record_w: bool) -> _Engine:
     )
 
 
+def thin_groups(plan: List[List[Tuple[int, int, bool]]], k_max: int,
+                chunk_steps: int) -> List[List[int]]:
+    """The lengths of the blocks of each group ptnn scans as one chunk:
+    each segment's blocks in runs of ``ceil(chunk_steps / k_max)``
+    (ptnn/fused.py:698, 791-794)."""
+    group = max(1, int(np.ceil(chunk_steps / k_max)))
+    return [[ln for (_s, ln, _f) in seg[gi:gi + group]]
+            for seg in plan for gi in range(0, len(seg), group)]
+
+
+def keep_flat(lengths: List[int], thin: int) -> np.ndarray:
+    """The kept rows of a group, as positions among its executed rows:
+    ``thin-1, 2*thin-1, ...`` (ptnn's ``_keep_flat`` without the padding
+    rows the port's blocks do not have)."""
+    return np.arange(thin - 1, sum(lengths), thin)
+
+
+def posdest(lengths: List[int], thin: int) -> Tuple[np.ndarray, int]:
+    """(blocks, 2) [local row, buffer row] (-1: the block keeps nothing)
+    and the kept count of a group, for ``thin`` at least the longest block
+    (one kept row a block at most): ptnn's ``_posdest``."""
+    pd = np.full((len(lengths), 2), -1, np.int64)
+    q = 0
+    for bi, ln in enumerate(lengths):
+        for p in range(ln):
+            if q % thin == thin - 1:
+                pd[bi] = (p, q // thin)
+            q += 1
+    return pd, q // thin
+
+
+class Thinner:
+    """``on_block`` for ``record_thin > 1``: keeps each group's rows at
+    ptnn's positions on the device and hands the group's kept rows to
+    ``emit``. Gather regime (``thin < k_max``): the group's block traces
+    are held until its last block, then gathered at ``keep_flat``. Sparse
+    regime (``thin >= k_max``): each block writes its one kept row, if
+    any, into a buffer of the group's kept count (``posdest``)."""
+
+    def __init__(self, cfg: PTConfig, plan, k_max: int,
+                 emit: Callable[[Dict[str, torch.Tensor]], None]):
+        self.thin = cfg.record_thin
+        self.sparse = self.thin >= k_max
+        self.groups = thin_groups(plan, k_max, cfg.chunk_steps)
+        self.emit = emit
+        self.gi = 0  # group of the next block
+        self.bi = 0  # its index in the group
+        self.held: List[Dict[str, torch.Tensor]] = []
+        self.buf: Optional[Dict[str, torch.Tensor]] = None
+        self.pd: Optional[np.ndarray] = None  # the group's posdest rows
+
+    def __call__(self, out: Dict[str, torch.Tensor]) -> None:
+        lengths = self.groups[self.gi]
+        if self.sparse:
+            if self.buf is None:  # the group's first block
+                self.pd, n_keep = posdest(lengths, self.thin)
+                self.buf = {k: v.new_empty((n_keep,) + v.shape[1:])
+                            for k, v in out.items()}
+            p, dest = self.pd[self.bi]
+            if dest >= 0:
+                for k, v in out.items():
+                    self.buf[k][dest] = v[p]
+        else:
+            self.held.append(out)
+        self.bi += 1
+        if self.bi < len(lengths):
+            return
+        if self.sparse:
+            self.emit(self.buf)
+        else:
+            idx = torch.as_tensor(keep_flat(lengths, self.thin),
+                                  device=out["ll"].device)
+            self.emit({k: torch.cat([h[k] for h in self.held])[idx]
+                       for k in out})
+        self.gi, self.bi, self.held, self.buf = self.gi + 1, 0, [], None
+
+
 def sample_fused(
     cfg: PTConfig,
     train: np.ndarray,
@@ -410,7 +492,8 @@ def sample_fused(
     init_state: Optional[kernel.ChainState] = None,
     noise_fn: Optional[NoiseFn] = None,
 ) -> SampleResult:
-    """Fused-block sampler; the traces and counters of ``ptnn``'s."""
+    """Fused-block sampler; the traces and counters of ``ptnn``'s, thinned
+    as ptnn's when ``cfg.record_thin > 1`` (``Thinner``)."""
     cfg.validate()
     eng = _engine(cfg, train, test, device, record_w=cfg.record_w)
     state = init_state if init_state is not None else eng.init_state(seed)
@@ -418,17 +501,22 @@ def sample_fused(
         noise_fn = torch_noise(seed, eng.device, noise_names(cfg))
 
     blocks: List[Dict[str, torch.Tensor]] = []
+    on_block = (blocks.append if cfg.record_thin == 1
+                else Thinner(cfg, eng.plan, eng.k_max, blocks.append))
     t0 = time.perf_counter()
-    state = eng.run(state, noise_fn, blocks.append)
+    state = eng.run(state, noise_fn, on_block)
+    synchronize(eng.device)
+    t_fetch = time.perf_counter()
     traces = {k: torch.cat([b[k] for b in blocks]).cpu().numpy()
               for k in blocks[0]}
-    synchronize(eng.device)
+    fetch_s = time.perf_counter() - t_fetch
     elapsed = time.perf_counter() - t0
 
     if cfg.task == "regression":  # regression carries no accuracy
+        rows = traces["ll"].shape[0]
         for name in _ACC:
-            traces[name] = np.zeros((cfg.n_steps, cfg.num_chains), np.float32)
-    return make_result(cfg, traces, state, eng.temps_host, elapsed)
+            traces[name] = np.zeros((rows, cfg.num_chains), np.float32)
+    return make_result(cfg, traces, state, eng.temps_host, elapsed, fetch_s)
 
 
 def throughput_build_fused(

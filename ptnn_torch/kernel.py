@@ -435,8 +435,6 @@ def step_reason(cfg: PTConfig,
                  "record_ll_state"):
         if getattr(cfg, flag):
             return flag
-    if cfg.record_thin != 1:
-        return "record_thin > 1"
     if cfg.eval_dtype != "float32":
         return f"eval_dtype={cfg.eval_dtype!r}"
     if cfg.adapt_step_size and cfg.use_langevin_gradients and not (

@@ -74,6 +74,9 @@ class SampleResult:
     pair_swap_accept: Optional[np.ndarray] = None
     vr_regen_accept_pct: Optional[float] = None
     vr_regen_proposed: int = 0
+    # host seconds spent copying the kept trace rows from the device, after
+    # the device had finished them (the port's own; ptnn has no such field)
+    fetch_s: float = 0.0
 
 
 def make_dataset(cfg: PTConfig, train, test, device) -> Dataset:
@@ -125,7 +128,7 @@ def merge_rows(traces: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 def make_result(cfg: PTConfig, traces: Dict[str, np.ndarray],
                 state: ChainState, temps_host: np.ndarray,
-                elapsed: float) -> SampleResult:
+                elapsed: float, fetch_s: float = 0.0) -> SampleResult:
     """The ``SampleResult`` of a finished run: merged traces, the final
     state on the CPU, and ptnn's percentages."""
     final = state.to("cpu")
@@ -145,6 +148,7 @@ def make_result(cfg: PTConfig, traces: Dict[str, np.ndarray],
         config=cfg,
         pair_swap_accept=final.pair_accept_sum.numpy()[:-1]
         / np.maximum(final.pair_prop_count.numpy()[:-1], 1),
+        fetch_s=fetch_s,
     )
 
 
@@ -268,6 +272,17 @@ def step_noise(seed: int, device, names) -> NoiseFn:
     return noise_fn
 
 
+def thin_rows(rows: List[Dict[str, torch.Tensor]],
+              thin: int) -> Dict[str, torch.Tensor]:
+    """A chunk's trace rows stacked, keeping local positions ``thin-1,
+    2*thin-1, ...`` (``cfg.record_thin``, ptnn/sampler.py:219-223): on the
+    device, before any host copy; a chunk shorter than ``thin`` keeps none."""
+    kept = rows[thin - 1::thin]
+    if not kept:
+        return {m: v[None][:0] for m, v in rows[0].items()}
+    return {m: torch.stack([r[m] for r in kept]) for m in kept[0]}
+
+
 @dataclasses.dataclass
 class _PerStep:
     cfg: PTConfig
@@ -277,19 +292,26 @@ class _PerStep:
     step_fn: kernel.StepFn
 
     def run(self, state: ChainState, noise_fn: NoiseFn,
-            on_chunk: Callable[[Dict[str, torch.Tensor]], None]) -> ChainState:
-        """Both segments (ptnn/sampler.py:233-322), chunk by chunk; each
-        chunk's traces (length, C, ...) go to ``on_chunk``."""
+            on_chunk: Callable[[Dict[str, torch.Tensor]], None],
+            start: int = 0,
+            on_boundary: Optional[Callable[[ChainState, int], None]] = None,
+            ) -> ChainState:
+        """Both segments (ptnn/sampler.py:233-322), chunk by chunk, from
+        step ``start`` (a chunk boundary: where a checkpoint was saved);
+        each chunk's kept trace rows go to ``on_chunk`` and then the state
+        and the steps done to ``on_boundary``."""
         cfg, fn = self.cfg, self.step_fn
         n, switch = cfg.n_steps, cfg.temper_switch_step
         segments = [(0, switch), (switch, n)] if 0 < switch < n else [(0, n)]
         target = max(1, min(cfg.chunk_steps, n))
         c, w = cfg.num_chains, fn.spec.w_size
         for si, (a, b) in enumerate(segments):
-            if si > 0:
+            if start >= b:
+                continue
+            done = max(a, start)
+            if si > 0 and done == a:
                 state = fn.recompute_ll(state)
             chunk = _pick_chunk(b - a, target)
-            done = a
             while done < b:
                 length = min(chunk, b - done)
                 noise = noise_fn(done, length, c, w)
@@ -298,9 +320,10 @@ class _PerStep:
                     state, trace = fn.step(
                         state, done + k, {m: v[k] for m, v in noise.items()})
                     rows.append(trace)
-                on_chunk({m: torch.stack([r[m] for r in rows])
-                          for m in rows[0]})
+                on_chunk(thin_rows(rows, cfg.record_thin))
                 done += length
+                if on_boundary is not None:
+                    on_boundary(state, done)
         return state
 
 
@@ -323,21 +346,61 @@ def sample_per_step(
     init_state: Optional[ChainState] = None,
     noise_fn: Optional[NoiseFn] = None,
     model_spec: Optional[model_api.ModelSpec] = None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 4,
 ) -> SampleResult:
-    """The per-step sampler; the traces and counters of ptnn's."""
+    """The per-step sampler; the traces and counters of ptnn's. With
+    ``checkpoint_path`` the run saves a checkpoint every
+    ``checkpoint_every`` chunks and at its end, and resumes from a matching
+    one (same config, seed and model) at its step with its traces
+    (ptnn/sampler.py:242-322)."""
+    from ptnn_torch import checkpoint as ckpt
+
     eng = _per_step(cfg, train, test, device, model_spec)
+    spec_name = eng.step_fn.spec.name
     state = (init_state if init_state is not None
              else init_chains(cfg, eng.data, seed, eng.step_fn.spec))
     if noise_fn is None:
         noise_fn = step_noise(seed, eng.device, kernel.step_noise_names(cfg))
     chunks: List[Dict[str, np.ndarray]] = []
+    resume_at = 0
+    if checkpoint_path is not None:
+        loaded = ckpt.load(checkpoint_path, cfg, seed, spec_name, eng.device)
+        if loaded is not None:
+            state, resume_at, ck_traces = loaded
+            if ck_traces:
+                chunks.append(ck_traces)
+    fetch = [0.0]
+
+    def fetch_chunk(tr: Dict[str, torch.Tensor]) -> None:
+        synchronize(eng.device)
+        t = time.perf_counter()
+        chunks.append({k: v.cpu().numpy() for k, v in tr.items()})
+        fetch[0] += time.perf_counter() - t
+
+    def merged() -> Dict[str, np.ndarray]:
+        return {k: np.concatenate([ch[k] for ch in chunks])
+                for k in chunks[0]}
+
+    since = [0]
+
+    def boundary(st: ChainState, done: int) -> None:
+        since[0] += 1
+        if since[0] >= checkpoint_every:
+            ckpt.save(checkpoint_path, st, done, merged(), cfg, seed,
+                      spec_name)
+            since[0] = 0
+
     t0 = time.perf_counter()
-    state = eng.run(state, noise_fn, lambda tr: chunks.append(
-        {k: v.cpu().numpy() for k, v in tr.items()}))
+    state = eng.run(state, noise_fn, fetch_chunk, start=resume_at,
+                    on_boundary=boundary if checkpoint_path else None)
     synchronize(eng.device)
+    if checkpoint_path is not None:
+        ckpt.save(checkpoint_path, state, cfg.n_steps, merged(), cfg, seed,
+                  spec_name)
     elapsed = time.perf_counter() - t0
-    traces = {k: np.concatenate([ch[k] for ch in chunks]) for k in chunks[0]}
-    return make_result(cfg, traces, state, eng.temps_host, elapsed)
+    return make_result(cfg, merged(), state, eng.temps_host, elapsed,
+                       fetch[0])
 
 
 def throughput_build_per_step(
@@ -361,9 +424,11 @@ def throughput_build_per_step(
     return throughput_rep(cfg2, run, eng.device)
 
 
-def _fused_or_warn(cfg: PTConfig, train, test, model_spec=None) -> bool:
+def _fused_or_warn(cfg: PTConfig, train, test, model_spec=None,
+                   checkpoint: bool = False) -> bool:
     """Whether ``cfg`` takes the fused path; a fused config the fused path
-    cannot run falls back to the per-step sampler with a warning."""
+    cannot run (or a checkpointed run) falls back to the per-step sampler
+    with a warning."""
     if not cfg.fused_step:
         return False
     from ptnn_torch import fused
@@ -371,6 +436,9 @@ def _fused_or_warn(cfg: PTConfig, train, test, model_spec=None) -> bool:
     reason = fused.runtime_reason(cfg, train.shape[0], test.shape[0])
     if model_spec is not None and model_spec.fnn_topology is None:
         reason = "fused_step supports the reference FNN spec"
+    if checkpoint:  # ptnn/sampler.py:140-147
+        reason = ("fused_step does not checkpoint (chunk boundaries are "
+                  "swap-aligned, not step-aligned)")
     if reason is None:
         return True
     warnings.warn(f"fused_step: falling back to the per-step sampler "
@@ -387,18 +455,26 @@ def sample(
     init_state: Optional[ChainState] = None,
     noise_fn=None,
     model_spec: Optional[model_api.ModelSpec] = None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 4,
 ) -> SampleResult:
     """Run the PT sampler and return its traces and counters. ``noise_fn``
-    follows the contract of the path that runs (``fused`` or per-step)."""
+    follows the contract of the path that runs (``fused`` or per-step).
+    ``checkpoint_path``: the per-step sampler checkpoints every
+    ``checkpoint_every`` chunks and resumes bit-identically from a matching
+    checkpoint (``sample_per_step``); a fused config falls back to it."""
     cfg.validate()
-    if _fused_or_warn(cfg, train, test, model_spec):
+    if _fused_or_warn(cfg, train, test, model_spec,
+                      checkpoint=checkpoint_path is not None):
         from ptnn_torch import fused
 
         return fused.sample_fused(cfg, train, test, seed=seed, device=device,
                                   init_state=init_state, noise_fn=noise_fn)
     return sample_per_step(cfg, train, test, seed=seed, device=device,
                            init_state=init_state, noise_fn=noise_fn,
-                           model_spec=model_spec)
+                           model_spec=model_spec,
+                           checkpoint_path=checkpoint_path,
+                           checkpoint_every=checkpoint_every)
 
 
 def throughput_runner(

@@ -73,7 +73,6 @@ def test_fused_reason_scope():
                     proposal="precond_mala")):
         assert tfused.fused_reason(ptnn_torch.PTConfig(**_kw(**ok))) is None
     for bad in (dict(topology=(4, 5, 2)),
-                dict(record_thin=2, track_replicas=False),
                 # ptnn's 160-chain ChEES refusal: one panel cannot hold it
                 dict(proposal="hmc", hmc_adapt_traj=True, num_chains=160,
                      num_samples=160 * 100, n_ladders=40)):

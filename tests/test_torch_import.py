@@ -26,6 +26,12 @@ MODULES = (
     "ptnn_torch.models.cnn",
     "ptnn_torch.results",
     "ptnn_torch.experiments.cnn_digits",
+    "ptnn_torch.experiments.runner",
+    "ptnn_torch.experiments.regression",
+    "ptnn_torch.experiments.classification",
+    "ptnn_torch.checkpoint",
+    "ptnn_torch.ops.ic",
+    "ptnn_torch.ops.calibrate",
     "ptnn_torch.ops.conv_stage",
     "ptnn_torch.ops.precision",
     "ptnn_torch.ops",

@@ -137,7 +137,6 @@ def test_cnn_digits_cli_writes_the_tree_and_refuses_what_is_not_ported(
     assert cfg["adapt_step_size"] and cfg["use_langevin_gradients"]
     assert cfg["learn_rate"] == 0.01 * 0.01 / 2.0 and not cfg["record_w"]
     for flags, word in ((["--sgld-batch", "8"], "sgld"),
-                        (["--mesh"], "mesh"),
-                        (["--checkpoint", "x.bin"], "checkpoint")):
+                        (["--mesh"], "mesh")):
         with pytest.raises(NotImplementedError, match=word):
             cnn_digits.main(["--chains", "4", "--steps", "10"] + flags)

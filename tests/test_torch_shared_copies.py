@@ -178,7 +178,20 @@ def test_posterior_predict_with_a_spec_matches_ptnn(rng, model):
     with pytest.raises(ValueError, match="draws must be"):
         tpredict.posterior_predict(_port_cfg(cfg), draws[:, 1:], x,
                                    device="cpu", spec=tspec)
-    for kw in (dict(noise="conditional"), dict(return_samples=True)):
-        with pytest.raises(NotImplementedError, match=next(iter(kw))):
-            tpredict.posterior_predict(_port_cfg(cfg), draws, x, device="cpu",
-                                       spec=tspec, **kw)
+    # the full predictive's options, as ptnn's: return_samples adds the
+    # (M, N) predictive draws (regression; classification has none), and
+    # noise="conditional" needs cond=
+    j = jpredict.posterior_predict(cfg, draws, x, batch=64, spec=jspec,
+                                   return_samples=True)
+    t = tpredict.posterior_predict(_port_cfg(cfg), draws, x, batch=64,
+                                   device="cpu", spec=tspec,
+                                   return_samples=True)
+    assert set(t) == set(j)
+    assert ("samples" in t) == (cfg.task == "regression")
+    if "samples" in t:
+        np.testing.assert_allclose(t["samples"], j["samples"], rtol=1e-5,
+                                   atol=1e-6)
+        with pytest.raises(ValueError, match="cond"):
+            tpredict.posterior_predict(_port_cfg(cfg), draws, x,
+                                       device="cpu", spec=tspec,
+                                       noise="conditional")

@@ -305,7 +305,7 @@ def test_fused_langevin_config_is_refused_and_others_fall_back():
          swap_payload="untempered", swap_rule="metropolis",
          stale_likelihood_after_swap=False, pt_phase_frac=1.0),
     dict(record_fx=True),
-    dict(record_ll_state=True), dict(record_thin=2, track_replicas=False),
+    dict(record_ll_state=True),
     dict(adapt_step_size=True), dict(eval_dtype="bfloat16"),
 ])
 def test_per_step_refuses_what_is_not_ported(feature):
