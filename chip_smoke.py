@@ -132,7 +132,25 @@ not 0):
      in a subprocess, SIGKILLed after its first checkpoint, run again on
      the same path, and held to an uninterrupted run bit for bit (every
      trace and state tensor), with a whole-run checkpoint's size and save
-     time;
+     time; then the variational-reference paths, as subprocesses at once:
+     python -m ptnn_torch.experiments.regression --problem Sunspot --vref
+     --evidence --roundtrip (Langevin per step, 10 x 10,000, the T = inf
+     rung), --no-langevin --vr-rounds 3 --evidence (full covariance, ptnn's
+     w_size warning) and classification --problem iris --vref --evidence
+     (served by ptnn_torch.predict), each with evidence.txt anchored and
+     finite, rounds_history.md, the regeneration at beta = 0 100 % and the
+     launches of the plan (nothing for the reference), against bands from
+     ptnn's own command lines on the CPU, seeds 0-19; the single-chain
+     sampler, mcmc.single_chain_config("regression", (4, 10, 1),
+     samples=10,000), seeds 0-2, against ptnn's bands (accept, test RMSE,
+     the share of test targets in predictive_bands' 5-95 % band); a --vref
+     run at 10 x 2000 SIGKILLed after its first checkpoint and resumed bit
+     for bit (vr_* and n_regen_* included); and in this process the
+     evidence model selection of scripts/evidence_model_selection.py
+     (hidden 2 and 6, 16-chain VR ladders tuned by tuning.tune_ladder,
+     seeds 4, 14, 24 at 1600 steps a chain), each seed's abs log Z, PSIS-LOO
+     elpd and RMSE and the barrier against ptnn's bands, the ranking
+     printed;
   5. throughput: throughput_runner at 2000 samples per chain (Sunspot
      rw_fused at 64 and 1024 chains, mala_fused_16x4, chees16_fused_256x4;
      iris chees16_fused_16x4 and chees16_fused_64x4; lg_pallas), and each
@@ -2035,7 +2053,8 @@ def drift_cases():
     PenDigit 10 on all 7494 train rows. Then every distinct topology of the
     bundled datasets (data.py), each at 10 chains on 64 random rows, and one
     topology outside the register kernel's table, which the generic kernel
-    runs."""
+    runs. Last, the VR paths' Langevin widths on Sunspot's train rows: 10
+    chains (the command line) and 1 (the single chain)."""
     import numpy as np
     import torch
 
@@ -2065,6 +2084,9 @@ def drift_cases():
         t = drift.make_targets(y, topo[2], task).contiguous()
         out.append((f"random {drift.variant(topo)[0]}", topo, task, 10, x, t,
                     1, False))
+    sun = out[0]
+    for c in (10, 1):  # the VR paths' Langevin widths
+        out.append(("Sunspot", *sun[1:3], c, *sun[4:7], False))
     return out
 
 
@@ -2080,7 +2102,7 @@ def drift_ops(topo, c, n, depth):
 
 def phase_drift_kernel():
     """The drift kernel against its plain version on the same CUDA tensors;
-    returns the largest |diff| and each case's numbers for the report."""
+    returns the largest |diff|."""
     import numpy as np
     import torch
 
@@ -2088,12 +2110,12 @@ def phase_drift_kernel():
     from ptnn_torch.ops import drift
 
     rng = np.random.default_rng(23)
-    err, rows = 0.0, {}
-    for label, topo, _task, c, x, t, depth, main in drift_cases():
+    err = 0.0
+    for label, topo, _task, c, x, t, depth, _main in drift_cases():
         # on random rows, weights of half the scale keep the sigmoids of the
         # wider nets out of saturation, so the epoch moves w
         w = torch.as_tensor(rng.normal(size=(c, fnn.w_size(topo)))
-                            * (1.0 if main else 0.5),
+                            * (0.5 if label.startswith("random") else 1.0),
                             dtype=torch.float32, device=DEVICE)
         kind, group = drift.variant(topo)
         before = drift.launches, dict(drift.variant_launches)
@@ -2113,32 +2135,44 @@ def phase_drift_kernel():
         moved = float((want - w).abs().max())
         check(moved > 1e-3, f"drift {label}: the epoch did not move w")
         err = max(err, float(diff.max()))
-        rows[(label, depth)] = (float(diff.max()), rel)
         how = f"register kernel, G={group}" if kind == "register" else kind
         print(f"[3/6] kernel: drift_epoch {label} {topo} ({how}) C={c} "
               f"N={x.shape[0]} depth {depth}: w within rtol {D_RTOL} of each "
               f"chain's scale, atol {D_ATOL} (max |diff| "
               f"{float(diff.max()):.3g}, {rel:.3g} of the chain's scale; the "
               f"epoch moved w by up to {moved:.3g})")
-    return err, rows
+    return err
+
+
+# the networks the evidence model selection gives the eval kernel (phase 4),
+# which FNN_LAYOUTS lacks: they take the generic instantiation
+EVAL_GENERIC = ((4, 2, 1), (4, 6, 1))
 
 
 def eval_cases():
     """(label, topology, task, chains, (x_tr, y_tr), (x_te, y_te)) at the
-    per-step paths' widths: Sunspot 64 chains, Ionosphere 10 and 64 (the
-    fused MALA config's fallback) and PenDigit 10 (the drift's third
-    width), train and test rows."""
+    per-step paths' widths, train and test rows: Sunspot 64 chains,
+    Ionosphere 10 and 64 (the fused MALA config's fallback) and PenDigit 10
+    (the drift's third width); and the VR paths': Sunspot 10 (the command
+    lines) and 1 (the single chain), the model selection's (4, 2, 1) and
+    (4, 6, 1) networks at 16 chains, and iris 10 (its --vref run)."""
     import torch
 
     from ptnn_torch import data
 
+    iono = data.load_classification("Ionosphere")
     out = []
-    for label, prob, c in (
-            ("Sunspot", sunspot(), 64),
-            ("Ionosphere", data.load_classification("Ionosphere"), 10),
-            ("Ionosphere", data.load_classification("Ionosphere"), 64),
-            ("PenDigit", data.load_classification("PenDigit"), 10)):
-        topo = prob.topology if prob.task == "classification" else (4, 10, 1)
+    for label, prob, c, hidden in (
+            ("Sunspot", sunspot(), 64, 10),
+            ("Ionosphere", iono, 10, None),
+            ("Ionosphere", iono, 64, None),
+            ("PenDigit", data.load_classification("PenDigit"), 10, None),
+            ("Sunspot", sunspot(), 10, 10),
+            ("Sunspot", sunspot(), 1, 10),
+            ("Sunspot", sunspot(), 16, 2),
+            ("Sunspot", sunspot(), 16, 6),
+            ("iris", iris(), 10, None)):
+        topo = prob.topology if hidden is None else (4, hidden, 1)
         i = topo[0]
         f = lambda a: torch.as_tensor(a, dtype=torch.float32,
                                       device=DEVICE).contiguous()
@@ -2179,8 +2213,9 @@ def phase_eval_kernel():
     import torch
 
     from ptnn_torch.models import fnn
-    from ptnn_torch.ops import block_step, fnn_eval
+    from ptnn_torch.ops import _build, block_step, fnn_eval
 
+    gen_hpw = _build.cu_define("fnn_eval.cu", "GEN_HPW")
     rng = np.random.default_rng(29)
     err = 0.0
     for label, topo, task, c, train, test in eval_cases():
@@ -2188,8 +2223,16 @@ def phase_eval_kernel():
                             dtype=torch.float32, device=DEVICE)
         tau = torch.as_tensor(rng.uniform(0.01, 0.2, size=c),
                               dtype=torch.float32, device=DEVICE)
+        generic = topo not in fnn_eval.layouts()
+        check(generic == (topo in EVAL_GENERIC), f"fnn_eval {label} {topo}: "
+              f"generic instantiation {generic}, expected the opposite")
         for what, kern, plain, sets in eval_calls(label, topo, task, train,
                                                   test):
+            plan = fnn_eval.launch_plan(c, [x.shape[0] for x, _y in sets],
+                                        topo)
+            check(not generic or plan.hid_per_warp == gen_hpw,
+                  f"fnn_eval {what} {topo}: {plan.hid_per_warp} hidden units "
+                  f"a warp, the generic plan takes {gen_hpw}")
             before = fnn_eval.launches
             got = kern(w, tau)
             check(fnn_eval.launches == before + 1,
@@ -2226,8 +2269,11 @@ def phase_eval_kernel():
                        f"acc and rmse exact outside {n_fragile} chains with "
                        f"fragile argmaxes")
             rows = " + ".join(str(x.shape[0]) for x, _y in sets)
+            inst = "generic" if generic else "fixed-shape"
             print(f"[3/6] kernel: fnn_eval {what} {topo} C={c} N={rows}, one "
-                  f"launch: ll within rtol {RTOL} of its terms (max |diff| "
+                  f"launch of the {inst} instantiation ({plan.cluster}-block "
+                  f"clusters, {plan.row_groups} x {plan.hid_groups} warps of "
+                  f"{plan.hid_per_warp} hidden units): ll within rtol {RTOL} of its terms (max |diff| "
                   f"{worst:.3g}), {metrics}")
     return err
 
@@ -2400,11 +2446,12 @@ def phase_per_step_throughput():
                   f"100 calls), {issue_ms:.4f} ms a call issued from the host "
                   f"loop, plain version {p_ms:.3f} ms, bound {b_ms:.6f} ms "
                   f"({b_by})")
-            if what == "Sunspot train":
+            if (what, c, topo) == ("Sunspot train", 64, (4, 10, 1)):
                 out["fnn_eval"] = dict(ms=dev_ms, issue_ms=issue_ms,
                                        plain_ms=p_ms, bound_ms=b_ms,
                                        bound_by=b_by)
-            if what == "Sunspot pair":  # what lg_pallas launches every step
+            if (what, c, topo) == ("Sunspot pair", 64, (4, 10, 1)):
+                # what lg_pallas launches every step
                 out["fnn_eval"].update(
                     pair_ms=dev_ms, pair_issue_ms=issue_ms, pair_plain_ms=p_ms,
                     pair_bound_ms=b_ms, pair_bound_by=b_by)
@@ -3255,14 +3302,20 @@ THIN_SHAPE = (64, 5000)  # chains, samples of the thinned runs
 LIFE_OUT = ROOT / "build" / "chip_smoke_lifecycle"
 
 
-def cli_plan(cfg, replicate):
+def cli_plan(cfg, replicate, rounds=()):
     """The launches a command line run of ``cfg`` plans, for the run and
     each replication: per step, 2 drift epochs a step with Langevin
     gradients and one eval a step; fused, one block launch a block; both,
     one eval for init_state's ll and one for the temper switch's
-    recompute."""
+    recompute. With ``rounds`` (the samples a chain of each VR round), the
+    sum of that plan over the rounds' runs, each at its budget; the
+    reference itself launches nothing."""
     from ptnn_torch import fused
 
+    if rounds:
+        plans = [cli_plan(dataclasses.replace(
+            cfg, num_samples=s * cfg.num_chains), replicate) for s in rounds]
+        return {k: sum(p[k] for p in plans) for k in plans[0]}
     n, runs = cfg.n_steps, 1 + replicate
     evals = 1 + int(0 < cfg.temper_switch_step < n)
     if cfg.fused_step:
@@ -3275,10 +3328,29 @@ def cli_plan(cfg, replicate):
     return plan
 
 
-def check_cli_run(tag, band, module, args, out, stdout, stderr, rc, wall):
-    """One finished command line run: exit code, the artifact tree, the
-    master row, the statistics against the band, the launches against the
-    plan; returns (run dir, statistics)."""
+def in_band(tag, what, value, band):
+    lo, hi = band
+    check(lo <= value <= hi, f"{tag}: {what} {value:.6g} outside [{lo}, "
+          f"{hi}]")
+
+
+def read_rounds(run):
+    """``rounds_history.md``'s rows: samples a chain, swap %, barrier, regen
+    % (as printed, a dash for round 0) and the test metric."""
+    with open(run / "rounds_history.md") as f:
+        table = f.read().splitlines()[2:]
+    rows = [[c.strip() for c in r.strip("|").split("|")] for r in table]
+    return [dict(samples=int(c[1]), swap=float(c[2]), barrier=float(c[3]),
+                 regen=c[5], metric=float(c[6])) for c in rows]
+
+
+def check_cli_run(phase, tag, band, module, args, out, stdout, stderr, rc,
+                  wall):
+    """One finished command line run: exit code, the artifact tree (the
+    evidence and rounds files where the flags ask for them), the master
+    row, the statistics against ``band`` (a VR run's regeneration at 100 %,
+    a rounds run's every round), the launches against the plan; returns
+    (run dir, statistics, the launch line's counts)."""
     import numpy as np
 
     from ptnn_torch.config import from_json_dict
@@ -3296,17 +3368,27 @@ def check_cli_run(tag, band, module, args, out, stdout, stderr, rc, wall):
         cfg = from_json_dict(json.load(f))
     replicate = int(args[args.index("--replicate") + 1]) \
         if "--replicate" in args else 0
-    want = cli_plan(cfg, replicate)
+    rounds = read_rounds(run) if "--vr-rounds" in args else []
+    vr = "--vref" in args or bool(rounds)
+    check(cfg.variational_reference == vr and cfg.vr_hot_infinite == vr,
+          f"{tag}: variational reference {cfg.variational_reference}, T = "
+          f"inf rung {cfg.vr_hot_infinite}")
+    want = cli_plan(cfg, replicate, [r["samples"] for r in rounds])
     check(got == want, f"{tag}: launches {got}, planned {want}")
     files = ["config.json", "metrics.jsonl", "likelihood.txt",
              "accept_list.txt", "acceptpercent.txt"]
     files += ["roundtrip.txt"] if "--roundtrip" in args else []
     files += ["replication.txt"] if replicate else []
+    files += ["evidence.txt"] if "--evidence" in args else []
+    files += ["rounds_history.md"] if rounds else []
     for rel in files:
         check((run / rel).is_file(), f"{tag}: no {rel}")
     n_chain = {d: len(list((run / d).glob("*.txt"))) for d in (
         "posterior/pos_w", "posterior/pos_likelihood", "predictions")}
-    check(n_chain == {"posterior/pos_w": cfg.num_chains,
+    # record_w_chains = k (the rounds set 1): the w of the first k cold rungs
+    stride = cfg.rungs_per_ladder if cfg.n_ladders > 1 else 1
+    n_w = min(cfg.record_w_chains, cfg.num_chains // stride) or cfg.num_chains
+    check(n_chain == {"posterior/pos_w": n_w,
                       "posterior/pos_likelihood": cfg.num_chains,
                       "predictions": 4 * cfg.num_chains},
           f"{tag}: per-chain files {n_chain}")
@@ -3324,27 +3406,63 @@ def check_cli_run(tag, band, module, args, out, stdout, stderr, rc, wall):
         m = json.loads(f.read().splitlines()[-1])
     st = dict(test=m["test_mean"], swap=m["swap_percent"],
               accept=m["accept_per"], rate=m["chain_steps_per_sec"])
-    band = CLI_BANDS[band]
-    line = (f"[4/6] lifecycle: python -m ptnn_torch.experiments.{module} "
-            f"{' '.join(args)} --no-plots exited 0 in {wall:.1f} s "
-            f"({st['rate']:.0f} chain-steps/s sampling): test "
-            f"{st['test']:.5g} (band {band['test']}), swap {st['swap']:.2f}% "
-            f"({band['swap']}), accept {st['accept']:.2f}% "
-            f"({band['accept']}); launches {got} (as planned)")
+    extra = []
     if "--roundtrip" in args:
         with open(run / "roundtrip.txt") as f:
-            line += f"; roundtrip.txt {len(f.read().splitlines())} lines"
+            n_lines = len(f.read().splitlines())
+        trips = [x for x in lines if "replica transport: " in x]
+        check(len(trips) == 1, f"{tag}: no transport line")
+        st["trips"] = int(trips[0].split("transport: ")[1].split()[0])
+        extra.append(f"roundtrip.txt {n_lines} lines, {st['trips']} round "
+                     f"trips")
     if replicate:
         with open(run / "replication.txt") as f:
             rhat = [r for r in f.read().splitlines()
                     if r.startswith("rhat_cold_max")][0]
-        line += f"; replication.txt {rhat}"
-    print(line)
-    for what in ("test", "swap", "accept"):
-        lo, hi = band[what]
-        check(lo <= st[what] <= hi, f"{tag}: {what} {st[what]:.5g} outside "
-              f"[{lo}, {hi}]")
-    return run, st
+        extra.append(f"replication.txt {rhat}")
+    if "--evidence" in args:
+        keys = ("ti", "ss") + (("log_z0", "abs_ti", "abs_ss") if vr else ())
+        with open(run / "evidence.txt") as f:
+            ev = {k: float(v) for k, _, v in (
+                r.partition(" ") for r in f.read().splitlines())
+                if k in ("ti", "ss", "log_z0", "abs_ti", "abs_ss")}
+        check(tuple(ev) == keys and all(np.isfinite(v) for v in ev.values()),
+              f"{tag}: evidence.txt {ev}, wanted finite {keys}")
+        st.update(ev)
+        extra.append("evidence.txt " + " ".join(f"{k} {v:.2f}"
+                                                for k, v in ev.items()))
+    if vr:
+        regen = [x for x in lines if "hot-rung regen" in x]
+        check(len(regen) == 1 and "regen 100.0% accepted" in regen[0],
+              f"{tag}: regeneration at beta = 0 not 100 %: {regen}")
+        extra.append(regen[0].split("] ")[1])
+    if rounds:
+        check([r["regen"] for r in rounds] == ["—"] + ["100.0"] * (
+            len(rounds) - 1), f"{tag}: regeneration by round {rounds}")
+        check(f"w_size={cfg.w_size}" in stderr and "NEGATIVE" in stderr,
+              f"{tag}: no w_size >= 40 warning")
+        extra.append("rounds " + "; ".join(
+            f"r{i} S={r['samples']} swap {r['swap']} barrier {r['barrier']} "
+            f"regen {r['regen']} metric {r['metric']}"
+            for i, r in enumerate(rounds)))
+    shown = ", ".join(f"{k} {st[k]:.5g}" + (f" (band {band[k]})"
+                                             if k in band else "")
+                      for k in ("test", "swap", "accept"))
+    print(f"{phase}: python -m ptnn_torch.experiments.{module} "
+          f"{' '.join(args)} --no-plots exited 0 in {wall:.1f} s "
+          f"({st['rate']:.0f} chain-steps/s sampling): {shown}; "
+          + "; ".join(extra + [f"launches {got} (as planned)"]))
+    for what, lim in band.items():
+        if what in st:
+            in_band(tag, what, st[what], lim)
+    for i, r in enumerate(rounds):
+        in_band(tag, f"round {i} swap", r["swap"], band["round_swap"][i])
+        in_band(tag, f"round {i} barrier", r["barrier"],
+                band["round_barrier"][i])
+    if rounds:
+        in_band(tag, "final round's RMSE", rounds[-1]["metric"],
+                band["metric"])
+    return run, st, got
 
 
 def served_line(tag, proc, band, t0):
@@ -3544,7 +3662,8 @@ def phase_run_lifecycle():
     runs = {}
     for tag, band, module, args in CLI_RUNS:
         stdout, stderr = procs[tag].communicate()
-        runs[tag] = check_cli_run(tag, band, module, args,
+        runs[tag] = check_cli_run("[4/6] lifecycle", tag, CLI_BANDS[band],
+                                  module, args,
                                   LIFE_OUT / tag.replace(" ", "_"), stdout,
                                   stderr, procs[tag].returncode, walls[tag])
     victim.communicate(timeout=60)
@@ -3613,13 +3732,357 @@ def phase_run_lifecycle():
           f"{save_s:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 4, the variational-reference paths: the command lines'
+# --vref, --vr-rounds and --evidence, the evidence model-selection
+# procedure, the single-chain sampler, a VR run resumed from its checkpoint.
+
+# each band is the mean +- 4 sample standard deviations of ptnn's own run on
+# the CPU over seeds 0-19, rounded outward: the command
+# lines by ``python tests/test_torch_experiments.py regression-vref|
+# regression-rounds|classification-vref 0 1 ... 19``
+VR_BANDS = {
+    # regression --problem Sunspot --vref --evidence --roundtrip: Langevin
+    # per step, 10 x 10,000, the T = inf rung; test: the master row's test
+    # mean (every chain after burn-in). Round trips: 0 on all 20 seeds (the
+    # d = 61 posterior's metastability, results/vref_transport.md)
+    "Sunspot vref": dict(test=(0.0191, 0.0343), swap=(47.5, 72.6),
+                         abs_ti=(-3020.0, 1870.0), abs_ss=(610.0, 741.0),
+                         log_z0=(-40.2, -8.1), trips=(0, 0)),
+    # regression --problem Sunspot --no-langevin --vr-rounds 3 --evidence:
+    # per round (2500, 5000, 10,000 steps a chain) swap % and barrier; the
+    # final round's post-burn-in cold test RMSE
+    "Sunspot rounds": dict(round_swap=((41.0, 89.1), (0.0, 38.2),
+                                       (1.1, 22.1)),
+                           round_barrier=((0.86, 5.49), (5.6, 8.91),
+                                          (7.07, 8.86)),
+                           metric=(0.0072, 0.0297)),
+    # classification --problem iris --vref --evidence: the canonical preset,
+    # 10 x 5000; served: the accuracy of the mean class probabilities over
+    # the cold chain's draws (ptnn_torch.predict; the band's top, 105.88,
+    # clipped)
+    "iris vref": dict(swap=(51.0, 73.9), served=(43.68, 100.0),
+                      abs_ti=(-104.2, -69.3), abs_ss=(-107.5, -67.0)),
+}
+VR_CLI_RUNS = (
+    ("Sunspot vref", "regression",
+     ["--problem", "Sunspot", "--vref", "--evidence", "--roundtrip"]),
+    ("Sunspot rounds", "regression",
+     ["--problem", "Sunspot", "--no-langevin", "--vr-rounds", "3",
+      "--evidence"]),
+    ("iris vref", "classification",
+     ["--problem", "iris", "--vref", "--evidence"]),
+)
+# scripts/evidence_model_selection.py:80-118: hidden sizes, seeds, steps a
+# chain; bands per seed from ``python tests/test_torch_tuning.py H SEED ...``
+# over 20 seeds (the script's 4, 14, 24, then 34 ... 194), the barrier's from
+# the script's pilot seed 0 and ``... barrier H 1 ... 19`` (the port's
+# pilots draw other noise than ptnn's)
+MS_HIDDEN = (2, 6)
+MS_SEEDS = (4, 14, 24)
+MS_STEPS = 1600
+MS_BANDS = {
+    2: dict(log_z_ss=(365.0, 584.0), elpd_loo=(370.0, 617.0),
+            rmse=(0.0207, 0.0549), barrier=(5.5, 9.4)),
+    6: dict(log_z_ss=(422.0, 568.0), elpd_loo=(459.0, 624.0),
+            rmse=(0.0212, 0.0453), barrier=(6.7, 10.3)),
+}
+# mcmc.single_chain_config("regression", (4, 10, 1), samples=SC_SAMPLES) on
+# Sunspot, seeds 0-2 (ptnn's default depth 50,000 cut to keep the smoke's
+# time); bands from ``python tests/test_torch_mcmc.py 0 ... 19``: accept %,
+# post-burn-in mean test RMSE, % of test targets inside the 5-95 % band
+# (the band is the network's epistemic spread alone, hence narrow)
+SC_SAMPLES = 10_000
+SC_SEEDS = (0, 1, 2)
+SC_BANDS = dict(accept=(4.8, 12.5), rmse=(0.0133, 0.0309),
+                inside=(5.5, 29.9))
+SC_PROBE = """
+import json, os, sys, time
+import numpy as np
+from ptnn_torch import mcmc
+from ptnn_torch.data import load_regression
+from ptnn_torch.ops import drift, fnn_eval
+prob = load_regression("Sunspot")
+y = prob.test[:, 4]
+for seed in map(int, sys.argv[2:]):
+    cfg = mcmc.single_chain_config("regression", (4, 10, 1),
+                                   samples=int(sys.argv[1]))
+    t0 = time.perf_counter()
+    res = mcmc.run_single_chain(cfg, prob.train, prob.test, seed=seed,
+                                device=os.environ.get("PTNN_DEVICE", "cuda"))
+    b = mcmc.predictive_bands(res, "test")
+    burn = int(cfg.samples_per_chain * cfg.burn_in)
+    fx = res.traces["fx_test"]
+    print("seed " + json.dumps(dict(
+        seed=seed, wall=time.perf_counter() - t0,
+        accept=float(res.accept_ratio_per_chain[0]),
+        rmse=float(np.mean(res.traces["rmse_test"][burn:, 0])),
+        inside=100.0 * float(np.mean((y >= b["low"]) & (y <= b["high"]))),
+        fx=list(fx.shape), finite=bool(np.isfinite(fx).all()),
+        n_steps=cfg.n_steps)))
+print("launches " + json.dumps(dict(drift_epoch=drift.launches,
+                                    fnn_eval=fnn_eval.launches)))
+"""
+# the VR run to kill and resume: the regression command line's --vref
+# --evidence config at 10 x 2000, chunks of 250 steps
+VR_CKPT_SAMPLES = 20_000
+VR_CKPT_CHUNK = 250
+
+
+def selection_cfg(hidden):
+    """``scripts/evidence_model_selection.py``'s ``vr_cfg`` at MS_STEPS."""
+    from ptnn_torch import PTConfig
+
+    return PTConfig(
+        task="regression", topology=(4, hidden, 1),
+        num_samples=16 * MS_STEPS, num_chains=16, maxtemp=20.0,
+        swap_interval=4, swap_offset=0, swap_style="even_odd",
+        swap_payload="untempered", swap_rule="metropolis", pt_phase_frac=2.0,
+        variational_reference=True, vr_hot_infinite=True, record_w=True,
+        record_w_chains=1, record_ll_state=True, chunk_steps=200).validate()
+
+
+def model_selection():
+    """The procedure of ``scripts/evidence_model_selection.py:80-118`` on
+    the card, per hidden size: the VR ladder tuned (``tuning.tune_ladder``,
+    two rounds, pilots of MS_STEPS / 2 steps), a run a seed on the tuned
+    ladder; each seed's absolute log Z (stepping stone), PSIS-LOO elpd of
+    the cold draws and cold test RMSE, and the barrier, against ptnn's
+    bands; one eval launch a step and one a run, nothing else; the ranking
+    printed. Returns the eval launches."""
+    import numpy as np
+
+    import ptnn_torch
+    from ptnn_torch import tuning
+    from ptnn_torch.ops import evidence, ic
+
+    prob = sunspot()
+    x_tr, y_tr = prob.train[:, :4], prob.train[:, 4]
+    rows, evals = [], 0
+    for h in MS_HIDDEN:
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        cfg = selection_cfg(h)
+        pilot = 16 * max(MS_STEPS // 2, 200)
+        tuned = tuning.tune_ladder(cfg, prob.train, prob.test, rounds=2,
+                                   pilot_samples=pilot, device=DEVICE)
+        cfg_t = dataclasses.replace(cfg, custom_ladder=tuple(
+            float(t) for t in tuned.temperatures)).validate()
+        check(np.isinf(tuned.temperatures[-1]), f"h={h}: the tuned ladder "
+              f"lost its T = inf rung")
+        zs, loos, rmses = [], [], []
+        for seed in MS_SEEDS:
+            res = ptnn_torch.sample(cfg_t, prob.train, prob.test, seed=seed,
+                                    device=DEVICE)
+            est = evidence.from_result(res)
+            check(est.anchored and np.isfinite(est.log_z_abs_ss),
+                  f"h={h} seed {seed}: the evidence is not anchored")
+            check(res.vr_regen_accept_pct == 100.0, f"h={h} seed {seed}: "
+                  f"regeneration {res.vr_regen_accept_pct}")
+            w_tr = np.asarray(res.traces["w"])[:, 0, :]
+            start = max(int(w_tr.shape[0] * cfg_t.burn_in), 1)
+            draws = w_tr[start::max((w_tr.shape[0] - start) // 1000, 1)]
+            loo = ic.psis_loo(ic.pointwise_log_lik(cfg_t, draws, x_tr, y_tr,
+                                                   device=DEVICE))
+            zs.append(est.log_z_abs_ss)
+            loos.append(float(loo["elpd_loo"]))
+            rmses.append(float(res.traces["rmse_test"][-1, 0]))
+        n_pilot, n_run = pilot // 16 - 1, MS_STEPS - 1
+        want = 2 * (n_pilot + 1) + len(MS_SEEDS) * (n_run + 1)
+        check(launch_count("fnn_eval") == want and launch_count(
+            "drift_epoch") == 0, f"h={h}: {launch_count('fnn_eval')} eval "
+            f"launches, planned {want}")
+        evals += want
+        band = MS_BANDS[h]
+        print(f"[4/6] VR paths: evidence model selection h={h} (d={6 * h + 1})"
+              f" in {time.perf_counter() - t0:.1f} s: barrier "
+              f"{tuned.barrier:.3f} (band {band['barrier']}), tuned ladder "
+              f"{np.round(tuned.temperatures[:-1], 3).tolist()} + inf; per "
+              f"seed {MS_SEEDS}: abs log Z (SS) "
+              f"{[round(z, 2) for z in zs]} (band {band['log_z_ss']}), "
+              f"elpd_loo {[round(x, 2) for x in loos]} "
+              f"(band {band['elpd_loo']}), cold test RMSE "
+              f"{[round(x, 5) for x in rmses]} (band {band['rmse']}); "
+              f"fnn_eval launches {want} (as planned)")
+        tag = f"model selection h={h}"
+        in_band(tag, "barrier", tuned.barrier, band["barrier"])
+        for z, loo, rmse in zip(zs, loos, rmses):
+            in_band(tag, "abs log Z", z, band["log_z_ss"])
+            in_band(tag, "elpd_loo", loo, band["elpd_loo"])
+            in_band(tag, "RMSE", rmse, band["rmse"])
+        rows.append((h, float(np.mean(zs)), float(np.mean(loos)),
+                     float(np.mean(rmses))))
+    by_z = sorted(rows, key=lambda r: -r[1])
+    print("[4/6] VR paths: evidence ranking (mean abs log Z, SS): "
+          + " > ".join(f"h={h} ({z:.1f}; elpd_loo {loo:.1f}, RMSE "
+                       f"{rmse:.4f})" for h, z, loo, rmse in by_z)
+          + " (ptnn's results/evidence_model_selection.md: h=6 516.9, "
+            "h=2 485.7)")
+    return evals
+
+
+def phase_vr_paths():
+    """The variational-reference paths on the card, as subprocesses at
+    once: the command lines' --vref --evidence --roundtrip (Sunspot,
+    Langevin per step, 10 x 10,000), --no-langevin --vr-rounds 3 --evidence
+    and iris --vref --evidence; the single-chain sampler (seeds 0-2); and a
+    --vref run checkpointed every 2 chunks, SIGKILLed after its first
+    checkpoint. Meanwhile this process runs the uninterrupted twin of the
+    killed run and the evidence model selection. Then the iris tree served
+    and the killed run resumed, bit for bit. Each run's launches are
+    checked against its plan and the phase's total printed; the kernels
+    line counts the main path's runs alone, as for the lifecycle phase."""
+    import os
+    import shutil
+    import signal
+    import threading
+    import types
+
+    import numpy as np
+
+    import ptnn_torch
+    from ptnn_torch import checkpoint, config, kernel
+    from ptnn_torch.experiments.runner import vref_config
+
+    out = LIFE_OUT.parent / "chip_smoke_vr"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    # the run to kill: --vref --evidence at 10 x 2000
+    flags = types.SimpleNamespace(vref=True, vr_rounds=0)
+    cfg = vref_config(dataclasses.replace(
+        ptnn_torch.regression_preset(num_samples=VR_CKPT_SAMPLES,
+                                     num_chains=10),
+        drift_mode="sequential", n_ladders=1, record_ll_state=True,
+        chunk_steps=VR_CKPT_CHUNK).validate(), flags, pt_phase_frac=2.0)
+    ck = out / "sunspot_vref.npz"
+    ck_cmd = [sys.executable, "-c", CKPT_PROBE,
+              json.dumps(config.to_json_dict(cfg)), str(ck), str(CKPT_EVERY)]
+    t0 = time.perf_counter()
+    procs, walls = {}, {}
+
+    def wall_of(tag):
+        procs[tag].wait()
+        walls[tag] = time.perf_counter() - t0
+
+    for tag, module, args in VR_CLI_RUNS:
+        procs[tag] = popen([sys.executable, "-c", CLI_PROBE,
+                            f"ptnn_torch.experiments.{module}", *args,
+                            "--no-plots", "--out",
+                            str(out / tag.replace(" ", "_"))])
+    procs["single chain"] = popen([sys.executable, "-c", SC_PROBE,
+                                   str(SC_SAMPLES),
+                                   *map(str, SC_SEEDS)])
+    victim = popen(ck_cmd)
+
+    def kill_after_a_save():
+        while victim.poll() is None and not ck.exists():
+            time.sleep(0.01)
+        victim.send_signal(signal.SIGKILL)
+
+    threads = [threading.Thread(target=wall_of, args=(tag,))
+               for tag in procs] + [threading.Thread(target=kill_after_a_save)]
+    for t in threads:
+        t.start()
+    prob = sunspot()
+    reset_launch_counts()
+    want = ptnn_torch.sample(cfg, prob.train, prob.test, seed=0,
+                             device=DEVICE)  # uninterrupted, meanwhile
+    n = cfg.n_steps
+    check(launch_count("drift_epoch") == 2 * n
+          and launch_count("fnn_eval") == n + 1, f"the VR run: "
+          f"{launch_count('drift_epoch')} drifts, {launch_count('fnn_eval')} "
+          f"evals, planned {2 * n}, {n + 1}")
+    launches = dict(drift_epoch=2 * n, fnn_eval=n + 1)
+    launches["fnn_eval"] += model_selection()
+    for t in threads:
+        t.join(timeout=900)
+    check(not any(t.is_alive() for t in threads), "a subprocess hangs")
+    runs = {}
+    for tag, module, args in VR_CLI_RUNS:
+        stdout, stderr = procs[tag].communicate()
+        runs[tag] = check_cli_run("[4/6] VR paths", tag, VR_BANDS[tag],
+                                  module, args, out / tag.replace(" ", "_"),
+                                  stdout, stderr, procs[tag].returncode,
+                                  walls[tag])
+        for k, v in runs[tag][2].items():
+            launches[k] += v
+    sc = finished(procs["single chain"], "the single-chain runs")
+    sc_lines = sc.strip().splitlines()
+    got = json.loads(sc_lines[-1][len("launches "):])
+    seeds = [json.loads(x[len("seed "):]) for x in sc_lines
+             if x.startswith("seed ")]
+    check(len(seeds) == len(SC_SEEDS), "single chain: a seed is missing")
+    steps = seeds[0]["n_steps"]
+    plan = dict(drift_epoch=2 * steps * len(SC_SEEDS),
+                fnn_eval=(steps + 1) * len(SC_SEEDS))
+    check(got == plan, f"single chain: launches {got}, planned {plan}")
+    for k, v in got.items():
+        launches[k] += v
+    print(f"[4/6] VR paths: mcmc.single_chain_config('regression', (4, 10, "
+          f"1), samples={SC_SAMPLES}) on Sunspot, seeds {SC_SEEDS} "
+          f"(ptnn's default 50,000 cut): "
+          + "; ".join(f"seed {s['seed']} {s['wall']:.1f} s, accept "
+                      f"{s['accept']:.2f}%, test RMSE {s['rmse']:.5f}, "
+                      f"{s['inside']:.1f}% of test targets in the 5-95% band,"
+                      f" fx_test {s['fx']}" for s in seeds)
+          + f" (bands {SC_BANDS}); launches {got} (as planned)")
+    for s in seeds:
+        check(s["finite"] and s["fx"] == [SC_SAMPLES, 1, 198],
+              f"single chain seed {s['seed']}: fx_test {s['fx']}")
+        for what in ("accept", "rmse", "inside"):
+            in_band(f"single chain seed {s['seed']}", what, s[what],
+                    SC_BANDS[what])
+    victim.communicate(timeout=60)
+    check(victim.returncode == -signal.SIGKILL, f"the VR run to kill ended "
+          f"with {victim.returncode} before a checkpoint was seen")
+    spec_name = kernel.default_spec(cfg).name
+    killed_at = checkpoint.load(str(ck), cfg, 0, spec_name)[1]
+    check(0 < killed_at < n, f"killed at step {killed_at}")
+    # --- serving the iris tree, resuming the killed run -------------------
+    t0 = time.perf_counter()
+    served = popen([sys.executable, "-m", "ptnn_torch.predict", "--run",
+                    str(runs["iris vref"][0]), "--problem", "iris",
+                    "--calibrate", "--ic"])
+    resumed = popen(ck_cmd)
+    served_line(f"{runs['iris vref'][0].relative_to(ROOT)}", served,
+                VR_BANDS["iris vref"]["served"], t0)
+    finished(resumed, "the resumed VR run")
+    state, done, traces = checkpoint.load(str(ck), cfg, 0, spec_name)
+    check(done == n, f"the resumed run's checkpoint at {done}")
+    check(set(traces) == set(want.traces) and "vr_corr_cur" in traces,
+          f"traces {sorted(traces)}")
+    for k, v in traces.items():
+        check(np.array_equal(v, want.traces[k][1:]), f"resumed trace {k} "
+              f"differs from the uninterrupted run's")
+    fin = want.final_state
+    for k, v in vars(state).items():
+        ref = getattr(fin, k)
+        check((v is None) == (ref is None) and (
+            v is None or np.array_equal(v.cpu().numpy(), ref.numpy())),
+            f"resumed state {k} differs")
+    check(state.vr_mean is not None and int(state.n_regen_proposed) > 0,
+          "the resumed run has no reference state")
+    print(f"[4/6] VR paths: Sunspot --vref per step {cfg.num_chains} x "
+          f"{cfg.samples_per_chain}, chunks of {VR_CKPT_CHUNK}, checkpoint "
+          f"every {CKPT_EVERY} chunks: SIGKILLed with its last checkpoint at "
+          f"step {killed_at}, resumed; every trace ({len(traces)}) and every "
+          f"state tensor, vr_mean / vr_m2 / n_regen_* "
+          f"({int(state.n_regen_accepted)} of {int(state.n_regen_proposed)}"
+          f" regenerations accepted) included, equal the uninterrupted run's"
+          f" bit for bit; {os.path.getsize(ck) / 2**20:.2f} MiB")
+    print(f"[4/6] VR paths: phase in {time.perf_counter() - t_phase:.1f} s; "
+          f"drift_epoch {launches['drift_epoch']} and fnn_eval "
+          f"{launches['fnn_eval']} launches, each run as planned")
+
+
 def main() -> int:
     phase_device()
     phase_build()
     errs = {"rw_block": phase_kernel()}
     errs.update(phase_precond_kernels())
     errs.update(phase_cls_kernels())
-    errs["drift_epoch"] = phase_drift_kernel()[0]
+    errs["drift_epoch"] = phase_drift_kernel()
     errs["fnn_eval"] = phase_eval_kernel()
     errs["conv1_relu_pool"] = phase_conv_kernel()
     phase_swap()
@@ -3634,6 +4097,7 @@ def main() -> int:
     launches["conv1_relu_pool"] = phase_zoo_end_to_end()
     phase_per_step_precond_end_to_end(mala_twin)
     phase_run_lifecycle()
+    phase_vr_paths()
     phase_throughput()
     times.update(phase_precond_throughput())
     times.update(phase_cls_throughput())

@@ -32,6 +32,17 @@ resumes bit-identically. ``python -m ptnn_torch.experiments.regression`` and
 and ``python -m ptnn_torch.predict`` serves a finished run, with WAIC /
 PSIS-LOO (``ops.ic``) and calibration scores (``ops.calibrate``).
 
+The per-step sampler runs the variational-reference path
+(``variational_reference``, ``ops.vref``: the corrected tempering path, the
+T = inf rung regenerated IID), records the per-rung state likelihood
+(``record_ll_state``) that ``ops.evidence`` integrates into the ladder's
+(absolute, on a corrected path) log evidence, and the posterior-predictive
+traces (``record_fx``). ``tuning.tune_ladder`` re-spaces a ladder at equal
+communication-barrier increments from pilot runs, ``rounds.run_rounds``
+adapts a static reference over rounds, and ``mcmc`` is the single-chain
+sampler with its uncertainty bands (``python -m
+ptnn_torch.experiments.single_chain``).
+
 The kernels are built with ``nvcc`` for Hopper at first use. On CPU tensors
 the same functions run their plain PyTorch versions. The served predictor
 is ``predict.posterior_predict``. The package imports ``torch`` and never
@@ -42,7 +53,7 @@ is ``predict.posterior_predict``. The package imports ``torch`` and never
 
 from ptnn_torch.config import (PTConfig, classification_preset,
                                regression_preset)
-from ptnn_torch import checkpoint, data, results
+from ptnn_torch import checkpoint, data, mcmc, results, rounds, tuning
 from ptnn_torch.kernel import ChainState, Dataset, init_state, make_step_fn
 from ptnn_torch.models import cnn, mlp
 from ptnn_torch.models.api import ModelSpec, fnn_spec, grad_drift
@@ -60,7 +71,10 @@ __all__ = [
     "mlp",
     "checkpoint",
     "data",
+    "mcmc",
     "results",
+    "rounds",
+    "tuning",
     "ChainState",
     "Dataset",
     "init_state",
@@ -76,8 +90,6 @@ __all__ = [
 # brings each (tests/test_torch_import.py holds ptnn.__all__ to this set
 # and __all__ together)
 NOT_PORTED = {
-    "mcmc": "Queue 1 item 13: the single-chain samplers (need record_fx)",
     "profiling": "Queue 1 item 15: jax.profiler's wrapper, not to be ported",
     "sweeps": "Queue 1 item 13: sweeps",
-    "tuning": "Queue 1 item 13: ladder tuning",
 }

@@ -5,10 +5,11 @@ defaults: per-dataset topologies, the z-score and 70/30 split of the
 combined sets (``ptnn_torch.data``, ``--data-seed``), the reference
 hyperparameter block as defaults (10 chains, 50,000 samples, the random
 walk), auto-versioned output dirs, the 15-column master row (fmt %1.2f) and
-the plots where matplotlib is installed. Runs on the GPU (``PTNN_DEVICE=cpu``
-runs the plain versions on the CPU). ``--evidence``, ``--vref``,
-``--vr-rounds`` and ``--mesh`` parse as in ptnn and raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+the plots where matplotlib is installed, ``--vref`` / ``--vr-rounds`` (the
+variational-reference path on the canonical schedule) and ``--evidence``.
+Runs on the GPU (``PTNN_DEVICE=cpu`` runs the plain versions on the CPU).
+``--mesh`` parses as in ptnn and raises ``NotImplementedError`` naming the
+ROADMAP item that brings it.
 
 Examples:
     python -m ptnn_torch.experiments.classification --problem iris
@@ -23,7 +24,8 @@ import os
 
 from ptnn_torch.config import classification_preset
 from ptnn_torch.data import load_classification
-from ptnn_torch.experiments.runner import refuse_unported, run_problem
+from ptnn_torch.experiments.runner import (refuse_unported, run_problem,
+                                           vref_config)
 
 # reference problem loop order (problems 3..8, pt_classification.py:901)
 PROBLEM_ORDER = ["iris", "Ionosphere", "Cancer", "bank-additional", "PenDigit", "chess"]
@@ -149,6 +151,7 @@ def main(argv=None) -> None:
             swap_ratio=args.swap_ratio,
             use_langevin_gradients=args.langevin,
             learn_rate=args.lr,
+            canonical=args.vref or args.vr_rounds > 0,  # VR: no temper switch
         )
         cfg = dataclasses.replace(
             cfg, drift_mode=args.drift_mode, n_ladders=args.ladders
@@ -165,6 +168,9 @@ def main(argv=None) -> None:
                 adapt_rate=0.1,
                 precond_start_frac=0.3,
             ).validate()
+        # --vref --evidence composes: the corrected-path estimators with
+        # the analytic beta=0 anchor (absolute log marginal likelihood)
+        cfg = vref_config(cfg, args)
         if args.fused:
             # applied last: fused_step validation depends on the final
             # proposal/task configuration
@@ -176,8 +182,10 @@ def main(argv=None) -> None:
             seed=args.seed,
             plots=not args.no_plots,
             truepos=args.truepos,
+            evidence=args.evidence,
             roundtrip=args.roundtrip,
             replicate=args.replicate,
+            vr_rounds=args.vr_rounds,
             master_fmt="%1.2f",
             device=device,
         )

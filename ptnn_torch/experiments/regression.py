@@ -4,10 +4,11 @@ Port of ``ptnn/experiments/regression.py``, with its flags and defaults: the
 reference's hyperparameter block as defaults (Langevin-gradient PT, 10
 chains, 100,000 samples), ``--lprob-sweep`` the reference's outer loop over
 ``l_prob = i/10``, ``--proposal`` the preconditioned family, ``--fused`` the
-fused CUDA block kernels. Runs on the GPU (``PTNN_DEVICE=cpu`` runs the
-plain versions on the CPU). ``--evidence``, ``--vref``, ``--vr-rounds`` and
-``--mesh`` parse as in ptnn and raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+fused CUDA block kernels, ``--vref`` / ``--vr-rounds`` the
+variational-reference path, ``--evidence`` the ladder evidence. Runs on the
+GPU (``PTNN_DEVICE=cpu`` runs the plain versions on the CPU). ``--mesh``
+parses as in ptnn and raises ``NotImplementedError`` naming the ROADMAP
+item that brings it.
 
 Examples:
     python -m ptnn_torch.experiments.regression --problem Sunspot
@@ -23,7 +24,8 @@ import os
 
 from ptnn_torch.config import regression_preset
 from ptnn_torch.data import REGRESSION_SETS, load_regression
-from ptnn_torch.experiments.runner import refuse_unported, run_problem
+from ptnn_torch.experiments.runner import (refuse_unported, run_problem,
+                                           vref_config)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -172,6 +174,9 @@ def main(argv=None) -> None:
                     adapt_rate=0.1,
                     precond_start_frac=0.3,
                 ).validate()
+            # --vref --evidence composes: the corrected-path estimators with
+            # the analytic beta=0 anchor (absolute log marginal likelihood)
+            cfg = vref_config(cfg, args, pt_phase_frac=2.0)
             if args.fused:
                 # applied last: fused_step validation depends on the final
                 # proposal/task configuration
@@ -183,8 +188,10 @@ def main(argv=None) -> None:
                 seed=args.seed,
                 plots=not args.no_plots,
                 truepos=args.truepos,
+                evidence=args.evidence,
                 roundtrip=args.roundtrip,
                 replicate=args.replicate,
+                vr_rounds=args.vr_rounds,
                 master_fmt="%1.4f",
                 device=device,
             )

@@ -3,11 +3,14 @@ of ``ptnn/experiments/runner.py``).
 
 ``run_problem`` samples, writes ptnn's artifact tree into an auto-versioned
 ``<outdir>/<name>_<n>`` directory and appends the master row; with
-``roundtrip`` it tracks replica identities and writes ``roundtrip.txt``,
-with ``replicate=S`` it runs S seeds more and writes ``replication.txt``
-(the cross-seed function-space and w-space split R-hat). ptnn's
-``evidence``, ``vr_rounds`` and mesh options raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+``evidence`` it records the per-rung state likelihood and writes the ladder
+evidence (``ops.evidence``) to ``evidence.txt``, with ``vr_rounds=R`` it
+runs R rounds of variational-reference adaptation (``rounds``) and writes
+``rounds_history.md``, with ``roundtrip`` it tracks replica identities and
+writes ``roundtrip.txt``, with ``replicate=S`` it runs S seeds more and
+writes ``replication.txt`` (the cross-seed function-space and w-space split
+R-hat). ptnn's mesh option raises ``NotImplementedError`` naming the
+ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -27,12 +30,6 @@ from ptnn_torch.sampler import sample
 # ptnn's options the port does not run yet, with the ROADMAP item (Queue 1)
 # that brings each
 NOT_PORTED = {
-    "evidence": "evidence (ladder marginal-likelihood estimates, "
-                "ops/evidence.py): ROADMAP Queue 1 item 13, the extensions",
-    "vr_rounds": "vr_rounds (round-based variational-reference adaptation, "
-                 "rounds.py): ROADMAP Queue 1 item 13, the extensions",
-    "vref": "--vref (variational-reference tempering, ops/vref.py): ROADMAP "
-            "Queue 1 item 13, the extensions",
     "use_mesh": "use_mesh (chain-sharded runs): ROADMAP Queue 1 item 14, the "
                 "multi-GPU mesh",
 }
@@ -43,12 +40,57 @@ def refuse(name: str) -> None:
 
 
 def refuse_unported(args) -> None:
-    """Raise for the first command-line flag (``--evidence``, ``--vref``,
-    ``--vr-rounds``, ``--mesh``) whose feature is not ported."""
-    for flag, name in (("evidence", "evidence"), ("vref", "vref"),
-                       ("vr_rounds", "vr_rounds"), ("mesh", "use_mesh")):
-        if getattr(args, flag):
-            refuse(name)
+    """Raise for a command-line flag (``--mesh``) whose feature is not
+    ported."""
+    if args.mesh:
+        refuse("use_mesh")
+
+
+def vref_config(cfg: PTConfig, args, **extra) -> PTConfig:
+    """The command lines' variational-reference config (``--vref``, and
+    ``--vr-rounds`` which implies it): the exact swap machinery (metropolis
+    rule, untempered payloads, even-odd sweeps), the T = inf rung and
+    ``extra``; the rounds' static reference of ``--vr-family``. ``cfg``
+    unchanged otherwise."""
+    if not (args.vref or args.vr_rounds > 0):
+        return cfg
+    cfg = dataclasses.replace(
+        cfg, swap_payload="untempered", swap_rule="metropolis",
+        swap_style="even_odd", variational_reference=True,
+        vr_hot_infinite=True, **extra).validate()
+    if args.vr_rounds > 0:
+        cfg = dataclasses.replace(cfg, vr_mode="static",
+                                  vr_family=args.vr_family).validate()
+    return cfg
+
+
+def write_evidence(res, path: str, name: str) -> None:
+    """``evidence.txt`` of a run recorded with ``record_ll_state`` (ptnn's
+    file) and ptnn's line: the absolute log evidence of an anchored
+    corrected path, else the ladder's difference."""
+    from ptnn_torch.ops import evidence as ev_mod
+
+    est = ev_mod.from_result(res)
+    with open(os.path.join(path, "evidence.txt"), "w") as f:
+        f.write(
+            "# ladder evidence difference log Z(beta_max) - log Z(beta_min)\n"
+            f"ti {est.log_z_ti:.6f}\nss {est.log_z_ss:.6f}\n"
+            + (f"log_z0 {est.log_z0:.6f}\n"
+               f"abs_ti {est.log_z_abs_ti:.6f}\n"
+               f"abs_ss {est.log_z_abs_ss:.6f}\n" if est.anchored else "")
+            + f"window {est.window[0]} {est.window[1]}\n"
+            "# beta  mean_integrand\n"
+            + "".join(f"{b:.6f} {m:.6f}\n"
+                      for b, m in zip(est.betas, est.mean_ll)))
+    if est.anchored:
+        print(f"[{name}] ABSOLUTE log-evidence (corrected path, "
+              f"analytic beta=0 anchor {est.log_z0:.2f}): "
+              f"TI {est.log_z_abs_ti:.2f} SS {est.log_z_abs_ss:.2f} "
+              f"({est.n_samples} frozen-path draws/rung)")
+    else:
+        print(f"[{name}] ladder log-evidence diff: TI {est.log_z_ti:.2f} "
+              f"SS {est.log_z_ss:.2f} over beta [{est.betas[0]:.3f}, "
+              f"{est.betas[-1]:.3f}] ({est.n_samples} tempered draws/rung)")
 
 
 def _replication(prob: Problem, cfg: PTConfig, path: str, seed: int,
@@ -124,19 +166,40 @@ def run_problem(
     """One full experiment: sample on ``device``, write the artifact tree
     into an auto-versioned ``<outdir>/<name>_<n>`` directory, append the
     master row (its ``time_min`` the wall time, artifact IO included).
-    ``truepos``: the summary of the cold chains alone. ``roundtrip``:
-    replica identities tracked, ``roundtrip.txt``. ``replicate=S`` (S >= 2):
-    ``replication.txt`` from S more seeded runs."""
-    for name, value in (("evidence", evidence), ("vr_rounds", vr_rounds),
-                        ("use_mesh", use_mesh)):
-        if value:
-            refuse(name)
+    ``truepos``: the summary of the cold chains alone. ``evidence``: the
+    state likelihood recorded, ``evidence.txt``. ``vr_rounds=R``: R rounds
+    of reference-and-ladder adaptation, the last one's run written, and
+    ``rounds_history.md``. ``roundtrip``: replica identities tracked,
+    ``roundtrip.txt``. ``replicate=S`` (S >= 2): ``replication.txt`` from
+    S more seeded runs."""
+    if use_mesh:
+        refuse("use_mesh")
     os.makedirs(outdir, exist_ok=True)
+    if evidence:
+        cfg = dataclasses.replace(cfg, record_ll_state=True).validate()
     if roundtrip:
         cfg = dataclasses.replace(cfg, track_replicas=True).validate()
+    if vr_rounds > 0 and replicate >= 2:
+        raise ValueError(
+            "--replicate with --vr-rounds is not wired: the replication "
+            "loop re-samples without the adapted reference. Run S rounds "
+            "invocations with different --seed instead.")
     t0 = time.time()
-    res = sample(cfg, prob.train, prob.test, seed=seed, device=device)
+    rr = None
+    if vr_rounds > 0:
+        # the final round's run, exactly Markov under its constant reference
+        from ptnn_torch import rounds as rounds_mod
+
+        rr = rounds_mod.run_rounds(cfg, prob.train, prob.test, seed=seed,
+                                   n_rounds=vr_rounds, verbose=True,
+                                   device=device)
+        res, cfg = rr.result, rr.config
+    else:
+        res = sample(cfg, prob.train, prob.test, seed=seed, device=device)
     path = results_mod.versioned_dir(outdir, prob.name)
+    if rr is not None:
+        with open(os.path.join(path, "rounds_history.md"), "w") as f:
+            f.write(rounds_mod.format_history(rr.history) + "\n")
     summary = results_mod.write_artifacts(res, path, prob.name, plots=plots)
     if truepos:
         # the reference's "true posterior" reporting: cold chains only
@@ -146,6 +209,8 @@ def run_problem(
     results_mod.append_master_row(
         os.path.join(outdir, "master_result_file.txt"), summary, run_name,
         master_fmt)
+    if evidence:
+        write_evidence(res, path, prob.name)
     if roundtrip:
         from ptnn_torch.ops import roundtrip as rt_mod
 
@@ -158,6 +223,10 @@ def run_problem(
               f"{int(stats.round_trips.sum())} round trips "
               f"({stats.rate_per_kstep:.2f}/1k steps), swap% alone would say "
               f"{summary.swap_perc:.1f}")
+    if res.vr_regen_accept_pct is not None:
+        print(f"[{prob.name}] variational reference: hot-rung regen "
+              f"{res.vr_regen_accept_pct:.1f}% accepted "
+              f"({res.vr_regen_proposed} proposed)")
     if replicate >= 2:
         _replication(prob, cfg, path, seed, replicate, device)
     print(f"[{prob.name}] test_mean={summary.test_mean:.4f} "

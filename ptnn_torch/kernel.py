@@ -10,7 +10,12 @@ the reference proposal (the per-step random walk with the optional
 Langevin-gradient drift and its q-ratio, "reference" or "ldpt_legacy"), and
 ``PrecondStepFn`` for the preconditioned family (``precond_rw``,
 ``precond_mala``, ``hmc`` with and without ChEES, ``pcn``: ptnn's
-``step_precond``).
+``step_precond``). Both run the variational-reference path
+(``variational_reference``: ``VRef``, the corrected MH term, swap energy
+and gradient, the Welford fit and the hot rung's regeneration), the
+posterior-predictive carries (``record_fx``) and the state likelihood
+traces (``record_ll_state``); ``set_static_reference`` injects a fitted
+reference.
 
 Every evaluation of the network on data (``train_loglik``,
 ``init_state``'s ll, ``recompute_ll``) goes through ``spec_eval``, the
@@ -46,7 +51,7 @@ import torch
 from ptnn_torch.config import PTConfig
 from ptnn_torch.models import api as model_api
 from ptnn_torch.models import fnn
-from ptnn_torch.ops import likelihood, precond_step
+from ptnn_torch.ops import likelihood, precond_step, vref
 from ptnn_torch.ops.block_step import _LOG_STEP_HI, _LOG_STEP_LO
 from ptnn_torch.ops.fnn_eval import fnn_eval, fnn_eval_pair
 from ptnn_torch.ops.precision import full_float32
@@ -94,6 +99,20 @@ class ChainState:
     n_langevin: torch.Tensor  # (C,) int32 Langevin proposals made
     n_swap_accepted: torch.Tensor  # () int32
     n_swap_proposed: torch.Tensor  # () int32
+    # posterior-predictive carries (None unless record_fx): the last
+    # accepted proposal's predictions, write-on-accept like rmse
+    fx_train: Optional[torch.Tensor] = None  # (C, N_train)
+    fx_test: Optional[torch.Tensor] = None  # (C, N_test)
+    # the variational reference (None unless variational_reference; ops/
+    # vref.py): the cold chain's Welford moments of z = (w, eta) for
+    # regression, w for classification; under vr_mode "static" vr_m2 IS the
+    # variance; vr_chol the lower Cholesky factor of the full-covariance
+    # family; the hot rung's regeneration counters
+    vr_mean: Optional[torch.Tensor] = None  # (Z,)
+    vr_m2: Optional[torch.Tensor] = None  # (Z,)
+    vr_chol: Optional[torch.Tensor] = None  # (Z, Z) lower, or None
+    n_regen_accepted: Optional[torch.Tensor] = None  # () int32
+    n_regen_proposed: Optional[torch.Tensor] = None  # () int32
 
     def replace(self, **kw) -> "ChainState":
         return dataclasses.replace(self, **kw)
@@ -317,6 +336,28 @@ def init_state(
     replica_id = None
     if cfg.track_replicas:
         replica_id = torch.arange(c, dtype=torch.int32, device=dev)
+    fx_train = fx_test = None
+    if cfg.record_fx:
+        fx_train = torch.zeros((c, data.x_train.shape[0]),
+                               dtype=torch.float32, device=dev)
+        fx_test = torch.zeros((c, data.x_test.shape[0]), dtype=torch.float32,
+                              device=dev)
+    vr = {}
+    if cfg.variational_reference:
+        # z = (w, eta) for regression: eta is anchored by the likelihood and
+        # must be covered by q (see VRef)
+        zdim = w_dim + (0 if cls else 1)
+        f32 = dict(dtype=torch.float32, device=dev)
+        vr = dict(
+            vr_mean=torch.zeros((zdim,), **f32),
+            # static: the variance (a standard normal q until
+            # set_static_reference); welford: the M2 accumulator
+            vr_m2=(torch.ones((zdim,), **f32) if cfg.vr_mode == "static"
+                   else torch.zeros((zdim,), **f32)),
+            vr_chol=(torch.eye(zdim, **f32) if cfg.vr_family == "full_cov"
+                     else None),
+            n_regen_accepted=torch.zeros((), dtype=torch.int32, device=dev),
+            n_regen_proposed=torch.zeros((), dtype=torch.int32, device=dev))
     return ChainState(
         w=w,
         eta=eta,
@@ -342,7 +383,39 @@ def init_state(
         n_langevin=zeros(torch.int32),
         n_swap_accepted=torch.zeros((), dtype=torch.int32, device=dev),
         n_swap_proposed=torch.zeros((), dtype=torch.int32, device=dev),
+        fx_train=fx_train,
+        fx_test=fx_test,
+        **vr,
     )
+
+
+def set_static_reference(state: ChainState, cfg: PTConfig, mu, var,
+                         chol=None) -> ChainState:
+    """Inject an externally fitted static reference (``vr_mode="static"``)
+    into an initial state: ``mu`` / ``var`` (Z,), and ``chol`` (Z, Z) lower
+    for ``vr_family="full_cov"`` (``ops.vref.fit_gaussian``'s output). The
+    rounds driver calls this between rounds."""
+    if cfg.vr_mode != "static":
+        raise ValueError("set_static_reference requires vr_mode='static'")
+    dev = state.vr_mean.device
+    mu = torch.as_tensor(np.asarray(mu, np.float32), device=dev)
+    var = torch.as_tensor(np.asarray(var, np.float32), device=dev)
+    if mu.shape != state.vr_mean.shape or var.shape != state.vr_m2.shape:
+        raise ValueError(f"reference shape {tuple(mu.shape)}/"
+                         f"{tuple(var.shape)} != state z-dim "
+                         f"{tuple(state.vr_mean.shape)}")
+    out = state.replace(vr_mean=mu, vr_m2=var)
+    if cfg.vr_family == "full_cov":
+        if chol is None:
+            raise ValueError("vr_family='full_cov' needs the chol factor")
+        chol = torch.as_tensor(np.asarray(chol, np.float32), device=dev)
+        if chol.shape != state.vr_chol.shape:
+            raise ValueError(f"chol shape {tuple(chol.shape)} != "
+                             f"{tuple(state.vr_chol.shape)}")
+        out = out.replace(vr_chol=chol)
+    elif chol is not None:
+        raise ValueError("chol supplied but vr_family is 'diag'")
+    return out
 
 
 def adapttemp_at(cfg: PTConfig, temps: torch.Tensor, i: int) -> torch.Tensor:
@@ -353,6 +426,192 @@ def adapttemp_at(cfg: PTConfig, temps: torch.Tensor, i: int) -> torch.Tensor:
     return torch.ones_like(temps)
 
 
+class VRef:
+    """The variational reference of ptnn's ``make_step_fn`` (ptnn/kernel.py
+    :778-977) for one run: path log pi_beta = log prior + beta LL + (1 -
+    beta) corr, corr(z) = log q(z) - log p_ref(z), with q fitted to the cold
+    chain's z = (w, eta) (regression) or w (classification). z must cover
+    eta: at beta = 0 the likelihood vanishes, and an eta left to its bare,
+    monotone prior runs off, after which the top pair never swaps.
+
+    Under ``vr_mode="welford"`` q is Welford-fitted to the post-swap cold
+    chain between ``accum_start`` and ``burn_end`` and frozen after, the
+    correction active from ``start``; under "static" it is the injected
+    reference, active from step 0. Step indices are host integers, so the
+    schedule's gates are host branches."""
+
+    def __init__(self, cfg: PTConfig, spec: model_api.ModelSpec,
+                 data: Dataset, temps: torch.Tensor):
+        self.cfg, self.spec, self.data = cfg, spec, data
+        self.reg = cfg.task == "regression"
+        self.w_dim = spec.w_size
+        self.static = cfg.vr_mode == "static"
+        self.full_cov = cfg.vr_family == "full_cov"
+        if self.static:
+            self.start = self.accum_start = self.burn_end = 0
+        else:
+            self.start, self.accum_start, self.burn_end = vref.schedule(
+                cfg.samples_per_chain, cfg.vr_start_frac, cfg.burn_in,
+                cfg.warmstart_frac)
+        # VR forbids the temper switch: the hot rung's beta is fixed
+        self.beta_hot = 1.0 / temps[-1]
+        self.n_rows = data.y_train.shape[0]
+        self.vg = like_value_and_grad(cfg, spec, data)
+
+    def z(self, w, eta):
+        """Reference coordinates: eta appended for regression."""
+        if not self.reg:
+            return w
+        return torch.cat([w, eta[..., None]], dim=-1)
+
+    def stats(self, st: ChainState, i: int):
+        """(mu, var) of q as of step ``i``."""
+        if self.static:
+            return st.vr_mean, torch.clamp(st.vr_m2, min=vref.VAR_FLOOR)
+        cnt = float(max(min(i, self.burn_end) - self.accum_start, 1))
+        return st.vr_mean, vref.welford_variance(st.vr_m2, cnt,
+                                                 self.cfg.vr_var_inflation)
+
+    def logq(self, st: ChainState, i: int, z):
+        if self.full_cov:
+            return vref.log_q_chol(z, st.vr_mean, st.vr_chol)
+        mu, var = self.stats(st, i)
+        return vref.log_q_quad(z, mu, var)
+
+    def logp_ref(self, w, eta):
+        """The z-coordinates' own prior terms, which corr replaces: the
+        Gaussian w-part and, for regression, -(1 + nu1) eta - nu2 e^-eta."""
+        cfg = self.cfg
+        lp = -0.5 * torch.sum(torch.square(w), dim=-1) / cfg.sigma_sq
+        if self.reg:
+            lp = lp - (1.0 + cfg.nu_1) * eta - cfg.nu_2 * torch.exp(-eta)
+        return lp
+
+    def corr(self, st: ChainState, i: int, w, eta):
+        """corr(z) = log q(z) - log p_ref(z), zero before activation."""
+        if i < self.start:
+            return torch.zeros(w.shape[:-1], dtype=w.dtype, device=w.device)
+        return self.logq(st, i, self.z(w, eta)) - self.logp_ref(w, eta)
+
+    def grad_w(self, st: ChainState, i: int, w, eta):
+        """d corr / d w at fixed eta: the full-covariance family couples
+        w and eta, the diagonal one's w-gradient is eta-free."""
+        cfg = self.cfg
+        if self.full_cov:
+            gz = vref.grad_logq_chol(self.z(w, eta), st.vr_mean, st.vr_chol)
+            return gz[..., :w.shape[-1]] + w / cfg.sigma_sq
+        mu, var = self.stats(st, i)
+        return vref.grad_correction(w, mu[:w.shape[-1]], var[:w.shape[-1]],
+                                    cfg.sigma_sq)
+
+    def eta_term(self, st: ChainState, i: int, w, eta, at):
+        """The eta block's share of the correction, ``vr_term(eta',
+        dprior)`` for ``precond_step.eta_move``: (1 - beta) (dlog q_eta -
+        dlog p_eta), dlog p_eta being the prior's change."""
+        if i < self.start:
+            return None
+
+        def term(eta_prop, dprior):
+            if self.full_cov:
+                dlogq = self.logq(st, i, self.z(w, eta_prop)) \
+                    - self.logq(st, i, self.z(w, eta))
+            else:
+                mu, var = self.stats(st, i)
+                mu_e, var_e = mu[self.w_dim], var[self.w_dim]
+                dlogq = -0.5 * (torch.square(eta_prop - mu_e)
+                                - torch.square(eta - mu_e)) / var_e
+            return (1.0 - 1.0 / at) * (dlogq - dprior)
+
+        return term
+
+    def update(self, st: ChainState, new: ChainState, i: int) -> ChainState:
+        """Fold the post-step, post-swap cold chain's z into the Welford
+        moments between accum_start and burn_end; a no-op when static."""
+        if self.static:
+            return new
+        live = self.accum_start <= i < self.burn_end
+        if not live:
+            return new
+        cnt = float(max(min(i + 1, self.burn_end) - self.accum_start, 1))
+        mean, m2 = vref.welford_update(st.vr_mean, st.vr_m2,
+                                       self.z(new.w[0], new.eta[0]), cnt,
+                                       True)
+        return new.replace(vr_mean=mean, vr_m2=m2)
+
+    def _single(self, w, grad: bool):
+        """The likelihood term of one configuration (-SSE/2, or the
+        multinomial ll) by the plain forward, and its gradient when
+        ``grad``: no eval kernel runs."""
+        if grad:
+            (val, _aux), g = self.vg(w[None])
+            return val[0], g[0]
+        d, spec = self.data, self.spec
+        out = spec.forward(w[None], d.x_train)
+        if self.reg:
+            return -0.5 * torch.sum(torch.square(d.y_train - out[0, :, 0])), \
+                None
+        logp = spec.log_probs(out)[0]
+        idx = d.y_train.to(torch.int64)[:, None]
+        return torch.sum(torch.gather(logp, -1, idx)[:, 0]), None
+
+    def regen(self, st: ChainState, i: int, zn, u):
+        """The hot rung's independence proposal z' ~ q (w and, regression,
+        eta jointly; ``zn`` its standard normal, ``u`` the test's uniform),
+        after the swap event. Its ratio dprior + beta dLL + (1 - beta) dcorr
+        + log q(z) - log q(z') cancels to beta (dlog p_ref + dLL - dlog q)
+        and is formed so: every log q term carries beta, so at beta = 0 the
+        acceptance is 1 whatever the (floored, up to 1e8) log q values.
+        Returns the state and |u - acceptance| (None before activation)."""
+        cfg, wd = self.cfg, self.w_dim
+        zn = zn[:wd + int(self.reg)]
+        if self.full_cov:
+            z_new = vref.sample_q_chol(st.vr_mean, st.vr_chol, z=zn)
+        else:
+            mu, var = self.stats(st, i)
+            z_new = vref.sample_q(mu, var, z=zn)
+        if self.reg:
+            w_new, eta_new = z_new[:wd], z_new[wd]
+        else:
+            w_new, eta_new = z_new, st.eta[-1]
+        w_cur, eta_cur = st.w[-1], st.eta[-1]
+        val_new, g_new = self._single(w_new, st.g_like is not None)
+        if self.reg:
+            ll_new = (-0.5 * self.n_rows) * (likelihood._LOG_2PI + eta_new) \
+                + val_new * torch.exp(-eta_new)
+            prior_new = likelihood.regression_log_prior_dim(
+                w_new[None], torch.exp(eta_new)[None],
+                self.spec.prior_dim_regression, cfg.sigma_sq, cfg.nu_1,
+                cfg.nu_2)[0]
+        else:
+            ll_new = val_new
+            prior_new = likelihood.classification_log_prior_dim(
+                w_new[None], self.spec.prior_dim_classification,
+                cfg.sigma_sq)[0]
+        dlogp_ref = self.logp_ref(w_new, eta_new) \
+            - self.logp_ref(w_cur, eta_cur)
+        dlogq = self.logq(st, i, z_new) \
+            - self.logq(st, i, self.z(w_cur, eta_cur))
+        log_r = self.beta_hot * (dlogp_ref + (ll_new - st.ll[-1]) - dlogq)
+        active = i >= self.start
+        prob = torch.exp(torch.clamp(log_r, max=0.0))
+        acc = (u < prob) & active
+
+        def last(x, new):
+            x = x.clone()
+            x[-1] = torch.where(acc, new, x[-1])
+            return x
+
+        out = st.replace(
+            w=last(st.w, w_new), eta=last(st.eta, eta_new),
+            ll=last(st.ll, ll_new), prior=last(st.prior, prior_new),
+            w_last=last(st.w_last, w_new),
+            n_regen_accepted=st.n_regen_accepted + acc.to(torch.int32),
+            n_regen_proposed=st.n_regen_proposed + int(active))
+        if g_new is not None:
+            out = out.replace(g_like=last(st.g_like, g_new))
+        return out, (torch.abs(u - prob) if active else None)
+
+
 def do_swap(
     cfg: PTConfig,
     state: ChainState,
@@ -360,12 +619,16 @@ def do_swap(
     i: int,
     us: torch.Tensor,
     pair_mask: Optional[torch.Tensor] = None,
+    vr: Optional[VRef] = None,
 ) -> ChainState:
     """One replica-exchange event after step ``i`` with uniforms ``us``
     (C-1,). ``pair_mask`` comes from ``swap.pair_mask`` for replicated
-    ladders."""
+    ladders. Under the variational reference ``vr`` the swap energy is E =
+    LL - corr, exact for the corrected path."""
     adapttemp = adapttemp_at(cfg, temps, i)
-    if cfg.swap_payload == "tempered":
+    if vr is not None:
+        payload = state.ll - vr.corr(state, i, state.w, state.eta)
+    elif cfg.swap_payload == "tempered":
         payload = state.ll / adapttemp
     elif cfg.swap_payload == "tempered_times_T":
         payload = (state.ll / adapttemp) * temps
@@ -431,10 +694,8 @@ def step_reason(cfg: PTConfig,
     if cfg.proposal == "sgld":
         return ("proposal='sgld' (the model zoo's stochastic-gradient "
                 "proposals)")
-    for flag in ("use_surrogate", "variational_reference", "record_fx",
-                 "record_ll_state"):
-        if getattr(cfg, flag):
-            return flag
+    if cfg.use_surrogate:
+        return "use_surrogate"
     if cfg.eval_dtype != "float32":
         return f"eval_dtype={cfg.eval_dtype!r}"
     if cfg.adapt_step_size and cfg.use_langevin_gradients and not (
@@ -456,7 +717,12 @@ def step_noise_names(cfg: PTConfig) -> Tuple[str, ...]:
     normal; regression adds "u_eta" uniform (C,) for the eta block's test;
     HMC with a step jitter "jit" uniform (C,). ptnn draws them from
     ``kp, ke, ku, kue, ks = split(key, 5)`` (HMC: ``kp, kj = split(kp)``):
-    w, eta, u, u_eta, u_swap, and jit from kj."""
+    w, eta, u, u_eta, u_swap, and jit from kj. The variational reference's
+    hot-rung regeneration (``vr_regen``) reads "vr_z" normal (W+1,), of
+    which classification takes the first W, and "u_regen" uniform (), drawn
+    every step; ptnn splits its swap key, ``ks, kr = split(ks)``, and
+    draws u_swap from the first, vr_z and u_regen from ``kq, ka =
+    split(kr)``."""
     names = ("w", "u", "u_swap")
     if cfg.use_langevin_gradients:
         names += ("l",)
@@ -466,7 +732,20 @@ def step_noise_names(cfg: PTConfig) -> Tuple[str, ...]:
             names += ("u_eta",)
     if cfg.proposal == "hmc" and cfg.hmc_eps_jitter > 0.0:
         names += ("jit",)
+    if cfg.variational_reference and cfg.vr_regen:
+        names += ("vr_z", "u_regen")
     return names
+
+
+def spec_fx(cfg: PTConfig, spec: model_api.ModelSpec, w: torch.Tensor,
+            x: torch.Tensor) -> torch.Tensor:
+    """Every chain's predictions on the rows ``x`` by the plain forward
+    (``record_fx``): the output (regression), the predicted class index
+    as float32 (classification)."""
+    out = spec.forward(w, x)
+    if cfg.task == "regression":
+        return out[:, :, 0]
+    return fnn.predict_class(out).to(torch.float32)
 
 
 class StepFn:
@@ -475,7 +754,8 @@ class StepFn:
     swap event after it when ``swap_due(cfg, i)``); ``recompute_ll``.
     ``noise`` holds this step's draws (``step_noise_names``). With
     ``diagnostics`` set, the trace also carries "margin", |u - mh_prob|:
-    how far each chain's decision was from flipping."""
+    how far each chain's decision was from flipping (the hot rung's also
+    from its regeneration's)."""
 
     def __init__(self, cfg: PTConfig, data: Dataset, temps: torch.Tensor,
                  spec: model_api.ModelSpec):
@@ -501,6 +781,8 @@ class StepFn:
             * torch.log(torch.tensor(2.0 * np.pi * cfg.step_w,
                                      dtype=torch.float32))
         self.log_norm = self.log_norm.to(temps.device)
+        self.vr = (VRef(cfg, spec, data, temps)
+                   if cfg.variational_reference else None)
 
     def _prior(self, w, tau):
         """The log prior of (w, tau) for every chain (tau: regression's
@@ -591,6 +873,11 @@ class StepFn:
             tau_prop)
         log_mh = (ll_prop - state.ll) / at + (prior_prop - state.prior) \
             + diff_prop
+        if self.vr is not None:
+            # (1 - beta)(corr(z') - corr(z)): the step proposes w and eta
+            log_mh = log_mh + (1.0 - 1.0 / at) * (
+                self.vr.corr(state, i, w_prop, eta_prop)
+                - self.vr.corr(state, i, state.w, state.eta))
         mh_prob = torch.exp(torch.clamp(log_mh, max=0.0))
         accept = noise["u"] < mh_prob
         acc_w = accept[:, None]
@@ -630,13 +917,54 @@ class StepFn:
                                                      _LOG_STEP_HI))
         if self.diagnostics:
             trace["margin"] = torch.abs(noise["u"] - mh_prob)
+        new = self._fx(state, new, trace, accept, w_prop)
         if cfg.record_w:
             trace["w"] = new.w_last[self.rec]
         if cfg.record_eta and not self.cls:
             trace["eta"] = new.eta[self.rec]
+        return self._finish(state, new, trace, i, noise)
+
+    def _fx(self, state, new, trace, accept, w_prop, fx=None):
+        """``record_fx``: the proposal's predictions on both row sets (the
+        plain forward, or ``fx`` given), carried on accept and traced."""
+        if not self.cfg.record_fx:
+            return new
+        d = self.data
+        if fx is None:
+            fx = (spec_fx(self.cfg, self.spec, w_prop, d.x_train),
+                  spec_fx(self.cfg, self.spec, w_prop, d.x_test))
+        acc_w = accept[:, None]
+        new = new.replace(
+            fx_train=torch.where(acc_w, fx[0], state.fx_train),
+            fx_test=torch.where(acc_w, fx[1], state.fx_test))
+        trace["fx_train"] = new.fx_train
+        trace["fx_test"] = new.fx_test
+        return new
+
+    def _finish(self, state, new, trace, i, noise):
+        """The swap event when due (the hot rung regenerated after it under
+        the variational reference), the reference's Welford fold, and the
+        state traces: ll_cur, the post-swap untempered ll of each rung, and
+        vr_corr_cur, its path correction with the statistics as of step
+        i + 1 (``record_ll_state``); the replica ids."""
+        cfg, vr = self.cfg, self.vr
         if swap_due(cfg, i):
             new = do_swap(cfg, new, self.temps, i, noise["u_swap"],
-                          self.pair_mask)
+                          self.pair_mask, vr)
+            if vr is not None and cfg.vr_regen:
+                # the fresh draw flows toward the cold end from the next
+                # event on
+                new, m_r = vr.regen(new, i, noise["vr_z"], noise["u_regen"])
+                if self.diagnostics and m_r is not None:
+                    m = trace["margin"].clone()
+                    m[-1] = torch.minimum(m[-1], m_r)
+                    trace["margin"] = m
+        if vr is not None:
+            new = vr.update(state, new, i)
+        if cfg.record_ll_state:
+            trace["ll_cur"] = new.ll
+            if vr is not None:
+                trace["vr_corr_cur"] = vr.corr(new, i + 1, new.w, new.eta)
         if cfg.track_replicas:
             trace["replica"] = new.replica_id
         return new, trace
@@ -705,12 +1033,20 @@ class PrecondStepFn(StepFn):
                          precond_power=cfg.precond_power)
         self.vg = like_value_and_grad(cfg, spec, data) if self.grad else None
 
-    def _g_post(self, g_like, w, tau, at):
-        """The tempered posterior gradient from the likelihood term's."""
+    def _g_post(self, g_like, w, tau, at, vr_at=None):
+        """The tempered posterior gradient from the likelihood term's; under
+        the variational reference, ``vr_at = (state, i, eta)`` adds (1 -
+        beta) d corr / d w from the state's reference at step i (once
+        active), at the block's fixed eta."""
         g = g_like if self.cls else g_like / tau[:, None]
-        return g / at[:, None] - w / self.cfg.sigma_sq
+        out = g / at[:, None] - w / self.cfg.sigma_sq
+        if vr_at is not None and vr_at[1] >= self.vr.start:
+            gc = self.vr.grad_w(vr_at[0], vr_at[1], w, vr_at[2])
+            out = out + (1.0 - 1.0 / at)[:, None] * gc
+        return out
 
-    def _leapfrog(self, state, m, g_cur, tau, at, epsw, l_steps, p0):
+    def _leapfrog(self, state, m, g_cur, tau, at, epsw, l_steps, p0,
+                  vr_at=None):
         """``hmc_leapfrog`` leapfrog steps from (w, p0); a chain whose
         trajectory has ended (ChEES, ``n >= l_steps``) carries through.
         Returns (w', p', g_like', val', aux')."""
@@ -720,7 +1056,7 @@ class PrecondStepFn(StepFn):
             p_half = p_c + 0.5 * epsw * g_c
             w_n = w_c + epsw * m * p_half
             (v_n, a_n), gl_n = self.vg(w_n)
-            g_n = self._g_post(gl_n, w_n, tau, at)
+            g_n = self._g_post(gl_n, w_n, tau, at, vr_at)
             p_n = p_half + 0.5 * epsw * g_n
             if l_steps is not None:
                 upd = n < l_steps
@@ -766,8 +1102,11 @@ class PrecondStepFn(StepFn):
                                        self.spec.w_size)
         tau = torch.exp(state.eta)
         margin = None
+        # eta is fixed through the w block, so the current eta holds at
+        # every gradient evaluation along the trajectory
+        vr_at = (state, i, state.eta) if self.vr is not None else None
         if self.grad:
-            g_cur = self._g_post(state.g_like, state.w, tau, at)
+            g_cur = self._g_post(state.g_like, state.w, tau, at, vr_at)
         if self.is_hmc:
             eps = sig
             if cfg.hmc_eps_jitter > 0.0:
@@ -788,7 +1127,8 @@ class PrecondStepFn(StepFn):
             k_init = 0.5 * torch.sum(m * torch.square(p0), dim=-1)
             if not warm:
                 w_prop, p_end, g_like_prop, val, aux = self._leapfrog(
-                    state, m, g_cur, tau, at, eps[:, None], l_steps, p0)
+                    state, m, g_cur, tau, at, eps[:, None], l_steps, p0,
+                    vr_at)
                 diff = k_init - 0.5 * torch.sum(m * torch.square(p_end),
                                                 dim=-1)
             else:  # the forced warm-start move below: no ratio is read
@@ -819,7 +1159,7 @@ class PrecondStepFn(StepFn):
             ll_prop, rmse_tr, acc_tr, rmse_te, acc_te = self._train_metrics(
                 val, aux, state.eta, tau, w_prop)
             if self.is_mala:
-                g_prop = self._g_post(g_like_prop, w_prop, tau, at)
+                g_prop = self._g_post(g_like_prop, w_prop, tau, at, vr_at)
                 mean_rev = w_prop + 0.5 * sig2m * g_prop
                 diff = (torch.sum(torch.square(w_prop - mean_fwd) / m, dim=-1)
                         - torch.sum(torch.square(state.w - mean_rev) / m,
@@ -838,6 +1178,11 @@ class PrecondStepFn(StepFn):
                 diff = torch.zeros_like(sig)
 
         log_mh = (ll_prop - state.ll) / at + (prior_prop - state.prior) + diff
+        if self.vr is not None:
+            # eta is fixed in this block: its share cancels
+            log_mh = log_mh + (1.0 - 1.0 / at) * (
+                self.vr.corr(state, i, w_prop, state.eta)
+                - self.vr.corr(state, i, state.w, state.eta))
         mh_prob = torch.exp(torch.clamp(log_mh, max=0.0))
         accept = noise["u"] < mh_prob
         if warm:
@@ -874,6 +1219,7 @@ class PrecondStepFn(StepFn):
         if self.grad:
             new = new.replace(g_like=torch.where(acc_w, g_like_prop,
                                                  state.g_like))
+        new = self._fx(state, new, trace, accept, w_prop)
         if cfg.record_w:
             trace["w"] = new.w_last[self.rec]
         if cfg.record_eta and not self.cls:
@@ -891,12 +1237,7 @@ class PrecondStepFn(StepFn):
         if self.diagnostics:
             trace["margin"] = (margin if margin is not None
                                else torch.full_like(sig, math.inf))
-        if swap_due(cfg, i):
-            new = do_swap(cfg, new, self.temps, i, noise["u_swap"],
-                          self.pair_mask)
-        if cfg.track_replicas:
-            trace["replica"] = new.replica_id
-        return new, trace
+        return self._finish(state, new, trace, i, noise)
 
     def _eta_block(self, state, new, i, at, noise):
         """The regression eta block: a random walk on eta, its likelihood
@@ -904,9 +1245,11 @@ class PrecondStepFn(StepFn):
         until burn-in ends. Returns the state and each chain's
         |u_eta - a|."""
         cfg = self.cfg
+        vr_term = (None if self.vr is None else
+                   self.vr.eta_term(state, i, new.w, state.eta, at))
         eta_prop, ll_eta, dprior, prob = precond_step.eta_move(
             state.eta, new.ll, state.log_step_eta, noise["eta"], self.n_train,
-            at, cfg.nu_1, cfg.nu_2)
+            at, cfg.nu_1, cfg.nu_2, vr_term)
         acc = noise["u_eta"] < prob
         lse = state.log_step_eta
         if i < self.burn_end:

@@ -190,11 +190,13 @@ def _clip_traj(lt, eps, leap):
                          torch.log(eps * float(leap)))
 
 
-def eta_move(eta, ll, log_step_eta, z, n_tr, at, nu1, nu2):
+def eta_move(eta, ll, log_step_eta, z, n_tr, at, nu1, nu2, vr_term=None):
     """The regression eta block's random-walk proposal and its likelihood,
     recovered from the carried ``ll`` without a data pass (ptnn's float32
     order); returns (eta', ll at eta', the prior's change, MH probability).
-    Shared by the fused blocks' plain version and the per-step sampler."""
+    ``vr_term(eta', dprior)``, where given, adds the variational reference's
+    share to the log ratio. Shared by the fused blocks' plain version and
+    the per-step sampler."""
     eta_prop = eta + torch.exp(log_step_eta) * z
     val_cur = (ll + 0.5 * n_tr * (likelihood._LOG_2PI + eta)) * torch.exp(eta)
     ll_eta = (-0.5 * n_tr) * (likelihood._LOG_2PI + eta_prop) \
@@ -202,7 +204,10 @@ def eta_move(eta, ll, log_step_eta, z, n_tr, at, nu1, nu2):
     # the prior's tau terms: -(1 + nu_1) log tau^2 - nu_2 / tau^2
     dprior = -(1.0 + nu1) * (eta_prop - eta) - nu2 * (
         torch.exp(-eta_prop) - torch.exp(-eta))
-    prob = torch.exp(torch.clamp((ll_eta - ll) / at + dprior, max=0.0))
+    log_mh = (ll_eta - ll) / at + dprior
+    if vr_term is not None:
+        log_mh = log_mh + vr_term(eta_prop, dprior)
+    prob = torch.exp(torch.clamp(log_mh, max=0.0))
     return eta_prop, ll_eta, dprior, prob
 
 

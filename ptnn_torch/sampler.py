@@ -18,9 +18,10 @@ chunks of about ``cfg.chunk_steps`` steps (``_pick_chunk``). Each chunk's
 traces stay on the device until the chunk ends. Noise is drawn per chunk by
 ``noise_fn(start, length, c, w) -> dict`` of (length, ...) tensors:
 "w" (L, C, W) normal, "u" (L, C) uniform, "u_swap" (L, C-1) uniform, with
-Langevin "l" (L, C) uniform, for regression "eta" (L, C) normal, and for
+Langevin "l" (L, C) uniform, for regression "eta" (L, C) normal, for
 the preconditioned family "u_eta" (L, C) (regression) and "jit" (L, C)
-(HMC) uniform (``kernel.step_noise_names``). The default (``step_noise``) draws pages of
+(HMC) uniform, and for the variational reference's regeneration "vr_z"
+(L, W+1) normal and "u_regen" (L,) uniform (``kernel.step_noise_names``). The default (``step_noise``) draws pages of
 steps from a ``torch.Generator`` on the run's device seeded from (seed, page
 index), so a step's noise does not depend on ``chunk_steps``. ``ptnn``
 derives each step's noise from ``split(fold_in(k_run, i), 6)`` (the
@@ -134,6 +135,11 @@ def make_result(cfg: PTConfig, traces: Dict[str, np.ndarray],
     final = state.to("cpu")
     samples = cfg.samples_per_chain
     n_prop = int(final.n_swap_proposed)
+    regen_pct, regen_prop = None, 0
+    if final.n_regen_proposed is not None:
+        # the hot rung's regeneration acceptance (ptnn/sampler.py:378-383)
+        regen_prop = int(final.n_regen_proposed)
+        regen_pct = 100.0 * int(final.n_regen_accepted) / max(regen_prop, 1)
     return SampleResult(
         traces=merge_rows(traces),
         final_state=final,
@@ -148,6 +154,8 @@ def make_result(cfg: PTConfig, traces: Dict[str, np.ndarray],
         config=cfg,
         pair_swap_accept=final.pair_accept_sum.numpy()[:-1]
         / np.maximum(final.pair_prop_count.numpy()[:-1], 1),
+        vr_regen_accept_pct=regen_pct,
+        vr_regen_proposed=regen_prop,
         fetch_s=fetch_s,
     )
 
@@ -253,6 +261,8 @@ def step_noise(seed: int, device, names) -> NoiseFn:
                 u_eta=lambda: torch.rand((steps, c), **f32),
                 jit=lambda: torch.rand((steps, c), **f32),
                 u_swap=lambda: torch.rand((steps, max(c - 1, 0)), **f32),
+                vr_z=lambda: torch.randn((steps, w + 1), **f32),
+                u_regen=lambda: torch.rand((steps,), **f32),
             )
             cache.clear()
             cache[p] = {name: draw[name]() for name in names}

@@ -7,6 +7,10 @@ was never stopped ends: every trace, counter and state tensor. A checkpoint
 of another seed or config is not loaded; a fused config with a checkpoint
 falls back to the per-step sampler with ptnn's warning; the fingerprint is
 ptnn's for the same fields; ``cnn_digits --checkpoint`` runs and resumes.
+The variational reference's state (its moments or fitted reference, the
+Cholesky factor, the regeneration counters) and the posterior-predictive
+carries ride the checkpoint: a static full-covariance run and a Welford run
+with ``record_fx`` resume bit for bit.
 """
 
 import dataclasses
@@ -60,11 +64,49 @@ def _iris_mala(**kw):
         **kw).validate()
 
 
+VR = dict(swap_interval=5, swap_style="even_odd", swap_payload="untempered",
+          swap_rule="metropolis", pt_phase_frac=2.0,
+          variational_reference=True, vr_hot_infinite=True,
+          record_ll_state=True, record_eta=True)
+
+
+def _vr_static_full_cov():
+    """The rounds' static full-covariance reference on the random walk
+    (tests/test_rounds.py:235), swaps every 5 with the hot rung
+    regenerated; chunks of 4."""
+    return _lg(use_langevin_gradients=False, vr_mode="static",
+               vr_family="full_cov", **VR)
+
+
+def _vr_welford_fx():
+    """lg_pallas on the Welford reference with the posterior-predictive
+    traces (tests/test_vref.py:205): the fit accumulates from step 5 and
+    freezes at 19, across the stop."""
+    return _lg(record_fx=True, **VR)
+
+
+def _fitted(cfg, data):
+    """A static reference fitted to draws around a random point."""
+    from ptnn_torch.ops import vref
+
+    st = sampler.init_chains(cfg, data, 4)
+    rng = np.random.default_rng(9)
+    z = st.vr_mean.shape[0]
+    draws = rng.standard_normal(z) + 0.2 * rng.standard_normal((300, z))
+    return kernel.set_static_reference(st, cfg, *vref.fit_gaussian(
+        draws, cfg.vr_family))
+
+
 CASES = {
     # Sunspot lg_pallas: the switch at 24 inside the run, chunks of 4
     "sunspot_lg": (_lg, load_regression, "Sunspot", 21),
     # iris per-step MALA, thinned by 2: chunks of 6 (12 after the switch)
     "iris_mala_thinned": (_iris_mala, load_classification, "iris", 30),
+    # the variational reference: its state (vr_*, n_regen_*) and traces
+    "sunspot_vr_static_full_cov": (_vr_static_full_cov, load_regression,
+                                   "Sunspot", 21),
+    "sunspot_vr_welford_fx": (_vr_welford_fx, load_regression, "Sunspot",
+                              13),
 }
 
 
@@ -90,13 +132,17 @@ def test_stopped_run_resumes_bit_for_bit(case, tmp_path):
     cfg = make()
     prob = load(name)
     path = str(tmp_path / "run.npz")
+    init = None
+    if cfg.variational_reference and cfg.vr_mode == "static":
+        init = _fitted(cfg, sampler.make_dataset(cfg, prob.train, prob.test,
+                                                 "cpu"))
     want = ptnn_torch.sample(cfg, prob.train, prob.test, seed=4,
-                             device="cpu")
+                             device="cpu", init_state=init)
     noise = sampler.step_noise(4, torch.device("cpu"),
                                kernel.step_noise_names(cfg))
     with pytest.raises(Stop):
         sampler.sample_per_step(cfg, prob.train, prob.test, seed=4,
-                                device="cpu",
+                                device="cpu", init_state=init,
                                 noise_fn=_stopping(noise, stop_at),
                                 checkpoint_path=path, checkpoint_every=2)
     spec = kernel.default_spec(cfg).name
@@ -105,8 +151,12 @@ def test_stopped_run_resumes_bit_for_bit(case, tmp_path):
     assert traces["ll"].shape[0] < want.traces["ll"].shape[0] - 1
     assert not os.path.exists(path + ".tmp")
     got = ptnn_torch.sample(cfg, prob.train, prob.test, seed=4, device="cpu",
-                            checkpoint_path=path, checkpoint_every=2)
+                            init_state=init, checkpoint_path=path,
+                            checkpoint_every=2)
     _assert_same_run(got, want)
+    if cfg.variational_reference:
+        assert got.vr_regen_proposed == want.vr_regen_proposed > 0
+        assert state.vr_mean is not None and state.n_regen_proposed > 0
     # the finished run's checkpoint holds every step: a third call resumes
     # at the end and returns the same run
     assert checkpoint.load(path, cfg, 4, spec)[1] == cfg.n_steps

@@ -23,6 +23,7 @@ The command lines: every flag and default of ptnn's ``regression`` and
 import dataclasses
 import json
 import os
+import re
 
 import jax
 import numpy as np
@@ -154,10 +155,49 @@ def test_run_problem_writes_ptnn_tree(case, tmp_path, monkeypatch):
     name = spec["problem"]
     ta = _tree(tmp_path / "port" / f"{name}_0")
     tb = _tree(tmp_path / "ptnn" / f"{name}_0")
-    assert sorted(ta) == sorted(tb)
     assert ("roundtrip.txt" in ta) == bool(spec["run"].get("roundtrip"))
     assert ("replication.txt" in ta) == bool(spec["run"].get("replicate"))
-    temps = jladder.build_temperatures(jcfg)
+    n_ll, n_w = _assert_trees_match(ta, tb, jprob.train.shape[0],
+                                    jladder.build_temperatures(jcfg))
+    assert n_ll == 1 + jcfg.num_chains
+    assert n_w == (jcfg.num_chains if jcfg.record_w else 0)
+    _assert_master_rows_match(tmp_path / "port", tmp_path / "ptnn")
+
+
+def _assert_master_rows_match(a, b):
+    with open(a / "master_result_file.txt") as f1, \
+            open(b / "master_result_file.txt") as f2:
+        ra, rb = f1.read().split(), f2.read().split()
+    assert len(ra) == len(rb) == 16
+    assert ra[:14] + ra[15:] == rb[:14] + rb[15:]
+
+
+def _numbers(text: bytes):
+    return np.asarray(re.findall(rb"-?[0-9]+\.[0-9]+(?:e[-+][0-9]+)?",
+                                 text), np.float64)
+
+
+def _assert_trees_match(ta, tb, n_train, temps):
+    """Two artifact trees: the same files, byte for byte but for the
+    float32 traces printed in full (pos_w at the run tolerance), the
+    printed ll (at the ll tolerance), the wall times of metrics.jsonl, and
+    the evidence and rounds files, whose numbers are held at the run
+    tolerance on the size of the ll terms (``evidence.txt``) or column by
+    column to one unit of its printed decimal (``rounds_history.md``, the
+    counts exactly). Returns the numbers of ll
+    and pos_w files."""
+    # a re-spaced ladder (the rounds) names chains by temperatures that the
+    # two runs compute apart by rounding: pair the files by position
+    pairs = list(zip(sorted(ta), sorted(tb)))
+    assert len(ta) == len(tb)
+    chain = re.compile(r"(.*chain_)([0-9]+\.[0-9]+|inf)(.*)$")
+    for a, b in pairs:
+        if a != b:
+            ma, mb = chain.match(a), chain.match(b)
+            assert ma and mb and ma.group(1, 3) == mb.group(1, 3), (a, b)
+            np.testing.assert_allclose(float(ma.group(2)),
+                                       float(mb.group(2)), rtol=RTOL)
+    tb = {a: tb[b] for a, b in pairs}
     n_ll = n_w = 0
     for rel in ta:
         if rel == "metrics.jsonl":
@@ -175,22 +215,41 @@ def test_run_problem_writes_ptnn_tree(case, tmp_path, monkeypatch):
                 or rel == "likelihood.txt":
             n_ll += 1
             if ta[rel] != tb[rel]:
-                _ll_close(ta[rel], tb[rel], jprob.train.shape[0], temps)
+                _ll_close(ta[rel], tb[rel], n_train, temps)
         elif rel.startswith(os.path.join("posterior", "pos_w")):
             n_w += 1
             np.testing.assert_allclose(
                 np.loadtxt(ta[rel].decode().splitlines()),
                 np.loadtxt(tb[rel].decode().splitlines()), rtol=RTOL,
                 atol=ATOL, err_msg=rel)
+        elif rel == "config.json" and ta[rel] != tb[rel]:
+            # a re-spaced ladder's custom_ladder, apart by rounding
+            ca, cb = json.loads(ta[rel]), json.loads(tb[rel])
+            np.testing.assert_allclose(ca.pop("custom_ladder"),
+                                       cb.pop("custom_ladder"), rtol=RTOL)
+            assert ca == cb
+        elif rel == "evidence.txt":
+            a, b = _numbers(ta[rel]), _numbers(tb[rel])
+            assert a.shape == b.shape
+            assert np.all(np.abs(a - b) <= ATOL + RTOL * (np.abs(b)
+                                                          + n_train)), rel
+        elif rel == "rounds_history.md":
+            ra = parse_rounds(ta[rel].decode())
+            rb = parse_rounds(tb[rel].decode())
+            assert len(ra) == len(rb)
+            for a, b in zip(ra, rb):
+                # the counts exactly; each other column to one unit of the
+                # decimal it is printed to
+                for k in ("round", "samples", "fit_draws"):
+                    assert a[k] == b[k], (rel, k)
+                assert (a["regen"] is None) == (b["regen"] is None), rel
+                for k, unit in ROUNDS_UNITS.items():
+                    if a[k] is not None:
+                        assert abs(a[k] - b[k]) <= unit * (1 + 1e-6), \
+                            (rel, k, a[k], b[k])
         else:
             assert ta[rel] == tb[rel], rel
-    assert n_ll == 1 + jcfg.num_chains
-    assert n_w == (jcfg.num_chains if jcfg.record_w else 0)
-    with open(tmp_path / "port" / "master_result_file.txt") as f1, \
-            open(tmp_path / "ptnn" / "master_result_file.txt") as f2:
-        ra, rb = f1.read().split(), f2.read().split()
-    assert len(ra) == len(rb) == 16
-    assert ra[:14] + ra[15:] == rb[:14] + rb[15:]
+    return n_ll, n_w
 
 
 def _options(parser):
@@ -210,18 +269,56 @@ def test_cli_flags_and_defaults_match_ptnn(cli):
         assert t.PROBLEM_ORDER == j.PROBLEM_ORDER
 
 
-@pytest.mark.parametrize("flags,word", [
-    (["--evidence"], "item 13"), (["--vref"], "item 13"),
-    (["--vr-rounds", "2"], "item 13"), (["--mesh"], "item 14")])
+@pytest.mark.parametrize("flags", [
+    pytest.param(["--evidence"], id="flags0-item 13"),
+    pytest.param(["--vref"], id="flags1-item 13"),
+    pytest.param(["--vr-rounds", "2"], id="flags2-item 13"),
+    pytest.param(["--mesh"], id="flags3-item 14")])
 @pytest.mark.parametrize("cli", ["regression", "classification"])
-def test_cli_refuses_what_is_not_ported(cli, flags, word, tmp_path,
-                                        monkeypatch):
+def test_cli_refuses_what_is_not_ported(cli, flags, tmp_path, monkeypatch):
+    """``--mesh`` raises naming its ROADMAP item (14) and writes nothing.
+    ``--evidence``, ``--vref`` and ``--vr-rounds`` (the extensions of item
+    13) run: each command line of the port and of ptnn at 8 chains x 40
+    (the rounds: 40 a round), the port's runs from ptnn's initial states
+    with ptnn's draws, write the same tree (``evidence.txt`` and
+    ``rounds_history.md`` included, ``_assert_trees_match``) and master
+    row."""
     monkeypatch.setenv("PTNN_DEVICE", "cpu")
-    mod = treg_cli if cli == "regression" else tcls_cli
-    with pytest.raises(NotImplementedError, match=word):
-        mod.main(["--samples", "40", "--chains", "4", "--no-plots",
-                  "--out", str(tmp_path)] + flags)
-    assert not os.listdir(tmp_path)
+    t, j = ((treg_cli, jreg_cli) if cli == "regression"
+            else (tcls_cli, jcls_cli))
+    if flags == ["--mesh"]:
+        with pytest.raises(NotImplementedError, match="item 14"):
+            t.main(["--samples", "40", "--chains", "4", "--no-plots",
+                    "--out", str(tmp_path)] + flags)
+        assert not os.listdir(tmp_path)
+        return
+    from test_torch_tuning import replay_sample
+
+    replay_sample(monkeypatch)
+    _patch_samplers(monkeypatch)
+    monkeypatch.setattr(trunner, "sample", tsampler.sample)
+    argv = ["--samples", "320", "--chains", "8", "--no-plots", "--seed", "3"]
+    argv += (["--swap-ratio", "0.125", "--problem", "Sunspot"]
+             if cli == "regression" else
+             ["--swap-ratio", "0.1", "--problem", "iris"])
+    if flags[0] == "--vr-rounds":
+        argv += ["--evidence", "--no-langevin"] if cli == "regression" \
+            else []
+    for mod, out in ((j, "ptnn"), (t, "port")):
+        mod.main(argv + flags + ["--out", str(tmp_path / out)])
+    name = "Sunspot" if cli == "regression" else "iris"
+    ta = _tree(tmp_path / "port" / f"{name}_0")
+    tb = _tree(tmp_path / "ptnn" / f"{name}_0")
+    with open(tmp_path / "port" / f"{name}_0" / "config.json") as f:
+        cfg = ptnn_torch.config.from_json_dict(json.load(f))
+    assert ("evidence.txt" in ta) == ("--evidence" in argv + flags)
+    assert ("rounds_history.md" in ta) == (flags[0] == "--vr-rounds")
+    assert cfg.variational_reference == (flags[0] != "--evidence")
+    prob = tload(name)
+    n_ll, _n_w = _assert_trees_match(ta, tb, prob.train.shape[0],
+                                     jladder.build_temperatures(cfg))
+    assert n_ll == 1 + cfg.num_chains
+    _assert_master_rows_match(tmp_path / "port", tmp_path / "ptnn")
 
 
 def test_cli_runs_the_paper_command_line(tmp_path, monkeypatch, capsys):
@@ -253,7 +350,53 @@ REFERENCE_RUNS = {
     "regression": (jreg_cli, ["--problem", "Sunspot"]),
     "regression-rw": (jreg_cli, ["--problem", "Sunspot", "--no-langevin"]),
     "classification": (jcls_cli, ["--problem", "iris"]),
+    # the variational-reference paths: the Langevin default with the T = inf
+    # rung, three full-covariance rounds, and iris's canonical schedule
+    "regression-vref": (jreg_cli, ["--problem", "Sunspot", "--vref",
+                                   "--evidence", "--roundtrip"]),
+    "regression-rounds": (jreg_cli, ["--problem", "Sunspot", "--no-langevin",
+                                     "--vr-rounds", "3", "--evidence"]),
+    "classification-vref": (jcls_cli, ["--problem", "iris", "--vref",
+                                       "--evidence"]),
 }
+
+
+def read_evidence(path: str) -> dict:
+    """``evidence.txt``'s named lines (ti, ss and, anchored, log_z0, abs_ti,
+    abs_ss) as floats."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            key, _, rest = line.partition(" ")
+            if key in ("ti", "ss", "log_z0", "abs_ti", "abs_ss"):
+                out[key] = float(rest)
+    return out
+
+
+# one unit of the decimal each float column of rounds_history.md is
+# printed to (rounds.format_history)
+ROUNDS_UNITS = dict(swap=0.1, barrier=0.01, trips=0.1, regen=0.1,
+                    metric=1e-4)
+
+
+def parse_rounds(text: str) -> list:
+    """``rounds_history.md``'s rows as dicts of the printed numbers (regen
+    None where the table prints a dash)."""
+    rows = []
+    for line in text.splitlines()[2:]:
+        c = [x.strip() for x in line.strip("|").split("|")]
+        rows.append(dict(round=int(c[0]), samples=int(c[1]),
+                         swap=float(c[2]), barrier=float(c[3]),
+                         trips=float(c[4]),
+                         regen=None if c[5] == "—" else float(c[5]),
+                         metric=float(c[6]), fit_draws=int(c[7])))
+    return rows
+
+
+def read_rounds(path: str) -> list:
+    """``parse_rounds`` of the file at ``path``."""
+    with open(path) as f:
+        return parse_rounds(f.read())
 
 
 def reference_run(name: str, seed: int, out: str) -> dict:
@@ -265,8 +408,14 @@ def reference_run(name: str, seed: int, out: str) -> dict:
     from ptnn import predict as jpredict
     from ptnn.data import load
 
+    import contextlib
+    import io
+    import re
+
     mod, argv = REFERENCE_RUNS[name]
-    mod.main(argv + ["--no-plots", "--seed", str(seed), "--out", out])
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        mod.main(argv + ["--no-plots", "--seed", str(seed), "--out", out])
     (run,) = [os.path.join(out, d) for d in os.listdir(out)
               if d != "master_result_file.txt"]
     with open(os.path.join(run, "metrics.jsonl")) as f:
@@ -279,13 +428,25 @@ def reference_run(name: str, seed: int, out: str) -> dict:
     served = (float(np.sqrt(np.mean((pred["mean"] - y) ** 2)))
               if cfg.task == "regression"
               else 100.0 * float(np.mean(pred["label"] == y.astype(int))))
-    return dict(test_mean=m["test_mean"], swap=m["swap_percent"],
-                accept=m["accept_per"], served=served)
+    out = dict(test_mean=m["test_mean"], swap=m["swap_percent"],
+               accept=m["accept_per"], served=served)
+    if os.path.exists(os.path.join(run, "evidence.txt")):
+        out["evidence"] = read_evidence(os.path.join(run, "evidence.txt"))
+    if os.path.exists(os.path.join(run, "rounds_history.md")):
+        out["rounds"] = read_rounds(os.path.join(run, "rounds_history.md"))
+    if os.path.exists(os.path.join(run, "roundtrip.txt")):
+        trips = re.search(r"([0-9]+) round trips", printed.getvalue())
+        out["round_trips"] = int(trips.group(1))
+    regen = re.search(r"hot-rung regen ([0-9.]+)% accepted",
+                      printed.getvalue())
+    if regen:
+        out["regen"] = float(regen.group(1))
+    return out
 
 
 if __name__ == "__main__":
-    # python tests/test_torch_experiments.py regression|regression-rw|
-    #     classification SEED ... : ptnn's CLI on the CPU, one line a seed
+    # python tests/test_torch_experiments.py NAME SEED ... (NAME a key of
+    #     REFERENCE_RUNS): ptnn's CLI on the CPU, one line a seed
     import sys
     import tempfile
 

@@ -30,6 +30,12 @@ MODULES = (
     "ptnn_torch.experiments.regression",
     "ptnn_torch.experiments.classification",
     "ptnn_torch.checkpoint",
+    "ptnn_torch.tuning",
+    "ptnn_torch.rounds",
+    "ptnn_torch.mcmc",
+    "ptnn_torch.experiments.single_chain",
+    "ptnn_torch.ops.vref",
+    "ptnn_torch.ops.evidence",
     "ptnn_torch.ops.ic",
     "ptnn_torch.ops.calibrate",
     "ptnn_torch.ops.conv_stage",

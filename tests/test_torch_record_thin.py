@@ -237,3 +237,49 @@ def test_thinner_regimes_keep_ptnn_positions():
                          if dst >= 0)
             assert got == want
             assert [int(d) for d in pd[:, 1] if d >= 0] == list(range(n_keep))
+
+
+def test_per_step_thinned_vr_and_fx_rows_match_ptnn():
+    """The variational reference's traces (``ll_cur``, ``vr_corr_cur``)
+    and the posterior-predictive ones (``fx_train``, ``fx_test``) thin like
+    the others: a Sunspot VR random walk with ``record_fx`` at thin 3,
+    chunks of 7, from ptnn's state with ptnn's draws, keeps ptnn's rows
+    (counters exactly, floats at the run tolerance), and they are the
+    port's unthinned rows at ptnn's positions, bit for bit."""
+    from test_torch_vref import (_np_state, ptnn_start, sunspot_vr,
+                                 vr_noise_fn)
+
+    prob = load_regression("Sunspot")
+    kw = sunspot_vr(track_replicas=False, record_fx=True, chunk_steps=7,
+                    record_thin=3)
+    jcfg = ptnn.PTConfig(**kw).validate()
+    tcfg = ptnn_torch.PTConfig(**kw).validate()
+    rows, lengths = _per_step_rows(tcfg)
+    assert any(ln % 3 for ln in lengths), lengths
+    _data, st0, k_run = ptnn_start(jcfg, prob.train, prob.test, seed=5)
+    ref = ptnn.sample(jcfg, prob.train, prob.test, seed=5, init_state=st0)
+
+    def run(cfg):
+        return ptnn_torch.sample(
+            cfg, prob.train, prob.test, seed=5, device="cpu",
+            init_state=convert.chain_state_from_numpy(_np_state(st0)),
+            noise_fn=vr_noise_fn(k_run, cfg))
+
+    got = run(tcfg)
+    assert set(got.traces) == set(ref.traces) >= {
+        "ll_cur", "vr_corr_cur", "fx_train", "fx_test"}
+    assert got.traces["ll"].shape[0] == len(rows) + 1
+    np.testing.assert_array_equal(got.traces["accept_count"],
+                                  ref.traces["accept_count"])
+    for k in ("rmse_test", "fx_train", "fx_test", "w"):
+        np.testing.assert_allclose(got.traces[k], ref.traces[k], rtol=RTOL,
+                                   atol=ATOL, err_msg=k)
+    _assert_ll_close(got.traces["ll_cur"], ref.traces["ll_cur"], tcfg, prob,
+                     np.ones_like(got.temperatures)[None, :])
+    want = ref.traces["vr_corr_cur"]
+    assert np.all(np.abs(got.traces["vr_corr_cur"] - want)
+                  <= ATOL + RTOL * np.abs(want))
+    assert got.vr_regen_proposed == ref.vr_regen_proposed > 0
+    full = run(dataclasses.replace(tcfg, record_thin=1))
+    for k, v in got.traces.items():
+        np.testing.assert_array_equal(v[1:], full.traces[k][rows], err_msg=k)

@@ -300,6 +300,11 @@ def test_fused_langevin_config_is_refused_and_others_fall_back():
     assert res.traces["acc_test"].shape == (6, 8)
 
 
+# features the per-step sampler runs since they were ported: a case of them
+# holds the run to ptnn's, the others' to the refusal
+RUN_NOW = ("record_fx", "record_ll_state")
+
+
 @pytest.mark.parametrize("feature", [
     dict(proposal="sgld", use_langevin_gradients=False, sg_batch=16,
          swap_payload="untempered", swap_rule="metropolis",
@@ -309,9 +314,31 @@ def test_fused_langevin_config_is_refused_and_others_fall_back():
     dict(adapt_step_size=True), dict(eval_dtype="bfloat16"),
 ])
 def test_per_step_refuses_what_is_not_ported(feature):
+    """A feature the per-step sampler does not run raises naming it; the
+    posterior-predictive traces (``record_fx``) and the state likelihood
+    (``record_ll_state``) run, 40 steps of lg_pallas held to ptnn's run on
+    ptnn's state and draws, their new traces with the others."""
     prob = load_regression("Sunspot")
     cfg = ptnn_torch.PTConfig(**_sunspot_lg(**feature)).validate()
     name = next(iter(feature))
+    if name in RUN_NOW:
+        got, ref = _run_both(_sunspot_lg(**feature), prob, seed=2)
+        _assert_runs_match(got, ref)
+        new = {"record_fx": ("fx_train", "fx_test"),
+               "record_ll_state": ("ll_cur",)}[name]
+        for k in new:
+            assert got.traces[k].shape == ref.traces[k].shape, k
+        if name == "record_fx":
+            for k in new:
+                np.testing.assert_allclose(got.traces[k], ref.traces[k],
+                                           rtol=RTOL, atol=ATOL, err_msg=k)
+        else:
+            # the untempered ll of every rung's state after each step
+            _assert_ll_close(got.traces["ll_cur"], ref.traces["ll_cur"], cfg,
+                             prob, np.ones_like(got.temperatures)[None, :])
+            np.testing.assert_array_equal(
+                got.traces["ll_cur"][-1], got.final_state.ll.numpy())
+        return
     with pytest.raises(NotImplementedError, match="not yet ported") as e:
         ptnn_torch.sample(cfg, prob.train, prob.test, device="cpu")
     assert name.split("_")[0] in str(e.value)
@@ -364,14 +391,20 @@ def _digits_mlp():
         (64, 16, 12, 10))
 
 
-@pytest.mark.parametrize("model", ["sunspot_lg", "digits_mlp"])
+@pytest.mark.parametrize("model", ["sunspot_lg", "digits_mlp", "sunspot_vr"])
 def test_default_noise_is_invariant_to_chunking(model):
     """8 chains x 40 steps with chunk_steps 7 and 40 give the same traces
     and counters (ptnn's tests/test_precond.py:80-83 holds its own sampler
-    to this)."""
+    to this); the variational reference's regeneration draws are drawn
+    every step, so its runs are invariant too."""
     if model == "sunspot_lg":
         prob = load_regression("Sunspot")
         kw, train, test, spec = _sunspot_lg(), prob.train, prob.test, None
+    elif model == "sunspot_vr":
+        from test_torch_vref import sunspot_vr
+
+        prob = load_regression("Sunspot")
+        kw, train, test, spec = sunspot_vr(), prob.train, prob.test, None
     else:
         kw, train, test, spec = _digits_mlp()
     runs = [ptnn_torch.sample(

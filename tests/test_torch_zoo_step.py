@@ -116,6 +116,9 @@ CASES = {
     "mlp_rw": (_digits_cfg, dict(use_langevin_gradients=False),
                _digits_rows, "mlp_cls"),
     "mlp_regression": (_sunspot_cfg, {}, _sunspot_rows, "mlp_reg"),
+    # the posterior-predictive traces on a zoo spec (the plain forward)
+    "mlp_fx": (_digits_cfg, dict(learn_rate=5e-5, step_w=0.01,
+                                 record_fx=True), _digits_rows, "mlp_cls"),
 }
 
 
@@ -189,6 +192,12 @@ def test_zoo_run_matches_ptnn(case):
     for k in ("rmse_train", "rmse_test", "acc_train", "acc_test"):
         np.testing.assert_allclose(got.traces[k][rows], ref.traces[k][rows],
                                    rtol=RTOL, atol=ATOL, err_msg=k)
+    for k in ("fx_train", "fx_test"):
+        if k in ref.traces:
+            # predicted classes: a near-tied argmax may flip between the
+            # two packages' outputs, in at most 1 % of the entries
+            same = got.traces[k][rows] == ref.traces[k][rows]
+            assert same.mean() >= 0.99, (k, same.mean())
     n_train = 128 if cfg.task == "classification" else 298
     want = ref.traces["ll"][rows]
     diff = np.abs(got.traces["ll"][rows].astype(np.float64) - want)
@@ -275,14 +284,29 @@ def test_zoo_specs_never_take_the_fused_path():
 
 
 def test_zoo_refusals_name_the_feature():
+    """bfloat16 evals raise naming the feature on a zoo spec; ``record_fx``
+    runs there (since it was ported), its traces the plain forward's
+    predicted classes at each chain's last accepted proposal (its run
+    against ptnn's: ``test_zoo_run_matches_ptnn[mlp_fx]``)."""
     train, test = _digits_rows()
     spec = mlp.spec((64, 8, 10))
-    for kw, word in ((dict(eval_dtype="bfloat16"), "eval_dtype"),
-                     (dict(record_fx=True), "record_fx")):
-        cfg = ptnn_torch.PTConfig(**_digits_cfg(**kw)).validate()
-        with pytest.raises(NotImplementedError, match=word):
-            ptnn_torch.sample(cfg, train[:16], test[:8], device="cpu",
-                              model_spec=spec)
+    cfg = ptnn_torch.PTConfig(**_digits_cfg(
+        eval_dtype="bfloat16")).validate()
+    with pytest.raises(NotImplementedError, match="eval_dtype"):
+        ptnn_torch.sample(cfg, train[:16], test[:8], device="cpu",
+                          model_spec=spec)
+    cfg = ptnn_torch.PTConfig(**_digits_cfg(record_fx=True)).validate()
+    res = ptnn_torch.sample(cfg, train[:16], test[:8], device="cpu",
+                            model_spec=spec)
+    fin = res.final_state
+    moved = fin.n_accept.numpy() > 0
+    assert moved.any()
+    for split, rows in (("train", train[:16]), ("test", test[:8])):
+        fx = res.traces[f"fx_{split}"]
+        assert fx.shape == (cfg.samples_per_chain, 8, rows.shape[0])
+        want = kernel.spec_fx(cfg, spec, fin.w_last, torch.from_numpy(
+            rows[:, :64].astype(np.float32))).numpy()
+        np.testing.assert_array_equal(fx[-1][moved], want[moved])
     # the FNN's drift kernel takes one rate: adapt + Langevin stays refused
     cfg = ptnn_torch.PTConfig(**_digits_cfg(adapt_step_size=True)).validate()
     with pytest.raises(NotImplementedError, match="adapt_step_size"):
