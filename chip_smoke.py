@@ -53,7 +53,10 @@ not 0):
      at 130 and 1024 chains, leapfrog 8, each held with the float64
      witness and checked to take its planned route. (Sunspot HMC
      with ChEES also at 256 chains, two panels, and 52, a half-empty last
-     block.) The per-step sampler's kernels: the drift epoch at Sunspot
+     block.) At the shapes ptnn_torch.auto builds (results/auto_study.md):
+     Sunspot HMC with ChEES at 63 chains (7 ladders x 9 rungs, 8 blocks of
+     8, the last ragged), and iris MALA and ChEES HMC on the (4, 10, 3)
+     network auto infers at 63 chains (9 ladders x 7 rungs). The per-step sampler's kernels: the drift epoch at Sunspot
      (4, 10, 1) 64 chains (depth 1 and 2), Ionosphere (34, 50, 2) 10 chains
      on 245 rows and PenDigit (16, 30, 10) 10 chains on all 7494 train
      rows, then every distinct bundled topology and one the generic kernel
@@ -105,8 +108,9 @@ not 0):
      73.72, 20.8), served accuracy printed; the digits CNN with
      digits_spec(fused_eval=True) at scripts/cnn_convergence.py's
      configuration, 128 chains = 32 ladders x 4 rungs, seeds 1 and 2, 16
-     cold rungs' w recorded every steps // 512: MALA at 4000 steps
-     (record_thin 7) and ChEES (8 leapfrog steps) at 1000: medians served
+     cold rungs' w recorded every steps // 512: MALA at 2000 steps
+     (record_thin 3; the script's 4000 cut in PR 14) and ChEES (8 leapfrog
+     steps) at 1000: medians served
      accuracy >= 97 % (MALA) / 95 % (ChEES) (the cold draws thinned along
      the draw axis, then pooled), per-draw 90-96 % / 86-96 %, pooled
      function-space R-hat <= 1.15 (ptnn's rows: 99.17 / 98.24, 93.59 /
@@ -150,7 +154,23 @@ not 0):
      (hidden 2 and 6, 16-chain VR ladders tuned by tuning.tune_ladder,
      seeds 4, 14, 24 at 1600 steps a chain), each seed's abs log Z, PSIS-LOO
      elpd and RMSE and the barrier against ptnn's bands, the ranking
-     printed;
+     printed; then surrogate-assisted PT and ptnn_torch.auto
+     (phase_surrogate_auto): the six surrogate arms at
+     scripts/bench_modes.py's configuration (Sunspot, 64 x 2000, Langevin,
+     maxtemp 5, chunks of 250: plain, anchored, delayed acceptance with RW
+     and with MALA inner moves, per-rung fits, the MLP family), each
+     against the mean +- 4 sigma of ptnn's runs on the CPU (seeds 0-19),
+     its evals and drifts exactly the plan its host decisions give, each DA
+     arm's final carried ll a true eval's; chain-steps/s of plain,
+     anchored and DA with the train rows tiled 1 and 64 times; at once as
+     subprocesses, python -m ptnn_torch.auto Sunspot --target quality and
+     iris --target speed (--chains 64 --steps 8000 --replicate 3,
+     results/auto_study.md), their barrier, shape, execution, cold metric
+     and R-hat against ptnn's records widened by its pilot's spread, their
+     launches the plan, their trees served by ptnn_torch.predict; and the DA
+     arm checkpointed every chunk, SIGKILLed after a checkpoint saved in the
+     middle of a segment and resumed bit for bit (ring, fit and segment
+     included);
   5. throughput: throughput_runner at 2000 samples per chain (Sunspot
      rw_fused at 64 and 1024 chains, mala_fused_16x4, chees16_fused_256x4;
      iris chees16_fused_16x4 and chees16_fused_64x4; lg_pallas), and each
@@ -261,6 +281,9 @@ PEAK_BYTES = 3.35e12
 SIGMOID_OPS = 4  # negate, exp, add, divide
 # iris (ptnn's CLS_GATE, bench.py:288-294) and its end-to-end bands
 IRIS_TOPO = (4, 12, 3)
+# the ensemble ptnn_torch.auto builds for iris (results/auto_study.md): 9
+# ladders x 7 rungs of the (4, 10, 3) network it infers
+AUTO_IRIS = dict(topology=(4, 10, 3), n_ladders=9, record_w_chains=9)
 # the classification RW presets the fixed-shape kernel runs: (topology, all
 # rows, train + test)
 CLS_RW_SETS = {"iris": (IRIS_TOPO, 150), "Cancer": ((9, 12, 2), 699),
@@ -974,6 +997,11 @@ def phase_precond_kernels():
          dict(warm_end=2, pc_start=4, burn_end=8)),
         ("hmc_block", precond_cfg(52, 100, "hmc"), 10, 0,
          dict(warm_end=2, pc_start=4, burn_end=8)),
+        # the shape ptnn_torch.auto builds for Sunspot --target quality
+        # (results/auto_study.md: 7 ladders x 9 rungs): one panel of 63
+        # chains, 8 blocks of 8, the last ragged
+        ("hmc_block", precond_cfg(63, 100, "hmc", n_ladders=7), 10, 0,
+         dict(warm_end=2, pc_start=4, burn_end=8)),
     )
     from ptnn_torch.ops import precond_step
 
@@ -1322,7 +1350,7 @@ def cls_inputs(cfg, k, start, phases=None, seed=CLS_SEED, name="iris"):
 def cls_call(kind, state, noise, start, length, kdata, at, scal, plain,
              record_w=True, diagnostics=False, topo=IRIS_TOPO):
     """One block of the classification kernel ``kind`` (rw, mala, hmc), or
-    of its plain version; MALA and HMC are built for iris's network."""
+    of its plain version, on the network ``topo``."""
     from ptnn_torch.ops import block_step, precond_cls_step
 
     extra = dict(diagnostics=True) if diagnostics else {}
@@ -1336,7 +1364,7 @@ def cls_call(kind, state, noise, start, length, kdata, at, scal, plain,
     else:
         fn = (precond_cls_step.mala_cls_block_reference if plain
               else precond_cls_step.fused_mala_cls_block)
-    return fn(state, noise, start, length, kdata, at, IRIS_TOPO, scal,
+    return fn(state, noise, start, length, kdata, at, topo, scal,
               record_w=record_w, **extra)
 
 
@@ -1383,7 +1411,7 @@ def compare_cls(kind, cfg, k, length, start, phases, seed=CLS_SEED,
     if kind == "hmc":  # the float64 witness: the same inputs in float64
         new_d, tr_d = cls_call(kind, upcast(state), upcast(noise), start,
                                length, upcast(kdata), at.double(), scal,
-                               plain=True)
+                               plain=True, topo=topo)
         same = new_d["n_accept"] == new_r["n_accept"]
         for n in ("accept_count", "traj_len"):
             same &= (tr_d[n] == tr_r[n]).all(dim=0)
@@ -1470,7 +1498,7 @@ def compare_cls(kind, cfg, k, length, start, phases, seed=CLS_SEED,
             scale = v.abs() + new_r["chees_v2"].abs().sqrt()
         if n == "g_like":  # the gradient at the kernel's own w: no witness
             v = fnn.multinomial_ll_grad(new_k["w"], kdata["x_tr"],
-                                        kdata["yi_tr"], IRIS_TOPO)[1]
+                                        kdata["yi_tr"], topo)[1]
             scale, wit = vec_scale(v), None
         pairs.append((new_k[n], v, wit, scale, 0, n))
     # the multinomial ll is a sum of negative terms: held on its own size
@@ -1598,7 +1626,14 @@ def phase_cls_kernels():
              ("hmc", hmc(52), 10, 10, 0, phases, "iris"),
              ("hmc", hmc(130, n_ladders=26, record_w_chains=26, **plain), 10,
               10, 0, phases, "iris"),
-             ("hmc", hmc(1024, **plain), 10, 10, 0, phases, "iris")]
+             ("hmc", hmc(1024, **plain), 10, 10, 0, phases, "iris"),
+             # the shapes ptnn_torch.auto builds for iris (results/
+             # auto_study.md: 9 ladders x 7 rungs of its (4, 10, 3)
+             # network): MALA (--target speed) and ChEES (quality)
+             ("mala", iris_cfg(63, 100, "precond_mala", step_w=CLS_STEP_MALA,
+                               **AUTO_IRIS), 10, 10, 0,
+              dict(warm_end=2, pc_start=5, burn_end=8), "iris"),
+             ("hmc", hmc(63, **AUTO_IRIS), 10, 10, 0, phases, "iris")]
     for kind, cfg, k, length, start, phases, set_name in cases:
         routes = dict(precond_cls_step.hmc_cls_routes)
         wpcs = dict(precond_cls_step.mala_cls_wpcs)
@@ -1612,7 +1647,8 @@ def phase_cls_kernels():
         if kind == "hmc":
             c = cfg.num_chains
             panel = min(c, 128) if cfg.hmc_adapt_traj else 0
-            plan = precond_cls_step.card_plan(DEVICE, c, panel, 150)
+            plan = precond_cls_step.card_plan(DEVICE, c, panel, 150,
+                                              tuple(cfg.topology))
             taken = [r for r in routes
                      if precond_cls_step.hmc_cls_routes[r] > routes[r]]
             check(taken == [plan.route], f"hmc_cls_block took {taken}, "
@@ -1621,13 +1657,17 @@ def phase_cls_kernels():
             what += (f"leapfrog {cfg.hmc_leapfrog}, WPC {plan.wpc}, "
                      f"{plan.blocks} blocks, route {plan.route}, ")
             wit_txt = f"; {witness_text(wit)}"
+        if kind != "rw" and tuple(cfg.topology) != IRIS_TOPO:
+            what = f"{tuple(cfg.topology)} {cfg.n_ladders} x " \
+                f"{cfg.rungs_per_ladder} rungs, " + what
         if kind == "mala":
-            plan = precond_cls_step.card_mala_plan(DEVICE, cfg.num_chains, 150)
+            plan = precond_cls_step.card_mala_plan(DEVICE, cfg.num_chains, 150,
+                                                   tuple(cfg.topology))
             taken = [w for w in wpcs
                      if precond_cls_step.mala_cls_wpcs[w] > wpcs[w]]
             check(taken == [plan.wpc], f"mala_cls_block took WPC {taken}, "
                   f"planned {plan.wpc}")
-            what = f"WPC {plan.wpc}, {plan.blocks} blocks, "
+            what += f"WPC {plan.wpc}, {plan.blocks} blocks, "
         if kind == "rw":
             what = rw_cls_taken(kinds, warps, cfg.topology, cfg.num_chains,
                                 CLS_ROWS.get(set_name), 1)
@@ -2763,12 +2803,13 @@ def phase_zoo_end_to_end():
 # their per-step runs (Sunspot).
 
 # the digits CNN as scripts/cnn_convergence.py:68-95 samples it, at its
-# budgets (MALA at 4000 with record_thin 4000 // 512 = 7, the script's
-# thinning; ChEES at 1000, record_thin 1): ptnn's records
+# budgets cut (MALA at 2000 with record_thin 2000 // 512 = 3, the script's
+# thinning: its 4000 cut to keep the smoke inside its time since the
+# surrogate and auto phase; ChEES at 1000, record_thin 1): ptnn's records
 # (results/cnn_convergence.md, one pooled run each, hence bands): served
 # accuracy, per-draw cold accuracy, pooled function-space R-hat
 CNN_PC_CHAINS, CNN_PC_SEEDS = 128, (1, 2)
-CNN_PC_STEPS = {"mala": 4000, "chees": 1000}
+CNN_PC_STEPS = {"mala": 2000, "chees": 1000}
 CNN_PC_REF = {"mala": (99.17, 93.59, 1.034), "chees": (98.24, 91.71, 1.042)}
 # median served accuracy over the seeds, at least
 CNN_PC_SERVED = {"mala": 97.0, "chees": 95.0}
@@ -4076,6 +4117,401 @@ def phase_vr_paths():
           f"{launches['fnn_eval']} launches, each run as planned")
 
 
+# ---------------------------------------------------------------------------
+# Surrogate-assisted PT and ptnn_torch.auto (PR 14's phase).
+
+# scripts/bench_modes.py:46-68's configuration: Sunspot (4, 10, 1), 64
+# chains x 2000 samples, Langevin gradients, maxtemp 5, chunks of 250 (the
+# refit interval), record_w off, seed 0; its delayed-acceptance knobs
+SURR_SHAPE = (64, 2000)
+SURR_KNOBS = dict(use_surrogate=True, surrogate_prob=0.5,
+                  surrogate_warmup_frac=0.2, surrogate_buffer=4096,
+                  surrogate_proj=64)
+SURR_ARMS = {
+    "plain": {},
+    "anchored": dict(SURR_KNOBS, surrogate_mode="anchored"),
+    "da_rw": dict(SURR_KNOBS, surrogate_mode="delayed_acceptance"),
+    "da_mala": dict(SURR_KNOBS, surrogate_mode="delayed_acceptance",
+                    surrogate_inner="mala"),
+    # per-rung rings of 512 rows (the feature dimension is 189)
+    "da_per_rung": dict(SURR_KNOBS, surrogate_mode="delayed_acceptance",
+                        surrogate_scope="per_chain", surrogate_buffer=512),
+    "da_mlp": dict(SURR_KNOBS, surrogate_mode="delayed_acceptance",
+                   surrogate_family="mlp"),
+}
+
+
+def surrogate_cfg(arm, chains=SURR_SHAPE[0], samples=SURR_SHAPE[1], **kw):
+    """bench_modes.py's base (regression_preset with Langevin gradients at
+    maxtemp 5, chunks of 250, record_w off) with the arm's knobs."""
+    from ptnn_torch import regression_preset
+
+    base = regression_preset(num_samples=chains * samples, num_chains=chains,
+                             use_langevin_gradients=True, maxtemp=5.0)
+    fields = dict(chunk_steps=250, record_w=False, **SURR_ARMS[arm])
+    fields.update(kw)
+    return dataclasses.replace(base, **fields).validate()
+
+
+def surrogate_stats(res):
+    """A run's figures (ptnn's result or the port's): the cold rung's mean
+    test RMSE after burn-in, mean and cold accept %, swap %, the segments
+    opened and their mean closure acceptance (delayed acceptance)."""
+    import numpy as np
+
+    rm = np.asarray(res.traces["rmse_test"])
+    b = int(rm.shape[0] * res.config.burn_in)
+    acc = np.asarray(res.accept_ratio_per_chain)
+    out = dict(rmse=float(rm[b:, 0].mean()), accept=float(acc.mean()),
+               cold_accept=float(acc[0]), swap=float(res.swap_percent))
+    if res.da_accept_per_chain is not None:
+        out.update(segments=int(res.da_segments),
+                   seg_accept=float(np.mean(res.da_accept_per_chain)))
+    return out
+
+
+# bands: the mean +- 4 sigma of ptnn's own runs of the arm on the CPU, seeds
+# 0-19 (``python tests/test_torch_surrogate_step.py ARM SEED...``), rounded
+# outward; PERF.md section 2 gives the means and sigmas
+SURR_BANDS = {
+    "plain": dict(rmse=(0.0230, 0.0395), accept=(19.9, 21.8),
+                  cold_accept=(9.2, 18.5), swap=(58.6, 72.3)),
+    "anchored": dict(rmse=(0.0143, 0.0644), accept=(18.4, 23.5),
+                     cold_accept=(15.2, 26.1), swap=(67.4, 81.9)),
+    "da_rw": dict(rmse=(0.0255, 0.0416), accept=(34.3, 38.2),
+                  cold_accept=(26.3, 35.7), swap=(55.1, 72.1),
+                  segments=(363, 442), seg_accept=(35.4, 41.3)),
+    "da_mala": dict(rmse=(0.0274, 0.0403), accept=(35.4, 43.2),
+                    cold_accept=(27.1, 40.3), swap=(53.1, 70.0),
+                    segments=(349, 449), seg_accept=(20.9, 30.9)),
+    "da_per_rung": dict(rmse=(0.0263, 0.0392), accept=(22.8, 33.8),
+                        cold_accept=(13.8, 30.2), swap=(55.1, 72.1),
+                        segments=(70, 355), seg_accept=(36.1, 46.7)),
+    "da_mlp": dict(rmse=(0.0259, 0.0408), accept=(32.6, 37.1),
+                   cold_accept=(23.7, 35.0), swap=(56.9, 71.7),
+                   segments=(363, 442), seg_accept=(41.5, 46.2)),
+}
+SURR_CKPT_PROBE = """
+import json, os, signal, sys
+import ptnn_torch
+from ptnn_torch import checkpoint
+from ptnn_torch.config import from_json_dict
+from ptnn_torch.data import load_regression
+cfg = from_json_dict(json.loads(sys.argv[1]))
+if sys.argv[3] == "kill":
+    save = checkpoint.save
+
+    def save_then_die(path, state, done, *a, **k):
+        save(path, state, done, *a, **k)
+        if bool(state.da.active) and done < cfg.n_steps:
+            os.kill(os.getpid(), signal.SIGKILL)  # in the middle of a segment
+
+    checkpoint.save = save_then_die
+prob = load_regression("Sunspot")
+ptnn_torch.sample(cfg, prob.train, prob.test, seed=0, device="cuda",
+                  checkpoint_path=sys.argv[2], checkpoint_every=1)
+"""
+SURR_TILE = (1, 64)  # bench_modes.py --tile: the train rows repeated
+SURR_TILE_SHAPE = (64, 500, 100)  # chains, samples, chunk_steps at tile 64
+# results/auto_study.md:5-6's command lines, two subprocesses at once
+AUTO_RUNS = (("Sunspot", "quality"), ("iris", "speed"))
+AUTO_ARGS = ["--chains", "64", "--steps", "8000", "--replicate", "3"]
+AUTO_PILOT = (2, 2000)  # auto_config's pilot: rounds, samples a chain
+# ptnn's records (results/auto_study.md, the TPU run): the cold metric
+# (mean +- sd over 3 seeds) and the pilot's barrier; the bands widen them
+# by the spread of ptnn's own pilot on the CPU, seeds 0-4 (``python
+# tests/test_torch_auto.py DATASET TARGET SEED...``), PERF.md section 2
+AUTO_REF = {"Sunspot": dict(metric=(0.0090, 0.0003), barrier=3.664),
+            "iris": dict(metric=(88.39, 0.12), barrier=2.737)}
+AUTO_BANDS = {
+    # Sunspot: 0.0090 +- 4 x 0.0003, widened by the pilot's relative spread
+    # (sd 0.06 of a 3.78 barrier), under bench's gate; ptnn's pilot, seeds
+    # 0-4: 3.704-3.868, 7 x 9 each time
+    "Sunspot": dict(metric=(0.0077, 0.0103), barrier=(3.5, 4.05),
+                    ladders=(7, 7), rungs=(9, 9)),
+    # iris: 88.39 +- 4 x 0.12, widened by 0.5; ptnn's pilot, seeds 0-4:
+    # 2.653-2.774, 9 x 7 each time
+    "iris": dict(metric=(87.4, 89.4), barrier=(2.5, 2.95), ladders=(9, 9),
+                 rungs=(7, 7)),
+}
+# served from the last seed's tree: Sunspot's RMSE of the posterior mean
+# under bench's gate; iris's accuracy of the mean class probabilities, at
+# least 43 of the 45 test rows (one row ties, as for mala_fused_16x4)
+AUTO_SERVED = {"Sunspot": (0.0, FLAGSHIP_RMSE[1]), "iris": (95.55, 100.0)}
+
+
+def surrogate_plan(cfg, res):
+    """The evals and drifts a surrogate run's host decisions give: one eval
+    a true step, one a segment's closure (every segment opened is closed
+    once), one a refit's re-anchor (every chunk but the first) and init's;
+    two drifts a Langevin step, a true step under delayed acceptance."""
+    from ptnn_torch import sampler
+
+    n, switch = cfg.n_steps, cfg.temper_switch_step
+    segs = [(0, switch), (switch, n)] if 0 < switch < n else [(0, n)]
+    starts = [a + k for a, b in segs
+              for k in range(0, b - a, sampler._pick_chunk(
+                  b - a, max(1, min(cfg.chunk_steps, n))))]
+    true = n - res.surrogate_steps
+    if not cfg.use_surrogate:
+        return dict(fnn_eval=n + 1 + int(0 < switch < n), drift_epoch=2 * n)
+    da = cfg.surrogate_mode == "delayed_acceptance"
+    return dict(fnn_eval=true + (res.da_segments if da else 0)
+                + len(starts) - 1 + 1,
+                drift_epoch=2 * (true if da else n))
+
+
+def state_arrays(state):
+    """A chain state's tensors as flat NumPy arrays (surr.* and da.*)."""
+    from ptnn_torch import convert
+
+    out = {}
+    for k, v in convert.chain_state_to_numpy(state).items():
+        if isinstance(v, dict):
+            out |= {f"{k}.{f}": a for f, a in v.items()}
+        elif v is not None:
+            out[k] = v
+    return out
+
+
+def parse_auto(stdout):
+    """The figures of ``python -m ptnn_torch.auto``'s report."""
+    import re
+
+    def find(pattern, cast=float):
+        m = re.search(pattern, stdout)
+        check(m is not None, f"auto: no {pattern!r} in its report")
+        return cast(m.group(1).replace(",", ""))
+
+    head = re.search(r"auto-configured PT: (\d+) chains = (\d+) ladder\(s\) "
+                     r"x (\d+) rungs, proposal=(\S+)", stdout)
+    check(head is not None, "auto: no header line")
+    return dict(
+        chains=int(head.group(1)), ladders=int(head.group(2)),
+        rungs=int(head.group(3)), proposal=head.group(4).rstrip(","),
+        fused="fused blocks" in stdout.splitlines()[0],
+        metric=find(r"cold test (?:RMSE|acc %): ([0-9.]+)"),
+        metric_sd=find(r"cold test (?:RMSE|acc %): [0-9.]+ \+- ([0-9.]+)"),
+        rhat=find(r"cross-seed split-R-hat ([0-9.]+)"),
+        verdict=find(r"cross-seed split-R-hat [0-9.]+ \((\w+)", str),
+        rate=find(r"([0-9,]+) chain-steps/s"),
+        barrier=find(r"measured barrier Lambda = ([0-9.]+)"),
+        execution=find(r"execution: (.*)", str),
+        wall=find(r"total wall-clock \(pilot \+ \d+ runs\): ([0-9.]+) s"),
+        launches=json.loads(stdout.strip().splitlines()[-1][len("launches "):]))
+
+
+def auto_plan(run_dir, got):
+    """The launches of an auto run: the pilot's per-step MALA (one eval a
+    step and init's, each round), then each seed's fused run (one block
+    launch a block, init's eval; tempering held, no switch)."""
+    from ptnn_torch import fused
+    from ptnn_torch.config import from_json_dict
+
+    cfg = from_json_dict(json.loads((run_dir / "config.json").read_text()))
+    rounds, samples = AUTO_PILOT
+    seeds = int(AUTO_ARGS[AUTO_ARGS.index("--replicate") + 1])
+    plan = dict(fnn_eval=rounds * samples + seeds)
+    if cfg.fused_step:
+        kern = ("mala_cls_block" if cfg.task == "classification"
+                else "mala_block") if cfg.proposal == "precond_mala" else (
+            "hmc_cls_block" if cfg.task == "classification" else "hmc_block")
+        plan[kern] = seeds * sum(len(seg) for seg in fused.block_plan(cfg))
+    got = {k: v for k, v in got.items() if v}
+    return cfg, plan, got
+
+
+def phase_surrogate_auto():
+    """Surrogate-assisted PT and ptnn_torch.auto on the card. In this
+    process: the six surrogate arms at scripts/bench_modes.py's
+    configuration (plain, anchored, delayed acceptance with RW and MALA
+    inner moves, per-rung fits, the MLP family), each against ptnn's bands
+    with its launches held to the plan its host decisions give and, under
+    delayed acceptance, its final carried ll to a true eval; chain-steps/s
+    of plain, anchored and DA at the data tiled 1 and 64 times. At once, as
+    subprocesses: auto's two command lines of results/auto_study.md, and a
+    delayed-acceptance run that SIGKILLs itself after a checkpoint saved in
+    the middle of a segment; then the auto trees served and the killed run
+    resumed, bit for bit against the in-process DA arm. Returns the
+    phase's launches for the kernels line."""
+    import shutil
+
+    from ptnn_torch import config
+
+    out = LIFE_OUT.parent / "chip_smoke_surrogate"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    # the subprocesses: auto's command lines and the run to kill
+    procs = {}
+    for name, target in AUTO_RUNS:
+        procs[name] = popen([sys.executable, "-c", CLI_PROBE,
+                             "ptnn_torch.auto", name, "--target", target,
+                             *AUTO_ARGS, "--out", str(out / name)])
+    da_cfg = surrogate_cfg("da_rw")
+    ck = out / "da.npz"
+    ck_cmd = [sys.executable, "-c", SURR_CKPT_PROBE,
+              json.dumps(config.to_json_dict(da_cfg)), str(ck)]
+    victim = popen(ck_cmd + ["kill"])
+    try:
+        return _surrogate_auto(out, procs, victim, da_cfg, ck, ck_cmd, t_phase)
+    finally:  # a failed check leaves no subprocess behind
+        for p in list(procs.values()) + [victim]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _surrogate_auto(out, procs, victim, da_cfg, ck, ck_cmd, t_phase):
+    """The body of ``phase_surrogate_auto`` once its subprocesses run."""
+    import os
+    import signal
+
+    import numpy as np
+    import torch
+
+    import ptnn_torch
+    from ptnn_torch import checkpoint, kernel
+
+    # --- the arms, in this process ------------------------------------------
+    prob = sunspot()
+    launches = dict(drift_epoch=0, fnn_eval=0)
+    results = {}
+    for arm in SURR_ARMS:
+        cfg = surrogate_cfg(arm)
+        reset_launch_counts()
+        res = ptnn_torch.sample(cfg, prob.train, prob.test, seed=0,
+                                device=DEVICE)
+        got = dict(fnn_eval=launch_count("fnn_eval"),
+                   drift_epoch=launch_count("drift_epoch"))
+        plan = surrogate_plan(cfg, res)
+        check(got == plan, f"surrogate {arm}: launches {got}, planned {plan}")
+        for k, v in got.items():
+            launches[k] += v
+        st = surrogate_stats(res)
+        results[arm] = res
+        share = 100.0 * res.surrogate_steps / cfg.n_steps
+        extra = ""
+        if cfg.use_surrogate and cfg.surrogate_mode == "delayed_acceptance":
+            fin = res.final_state.to(DEVICE)
+            data = ptnn_torch.make_dataset(cfg, prob.train, prob.test,
+                                           DEVICE)
+            true = kernel.train_loglik(cfg, fin.w, fin.eta, data).cpu()
+            carried = res.final_state.ll
+            err = float((carried - true).abs().max())
+            check(bool(torch.allclose(carried, true, rtol=1e-4, atol=1e-3))
+                  and not bool(res.final_state.da.active),
+                  f"surrogate {arm}: carried ll off the true ll by {err}")
+            extra = f", final carried ll = a true eval (max |diff| {err:.3g})"
+        print(f"[4/6] surrogate: {arm} {cfg.num_chains} x "
+              f"{cfg.samples_per_chain} (Langevin, chunks of "
+              f"{cfg.chunk_steps}): cold test RMSE {st['rmse']:.5f}, accept "
+              f"{st['accept']:.2f}% (cold {st['cold_accept']:.2f}%), swap "
+              f"{st['swap']:.2f}%"
+              + (f", {st['segments']} segments, closures accepted "
+                 f"{st['seg_accept']:.2f}%" if "segments" in st else "")
+              + f", {share:.1f}% of the steps on the surrogate; "
+              f"{res.chain_steps_per_sec:,.0f} chain-steps/s "
+              f"({res.elapsed_s:.2f} s); launches {got} (as planned){extra}")
+        for what, band in SURR_BANDS.get(arm, {}).items():
+            in_band(f"surrogate {arm}", what, st[what], band)
+    # --- chain-steps/s with the data tiled ------------------------------------
+    rates = {}
+    for tile in SURR_TILE:
+        if tile == 1:
+            rates[tile] = {a: results[a].chain_steps_per_sec
+                           for a in ("plain", "anchored", "da_rw")}
+            continue
+        c, samples, chunk = SURR_TILE_SHAPE
+        train = np.tile(prob.train, (tile, 1))
+        # a short run first: the kernels' first calls at these rows (plans,
+        # shared-memory attributes) are not the arms' to pay
+        ptnn_torch.sample(surrogate_cfg("plain", c, 20, chunk_steps=10),
+                          train, prob.test, seed=0, device=DEVICE)
+        rates[tile] = {}
+        for arm in ("plain", "anchored", "da_rw"):
+            cfg = surrogate_cfg(arm, c, samples, chunk_steps=chunk)
+            res = ptnn_torch.sample(cfg, train, prob.test, seed=0,
+                                    device=DEVICE)
+            rates[tile][arm] = res.chain_steps_per_sec
+            print(f"[4/6] surrogate: {arm} at tile {tile} ({train.shape[0]} "
+                  f"train rows) {c} x {samples}, chunks of {chunk}: "
+                  f"{res.chain_steps_per_sec:,.0f} chain-steps/s "
+                  f"({res.elapsed_s:.2f} s), "
+                  f"{100.0 * res.surrogate_steps / cfg.n_steps:.1f}% of the "
+                  f"steps on the surrogate")
+    print("[4/6] surrogate: chain-steps/s " + json.dumps(
+        {f"tile {t}": {a: round(v, 1) for a, v in r.items()}
+         for t, r in rates.items()}))
+    # --- the killed run, the auto runs ---------------------------------------
+    victim.communicate(timeout=600)
+    check(victim.returncode == -signal.SIGKILL, f"the DA run to kill ended "
+          f"with {victim.returncode}")
+    spec_name = kernel.default_spec(da_cfg).name
+    st_k, killed_at, _ = checkpoint.load(str(ck), da_cfg, 0, spec_name)
+    check(0 < killed_at < da_cfg.n_steps and bool(st_k.da.active),
+          f"the DA run was killed at {killed_at}, segment open "
+          f"{bool(st_k.da.active)}")
+    resumed = procs["resumed"] = popen(ck_cmd + ["resume"])
+    auto = {}
+    for name, target in AUTO_RUNS:
+        stdout = finished(procs[name], f"ptnn_torch.auto {name}")
+        fig = parse_auto(stdout)
+        run_dir = out / name / f"{name}_0"
+        cfg, plan, got = auto_plan(run_dir, fig["launches"])
+        check(got == plan, f"auto {name}: launches {got}, planned {plan}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        ref = AUTO_REF[name]
+        metric = "test RMSE" if cfg.task == "regression" else "test acc %"
+        print(f"[4/6] auto: python -m ptnn_torch.auto {name} --target "
+              f"{target} {' '.join(AUTO_ARGS)}: {fig['wall']:.1f} s; pilot "
+              f"barrier {fig['barrier']:.3f} (ptnn {ref['barrier']}); "
+              f"{fig['ladders']} x {fig['rungs']} = {fig['chains']} chains, "
+              f"{fig['proposal']}, execution: {fig['execution']}; cold "
+              f"{metric} {fig['metric']} +- {fig['metric_sd']} (ptnn "
+              f"{ref['metric'][0]} +- {ref['metric'][1]}); R-hat "
+              f"{fig['rhat']:.3f} ({fig['verdict']}); "
+              f"{fig['rate']:,.0f} chain-steps/s; launches {got} (as "
+              f"planned)")
+        check(fig["fused"] and cfg.fused_step, f"auto {name} did not fuse: "
+              f"{fig['execution']}")
+        for what, band in AUTO_BANDS.get(name, {}).items():
+            in_band(f"auto {name}", what, fig[what], band)
+        auto[name] = (run_dir, fig)
+    # --- serving the auto trees, the resumed run ------------------------------
+    t0 = time.perf_counter()
+    served = {name: popen([sys.executable, "-m", "ptnn_torch.predict",
+                           "--run", str(auto[name][0]), "--problem", name,
+                           "--calibrate", "--ic"]) for name, _t in AUTO_RUNS}
+    procs.update({f"served {k}": v for k, v in served.items()})
+    for name, _t in AUTO_RUNS:
+        served_line(f"{auto[name][0].relative_to(ROOT)}", served[name],
+                    AUTO_SERVED[name], t0)
+    finished(resumed, "the resumed DA run")
+    state, done, traces = checkpoint.load(str(ck), da_cfg, 0, spec_name)
+    want = results["da_rw"]
+    check(done == da_cfg.n_steps, f"the resumed run's checkpoint at {done}")
+    check(set(traces) == set(want.traces), f"traces {sorted(traces)}")
+    for k, v in traces.items():
+        check(np.array_equal(v, want.traces[k][1:]), f"resumed trace {k} "
+              f"differs from the uninterrupted run's")
+    a, b = state_arrays(state), state_arrays(want.final_state)
+    check(set(a) == set(b), f"resumed state fields {sorted(set(a) ^ set(b))}")
+    for k in a:
+        check(np.array_equal(a[k], b[k]), f"resumed state {k} differs")
+    print(f"[4/6] surrogate: da_rw {da_cfg.num_chains} x "
+          f"{da_cfg.samples_per_chain}, checkpoint every chunk: SIGKILLed "
+          f"after its checkpoint at step {killed_at} with a segment open, "
+          f"resumed; every trace ({len(traces)}) and every state tensor "
+          f"({len(a)}: the ring, the fit, the segment) equal the "
+          f"uninterrupted arm's bit for bit; "
+          f"{os.path.getsize(ck) / 2**20:.2f} MiB")
+    print(f"[4/6] surrogate and auto: phase in "
+          f"{time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    return launches
+
+
 def main() -> int:
     phase_device()
     phase_build()
@@ -4098,6 +4534,8 @@ def main() -> int:
     phase_per_step_precond_end_to_end(mala_twin)
     phase_run_lifecycle()
     phase_vr_paths()
+    for name, n in phase_surrogate_auto().items():
+        launches[name] = launches.get(name, 0) + n
     phase_throughput()
     times.update(phase_precond_throughput())
     times.update(phase_cls_throughput())

@@ -43,6 +43,19 @@ adapts a static reference over rounds, and ``mcmc`` is the single-chain
 sampler with its uncertainty bands (``python -m
 ptnn_torch.experiments.single_chain``).
 
+Surrogate-assisted PT runs on the per-step sampler (``use_surrogate``,
+``surrogate``: a quadratic ridge or a one-hidden-layer MLP surrogate of the
+train likelihood, fitted globally or per rung on a ring of true
+evaluations, refitted at every chunk boundary): the anchored mode takes a
+step's likelihood from the surrogate and skips its eval launch, exact
+delayed acceptance runs surrogate segments without the eval or the drift
+and corrects each with one true-likelihood test. ``auto`` is the one-call
+pipeline (``python -m ptnn_torch.auto``): a pilot's communication barrier
+sizes and spaces the ladder, the chain budget becomes replicated ladders,
+the target picks ChEES-HMC or preconditioned MALA on the fused kernels
+where the fused gate admits them, and seeded replications report the
+cross-seed function-space R-hat.
+
 The kernels are built with ``nvcc`` for Hopper at first use. On CPU tensors
 the same functions run their plain PyTorch versions. The served predictor
 is ``predict.posterior_predict``. The package imports ``torch`` and never
@@ -84,12 +97,24 @@ __all__ = [
     "sample",
     "throughput_run",
     "throughput_runner",
+    "auto",
 ]
+
+
+def __getattr__(name):
+    # ``auto`` is a ``python -m`` entry point: importing it with the package
+    # would make runpy warn that it pre-exists in sys.modules, so it loads
+    # on first access
+    if name == "auto":
+        import importlib
+
+        return importlib.import_module("ptnn_torch.auto")
+    raise AttributeError(f"module 'ptnn_torch' has no attribute {name!r}")
 
 # ptnn's exports the port does not have yet, with the ROADMAP item that
 # brings each (tests/test_torch_import.py holds ptnn.__all__ to this set
 # and __all__ together)
 NOT_PORTED = {
     "profiling": "Queue 1 item 15: jax.profiler's wrapper, not to be ported",
-    "sweeps": "Queue 1 item 13: sweeps",
+    "sweeps": "Queue 1 item 11: sweeps, with the per-chain drift rate",
 }

@@ -3,9 +3,13 @@
 Every chunk boundary of the per-step sampler is a resume point: the chain
 state, the step counter, the traces gathered so far and a fingerprint of the
 config, seed and model round-trip through one compressed ``.npz`` written
-atomically (tmp + rename). The per-step noise depends on a step's absolute
-index alone (``sampler.step_noise``), so a resumed run is bit-identical to
-one that was never interrupted.
+atomically (tmp + rename); the surrogate's ring buffers, fit and pointer
+and the delayed-acceptance segment's state ride as ``state__surr__<field>``
+and ``state__da__<field>``, so a run stopped in the middle of a segment
+resumes in it. The per-step noise depends on a step's absolute index alone
+(``sampler.step_noise``; a boundary's closure draw on the boundary,
+``sampler.close_noise``), so a resumed run is bit-identical to one that was
+never interrupted.
 """
 
 from __future__ import annotations
@@ -46,9 +50,12 @@ def save(
     """Atomic checkpoint write (tmp + rename): the state's tensors as
     ``state__<field>``, the traces as ``trace__<name>``, ``done_steps`` and
     the fingerprint."""
-    payload = {f"state__{k}": v
-               for k, v in convert.chain_state_to_numpy(state).items()
-               if v is not None}
+    payload = {}
+    for k, v in convert.chain_state_to_numpy(state).items():
+        if isinstance(v, dict):  # the surrogate's ring and fit, the DA state
+            payload |= {f"state__{k}__{f}": a for f, a in v.items()}
+        elif v is not None:
+            payload[f"state__{k}"] = v
     payload |= {f"trace__{k}": v for k, v in traces.items()}
     payload["done_steps"] = np.asarray(done_steps)
     payload["fingerprint"] = np.asarray(
@@ -71,8 +78,13 @@ def load(
     with np.load(path, allow_pickle=False) as z:
         if str(z["fingerprint"]) != config_fingerprint(cfg, seed, spec_name):
             return None
-        fields = {name: z[f"state__{name}"] if f"state__{name}" in z.files
-                  else None for name in convert.FIELDS}
+        fields = {}
+        for name in convert.FIELDS:
+            key = f"state__{name}"
+            nested = {k[len(key) + 2:]: z[k] for k in z.files
+                      if k.startswith(key + "__")}
+            fields[name] = (z[key] if key in z.files
+                            else nested if nested else None)
         state = convert.chain_state_from_numpy(fields, device)
         traces = {k[len("trace__"):]: z[k] for k in z.files
                   if k.startswith("trace__")}

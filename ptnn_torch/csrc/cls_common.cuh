@@ -289,13 +289,26 @@ __device__ __forceinline__ void cls_take_metrics(ClsCarry& r, const ClsSums& tr,
   r.ate = te.cnt * p.acc_n_te;
 }
 
+// The (4, H, 3) networks the classification MALA and HMC kernels are
+// instantiated for (precond_cls_step.TOPOLOGIES): iris's bundled (4, 12, 3)
+// and (4, 10, 3), the network ptnn_torch.auto infers for iris (hidden =
+// max(10, n_in)). CLS_CASE(NH, WPC) is defined at each dispatch.
+#define CLS_PRECOND_CASES                                                       \
+  CLS_CASE(12, 4) CLS_CASE(12, 2) CLS_CASE(12, 1) CLS_CASE(10, 4) CLS_CASE(10, 2) \
+  CLS_CASE(10, 1)
+
 // The host-side queries each library exports; the loader checks them
 // against precond_cls_step.py. Each .cu includes this header once.
 extern "C" {
 
 int ptnn_cls_params_size() { return (int)sizeof(ClsPrecondParams); }
 
-int ptnn_cls_w_size() { return ClsNet<4, 12, 3>::W; }
+// The w_size of the (4, hidden, 3) network, -1 for one not instantiated.
+int ptnn_cls_w_size(int hidden) {
+  if (hidden == 12) return ClsNet<4, 12, 3>::W;
+  if (hidden == 10) return ClsNet<4, 10, 3>::W;
+  return -1;
+}
 
 const char* ptnn_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

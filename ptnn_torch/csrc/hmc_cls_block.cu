@@ -408,9 +408,9 @@ static cudaLaunchConfig_t cluster_config(int grid, int smem_bytes, int cluster,
   return cfg;
 }
 
-template <int WPC>
+template <int NH, int WPC>
 static int max_active_clusters(int smem_bytes, int cluster, int* out) {
-  auto kern = hmc_cls_block_kernel<4, 12, 3, WPC, ROUTE_CLUSTER>;
+  auto kern = hmc_cls_block_kernel<4, NH, 3, WPC, ROUTE_CLUSTER>;
   cudaError_t e = set_attributes(kern, smem_bytes, true);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
@@ -418,9 +418,9 @@ static int max_active_clusters(int smem_bytes, int cluster, int* out) {
   return (int)cudaOccupancyMaxActiveClusters(out, kern, &cfg);
 }
 
-template <int WPC>
+template <int NH, int WPC>
 static int coop_blocks(int smem_bytes, int* out) {
-  auto kern = hmc_cls_block_kernel<4, 12, 3, WPC, ROUTE_GRID>;
+  auto kern = hmc_cls_block_kernel<4, NH, 3, WPC, ROUTE_GRID>;
   cudaError_t e = set_attributes(kern, smem_bytes, false);
   if (e != cudaSuccess) return (int)e;
   int per_sm = 0, dev = 0, sms = 0;
@@ -431,13 +431,13 @@ static int coop_blocks(int smem_bytes, int* out) {
   return (int)e;
 }
 
-template <int WPC>
+template <int NH, int WPC>
 static int launch(const ClsPrecondParams* p, float* exch, int smem_bytes, int cluster, int route,
                   cudaStream_t st) {
   constexpr int CPB = BLOCK_WARPS / WPC;
   const int grid = (p->chains + CPB - 1) / CPB;
   if (route == ROUTE_PLAIN && !p->chees) {
-    auto kern = hmc_cls_block_kernel<4, 12, 3, WPC, ROUTE_PLAIN>;
+    auto kern = hmc_cls_block_kernel<4, NH, 3, WPC, ROUTE_PLAIN>;
     cudaError_t e = set_attributes(kern, smem_bytes, false);
     if (e != cudaSuccess) return (int)e;
     kern<<<grid, HMC_CLS_THREADS, smem_bytes, st>>>(*p, exch);
@@ -446,7 +446,7 @@ static int launch(const ClsPrecondParams* p, float* exch, int smem_bytes, int cl
   if (route == ROUTE_CLUSTER && p->chees) {
     if (cluster < 1 || cluster > HMC_CLS_MAX_CLUSTER || grid % cluster != 0)
       return (int)cudaErrorInvalidValue;
-    auto kern = hmc_cls_block_kernel<4, 12, 3, WPC, ROUTE_CLUSTER>;
+    auto kern = hmc_cls_block_kernel<4, NH, 3, WPC, ROUTE_CLUSTER>;
     cudaError_t e = set_attributes(kern, smem_bytes, true);
     if (e != cudaSuccess) return (int)e;
     cudaLaunchAttribute attr[1];
@@ -456,7 +456,7 @@ static int launch(const ClsPrecondParams* p, float* exch, int smem_bytes, int cl
     return (int)cudaGetLastError();
   }
   if (route == ROUTE_GRID && p->chees && exch != nullptr) {
-    auto kern = hmc_cls_block_kernel<4, 12, 3, WPC, ROUTE_GRID>;
+    auto kern = hmc_cls_block_kernel<4, NH, 3, WPC, ROUTE_GRID>;
     cudaError_t e = set_attributes(kern, smem_bytes, false);
     if (e != cudaSuccess) return (int)e;
     ClsPrecondParams params = *p;
@@ -476,35 +476,41 @@ int ptnn_hmc_cls_threads() { return HMC_CLS_THREADS; }
 int ptnn_hmc_cls_max_cluster() { return HMC_CLS_MAX_CLUSTER; }
 
 // How many clusters of `cluster` blocks of the cluster-route kernel at `wpc`
-// warps a chain the card holds at once, into *out; returns the cudaError_t
-// (0 = success).
-int ptnn_hmc_cls_max_active_clusters(int wpc, int smem_bytes, int cluster, int* out) {
-  if (wpc == 4) return max_active_clusters<4>(smem_bytes, cluster, out);
-  if (wpc == 2) return max_active_clusters<2>(smem_bytes, cluster, out);
-  if (wpc == 1) return max_active_clusters<1>(smem_bytes, cluster, out);
+// warps a chain and `hidden` units (CLS_PRECOND_HIDDEN) the card holds at
+// once, into *out; returns the cudaError_t (0 = success).
+int ptnn_hmc_cls_max_active_clusters(int wpc, int hidden, int smem_bytes, int cluster,
+                                     int* out) {
+#define CLS_CASE(NH, WPC) \
+  if (hidden == NH && wpc == WPC) return max_active_clusters<NH, WPC>(smem_bytes, cluster, out);
+  CLS_PRECOND_CASES
+#undef CLS_CASE
   return (int)cudaErrorInvalidValue;
 }
 
-// How many blocks of the grid-route kernel at `wpc` warps a chain the card
-// holds at once (blocks an SM times SMs), into *out; returns the cudaError_t.
-int ptnn_hmc_cls_coop_blocks(int wpc, int smem_bytes, int* out) {
-  if (wpc == 4) return coop_blocks<4>(smem_bytes, out);
-  if (wpc == 2) return coop_blocks<2>(smem_bytes, out);
-  if (wpc == 1) return coop_blocks<1>(smem_bytes, out);
+// How many blocks of the grid-route kernel at `wpc` warps a chain and
+// `hidden` units the card holds at once (blocks an SM times SMs), into
+// *out; returns the cudaError_t.
+int ptnn_hmc_cls_coop_blocks(int wpc, int hidden, int smem_bytes, int* out) {
+#define CLS_CASE(NH, WPC) \
+  if (hidden == NH && wpc == WPC) return coop_blocks<NH, WPC>(smem_bytes, out);
+  CLS_PRECOND_CASES
+#undef CLS_CASE
   return (int)cudaErrorInvalidValue;
 }
 
-// Launches ceil(C / (8 / wpc)) blocks of `wpc` warps a chain on `stream` by
-// `route`: ROUTE_PLAIN (no ChEES), ROUTE_CLUSTER (clusters of `cluster`
-// blocks, one a panel) or ROUTE_GRID (cooperative; `exch` holds the (C, 2,
-// EX) slots). Returns the cudaError_t of the attribute call or of the
-// launch (0 = success). Does not synchronise.
+// Launches ceil(C / (8 / wpc)) blocks of `wpc` warps a chain of the (4,
+// `hidden`, 3) network on `stream` by `route`: ROUTE_PLAIN (no ChEES),
+// ROUTE_CLUSTER (clusters of `cluster` blocks, one a panel) or ROUTE_GRID
+// (cooperative; `exch` holds the (C, 2, EX) slots). Returns the cudaError_t
+// of the attribute call or of the launch (0 = success). Does not
+// synchronise.
 int ptnn_hmc_cls_block(const ClsPrecondParams* p, float* exch, int smem_bytes, int wpc,
-                       int cluster, int route, void* stream) {
+                       int hidden, int cluster, int route, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (wpc == 4) return launch<4>(p, exch, smem_bytes, cluster, route, st);
-  if (wpc == 2) return launch<2>(p, exch, smem_bytes, cluster, route, st);
-  if (wpc == 1) return launch<1>(p, exch, smem_bytes, cluster, route, st);
+#define CLS_CASE(NH, WPC) \
+  if (hidden == NH && wpc == WPC) return launch<NH, WPC>(p, exch, smem_bytes, cluster, route, st);
+  CLS_PRECOND_CASES
+#undef CLS_CASE
   return (int)cudaErrorInvalidValue;
 }
 

@@ -167,10 +167,10 @@ __global__ void __launch_bounds__(MALA_CLS_THREADS, 1)
   }
 }
 
-template <int WPC>
+template <int NH, int WPC>
 static int launch(const ClsPrecondParams* p, int smem_bytes, cudaStream_t stream) {
   constexpr int CPB = MALA_CLS_THREADS / 32 / WPC;
-  auto kern = mala_cls_block_kernel<4, 12, 3, WPC>;
+  auto kern = mala_cls_block_kernel<4, NH, 3, WPC>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem_bytes);
   if (e != cudaSuccess) return (int)e;
@@ -183,14 +183,17 @@ extern "C" {
 
 int ptnn_mala_cls_threads() { return MALA_CLS_THREADS; }
 
-// Launches ceil(C / (8 / wpc)) blocks of `wpc` warps a chain on `stream`;
-// returns the cudaError_t of the attribute call or of the launch (0 =
-// success). Does not synchronise.
-int ptnn_mala_cls_block(const ClsPrecondParams* p, int smem_bytes, int wpc, void* stream) {
+// Launches ceil(C / (8 / wpc)) blocks of `wpc` warps a chain of the (4,
+// `hidden`, 3) network (CLS_PRECOND_HIDDEN) on `stream`; returns the
+// cudaError_t of the attribute call or of the launch (0 = success). Does
+// not synchronise.
+int ptnn_mala_cls_block(const ClsPrecondParams* p, int smem_bytes, int wpc, int hidden,
+                        void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (wpc == 4) return launch<4>(p, smem_bytes, st);
-  if (wpc == 2) return launch<2>(p, smem_bytes, st);
-  if (wpc == 1) return launch<1>(p, smem_bytes, st);
+#define CLS_CASE(NH, WPC) \
+  if (hidden == NH && wpc == WPC) return launch<NH, WPC>(p, smem_bytes, st);
+  CLS_PRECOND_CASES
+#undef CLS_CASE
   return (int)cudaErrorInvalidValue;
 }
 

@@ -15,7 +15,10 @@ Langevin-gradient drift and its q-ratio, "reference" or "ldpt_legacy"), and
 and gradient, the Welford fit and the hot rung's regeneration), the
 posterior-predictive carries (``record_fx``) and the state likelihood
 traces (``record_ll_state``); ``set_static_reference`` injects a fitted
-reference.
+reference. ``StepFn`` also runs the surrogate modes (``use_surrogate``:
+``Surrogate``, ptnn's anchored ``step`` and delayed-acceptance
+``step_da`` with ``DAState``, ``close_segment``, ``refit_surrogate``,
+``refit_anchor``), each step's branch decided on the host.
 
 Every evaluation of the network on data (``train_loglik``,
 ``init_state``'s ll, ``recompute_ll``) goes through ``spec_eval``, the
@@ -48,6 +51,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ptnn_torch import surrogate as surrogate_mod
 from ptnn_torch.config import PTConfig
 from ptnn_torch.models import api as model_api
 from ptnn_torch.models import fnn
@@ -62,6 +66,47 @@ from ptnn_torch.parallel import swap as swap_mod
 # take the likelihood's gradient
 PRECOND = ("precond_rw", "precond_mala", "hmc", "pcn")
 GRAD_PROPOSALS = ("precond_mala", "hmc")
+
+
+@dataclasses.dataclass
+class DAState:
+    """Delayed-acceptance segment bookkeeping (``surrogate_mode=
+    "delayed_acceptance"``). A segment is a maximal run of consecutive
+    surrogate steps: the chain moves by inner MH against the surrogate
+    target, and the whole segment is one composite proposal that a single
+    true-likelihood Metropolis test accepts or reverts when it closes, the
+    ratio ``[pi(w_K) s(w_0)] / [pi(w_0) s(w_K)]`` (Christen & Fox 2005). The
+    surrogate decision is global a step, so ``active`` is a scalar."""
+
+    anchor_w: torch.Tensor  # (C, W) segment-start weights
+    anchor_eta: torch.Tensor  # (C,)
+    anchor_prior: torch.Tensor  # (C,)
+    anchor_llsurr: torch.Tensor  # (C,) surrogate ll at the anchor
+    ll_surr: torch.Tensor  # (C,) surrogate ll at the current (w, eta)
+    active: torch.Tensor  # () bool: a segment is open
+    n_seg: torch.Tensor  # () int32: segments opened
+    n_seg_accepted: torch.Tensor  # (C,) int32: segment corrections accepted
+
+    def replace(self, **kw) -> "DAState":
+        return dataclasses.replace(self, **kw)
+
+    def to(self, device) -> "DAState":
+        return DAState(**{k: v.to(device) for k, v in vars(self).items()})
+
+
+def init_da_state(num_chains: int, w_size: int, device="cpu") -> DAState:
+    f32 = dict(dtype=torch.float32, device=device)
+    c = num_chains
+    return DAState(
+        anchor_w=torch.zeros((c, w_size), **f32),
+        anchor_eta=torch.zeros((c,), **f32),
+        anchor_prior=torch.zeros((c,), **f32),
+        anchor_llsurr=torch.zeros((c,), **f32),
+        ll_surr=torch.zeros((c,), **f32),
+        active=torch.zeros((), dtype=torch.bool, device=device),
+        n_seg=torch.zeros((), dtype=torch.int32, device=device),
+        n_seg_accepted=torch.zeros((c,), dtype=torch.int32, device=device),
+    )
 
 
 @dataclasses.dataclass
@@ -113,6 +158,11 @@ class ChainState:
     vr_chol: Optional[torch.Tensor] = None  # (Z, Z) lower, or None
     n_regen_accepted: Optional[torch.Tensor] = None  # () int32
     n_regen_proposed: Optional[torch.Tensor] = None  # () int32
+    # the surrogate's ring and fit (None unless use_surrogate) and the
+    # delayed-acceptance segment (None unless surrogate_mode is
+    # "delayed_acceptance")
+    surr: Optional[surrogate_mod.SurrogateState] = None
+    da: Optional[DAState] = None
 
     def replace(self, **kw) -> "ChainState":
         return dataclasses.replace(self, **kw)
@@ -358,6 +408,11 @@ def init_state(
                      else None),
             n_regen_accepted=torch.zeros((), dtype=torch.int32, device=dev),
             n_regen_proposed=torch.zeros((), dtype=torch.int32, device=dev))
+    surr = da = None
+    if cfg.use_surrogate:
+        surr = surrogate_mod.init_for(cfg, w_dim, dev)
+        if cfg.surrogate_mode == "delayed_acceptance":
+            da = init_da_state(c, w_dim, dev)
     return ChainState(
         w=w,
         eta=eta,
@@ -385,6 +440,8 @@ def init_state(
         n_swap_proposed=torch.zeros((), dtype=torch.int32, device=dev),
         fx_train=fx_train,
         fx_test=fx_test,
+        surr=surr,
+        da=da,
         **vr,
     )
 
@@ -694,8 +751,6 @@ def step_reason(cfg: PTConfig,
     if cfg.proposal == "sgld":
         return ("proposal='sgld' (the model zoo's stochastic-gradient "
                 "proposals)")
-    if cfg.use_surrogate:
-        return "use_surrogate"
     if cfg.eval_dtype != "float32":
         return f"eval_dtype={cfg.eval_dtype!r}"
     if cfg.adapt_step_size and cfg.use_langevin_gradients and not (
@@ -722,7 +777,13 @@ def step_noise_names(cfg: PTConfig) -> Tuple[str, ...]:
     which classification takes the first W, and "u_regen" uniform (), drawn
     every step; ptnn splits its swap key, ``ks, kr = split(ks)``, and
     draws u_swap from the first, vr_z and u_regen from ``kq, ka =
-    split(kr)``."""
+    split(kr)``. The surrogate modes (``use_surrogate``) add "u_surr"
+    uniform (), the step's surrogate decision, and delayed acceptance
+    "u_seg" uniform (C,), the test of the segment a step closes; ptnn draws
+    them from ``ksu`` of ``split(key, 6)`` (anchored) and ``ksu, kseg`` of
+    ``split(key, 7)`` (delayed acceptance: kp, kl, ke, ku, ks, ksu, kseg).
+    A segment closed at a chunk boundary or at the run's end reads the
+    sampler's ``close_noise`` draw of that boundary instead."""
     names = ("w", "u", "u_swap")
     if cfg.use_langevin_gradients:
         names += ("l",)
@@ -734,6 +795,10 @@ def step_noise_names(cfg: PTConfig) -> Tuple[str, ...]:
         names += ("jit",)
     if cfg.variational_reference and cfg.vr_regen:
         names += ("vr_z", "u_regen")
+    if cfg.use_surrogate:
+        names += ("u_surr",)
+        if cfg.surrogate_mode == "delayed_acceptance":
+            names += ("u_seg",)
     return names
 
 
@@ -748,6 +813,62 @@ def spec_fx(cfg: PTConfig, spec: model_api.ModelSpec, w: torch.Tensor,
     return fnn.predict_class(out).to(torch.float32)
 
 
+class Surrogate:
+    """The surrogate modes' share of a run (ptnn/kernel.py:1150-1197): the
+    projection, the family, and the host's copy of the two flags a step's
+    decision reads, so that the step knows its branch without a copy from
+    the device: ``fitted`` changes only at a refit and is read once a chunk
+    (``sync``); ``active``, whether a segment is open, is the previous
+    step's decision, tracked here. A step takes the surrogate when ``i >=
+    warmup_end``, the fit is trusted and its "u_surr" < ``surrogate_prob``
+    (float32, as ptnn compares), and under delayed acceptance no swap
+    follows it. ``proj`` defaults to ``surrogate.make_projection``'s."""
+
+    def __init__(self, cfg: PTConfig, w_size: int, device,
+                 proj: Optional[torch.Tensor] = None):
+        self.cfg = cfg
+        if proj is None:
+            proj = surrogate_mod.make_projection(w_size + 1,
+                                                 cfg.surrogate_proj, device)
+        self.proj = torch.as_tensor(proj, dtype=torch.float32, device=device)
+        self.fam = surrogate_mod.family_for(cfg)
+        self.warmup_end = int(cfg.n_steps * cfg.surrogate_warmup_frac)
+        self.prob = float(np.float32(cfg.surrogate_prob))
+        self.da = cfg.surrogate_mode == "delayed_acceptance"
+        self.fitted: Optional[bool] = None
+        self.active: Optional[bool] = None
+        self.taken = 0  # surrogate steps decided, on the host
+
+    def sync(self, state: ChainState) -> None:
+        """Read ``fitted`` (and ``active``) from the state: one copy."""
+        flags = [state.surr.fitted] + ([state.da.active] if self.da else [])
+        vals = torch.stack(flags).tolist()
+        self.fitted = bool(vals[0])
+        self.active = bool(vals[1]) if self.da else False
+
+    def decide(self, state: ChainState, i: int, u: torch.Tensor) -> bool:
+        """Whether step ``i`` is a surrogate step; ``u`` is its "u_surr"
+        (the sampler brings a chunk's to the host at once)."""
+        if self.fitted is None:
+            self.sync(state)
+        use = i >= self.warmup_end and self.fitted and float(u) < self.prob
+        use = use and not (self.da and swap_due(self.cfg, i))
+        self.taken += use
+        return use
+
+    @staticmethod
+    def z(w: torch.Tensor, eta: torch.Tensor) -> torch.Tensor:
+        return torch.cat([w, eta[:, None]], dim=1)
+
+    def ll(self, surr, w, eta) -> torch.Tensor:
+        """The surrogate ll at (w, eta), (C,)."""
+        return self.fam.predict(surr, self.proj, self.z(w, eta))
+
+    def grad(self, surr, w, eta) -> torch.Tensor:
+        """Its analytic gradient in z = (w, eta), (C, W + 1)."""
+        return self.fam.grad_predict(surr, self.proj, self.z(w, eta))
+
+
 class StepFn:
     """ptnn's ``make_step_fn`` for the reference proposal: ``step(state, i,
     noise) -> (state, trace)`` advances every chain by one MH step (and the
@@ -758,7 +879,8 @@ class StepFn:
     from its regeneration's)."""
 
     def __init__(self, cfg: PTConfig, data: Dataset, temps: torch.Tensor,
-                 spec: model_api.ModelSpec):
+                 spec: model_api.ModelSpec,
+                 surrogate_proj: Optional[torch.Tensor] = None):
         reason = step_reason(cfg, spec)
         if reason is not None:
             raise NotImplementedError(
@@ -783,6 +905,8 @@ class StepFn:
         self.log_norm = self.log_norm.to(temps.device)
         self.vr = (VRef(cfg, spec, data, temps)
                    if cfg.variational_reference else None)
+        self.surr = (Surrogate(cfg, spec.w_size, temps.device, surrogate_proj)
+                     if cfg.use_surrogate else None)
 
     def _prior(self, w, tau):
         """The log prior of (w, tau) for every chain (tau: regression's
@@ -857,9 +981,37 @@ class StepFn:
 
     def step(self, state: ChainState, i: int,
              noise: Noise) -> Tuple[ChainState, Dict[str, torch.Tensor]]:
-        """ptnn/kernel.py:1260-1393 for the reference proposal."""
+        """ptnn/kernel.py:1260-1393 for the reference proposal; under
+        ``surrogate_mode="delayed_acceptance"`` ptnn's ``step_da``
+        (``_step_da``). In the anchored mode a surrogate step (``Surrogate.
+        decide``) takes the proposal's likelihood from the surrogate and
+        launches no eval; a true step pushes its (proposal, ll) pair."""
+        sg = self.surr
+        if sg is not None and sg.da:
+            return self._step_da(state, i, noise)
+        at = self.temps if i < self.cfg.temper_switch_step else self.ones
+        use = sg is not None and sg.decide(state, i, noise["u_surr"])
+        new, trace, mh_prob, w_prop, eta_prop, ll_prop = self._true_step(
+            state, i, noise, at, use_surr=use)
+        if sg is not None and not use:
+            new = new.replace(surr=surrogate_mod.push(
+                state.surr, sg.z(w_prop, eta_prop), ll_prop))
+        new = self._adapt_step(state, new, i, mh_prob)
+        if self.diagnostics:
+            trace["margin"] = torch.abs(noise["u"] - mh_prob)
+            if sg is not None:
+                trace["surrogate"] = torch.tensor(use)
+        if self.cfg.record_eta and not self.cls:
+            trace["eta"] = new.eta[self.rec]
+        return self._finish(state, new, trace, i, noise)
+
+    def _true_step(self, state, i, noise, at, use_surr=False):
+        """The MH step on the proposal (ptnn's step body, and step_da's
+        ``_true_core``): the proposal's likelihood and metrics from one eval
+        of both row sets, or, with ``use_surr``, its likelihood from the
+        surrogate and the metrics carried. Returns (state, trace, mh_prob,
+        w_prop, eta_prop, ll_prop)."""
         cfg, d, spec = self.cfg, self.data, self.spec
-        at = self.temps if i < cfg.temper_switch_step else self.ones
         w_prop, diff_prop, n_langevin = self._propose(state, noise, at)
         if self.cls:
             eta_prop = state.eta
@@ -868,9 +1020,18 @@ class StepFn:
             eta_prop = state.eta + cfg.step_eta * noise["eta"]
             tau_prop = torch.exp(eta_prop)
         prior_prop = self._prior(w_prop, tau_prop)
-        (ll_prop, rmse_tr, acc_tr), (_ll, rmse_te, acc_te) = spec_eval_pair(
-            cfg, spec, w_prop, d.x_train, d.y_train, d.x_test, d.y_test,
-            tau_prop)
+        fx = None
+        if use_surr:
+            # no dataset pass: the metrics keep their last values
+            ll_prop = self.surr.ll(state.surr, w_prop, eta_prop)
+            rmse_tr, acc_tr = state.rmse_train, state.acc_train
+            rmse_te, acc_te = state.rmse_test, state.acc_test
+            if cfg.record_fx:
+                fx = (state.fx_train, state.fx_test)
+        else:
+            (ll_prop, rmse_tr, acc_tr), (_ll, rmse_te, acc_te) = \
+                spec_eval_pair(cfg, spec, w_prop, d.x_train, d.y_train,
+                               d.x_test, d.y_test, tau_prop)
         log_mh = (ll_prop - state.ll) / at + (prior_prop - state.prior) \
             + diff_prop
         if self.vr is not None:
@@ -909,20 +1070,203 @@ class StepFn:
             n_accept=state.n_accept + accept.to(torch.int32),
             n_langevin=n_langevin,
         )
-        if cfg.adapt_step_size:
-            # Robbins-Monro toward the target acceptance until burn-in
-            delta = cfg.adapt_rate * (mh_prob - cfg.adapt_target_accept)
-            lsw = state.log_step_w + (delta if i < self.burn_end else 0.0)
-            new = new.replace(log_step_w=torch.clamp(lsw, _LOG_STEP_LO,
-                                                     _LOG_STEP_HI))
-        if self.diagnostics:
-            trace["margin"] = torch.abs(noise["u"] - mh_prob)
-        new = self._fx(state, new, trace, accept, w_prop)
+        new = self._fx(state, new, trace, accept, w_prop, fx)
         if cfg.record_w:
             trace["w"] = new.w_last[self.rec]
-        if cfg.record_eta and not self.cls:
-            trace["eta"] = new.eta[self.rec]
+        return new, trace, mh_prob, w_prop, eta_prop, ll_prop
+
+    def _adapt_step(self, state, new, i, mh_prob):
+        """``adapt_step_size``: Robbins-Monro toward the target acceptance
+        until burn-in."""
+        cfg = self.cfg
+        if not cfg.adapt_step_size:
+            return new
+        delta = cfg.adapt_rate * (mh_prob - cfg.adapt_target_accept)
+        lsw = state.log_step_w + (delta if i < self.burn_end else 0.0)
+        return new.replace(log_step_w=torch.clamp(lsw, _LOG_STEP_LO,
+                                                  _LOG_STEP_HI))
+
+    def _step_da(self, state, i, noise):
+        """ptnn's ``step_da`` (ptnn/kernel.py:1395-1600): one of three
+        steps, as the host decides. A surrogate step (``_surr_inner``)
+        extends the open segment, or opens one, with an inner move against
+        the surrogate target, launching no drift and no eval; the first true
+        step after a segment closes it (``_close_core``: one eval) and then
+        takes a true step from the corrected state; otherwise a plain true
+        step. Swap steps are true steps (``Surrogate.decide``). The ring
+        takes the closure's row, then the true step's."""
+        sg = self.surr
+        at = self.temps if i < self.cfg.temper_switch_step else self.ones
+        use = sg.decide(state, i, noise["u_surr"])
+        margin = None
+        if use:
+            new, trace, mh_prob = self._surr_inner(state, noise, at)
+        else:
+            st, rows = state, []
+            if sg.active:
+                st, row, p_close = self._close_core(state, i, noise["u_seg"])
+                rows.append(row)
+                margin = torch.abs(noise["u_seg"] - p_close)
+            new, trace, mh_prob, w_prop, eta_prop, ll_prop = \
+                self._true_step(st, i, noise, at)
+            rows.append((sg.z(w_prop, eta_prop), ll_prop))
+            surr = state.surr
+            for z, ll in rows:
+                surr = surrogate_mod.push(surr, z, ll)
+            new = new.replace(surr=surr)
+        sg.active = use
+        new = self._adapt_step(state, new, i, mh_prob)
+        if self.diagnostics:
+            m = torch.abs(noise["u"] - mh_prob)
+            trace["margin"] = m if margin is None else torch.minimum(m,
+                                                                     margin)
+            trace["surrogate"] = torch.tensor(use)
         return self._finish(state, new, trace, i, noise)
+
+    def _surr_inner(self, st, noise, at):
+        """A surrogate step of delayed acceptance: a segment opens at the
+        current state (its anchor) unless one is open; the inner proposal is
+        a random walk, or (``surrogate_inner="mala"``) MALA on the analytic
+        surrogate gradient with its q-ratio, tested against the surrogate
+        target. The carried ll, ``w_last`` and the metrics stay at the
+        anchor's until the segment closes."""
+        cfg, sg = self.cfg, self.surr
+        da = st.da
+        if sg.active:
+            ll_surr_cur = da.ll_surr
+        else:
+            ll_surr_cur = sg.ll(st.surr, st.w, st.eta)
+            da = da.replace(anchor_w=st.w, anchor_eta=st.eta,
+                            anchor_prior=st.prior,
+                            anchor_llsurr=ll_surr_cur, n_seg=da.n_seg + 1)
+        if cfg.adapt_step_size:
+            sw = torch.exp(st.log_step_w)[:, None]
+        else:
+            sw = torch.full((cfg.num_chains, 1), cfg.step_w,
+                            dtype=torch.float32, device=st.w.device)
+        nw = noise["w"] * sw
+        eta_prop = st.eta if self.cls else st.eta + cfg.step_eta * noise["eta"]
+        diff_q = torch.zeros_like(st.ll)
+        if cfg.surrogate_inner == "mala":
+            wd = self.spec.w_size
+            half = 0.5 * sw * sw
+            g_cur = sg.grad(st.surr, st.w, st.eta)[:, :wd] / at[:, None]
+            mean_fwd = st.w + half * g_cur
+            w_prop = mean_fwd + nw
+            g_prop = sg.grad(st.surr, w_prop, eta_prop)[:, :wd] / at[:, None]
+            mean_rev = w_prop + half * g_prop
+            diff_q = (torch.sum(torch.square(w_prop - mean_fwd), dim=-1)
+                      - torch.sum(torch.square(st.w - mean_rev), dim=-1)) \
+                / (2.0 * sw[:, 0] * sw[:, 0])
+        else:
+            w_prop = st.w + nw
+        prior_prop = self._prior(w_prop, None if self.cls
+                                 else torch.exp(eta_prop))
+        ll_surr_prop = sg.ll(st.surr, w_prop, eta_prop)
+        log_mh = (ll_surr_prop - ll_surr_cur) / at \
+            + (prior_prop - st.prior) + diff_q
+        mh_prob = torch.exp(torch.clamp(log_mh, max=0.0))
+        accept = noise["u"] < mh_prob
+        trace = {
+            "ll": ll_surr_prop if self.cls else ll_surr_prop / at,
+            "rmse_train": st.rmse_train,
+            "rmse_test": st.rmse_test,
+            "acc_train": st.acc_train,
+            "acc_test": st.acc_test,
+            "accept_count": st.n_accept,
+        }
+        if cfg.record_fx:
+            trace["fx_train"] = st.fx_train
+            trace["fx_test"] = st.fx_test
+        if cfg.record_w:
+            trace["w"] = st.w_last[self.rec]
+        new = st.replace(
+            w=torch.where(accept[:, None], w_prop, st.w),
+            eta=torch.where(accept, eta_prop, st.eta),
+            prior=torch.where(accept, prior_prop, st.prior),
+            n_accept=st.n_accept + accept.to(torch.int32),
+            da=da.replace(ll_surr=torch.where(accept, ll_surr_prop,
+                                              ll_surr_cur),
+                          active=torch.ones_like(da.active)),
+        )
+        return new, trace, mh_prob
+
+    def _close_core(self, st, i, u):
+        """The exact correction of the open segment (ptnn/kernel.py
+        :1199-1248): one true evaluation at the segment's end (one eval
+        launch for both row sets) and a Metropolis test of
+        ``[pi(w_K) s(w_0)] / [pi(w_0) s(w_K)]``; the priors cancel. On
+        reject the chain returns to the anchor. Returns the state, the true
+        (z, ll) row for the ring, and each chain's acceptance probability."""
+        cfg, d, da = self.cfg, self.data, st.da
+        at = self.temps if i < cfg.temper_switch_step else self.ones
+        tau = None if self.cls else torch.exp(st.eta)
+        (ll_true, rmse_tr, acc_tr), (_ll, rmse_te, acc_te) = spec_eval_pair(
+            cfg, self.spec, st.w, d.x_train, d.y_train, d.x_test, d.y_test,
+            tau)
+        log_corr = ((ll_true - st.ll) - (da.ll_surr - da.anchor_llsurr)) / at
+        prob = torch.exp(torch.clamp(log_corr, max=0.0))
+        acc = u < prob
+        accw = acc[:, None]
+        new = st.replace(
+            w=torch.where(accw, st.w, da.anchor_w),
+            eta=torch.where(acc, st.eta, da.anchor_eta),
+            ll=torch.where(acc, ll_true, st.ll),
+            prior=torch.where(acc, st.prior, da.anchor_prior),
+            w_last=torch.where(accw, st.w, st.w_last),
+            rmse_train=torch.where(acc, rmse_tr, st.rmse_train),
+            rmse_test=torch.where(acc, rmse_te, st.rmse_test),
+            acc_train=torch.where(acc, acc_tr, st.acc_train),
+            acc_test=torch.where(acc, acc_te, st.acc_test),
+            da=da.replace(active=torch.zeros_like(da.active),
+                          n_seg_accepted=da.n_seg_accepted
+                          + acc.to(torch.int32)),
+        )
+        if cfg.record_fx:
+            new = new.replace(
+                fx_train=torch.where(accw, spec_fx(cfg, self.spec, st.w,
+                                                   d.x_train), st.fx_train),
+                fx_test=torch.where(accw, spec_fx(cfg, self.spec, st.w,
+                                                  d.x_test), st.fx_test))
+        return new, (self.surr.z(st.w, st.eta), ll_true), prob
+
+    def close_segment(self, state: ChainState, i: int,
+                      u: torch.Tensor) -> ChainState:
+        """The boundary closure (chunk refits, the run's end): nothing when
+        no segment is open, else the correction with the uniforms ``u``
+        (C,) and its true row pushed."""
+        sg = self.surr
+        if sg.active is None:
+            sg.sync(state)
+        if not sg.active:
+            return state
+        new, (z, ll), _p = self._close_core(state, i, u)
+        sg.active = False
+        return new.replace(surr=surrogate_mod.push(new.surr, z, ll))
+
+    def refit_surrogate(self, state: ChainState) -> ChainState:
+        """Refit the surrogate on its ring (plain PyTorch: a batched
+        Cholesky solve, or the MLP's Adam loop)."""
+        return state.replace(surr=self.surr.fam.fit(state.surr,
+                                                    self.surr.proj))
+
+    def refit_anchor(self, state: ChainState, done: int,
+                     u_close: Callable[[], torch.Tensor]) -> ChainState:
+        """At the start of a chunk after ``done`` steps (ptnn/sampler.py
+        :182-209): close an open segment (delayed acceptance; ``u_close()``
+        gives its uniforms), refit, and re-anchor every chain's carried ll
+        with a true evaluation, which also stands in for the temper
+        switch's recompute. Then ``fitted`` is read to the host, once a
+        chunk."""
+        if self.surr.da:
+            if self.surr.active is None:
+                self.surr.sync(state)
+            if self.surr.active:
+                state = self.close_segment(state, max(done - 1, 0),
+                                           u_close())
+        state = self.recompute_ll(self.refit_surrogate(state))
+        self.surr.sync(state)
+        return state
 
     def _fx(self, state, new, trace, accept, w_prop, fx=None):
         """``record_fx``: the proposal's predictions on both row sets (the
@@ -1302,7 +1646,8 @@ class PrecondStepFn(StepFn):
 
 
 def make_step_fn(cfg: PTConfig, data: Dataset, temps: torch.Tensor,
-                 spec: Optional[model_api.ModelSpec] = None) -> StepFn:
+                 spec: Optional[model_api.ModelSpec] = None,
+                 surrogate_proj: Optional[torch.Tensor] = None) -> StepFn:
     """The per-step sampler's step for ``cfg``: ``PrecondStepFn`` for the
     preconditioned family, else ``StepFn`` (the reference proposal, with or
     without Langevin gradients); ``spec`` defaults to the reference FNN
@@ -1311,4 +1656,4 @@ def make_step_fn(cfg: PTConfig, data: Dataset, temps: torch.Tensor,
     spec = spec or default_spec(cfg)
     if cfg.proposal in PRECOND:
         return PrecondStepFn(cfg, data, temps, spec)
-    return StepFn(cfg, data, temps, spec)
+    return StepFn(cfg, data, temps, spec, surrogate_proj)

@@ -213,19 +213,20 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         P = ctypes.POINTER(pcs.ClsPrecondParams)
         if name == "mala_cls_block":
             lib.ptnn_mala_cls_block.argtypes = [P, ctypes.c_int, ctypes.c_int,
-                                                ctypes.c_void_p]
+                                                ctypes.c_int, ctypes.c_void_p]
             lib.ptnn_mala_cls_block.restype = ctypes.c_int
             _check_query(lib, name, "ptnn_mala_cls_threads",
                          32 * pcs._mala_warps(), "MALA_CLS_THREADS")
         else:
             i = ctypes.c_int
             lib.ptnn_hmc_cls_block.argtypes = [P, ctypes.c_void_p, i, i, i, i,
-                                               ctypes.c_void_p]
+                                               i, ctypes.c_void_p]
             lib.ptnn_hmc_cls_block.restype = i
             lib.ptnn_hmc_cls_max_active_clusters.argtypes = [
-                i, i, i, ctypes.POINTER(i)]
+                i, i, i, i, ctypes.POINTER(i)]
             lib.ptnn_hmc_cls_max_active_clusters.restype = i
-            lib.ptnn_hmc_cls_coop_blocks.argtypes = [i, i, ctypes.POINTER(i)]
+            lib.ptnn_hmc_cls_coop_blocks.argtypes = [i, i, i,
+                                                     ctypes.POINTER(i)]
             lib.ptnn_hmc_cls_coop_blocks.restype = i
             for query, define in (("ptnn_hmc_cls_threads", "HMC_CLS_THREADS"),
                                   ("ptnn_hmc_cls_max_cluster",
@@ -235,7 +236,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                      ctypes.sizeof(pcs.ClsPrecondParams),
                      "ClsPrecondParams size")
         _check_query(lib, name, "ptnn_cls_part", pcs._part(), "CLS_PART")
-        _check_query(lib, name, "ptnn_cls_w_size", 99, "the (4, 12, 3) w_size")
+        for topo in pcs.TOPOLOGIES:
+            n_in, hid, n_out = topo
+            _check_query(lib, name, "ptnn_cls_w_size",
+                         n_in * hid + hid + hid * n_out + n_out,
+                         f"the {topo} w_size", hid)
     if name == "rw_cls_block":
         from ptnn_torch.ops import block_step as bs
 
@@ -389,13 +394,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
 
 
 def _check_query(lib: ctypes.CDLL, name: str, fn: str, want: int,
-                 what: str) -> None:
-    """Call the library's int query ``fn`` and raise unless it is ``want``:
-    the .cu and its Python mirror must agree."""
+                 what: str, *args: int) -> None:
+    """Call the library's int query ``fn`` (on int ``args``) and raise
+    unless it is ``want``: the .cu and its Python mirror must agree."""
     f = getattr(lib, fn)
-    f.argtypes = []
+    f.argtypes = [ctypes.c_int] * len(args)
     f.restype = ctypes.c_int
-    got = f()
+    got = f(*args)
     if got != want:
         raise RuntimeError(f"{what} differs between {name}.cu ({got}) and "
                            f"its Python mirror ({want})")

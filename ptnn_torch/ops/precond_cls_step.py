@@ -92,7 +92,10 @@ def _mala_warps() -> int:
     return _build.cu_define("mala_cls_block.cu", "MALA_CLS_THREADS") // 32
 
 
-TOPOLOGIES = ((4, 12, 3),)  # the (I, H, O) the CUDA kernels instantiate
+# the (I, H, O) the CUDA kernels instantiate (CLS_PRECOND_CASES of
+# csrc/cls_common.cuh): iris's bundled network, and the (4, 10, 3) that
+# ptnn_torch.auto infers for iris (hidden = max(10, n_in))
+TOPOLOGIES = ((4, 12, 3), (4, 10, 3))
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -507,8 +510,9 @@ def _card_plan(device_index: int, chains: int, panel: int, n_rows: int,
     return launch_plan(
         chains, panel, n_rows, topo,
         fits=lambda wpc, smem, cluster: query(
-            "ptnn_hmc_cls_max_active_clusters", wpc, smem, cluster),
-        coop=lambda wpc, smem: query("ptnn_hmc_cls_coop_blocks", wpc, smem))
+            "ptnn_hmc_cls_max_active_clusters", wpc, topo[1], smem, cluster),
+        coop=lambda wpc, smem: query("ptnn_hmc_cls_coop_blocks", wpc,
+                                     topo[1], smem))
 
 
 def card_plan(device, chains: int, panel: int, n_rows: int,
@@ -631,11 +635,11 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
                 vec = 32 * -(-w_dim // 32)
                 exch = torch.empty((c, 2, 2 * vec + 4), dtype=f32, device=dev)
             err = lib.ptnn_hmc_cls_block(
-                ctypes.byref(params), p(exch), smem, plan.wpc, plan.cluster,
-                ROUTES.index(plan.route), stream)
+                ctypes.byref(params), p(exch), smem, plan.wpc, topo[1],
+                plan.cluster, ROUTES.index(plan.route), stream)
         else:
             err = lib.ptnn_mala_cls_block(ctypes.byref(params), smem,
-                                          plan.wpc, stream)
+                                          plan.wpc, topo[1], stream)
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed: {_build.error_string(lib, err)}"

@@ -78,6 +78,9 @@ class SampleResult:
     # host seconds spent copying the kept trace rows from the device, after
     # the device had finished them (the port's own; ptnn has no such field)
     fetch_s: float = 0.0
+    # steps the surrogate took in place of a true evaluation (the port's
+    # own: its host decides each step's branch)
+    surrogate_steps: int = 0
 
 
 def make_dataset(cfg: PTConfig, train, test, device) -> Dataset:
@@ -129,7 +132,8 @@ def merge_rows(traces: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 def make_result(cfg: PTConfig, traces: Dict[str, np.ndarray],
                 state: ChainState, temps_host: np.ndarray,
-                elapsed: float, fetch_s: float = 0.0) -> SampleResult:
+                elapsed: float, fetch_s: float = 0.0,
+                surrogate_steps: int = 0) -> SampleResult:
     """The ``SampleResult`` of a finished run: merged traces, the final
     state on the CPU, and ptnn's percentages."""
     final = state.to("cpu")
@@ -140,6 +144,12 @@ def make_result(cfg: PTConfig, traces: Dict[str, np.ndarray],
         # the hot rung's regeneration acceptance (ptnn/sampler.py:378-383)
         regen_prop = int(final.n_regen_proposed)
         regen_pct = 100.0 * int(final.n_regen_accepted) / max(regen_prop, 1)
+    da_segments, da_accept = 0, None
+    if final.da is not None:
+        # segments opened, and each chain's share of them accepted at close
+        da_segments = int(final.da.n_seg)
+        da_accept = final.da.n_seg_accepted.numpy() * 100.0 / max(
+            da_segments, 1)
     return SampleResult(
         traces=merge_rows(traces),
         final_state=final,
@@ -152,11 +162,14 @@ def make_result(cfg: PTConfig, traces: Dict[str, np.ndarray],
         elapsed_s=elapsed,
         chain_steps_per_sec=cfg.n_steps * cfg.num_chains / elapsed,
         config=cfg,
+        da_segments=da_segments,
+        da_accept_per_chain=da_accept,
         pair_swap_accept=final.pair_accept_sum.numpy()[:-1]
         / np.maximum(final.pair_prop_count.numpy()[:-1], 1),
         vr_regen_accept_pct=regen_pct,
         vr_regen_proposed=regen_prop,
         fetch_s=fetch_s,
+        surrogate_steps=surrogate_steps,
     )
 
 
@@ -263,6 +276,8 @@ def step_noise(seed: int, device, names) -> NoiseFn:
                 u_swap=lambda: torch.rand((steps, max(c - 1, 0)), **f32),
                 vr_z=lambda: torch.randn((steps, w + 1), **f32),
                 u_regen=lambda: torch.rand((steps,), **f32),
+                u_surr=lambda: torch.rand((steps,), **f32),
+                u_seg=lambda: torch.rand((steps, c), **f32),
             )
             cache.clear()
             cache[p] = {name: draw[name]() for name in names}
@@ -280,6 +295,24 @@ def step_noise(seed: int, device, names) -> NoiseFn:
         return {k: torch.cat([part[k] for part in parts]) for k in parts[0]}
 
     return noise_fn
+
+
+CloseFn = Callable[[int, int], torch.Tensor]
+
+
+def close_noise(seed: int, device) -> CloseFn:
+    """The uniforms (C,) of a delayed-acceptance segment closed at a chunk
+    boundary: ``fn(b, c)`` for the boundary after ``b`` steps (the run's
+    end is ``b = n_steps + 1``, as ptnn keys its ``fold_in(k_close, b)``),
+    drawn on the CPU from a generator seeded by (seed, 3, b), so they
+    depend on the boundary alone and are the same on every device."""
+
+    def fn(b: int, c: int) -> torch.Tensor:
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(seed_of(seed, 3, b))
+        return torch.rand((c,), generator=gen).to(device)
+
+    return fn
 
 
 def thin_rows(rows: List[Dict[str, torch.Tensor]],
@@ -305,26 +338,41 @@ class _PerStep:
             on_chunk: Callable[[Dict[str, torch.Tensor]], None],
             start: int = 0,
             on_boundary: Optional[Callable[[ChainState, int], None]] = None,
+            close_fn: Optional[CloseFn] = None,
             ) -> ChainState:
-        """Both segments (ptnn/sampler.py:233-322), chunk by chunk, from
+        """Both segments (ptnn/sampler.py:233-330), chunk by chunk, from
         step ``start`` (a chunk boundary: where a checkpoint was saved);
         each chunk's kept trace rows go to ``on_chunk`` and then the state
-        and the steps done to ``on_boundary``."""
+        and the steps done to ``on_boundary``. The surrogate modes refit
+        and re-anchor at the start of every chunk after the first (in place
+        of the temper switch's recompute), a delayed-acceptance segment
+        still open first closed with ``close_fn``'s uniforms of that
+        boundary, and once more at the run's end; a chunk's "u_surr" draws
+        come to the host at once."""
         cfg, fn = self.cfg, self.step_fn
         n, switch = cfg.n_steps, cfg.temper_switch_step
         segments = [(0, switch), (switch, n)] if 0 < switch < n else [(0, n)]
         target = max(1, min(cfg.chunk_steps, n))
         c, w = cfg.num_chains, fn.spec.w_size
+        surr = fn.surr
+        if surr is not None:
+            surr.fitted = surr.active = None  # read from this run's state
+            surr.taken = 0
         for si, (a, b) in enumerate(segments):
             if start >= b:
                 continue
             done = max(a, start)
-            if si > 0 and done == a:
+            if si > 0 and done == a and surr is None:
                 state = fn.recompute_ll(state)
             chunk = _pick_chunk(b - a, target)
             while done < b:
+                if surr is not None and done > 0:
+                    state = fn.refit_anchor(state, done,
+                                            lambda: close_fn(done, c))
                 length = min(chunk, b - done)
                 noise = noise_fn(done, length, c, w)
+                if "u_surr" in noise:
+                    noise = dict(noise, u_surr=noise["u_surr"].cpu())
                 rows: List[Dict[str, torch.Tensor]] = []
                 for k in range(length):
                     state, trace = fn.step(
@@ -334,17 +382,23 @@ class _PerStep:
                 done += length
                 if on_boundary is not None:
                     on_boundary(state, done)
+        if surr is not None and surr.da:
+            # a run must not end mid-segment: the final state is a true
+            # posterior sample with its true ll
+            state = fn.close_segment(state, n - 1, close_fn(n + 1, c))
         return state
 
 
 def _per_step(cfg: PTConfig, train, test, device,
-              model_spec: Optional[model_api.ModelSpec] = None) -> _PerStep:
+              model_spec: Optional[model_api.ModelSpec] = None,
+              surrogate_proj=None) -> _PerStep:
     device = torch.device(device)
     data = make_dataset(cfg, train, test, device)
     temps_host = ladder.build_temperatures(cfg)
     temps = torch.as_tensor(temps_host, dtype=torch.float32, device=device)
     return _PerStep(cfg, device, data, temps_host,
-                    kernel.make_step_fn(cfg, data, temps, model_spec))
+                    kernel.make_step_fn(cfg, data, temps, model_spec,
+                                        surrogate_proj))
 
 
 def sample_per_step(
@@ -363,7 +417,8 @@ def sample_per_step(
     ``checkpoint_path`` the run saves a checkpoint every
     ``checkpoint_every`` chunks and at its end, and resumes from a matching
     one (same config, seed and model) at its step with its traces
-    (ptnn/sampler.py:242-322)."""
+    (ptnn/sampler.py:242-322). A delayed-acceptance segment closed at a
+    chunk boundary takes ``close_noise``'s uniforms."""
     from ptnn_torch import checkpoint as ckpt
 
     eng = _per_step(cfg, train, test, device, model_spec)
@@ -403,14 +458,16 @@ def sample_per_step(
 
     t0 = time.perf_counter()
     state = eng.run(state, noise_fn, fetch_chunk, start=resume_at,
-                    on_boundary=boundary if checkpoint_path else None)
+                    on_boundary=boundary if checkpoint_path else None,
+                    close_fn=close_noise(seed, eng.device))
     synchronize(eng.device)
     if checkpoint_path is not None:
         ckpt.save(checkpoint_path, state, cfg.n_steps, merged(), cfg, seed,
                   spec_name)
     elapsed = time.perf_counter() - t0
+    surr = eng.step_fn.surr
     return make_result(cfg, merged(), state, eng.temps_host, elapsed,
-                       fetch[0])
+                       fetch[0], surr.taken if surr is not None else 0)
 
 
 def throughput_build_per_step(
@@ -420,6 +477,10 @@ def throughput_build_per_step(
     """Benchmark protocol of the per-step sampler: ``record_w`` off, traces
     reduced to their sums on the device, every rep from the same initial
     state (and, with the default noise, the same noise)."""
+    if cfg.use_surrogate:
+        raise ValueError(
+            "throughput_run never refits the surrogate (no chunk boundaries);"
+            " benchmark surrogate configs through sample()")
     cfg2 = dataclasses.replace(cfg, record_w=False).validate()
     eng = _per_step(cfg2, train, test, device, model_spec)
     state0 = init_chains(cfg2, eng.data, seed, eng.step_fn.spec)

@@ -52,6 +52,8 @@ MODULES = (
     "ptnn_torch.ops.roundtrip",
     "ptnn_torch.ops.likelihood",
     "ptnn_torch.parallel.swap",
+    "ptnn_torch.surrogate",
+    "ptnn_torch.auto",
 )
 
 
@@ -161,6 +163,11 @@ def test_port_exports_ptnn_surface_or_names_what_is_missing():
     exported = set(ptnn_torch.__all__)
     missing = set(ptnn.__all__) - exported
     assert missing == set(ptnn_torch.NOT_PORTED), sorted(missing)
+    assert set(ptnn_torch.NOT_PORTED) == {"sweeps", "profiling"}
+    # auto and the surrogate are ported; auto is exported as a module,
+    # loaded on first access (a `python -m` entry point)
+    import ptnn_torch.surrogate  # noqa: F401
+    assert ptnn_torch.auto.__name__ == "ptnn_torch.auto"
     assert not exported & set(ptnn_torch.NOT_PORTED)
     for name in exported:
         assert hasattr(ptnn_torch, name), name
