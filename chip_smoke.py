@@ -63,7 +63,16 @@ not 0):
      runs, 10 chains on 64 random rows, each checking which kernel ran; the
      FNN eval at Sunspot 64 chains, Ionosphere 10 and 64 and PenDigit 10
      (all 7494 / 3498 rows), on the train rows, on the test rows and on both
-     in one launch (the pair). The
+     in one launch (the pair); the grid routes of both (phase_grid_kernels):
+     the drift with a rate a chain (the regression grid's 210 chains on
+     Sunspot's rows), with each cell's rows (its 21 cells, ACFinance's 238
+     rows padded to 298) and with the envelope's parameter mask (the small
+     bucket's 15 cells in (34, 50, 3), the generic kernel), the eval pair
+     with each cell's rows, row counts and class counts at both grids, each
+     against its plain version (w within rtol 2e-4 of each chain's scale
+     and atol 2e-5, the masked parameters exactly 0; ll within rtol 1e-4 of
+     its terms, rmse within 2e-4, acc exact) and timed by a CUDA graph
+     beside the one-dataset route at the same chains. The
      CNN's fused stage 1, conv1_relu_pool, at the digits widths (256 and
      128 chains x 1257 and 540 images, the fixed-shape kernel), ragged shapes, three
      input channels and the MNIST side (the generic kernel), and the fused
@@ -85,9 +94,9 @@ not 0):
      (10 x 5000), each with its drift and eval launches held to the plan (one
      eval a step for the train and the test rows);
      then the model zoo on the digits images: the Bayesian CNN,
-     cnn.digits_spec(fused_eval=True), at cnn_digits's default configuration,
-     256 chains on all 1257 / 540 rows, with its conv launches held to the
-     plan; the same at 64 chains x 300 held to bands around the JAX
+     cnn.digits_spec(fused_eval=True), at cnn_digits's default width, 256
+     chains on all 1257 / 540 rows, 1600 steps (the default 2000 cut in PR
+     15), with its conv launches held to the plan; the same at 64 chains x 300 held to bands around the JAX
      package's run on the CPU; the fused eval against the plain eval on the
      same noise; a deep MLP; and the cnn_digits command line as a
      subprocess, with its artifact tree;
@@ -170,7 +179,21 @@ not 0):
      launches the plan, their trees served by ptnn_torch.predict; and the DA
      arm checkpointed every chunk, SIGKILLed after a checkpoint saved in the
      middle of a segment and resumed bit for bit (ring, fit and segment
-     included);
+     included); then the sweeps (phase_sweeps), through ptnn_torch.sweeps:
+     dataset_grid at scripts/grid_parity.py's configuration (the seven
+     series x rw, lg001, lg01, 10 chains a cell, maxtemp 5, swap ratio
+     0.01: 210 chains) at 10,000 samples (1000 a chain; the script's
+     100,000 cut), classification_grid's small bucket (iris, Ionosphere,
+     Cancer x seeds 0-4: 150 chains in the (34, 50, 3) envelope) in RW and
+     in legacy LG at 5000 samples (the script's 50,000 cut), every cell's
+     test_mean, accept_pct and swap_pct inside the mean +- 4 sigma of
+     ptnn's own call on the CPU over 20 seeds, launches exactly the plan (2
+     drift epochs a step and 1 eval pair a step for the whole grid, + init
+     and the temper switch); the Sunspot lg01 cell against the single
+     per-step run of its stream (accept and swap counts equal, statistics
+     within rtol 2e-4); the big bucket (bank-additional, PenDigit, chess)
+     in batch drift mode, 500 steps, finite, launches as planned; each
+     grid's chain-steps/s beside the card's name and power limit;
   5. throughput: throughput_runner at 2000 samples per chain (Sunspot
      rw_fused at 64 and 1024 chains, mala_fused_16x4, chees16_fused_256x4;
      iris chees16_fused_16x4 and chees16_fused_64x4; lg_pallas), and each
@@ -482,7 +505,8 @@ def phase_build():
 
 
 def demangle(name):
-    """``drift_reg_kernel<4, 10, 1, 4>`` from its mangled entry name."""
+    """``drift_reg_kernel<4, 10, 1, 4, 0>`` from its mangled entry name
+    (a bool argument as 0 / 1)."""
     import re
 
     m = re.match(r"_Z(\d+)", name)
@@ -490,7 +514,8 @@ def demangle(name):
         return name
     ident = name[m.end():m.end() + int(m.group(1))]
     rest = name[m.end() + int(m.group(1)):]
-    args = re.findall(r"Li(\d+)E", rest) if rest.startswith("I") else []
+    args = (re.findall(r"L[ib](\d+)E", rest) if rest.startswith("I")
+            else [])
     return f"{ident}<{', '.join(args)}>" if args else ident
 
 
@@ -2514,7 +2539,11 @@ CNN_REF = dict(accept=(23.41, 23.73, 24.34), swap=(89.68, 95.24, 89.68),
                ladder_acc=(9.92, 10.05, 10.83), cold_acc=(10.33, 3.67, 5.96))
 CNN_BANDS = dict(accept=(20.0, 28.0), swap=(82.0, 99.0), langevin=LANGEVIN,
                  ladder_acc=(8.0, 13.0), cold_acc=(1.0, 20.0))
-CNN_CHAINS, CNN_STEPS = 256, 2000  # the full-width run (cnn_digits's default)
+# the full-width run at cnn_digits's default width; its depth cut from the
+# default 2000 steps to 1600, so that the smoke with the sweeps phase stays
+# inside 1000 s (the cold test accuracy over the second half read 39.69 % at
+# 2000 steps and 15.75 % at 1200 against the >= 15 % gate)
+CNN_CHAINS, CNN_STEPS = 256, 1600
 BAND_CHAINS, BAND_STEPS = 64, 300  # the run held to ptnn's bands
 CMP_STEPS = 100  # fused eval against plain eval (no swap event: < 101)
 CLI_CHAINS, CLI_STEPS = 128, 300  # the command line's run
@@ -4512,6 +4541,432 @@ def _surrogate_auto(out, procs, victim, da_cfg, ck, ck_cmd, t_phase):
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# The grids of ptnn_torch.sweeps: the regression grid of
+# scripts/grid_parity.py:49-59 (the seven series x RW, LG-0.01, LG-0.1, 10
+# chains a cell, maxtemp 5, swap ratio 0.01: 210 chains) at 10,000 samples
+# (cut from 100,000), the classification small bucket of
+# scripts/cls_grid.py:38,64-73 (iris, Ionosphere, Cancer x seeds 0-4: 150
+# chains in the (34, 50, 3) envelope) in RW and in legacy LG at 5,000
+# samples (cut from 50,000), and the big bucket (bank-additional, PenDigit,
+# chess) in batch drift mode for 500 steps, a shape check.
+GRID_REG_NAMES = ("Lazer", "Sunspot", "Mackey", "Lorenz", "Rossler", "Henon",
+                  "ACFinance")
+GRID_REG_SAMPLES = 10_000
+GRID_CLS_SMALL = ("iris", "Ionosphere", "Cancer")
+GRID_CLS_BIG = ("bank-additional", "PenDigit", "chess")
+GRID_CLS_SAMPLES = 5_000
+GRID_BIG_STEPS = 500
+GRID_SEEDS = (0, 1, 2, 3, 4)
+# the grid routes' comparison with their plain versions (the issue's
+# figures): floats within G_RTOL of each chain's scale and G_ATOL, ll within
+# G_LL_RTOL of its terms, rmse within G_RTOL, acc exact
+G_RTOL, G_ATOL, G_LL_RTOL = 2e-4, 2e-5, 1e-4
+# the grids' bands: mean +- 4 sigma of ptnn's own run of the same call at
+# the same depth on the CPU, by cell, over 20 seeds (python
+# tests/test_torch_sweeps.py regression 0 ... 19; for the classification
+# grids, cls-rw / cls-lg 0 ... 19: one run whose 20 seeds are each set's
+# replicates, the band a set's), rounded outward to the digits printed:
+# (lo, hi) of test_mean, accept_pct, swap_pct
+GRID_BANDS = {
+    ("reg", ("Lazer", "rw")): ((0.03302, 0.19538), (40.03, 46.41), (20.17, 59.73)),
+    ("reg", ("Lazer", "lg001")): ((-0.01515, 0.24487), (31.77, 47.37), (19.76, 64.53)),
+    ("reg", ("Lazer", "lg01")): ((0.00932, 0.29027), (20.21, 24.34), (5.46, 51.16)),
+    ("reg", ("Sunspot", "rw")): ((-0.07989, 0.25225), (27.98, 43.37), (22.05, 63.15)),
+    ("reg", ("Sunspot", "lg001")): ((-0.03865, 0.24552), (24.17, 30.84), (18.26, 61.32)),
+    ("reg", ("Sunspot", "lg01")): ((0.0253, 0.32042), (19.91, 25.22), (3.9, 41.83)),
+    ("reg", ("Mackey", "rw")): ((-0.04563, 0.16353), (21.29, 37.06), (31.8, 59.59)),
+    ("reg", ("Mackey", "lg001")): ((-0.02208, 0.0984), (18.05, 30.47), (35.03, 59.24)),
+    ("reg", ("Mackey", "lg01")): ((-0.06637, 0.19291), (15.2, 21.64), (19.29, 65.32)),
+    ("reg", ("Lorenz", "rw")): ((-0.02327, 0.16099), (24.61, 41.93), (31.3, 55.51)),
+    ("reg", ("Lorenz", "lg001")): ((-0.04465, 0.18125), (21.08, 28.92), (23.04, 62.29)),
+    ("reg", ("Lorenz", "lg01")): ((-0.00919, 0.29341), (18.06, 24.43), (8.63, 47.91)),
+    ("reg", ("Rossler", "rw")): ((-0.00037, 0.18681), (29.53, 38.57), (28.0, 56.78)),
+    ("reg", ("Rossler", "lg001")): ((-0.0368, 0.20337), (24.13, 31.76), (26.74, 60.7)),
+    ("reg", ("Rossler", "lg01")): ((0.0443, 0.29424), (18.19, 24.0), (2.84, 55.61)),
+    ("reg", ("Henon", "rw")): ((0.13271, 0.20222), (37.0, 43.17), (38.99, 64.7)),
+    ("reg", ("Henon", "lg001")): ((0.08265, 0.25044), (33.5, 45.71), (33.13, 74.87)),
+    ("reg", ("Henon", "lg01")): ((0.10616, 0.2863), (18.99, 24.37), (26.42, 64.26)),
+    ("reg", ("ACFinance", "rw")): ((-0.02204, 0.19038), (28.7, 45.29), (23.28, 57.16)),
+    ("reg", ("ACFinance", "lg001")): ((-0.03039, 0.12454), (24.13, 34.11), (29.0, 60.58)),
+    ("reg", ("ACFinance", "lg01")): ((0.03558, 0.24967), (19.47, 24.72), (11.36, 45.61)),
+    ("cls-rw", "iris"): ((22.40324, 60.80699), (90.78, 95.04), (65.35, 83.4)),
+    ("cls-rw", "Ionosphere"): ((7.26938, 110.78163), (85.12, 92.0), (62.87, 83.34)),
+    ("cls-rw", "Cancer"): ((53.40099, 97.3206), (80.71, 90.61), (62.59, 77.91)),
+    ("cls-lg", "iris"): ((77.823, 94.32438), (96.93, 98.52), (19.23, 61.86)),
+    ("cls-lg", "Ionosphere"): ((69.17039, 101.70972), (93.2, 95.92), (26.0, 54.34)),
+    ("cls-lg", "Cancer"): ((98.52962, 99.18272), (95.61, 98.01), (27.79, 63.27)),
+}
+
+
+def card_line():
+    """nvidia-smi's "name, power.limit" line of the card."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def reg_grid_cfg(samples=GRID_REG_SAMPLES):
+    import dataclasses
+
+    import ptnn_torch
+
+    return dataclasses.replace(
+        ptnn_torch.regression_preset(num_samples=samples, maxtemp=5.0,
+                                     num_chains=10, swap_ratio=0.01),
+        chunk_steps=1000).validate()
+
+
+def cls_grid_cfg(legacy, samples=GRID_CLS_SAMPLES, drift="sequential"):
+    import dataclasses
+
+    import ptnn_torch
+
+    return dataclasses.replace(
+        ptnn_torch.classification_preset((1, 1, 1), num_samples=samples,
+                                         legacy_lg=legacy),
+        chunk_steps=500, drift_mode=drift)
+
+
+def grid_datasets():
+    """The grids' rows on the card, as ``ptnn_torch.sweeps`` builds them:
+    the regression grid's 21 cells (ACFinance's 238 rows padded to 298) and
+    the small bucket's 15 in the (34, 50, 3) envelope."""
+    import dataclasses
+
+    from ptnn_torch import data, sampler, sweeps
+
+    cfg = reg_grid_cfg()
+    probs = {n: data.load_regression(n) for n in GRID_REG_NAMES}
+    cells = [(n, m) for n in GRID_REG_NAMES for m in sweeps.REGRESSION_MODES]
+    reg = sampler.make_grid_dataset(
+        cfg, [(probs[n].train, probs[n].test, cfg.topology)
+              for n, _m in cells], DEVICE)
+    lr = [sweeps.REGRESSION_MODES[m][1] for _n, m in cells]
+    cls_probs = {n: data.load_classification(n) for n in GRID_CLS_SMALL}
+    env = tuple(max(p.topology[k] for p in cls_probs.values())
+                for k in range(3))
+    ccfg = dataclasses.replace(cls_grid_cfg(True), topology=env)
+    cls = sampler.make_grid_dataset(
+        ccfg, [(cls_probs[n].train, cls_probs[n].test, cls_probs[n].topology)
+               for n in GRID_CLS_SMALL for _s in GRID_SEEDS], DEVICE,
+        envelope=True)
+    return (cfg, reg, lr), (ccfg, cls)
+
+
+def grid_bound(topo, c, rows, nbytes, per_row):
+    """(bound ms, by) of a grid route: this run's rows (the valid rows of
+    each chain's cell) times ``per_row`` operations, its bytes."""
+    ops = sum(c // len(rows) * r for r in rows) * per_row
+    return bound(ops, nbytes)
+
+
+def phase_grid_kernels():
+    """The grid routes of the drift and eval kernels (a rate a chain, each
+    cell's rows, row and class counts, the parameter mask) against their
+    plain versions at the grids' shapes, and their device time (a CUDA
+    graph) beside the one-dataset route's at the same chain count. Returns
+    (drift err, eval err, times)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from ptnn_torch.models import fnn
+    from ptnn_torch.ops import block_step, drift, fnn_eval
+
+    (cfg, reg, lr_cells), (ccfg, cls) = grid_datasets()
+    rng = np.random.default_rng(53)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=DEVICE)
+    times = {}
+    d_err = e_err = 0.0
+    # the drift: (label, topology, w, x, t, rate, rows, w_mask, the
+    # one-dataset route's x and t at the same chains)
+    topo, env = cfg.topology, ccfg.topology
+    c_reg = reg.cells * 10
+    w_reg = f(rng.normal(size=(c_reg, fnn.w_size(topo))))
+    lr = f(np.repeat(lr_cells, 10))
+    wm = drift.per_chain(cls.w_mask, cls.cells * 10)
+    w_cls = f(rng.normal(size=(cls.cells * 10, fnn.w_size(env))) * 0.5) * wm
+    sun_x, sun_t = reg.x_train[1], reg.t_train[1]  # Sunspot's rows
+    cases = [
+        ("a rate a chain", topo, w_reg, sun_x, sun_t, lr, None, None,
+         (sun_x, sun_t)),
+        ("each cell's rows", topo, w_reg, reg.x_train, reg.t_train, lr,
+         reg.rows_train, None, (sun_x, sun_t)),
+        ("the envelope's mask", env, w_cls, cls.x_train, cls.t_train, 0.01,
+         cls.rows_train, cls.w_mask,
+         (cls.x_train[-1], cls.t_train[-1])),  # Cancer's 489 rows
+    ]
+    for label, net, w, x, t, rate, rows, mask, shared in cases:
+        kind = drift.variant(net)[0]
+        before = drift.launches
+        got = drift.sgd_epoch(w, x, t, net, rate, rows=rows, w_mask=mask)
+        check(drift.launches == before + 1,
+              f"drift grid {label}: {drift.launches - before} launches")
+        want = drift.sgd_epoch_sequential(w, x, t, net, rate, 1, rows, mask)
+        torch.cuda.synchronize()
+        scale = want.abs().amax(dim=-1, keepdim=True)
+        diff = (got - want).abs()
+        bad = int((diff > G_ATOL + G_RTOL * scale).sum())
+        check(bad == 0, f"drift grid {label}: {bad} entries off, max |diff| "
+              f"{float(diff.max()):.3g}")
+        check(float((want - w).abs().max()) > 1e-3,
+              f"drift grid {label}: the epoch did not move w")
+        zeros = ""
+        if mask is not None:
+            off = drift.per_chain(mask, w.shape[0]) == 0
+            check(bool((got[off] == 0).all()),
+                  f"drift grid {label}: a masked parameter moved")
+            zeros = f", its {int(off.sum())} masked entries exactly 0"
+        d_err = max(d_err, float(diff.max()))
+        grid_ms = graph_ms(lambda: drift.sgd_epoch(
+            w, x, t, net, rate, rows=rows, w_mask=mask), calls=20)
+        one_ms = graph_ms(lambda: drift.sgd_epoch(
+            w, *shared, net, 0.01), calls=20)
+        plain_ms = time_ms(lambda: drift.sgd_epoch_sequential(
+            w, x, t, net, rate, 1, rows, mask), reps=1, warm=0)
+        n_rows = ([x.shape[-2]] if rows is None else rows.tolist())
+        nbytes = 4 * (2 * w.numel() + x.numel() + t.numel()
+                      + (0 if mask is None else mask.numel()))
+        b_ms, by = grid_bound(net, w.shape[0], n_rows, nbytes,
+                              drift_ops(net, 1, 1, 1))
+        times[f"drift {label}"] = (grid_ms, one_ms, plain_ms, b_ms, by)
+        print(f"[3/6] kernel: drift_epoch grid route, {label}: {net} "
+              f"({kind} kernel) C={w.shape[0]} rows {n_rows[:3]}"
+              f"{'...' if len(n_rows) > 3 else ''}: w within rtol {G_RTOL} "
+              f"of each chain's scale, atol {G_ATOL} (max |diff| "
+              f"{float(diff.max()):.3g}){zeros}; device {grid_ms:.4f} ms a "
+              f"launch (CUDA graph), the one-dataset route at the same "
+              f"chains {one_ms:.4f} ms; plain version {plain_ms:.3f} ms; "
+              f"bound {b_ms:.6f} ms ({by})")
+    # the eval pair: each cell's train and test rows in one launch
+    for label, net, task, data, c in (
+            ("the regression grid", topo, "regression", reg, c_reg),
+            ("the envelope", env, "classification", cls,
+             cls.cells * 10)):
+        w = (w_reg if task == "regression" else w_cls)
+        tau = f(rng.uniform(0.01, 0.2, size=c))
+        classes = data.classes if task == "classification" else None
+        args = (w, data.x_train, data.y_train, data.x_test, data.y_test, tau,
+                net, task, data.rows_train, data.rows_test, classes)
+        before = fnn_eval.launches
+        got = fnn_eval.fnn_eval_pair(*args)
+        check(fnn_eval.launches == before + 1,
+              f"fnn_eval grid {label}: {fnn_eval.launches - before} launches")
+        want = fnn_eval.fnn_eval_pair_reference(*args)
+        torch.cuda.synchronize()
+        worst, n_fragile = 0.0, 0
+        for (ll, rmse, acc), (r_ll, r_rmse, r_acc), x, rows in zip(
+                got, want, (data.x_train, data.x_test),
+                (data.rows_train, data.rows_test)):
+            n = rows.repeat_interleave(c // data.cells).to(torch.float32)
+            if task == "regression":
+                terms = (0.5 * n * torch.log(2 * math.pi * tau).abs()
+                         + 0.5 * n * r_rmse ** 2 / tau)
+                check(not bool(acc.any()), f"{label}: acc not 0")
+            else:
+                terms = r_ll.abs()
+                sure = torch.ones_like(acc, dtype=torch.bool)
+                cpc = c // data.cells
+                for k, r in enumerate(rows.tolist()):
+                    sl = slice(k * cpc, (k + 1) * cpc)
+                    sure[sl] = ~block_step.argmax_fragile(
+                        w[sl], x[k, :r], net,
+                        classes=int(data.classes[k]))
+                n_fragile += int((~sure).sum())
+                check(torch.equal(acc[sure], r_acc[sure]),
+                      f"fnn_eval grid {label}: acc differs")
+            check(bool(((rmse - r_rmse).abs()
+                        <= G_ATOL + G_RTOL * r_rmse).all()),
+                  f"fnn_eval grid {label}: rmse")
+            diff = (ll - r_ll).abs()
+            check(bool((diff <= G_ATOL + G_LL_RTOL * terms).all()),
+                  f"fnn_eval grid {label}: ll off, max |diff| "
+                  f"{float(diff.max()):.3g}")
+            worst = max(worst, float(diff.max()))
+        e_err = max(e_err, worst)
+        grid_ms = graph_ms(lambda: fnn_eval.fnn_eval_pair(*args))
+        plain_ms = time_ms(lambda: fnn_eval.fnn_eval_pair_reference(*args),
+                           reps=3, warm=1)
+        shared = (w, data.x_train[-1], data.y_train[-1], data.x_test[-1],
+                  data.y_test[-1], tau, net, task)
+        one_ms = graph_ms(lambda: fnn_eval.fnn_eval_pair(*shared))
+        rows_all = [a + b for a, b in zip(data.rows_train.tolist(),
+                                          data.rows_test.tolist())]
+        nbytes = 4 * (w.numel() + c + 6 * c + data.x_train.numel()
+                      + data.x_test.numel() + data.y_train.numel()
+                      + data.y_test.numel())
+        b_ms, by = grid_bound(net, c, rows_all, nbytes,
+                              row_ops(net, task == "classification", False))
+        times[f"eval {label}"] = (grid_ms, one_ms, plain_ms, b_ms, by)
+        metrics = ("rmse within rtol 2e-4" if task == "regression" else
+                   f"acc exact outside {n_fragile} chains with fragile "
+                   f"argmaxes, rmse within rtol 2e-4")
+        print(f"[3/6] kernel: fnn_eval grid route, {label} pair: {net} C={c} "
+              f"in {data.cells} cells, rows {data.rows_train.tolist()[:3]}.../"
+              f"{data.rows_test.tolist()[:3]}...: ll within rtol {G_LL_RTOL} "
+              f"of its terms (max |diff| {worst:.3g}), {metrics}; device "
+              f"{grid_ms:.4f} ms a launch (CUDA graph), the one-dataset route "
+              f"at the same chains {one_ms:.4f} ms; plain version "
+              f"{plain_ms:.3f} ms; bound {b_ms:.6f} ms ({by})")
+    return d_err, e_err, times
+
+
+def grid_counted(fn, *args, **kw):
+    """One grid through its entry point with every launch count set to 0
+    just before it: (output, launches by kernel, wall s)."""
+    import torch
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn(*args, device=DEVICE, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, {name: launch_count(name) for name in KERNELS}, wall
+
+
+def grid_plan(cfg, got, batch=False):
+    """The launches a grid of ``cfg`` plans: with Langevin gradients 2 drift
+    epochs a step for every cell at once (none in batch mode: plain
+    products), 1 eval pair a step for every cell, and init's and the temper
+    switch's train-row evals."""
+    n = cfg.n_steps
+    want = {name: 0 for name in KERNELS}
+    want["drift_epoch"] = 2 * n if cfg.use_langevin_gradients and \
+        not batch else 0
+    want["fnn_eval"] = n + 1 + int(0 < cfg.temper_switch_step < n)
+    check(got == want, f"grid launches {got}, planned {want}")
+    return want
+
+
+def grid_in_bands(tag, out, bands_of):
+    """Every cell's test_mean, accept_pct and swap_pct inside its band;
+    one line a grid with each metric's worst cell."""
+    import numpy as np
+
+    worst = {}
+    for k, cell in enumerate(out["cells"]):
+        band = bands_of(cell)
+        for m, (lo, hi) in zip(("test_mean", "accept_pct", "swap_pct"), band):
+            v = float(out[m][k])
+            check(lo <= v <= hi, f"{tag} {cell}: {m} {v:.5g} outside "
+                  f"({lo}, {hi})")
+            # the distance to the nearer edge as a share of the half-width
+            edge = min(v - lo, hi - v) / max((hi - lo) / 2, 1e-12)
+            if m not in worst or edge < worst[m][0]:
+                worst[m] = (edge, cell, v, (lo, hi))
+    return "; ".join(
+        f"{m} closest to its band's edge: {cell} {v:.5g} in {band}"
+        for m, (_e, cell, v, band) in worst.items()), np.mean(
+            out["test_mean"])
+
+
+def phase_sweeps():
+    """The sweeps on the card through ``ptnn_torch.sweeps``: the regression
+    grid, the small bucket in RW and legacy LG, each cell inside ptnn's
+    band and launches exactly the plan; the Sunspot lg01 cell against the
+    port's single per-step run of its stream (accept and swap counts
+    equal, statistics within G_RTOL); the big bucket in batch drift mode,
+    500 steps, finite and launches as planned. Returns the launches of the
+    grids by kernel."""
+    import numpy as np
+
+    import ptnn_torch
+    from ptnn_torch import data, sweeps
+    from ptnn_torch.ops import drift
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    total = {name: 0 for name in KERNELS}
+    cfg = reg_grid_cfg()
+    out, got, wall = grid_counted(sweeps.dataset_grid, cfg,
+                                  list(GRID_REG_NAMES), seed=0)
+    grid_plan(cfg, got)
+    check(drift.variant_launches["register"] == got["drift_epoch"],
+          f"regression grid drift by kernel {drift.variant_launches}")
+    verdict, _ = grid_in_bands("regression grid", out,
+                               lambda cell: GRID_BANDS["reg", tuple(cell)])
+    rate = len(out["cells"]) * cfg.num_chains * cfg.n_steps / wall
+    for name, n in got.items():
+        total[name] += n
+    print(f"[4/6] sweeps: dataset_grid {len(out['cells'])} cells x "
+          f"{cfg.num_chains} chains x {cfg.samples_per_chain} samples in "
+          f"{wall:.2f} s ({rate:.0f} chain-steps/s; {card}): every cell's "
+          f"test_mean, accept_pct, swap_pct inside ptnn's band ({verdict}); "
+          f"launches {got} (as planned: one drift launch a drift and one "
+          f"eval pair a step for the whole grid)")
+    # the Sunspot lg01 cell against its own single run
+    k = out["cells"].index(("Sunspot", "lg01"))
+    seed = sweeps.cell_seeds(0, len(out["cells"]))[k]
+    prob = data.load_regression("Sunspot")
+    res = ptnn_torch.sample(cfg, prob.train, prob.test, seed=seed,
+                            device=DEVICE)
+    s = cfg.samples_per_chain
+    n_acc = int(round(float(out["accept_pct"][k]) * s * cfg.num_chains
+                      / 100.0))
+    check(n_acc == int(res.final_state.n_accept.sum()),
+          f"lg01 cell: {n_acc} accepts, its single run "
+          f"{int(res.final_state.n_accept.sum())}")
+    check(float(out["swap_pct"][k]) == res.swap_percent,
+          f"lg01 cell: swap {out['swap_pct'][k]}, single {res.swap_percent}")
+    burn = int(s * cfg.burn_in)
+    kept = {"test": res.traces["rmse_test"][burn:],
+            "train": res.traces["rmse_train"][burn:]}
+    for part, v in kept.items():
+        for stat, want in (("mean", v.mean(dtype=np.float64)),
+                           ("best", v.min())):
+            g = float(out[f"{part}_{stat}"][k])
+            check(abs(g - want) <= G_ATOL + G_RTOL * abs(want),
+                  f"lg01 cell {part}_{stat} {g} against its single run "
+                  f"{want}")
+    print(f"[4/6] sweeps: the Sunspot lg01 cell against the single "
+          f"per-step run of its seed ({seed}, 10 chains x {s}): {n_acc} "
+          f"accepts each, swap {res.swap_percent:.4f} % each, test mean "
+          f"{float(out['test_mean'][k]):.6f} / "
+          f"{float(kept['test'].mean()):.6f}, best "
+          f"{float(out['test_best'][k]):.6f} / {float(kept['test'].min()):.6f}")
+    for legacy in (False, True):
+        mode = "lg" if legacy else "rw"
+        ccfg = cls_grid_cfg(legacy)
+        out, got, wall = grid_counted(sweeps.classification_grid, ccfg,
+                                      list(GRID_CLS_SMALL), seeds=GRID_SEEDS)
+        grid_plan(ccfg, got)
+        verdict, _ = grid_in_bands(
+            f"classification grid {mode}", out,
+            lambda cell: GRID_BANDS["cls-" + mode, cell[0]])
+        for name, n in got.items():
+            total[name] += n
+        rate = len(out["cells"]) * ccfg.num_chains * ccfg.n_steps / wall
+        print(f"[4/6] sweeps: classification_grid small bucket "
+              f"{'legacy LG' if legacy else 'RW'}, {len(out['cells'])} cells "
+              f"x {ccfg.num_chains} chains x {ccfg.samples_per_chain} samples "
+              f"in the (34, 50, 3) envelope in {wall:.2f} s ({rate:.0f} "
+              f"chain-steps/s; {card}): inside ptnn's bands ({verdict}); "
+              f"launches {got} (as planned)")
+    ccfg = cls_grid_cfg(True, samples=10 * (GRID_BIG_STEPS + 1),
+                        drift="batch")
+    out, got, wall = grid_counted(sweeps.classification_grid, ccfg,
+                                  list(GRID_CLS_BIG), seeds=GRID_SEEDS)
+    grid_plan(ccfg, got, batch=True)
+    for k in ("test_mean", "test_best", "train_mean", "accept_pct",
+              "swap_pct"):
+        check(bool(np.isfinite(out[k]).all()), f"big bucket {k} not finite")
+    for name, n in got.items():
+        total[name] += n
+    rate = len(out["cells"]) * ccfg.num_chains * ccfg.n_steps / wall
+    print(f"[4/6] sweeps: classification_grid big bucket legacy LG, batch "
+          f"drift, {len(out['cells'])} cells x {ccfg.num_chains} chains x "
+          f"{ccfg.n_steps} steps in {wall:.2f} s ({rate:.0f} chain-steps/s): "
+          f"finite (test mean by cell {np.round(out['test_mean'], 2)}); "
+          f"launches {got} (as planned: the batch drift is products)")
+    print(f"[4/6] sweeps: phase in {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {total}")
+    return total
+
+
 def main() -> int:
     phase_device()
     phase_build()
@@ -4520,6 +4975,9 @@ def main() -> int:
     errs.update(phase_cls_kernels())
     errs["drift_epoch"] = phase_drift_kernel()
     errs["fnn_eval"] = phase_eval_kernel()
+    d_err, e_err, _grid_times = phase_grid_kernels()
+    errs["drift_epoch"] = max(errs["drift_epoch"], d_err)
+    errs["fnn_eval"] = max(errs["fnn_eval"], e_err)
     errs["conv1_relu_pool"] = phase_conv_kernel()
     phase_swap()
     times = {"rw_block": time_block(64, 100, record_w=True)}
@@ -4535,6 +4993,8 @@ def main() -> int:
     phase_run_lifecycle()
     phase_vr_paths()
     for name, n in phase_surrogate_auto().items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in phase_sweeps().items():
         launches[name] = launches.get(name, 0) + n
     phase_throughput()
     times.update(phase_precond_throughput())

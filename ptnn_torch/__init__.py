@@ -66,7 +66,8 @@ is ``predict.posterior_predict``. The package imports ``torch`` and never
 
 from ptnn_torch.config import (PTConfig, classification_preset,
                                regression_preset)
-from ptnn_torch import checkpoint, data, mcmc, results, rounds, tuning
+from ptnn_torch import (checkpoint, data, mcmc, results, rounds, sweeps,
+                        tuning)
 from ptnn_torch.kernel import ChainState, Dataset, init_state, make_step_fn
 from ptnn_torch.models import cnn, mlp
 from ptnn_torch.models.api import ModelSpec, fnn_spec, grad_drift
@@ -87,6 +88,7 @@ __all__ = [
     "mcmc",
     "results",
     "rounds",
+    "sweeps",
     "tuning",
     "ChainState",
     "Dataset",
@@ -116,5 +118,4 @@ def __getattr__(name):
 # and __all__ together)
 NOT_PORTED = {
     "profiling": "Queue 1 item 15: jax.profiler's wrapper, not to be ported",
-    "sweeps": "Queue 1 item 11: sweeps, with the per-chain drift rate",
 }

@@ -43,11 +43,28 @@
 //
 // Either grid runs every chain in one launch; a tile holds up to 64 KB of
 // rows, so PenDigit's 7494 rows stream in 12 tiles and any row count is one
-// launch. Two launches per Langevin step (the drift at w, then at the
+// launch.
+//
+// A grid of runs (ptnn_torch/sweeps.py) is one launch too: its cells sit on
+// the chain axis, cell-major, `chains_per_cell` chains a cell, and each
+// cell may have its own rows (x and t `x_cell` / `t_cell` floats apart), its
+// own count of valid rows (`cell_rows`: the padding trails and is skipped,
+// which is exact against ptnn's `lr * 0` update of a padded row), its own
+// parameter mask (`w_mask`, {0, 1}: every per-row update is multiplied by
+// it, as ptnn's masked scan does, so a masked parameter keeps its 0) and
+// each chain its own rate (`lrates`). A block stages one tile of rows for
+// all its chains, so a block never holds chains of two cells: the grid is
+// cells x ceil(chains_per_cell / chains a block) blocks. One dataset for
+// every chain is the grid of one cell. Two launches per Langevin step (the drift at w, then at the
 // proposal) cannot merge: the second input depends on the first output.
 //
 // No fast-math: expf and IEEE division, so the result stays within float
 // rounding of the plain version (the sums run in another order).
+//
+// Registers: each kernel states __maxnreg__(255) rather than launch bounds.
+// Under launch bounds alone ptxas held several instantiations at 64, 72 or
+// 128 registers and spilled a few bytes (nvcc 12.9, measured on the H100);
+// a block is at most 128 threads, so 255 registers a thread always fit.
 
 #include <cuda_runtime.h>
 
@@ -60,13 +77,32 @@
 #define FULL_MASK 0xffffffffu
 
 struct DriftParams {
-  const float* w;  // (C, W) flat codec [W1 (I x H), W2 (H x O), B1, B2]
-  const float* x;  // (N, I)
-  const float* t;  // (N, O) delta-rule targets
-  float* o_w;      // (C, W)
+  const float* w;        // (C, W) flat codec [W1 (I x H), W2 (H x O), B1, B2]
+  const float* x;        // (N, I), or (G, N, I) with x_cell = N * I
+  const float* t;        // (N, O) delta-rule targets, or (G, N, O)
+  float* o_w;            // (C, W)
+  const float* lrates;   // (C,) a rate a chain, or null: lrate for every chain
+  const int* cell_rows;  // (G,) valid rows of each cell, or null: n_rows
+  const float* w_mask;   // (G, W) {0, 1} parameter mask of each cell, or null
+  long long x_cell, t_cell;  // floats from one cell's rows to the next (0: shared)
   int chains, n_rows, n_in, n_hid, n_out, depth, tile_rows;
+  int cells, chains_per_cell;  // chain c is in cell c / chains_per_cell
   float lrate;
 };
+
+// The block's cell and the chain of one of its slots: blocks of a cell are
+// consecutive, `per_block` chain slots each.
+struct CellSlot {
+  int cell, chain;
+  bool live;
+};
+
+__device__ __forceinline__ CellSlot cell_slot(int chains_per_cell, int per_block, int slot) {
+  const int bpc = (chains_per_cell + per_block - 1) / per_block;
+  const int cell = (int)blockIdx.x / bpc;
+  const int k = ((int)blockIdx.x - cell * bpc) * per_block + slot;
+  return {cell, cell * chains_per_cell + k, k < chains_per_cell};
+}
 
 __device__ __forceinline__ float sigmoid_f(float z) {
   return 1.0f / (1.0f + expf(-z));
@@ -78,22 +114,39 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(THREADS) drift_epoch_kernel(const DriftParams p) {
+__global__ void __maxnreg__(255) drift_epoch_kernel(const DriftParams p) {
   extern __shared__ float smem[];
   const int I = p.n_in, H = p.n_hid, O = p.n_out;
   const int W = I * H + H * O + H + O;
   const int stride = I + O;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c = blockIdx.x * WARPS + warp;
-  const bool live = c < p.chains;
+  const CellSlot cs = cell_slot(p.chains_per_cell, WARPS, warp);
+  const int c = cs.chain;
+  const bool live = cs.live;
+  const int n_rows = p.cell_rows ? p.cell_rows[cs.cell] : p.n_rows;
+  const float* xg = p.x + (size_t)cs.cell * p.x_cell;
+  const float* tg = p.t + (size_t)cs.cell * p.t_cell;
+  const bool masked = p.w_mask != nullptr;
   const int s1 = I * H, s2 = s1 + H * O;
   float* s_tile = smem;  // tile_rows x (I + O)
-  float* s_w1 = s_tile + p.tile_rows * stride + warp * W;
+  // the cell's parameter mask in the layout of the weights below (masked)
+  float* s_m1 = s_tile + p.tile_rows * stride;
+  float* s_mb1 = s_m1 + I * H;
+  float* s_m2t = s_mb1 + H;
+  float* s_mb2 = s_m2t + O * H;
+  float* s_w1 = s_m1 + (masked ? W : 0) + warp * W;
   float* s_b1 = s_w1 + I * H;
   float* s_w2t = s_b1 + H;  // s_w2t[o * H + h] = W2[h, o]
   float* s_b2 = s_w2t + O * H;
-  const float lr = p.lrate;
+  const float lr = p.lrates ? p.lrates[live ? c : 0] : p.lrate;
 
+  if (masked) {
+    const float* mc = p.w_mask + (size_t)cs.cell * W;
+    for (int k = threadIdx.x; k < s1; k += THREADS) s_m1[k] = mc[k];
+    for (int k = threadIdx.x; k < H * O; k += THREADS) s_m2t[(k % O) * H + k / O] = mc[s1 + k];
+    for (int k = threadIdx.x; k < H; k += THREADS) s_mb1[k] = mc[s2 + k];
+    for (int k = threadIdx.x; k < O; k += THREADS) s_mb2[k] = mc[s2 + H + k];
+  }
   if (live) {
     const float* wc = p.w + (size_t)c * W;
     for (int k = lane; k < s1; k += 32) s_w1[k] = wc[k];
@@ -102,14 +155,14 @@ __global__ void __launch_bounds__(THREADS) drift_epoch_kernel(const DriftParams 
     for (int k = lane; k < O; k += 32) s_b2[k] = wc[s2 + H + k];
   }
 
-  const long total = (long)p.n_rows * p.depth;
-  for (long base = 0; base < total; base += p.tile_rows) {
-    const int len = total - base < p.tile_rows ? (int)(total - base) : p.tile_rows;
+  const int total = n_rows * p.depth;  // < 2^31 (ops/drift.py checks)
+  for (int base = 0; base < total; base += p.tile_rows) {
+    const int len = min(total - base, p.tile_rows);
     __syncthreads();  // the previous tile is consumed (and the weights loaded)
     for (int k = threadIdx.x; k < len * stride; k += THREADS) {
       const int r = k / stride, f = k - r * stride;
-      const long n = (base + r) % p.n_rows;
-      s_tile[k] = f < I ? p.x[n * I + f] : p.t[n * O + (f - I)];
+      const int n = (base + r) % n_rows;
+      s_tile[k] = f < I ? xg[(size_t)n * I + f] : tg[(size_t)n * O + (f - I)];
     }
     __syncthreads();  // the tile is visible
     if (!live) continue;
@@ -145,19 +198,23 @@ __global__ void __launch_bounds__(THREADS) drift_epoch_kernel(const DriftParams 
           if (h < H) {
             const float w2 = s_w2t[o * H + h];
             hd[j] += w2 * od;  // hid_delta sees W2 before this row's update
-            s_w2t[o * H + h] = w2 + lr * (hid[j] * od);
+            const float u = hid[j] * od;
+            s_w2t[o * H + h] = w2 + lr * (masked ? u * s_m2t[o * H + h] : u);
           }
         }
         __syncwarp();  // every lane has read B2[o]
-        if (lane == 0) s_b2[o] = b2 + lr * -od;
+        if (lane == 0) s_b2[o] = b2 + lr * (masked ? -od * s_mb2[o] : -od);
       }
 #pragma unroll
       for (int j = 0; j < HPL; ++j) {
         const int h = lane + 32 * j;
         if (h < H) {
           const float d = hd[j] * hid[j] * (1.0f - hid[j]);
-          for (int i = 0; i < I; ++i) s_w1[i * H + h] += lr * (xr[i] * d);
-          s_b1[h] += lr * -d;
+          for (int i = 0; i < I; ++i) {
+            const float u = xr[i] * d;
+            s_w1[i * H + h] += lr * (masked ? u * s_m1[i * H + h] : u);
+          }
+          s_b1[h] += lr * (masked ? -d * s_mb1[h] : -d);
         }
       }
       __syncwarp();  // B2 is visible to the next row
@@ -194,8 +251,12 @@ __device__ __forceinline__ void load_row(const float* __restrict__ src, float (&
   for (int f = 0; f < I + O; ++f) x[f] = src[f];
 }
 
-template <int I, int H, int O, int G>
-__global__ void __launch_bounds__(REG_THREADS) drift_reg_kernel(const DriftParams p) {
+// MASKED: the parameter mask of the block's cell is staged in shared memory
+// after the row tile, in the flat codec's layout, and read at every update
+// through a volatile pointer, so that the compiler cannot hold it in
+// registers (the unmasked instantiation is the kernel without it).
+template <int I, int H, int O, int G, bool MASKED>
+__global__ void __maxnreg__(255) drift_reg_kernel(const DriftParams p) {
   static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G is a power of two <= 32");
   constexpr int U = (H + G - 1) / G;  // hidden units a lane
   constexpr int CPB = REG_THREADS / G;  // chains a block
@@ -205,9 +266,13 @@ __global__ void __launch_bounds__(REG_THREADS) drift_reg_kernel(const DriftParam
   constexpr int NA = R::ACCS;
   extern __shared__ float s_tile[];  // tile_rows x (I + O)
   const int g = threadIdx.x % G;
-  const int c = blockIdx.x * CPB + threadIdx.x / G;
-  const bool live = c < p.chains;
-  const float lr = p.lrate;
+  const CellSlot cs = cell_slot(p.chains_per_cell, CPB, threadIdx.x / G);
+  const int c = cs.chain;
+  const bool live = cs.live;
+  const int n_rows = p.cell_rows ? p.cell_rows[cs.cell] : p.n_rows;
+  const float* xg = p.x + (size_t)cs.cell * p.x_cell;
+  const float* tg = p.t + (size_t)cs.cell * p.t_cell;
+  const float lr = p.lrates ? p.lrates[live ? c : 0] : p.lrate;
 
   float w1[U][I], b1[U], w2[U][O], b2[O];
   const float* wc = p.w + (size_t)(live ? c : 0) * W;
@@ -223,15 +288,20 @@ __global__ void __launch_bounds__(REG_THREADS) drift_reg_kernel(const DriftParam
   }
 #pragma unroll
   for (int o = 0; o < O; ++o) b2[o] = live ? wc[S2 + H + o] : 0.f;
+  volatile float* s_mask = s_tile + p.tile_rows * STRIDE;  // W floats (MASKED)
+  if constexpr (MASKED) {
+    const float* mc = p.w_mask + (size_t)cs.cell * W;
+    for (int k = threadIdx.x; k < W; k += REG_THREADS) s_mask[k] = mc[k];
+  }
 
-  const long total = (long)p.n_rows * p.depth;
-  for (long base = 0; base < total; base += p.tile_rows) {
-    const int len = total - base < p.tile_rows ? (int)(total - base) : p.tile_rows;
+  const int total = n_rows * p.depth;  // < 2^31 (ops/drift.py checks)
+  for (int base = 0; base < total; base += p.tile_rows) {
+    const int len = min(total - base, p.tile_rows);
     __syncthreads();  // the previous tile is consumed
     for (int k = threadIdx.x; k < len * STRIDE; k += REG_THREADS) {
       const int r = k / STRIDE, f = k - r * STRIDE;
-      const long n = (base + r) % p.n_rows;
-      s_tile[k] = f < I ? p.x[n * I + f] : p.t[n * O + (f - I)];
+      const int n = (base + r) % n_rows;
+      s_tile[k] = f < I ? xg[(size_t)n * I + f] : tg[(size_t)n * O + (f - I)];
     }
     __syncthreads();  // the tile is visible
 
@@ -279,14 +349,28 @@ __global__ void __launch_bounds__(REG_THREADS) drift_reg_kernel(const DriftParam
         const float d = hd * hid[j] * (1.0f - hid[j]);
         if (j * G + g < H) {
 #pragma unroll
-          for (int o = 0; o < O; ++o) w2[j][o] += lr * (hid[j] * od[o]);
+          for (int o = 0; o < O; ++o) {
+            float u = hid[j] * od[o];
+            if constexpr (MASKED) u *= s_mask[S1 + (j * G + g) * O + o];
+            w2[j][o] += lr * u;
+          }
 #pragma unroll
-          for (int i = 0; i < I; ++i) w1[j][i] += lr * (x[i] * d);
-          b1[j] += lr * -d;
+          for (int i = 0; i < I; ++i) {
+            float u = x[i] * d;
+            if constexpr (MASKED) u *= s_mask[i * H + j * G + g];
+            w1[j][i] += lr * u;
+          }
+          float u = -d;
+          if constexpr (MASKED) u *= s_mask[S2 + j * G + g];
+          b1[j] += lr * u;
         }
       }
 #pragma unroll
-      for (int o = 0; o < O; ++o) b2[o] += lr * -od[o];
+      for (int o = 0; o < O; ++o) {
+        float u = -od[o];
+        if constexpr (MASKED) u *= s_mask[S2 + H + o];
+        b2[o] += lr * u;
+      }
       if constexpr (R::PREFETCH) {
 #pragma unroll
         for (int f = 0; f < STRIDE; ++f) x[f] = nx[f];
@@ -314,16 +398,16 @@ __global__ void __launch_bounds__(REG_THREADS) drift_reg_kernel(const DriftParam
   }
 }
 
-template <int I, int H, int O, int G>
+template <int I, int H, int O, int G, bool MASKED>
 static int launch_reg(const DriftParams* p, int smem_bytes, cudaStream_t stream) {
-  auto kern = drift_reg_kernel<I, H, O, G>;
+  auto kern = drift_reg_kernel<I, H, O, G, MASKED>;
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
   constexpr int CPB = REG_THREADS / G;
-  const int blocks = (p->chains + CPB - 1) / CPB;
+  const int blocks = p->cells * ((p->chains_per_cell + CPB - 1) / CPB);
   kern<<<blocks, REG_THREADS, smem_bytes, stream>>>(*p);
   return (int)cudaGetLastError();
 }
@@ -353,30 +437,36 @@ int ptnn_drift_reg_layouts(int* out, int max) {
 }
 
 // Launches the register kernel of (n_in, n_hid, n_out) with its lane-group
-// size: ceil(C / (REG_THREADS / G)) blocks on `stream`. Returns
+// size (the masked instantiation when w_mask is set): cells x
+// ceil(chains_per_cell / (REG_THREADS / G)) blocks on `stream`. Returns
 // cudaErrorInvalidValue for a topology that is not instantiated, else the
 // cudaError_t of the attribute call or of the launch (0 = success). Does
 // not synchronise.
 int ptnn_drift_epoch_reg(const DriftParams* p, int smem_bytes, void* stream) {
-#define TRY(I, H, O, G, HPW)                                                   \
-  if (p->n_in == I && p->n_hid == H && p->n_out == O)                          \
-    return launch_reg<I, H, O, G>(p, smem_bytes, (cudaStream_t)stream);
+  if (p->cells < 1 || p->chains_per_cell < 1 || p->cells * p->chains_per_cell != p->chains)
+    return (int)cudaErrorInvalidValue;
+#define TRY(I, H, O, G, HPW)                                                      \
+  if (p->n_in == I && p->n_hid == H && p->n_out == O)                             \
+    return p->w_mask ? launch_reg<I, H, O, G, true>(p, smem_bytes, (cudaStream_t)stream) \
+                     : launch_reg<I, H, O, G, false>(p, smem_bytes, (cudaStream_t)stream);
   FNN_LAYOUTS(TRY)
 #undef TRY
   return (int)cudaErrorInvalidValue;
 }
 
-// Launches the generic kernel: ceil(C / WARPS) blocks on `stream`; returns
-// the cudaError_t of the attribute call or of the launch (0 = success). Does
-// not synchronise.
+// Launches the generic kernel: cells x ceil(chains_per_cell / WARPS) blocks
+// on `stream`; returns the cudaError_t of the attribute call or of the
+// launch (0 = success). Does not synchronise.
 int ptnn_drift_epoch(const DriftParams* p, int smem_bytes, void* stream) {
+  if (p->cells < 1 || p->chains_per_cell < 1 || p->cells * p->chains_per_cell != p->chains)
+    return (int)cudaErrorInvalidValue;
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         drift_epoch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  const int blocks = (p->chains + WARPS - 1) / WARPS;
+  const int blocks = p->cells * ((p->chains_per_cell + WARPS - 1) / WARPS);
   drift_epoch_kernel<<<blocks, THREADS, smem_bytes, (cudaStream_t)stream>>>(*p);
   return (int)cudaGetLastError();
 }

@@ -43,6 +43,19 @@
 //     cluster barrier rank 0 reads the blocks' sums (SSE; or ll, err^2,
 //     matches) through distributed shared memory in rank order and writes
 //     ll, rmse and acc. Every run gives the same bits.
+//   * A grid of runs (ptnn_torch/sweeps.py): the cells sit on the chain axis,
+//     cell-major, `chains_per_cell` chains a cell. Each cell may have its
+//     own rows (x and y `x_cell` / `y_cell` floats apart), its own count of
+//     valid rows (`cell_rows`; the padding trails and is skipped, exact
+//     against ptnn's masked sums) and of real classes (`cell_classes`; the
+//     padded class columns trail and take -1e9 before the softmax and the
+//     argmax, as ptnn's fill does). A cluster is one (chain, set) still: it finds
+//     its cell's rows, takes R = ceil(rows / T) of them a block, and with
+//     `cell_rows` (ptnn's masked metrics) divides by the row count where the
+//     plain run multiplies by float32(1 / N).
+// Registers: __maxnreg__ (eval_maxreg) rather than launch bounds, under
+// which ptxas held several instantiations at 64 registers and spilled a few
+// bytes (nvcc 12.9, measured on the H100).
 // No fast-math: expf, logf and IEEE division. The sums run in another order
 // than in the plain version (per warp, per block, then across the cluster),
 // so ll rounds differently; rmse and acc of a classification are exact
@@ -63,8 +76,10 @@ namespace cg = cooperative_groups;
 #define FULL_MASK 0xffffffffu
 
 struct EvalSet {
-  const float* x;  // (N, I)
-  const float* y;  // (N,) targets, or class indices as floats
+  const float* x;  // (N, I), or (G, N, I) with x_cell = N * I
+  const float* y;  // (N,) targets, or class indices as floats; or (G, N)
+  const int* cell_rows;      // (G,) valid rows of each cell, or null: n_rows
+  long long x_cell, y_cell;  // floats from one cell's rows to the next (0: shared)
   float* ll;       // (C,) untempered log-likelihood
   float* rmse;     // (C,)
   float* acc;      // (C,) percent (0 for regression)
@@ -78,12 +93,26 @@ struct EvalSet {
 struct EvalParams {
   const float* w;    // (C, W) flat codec [W1 (I x H), W2 (H x O), B1, B2]
   const float* tau;  // (C,) noise variance (regression); null for classification
+  const int* cell_classes;  // (G,) real classes of each cell, or null: n_out
   EvalSet set[2];    // the row sets; set[1] unused when n_sets == 1
   int chains, n_sets, n_in, n_hid, n_out, task_cls;
+  int chains_per_cell;  // chain c is in cell c / chains_per_cell
   int cluster;     // T: blocks a (chain, set)
   int row_groups;  // RG
   int hid_groups;  // HG: warps of a row group
   float log_2pi;
+};
+
+// What a block reads of its (chain, set)'s EvalSet and of its cell, staged
+// in shared memory by thread 0: held in registers through the row loop,
+// they cost the wide instantiations a second block an SM.
+struct SetView {
+  const float* x;  // the cell's rows
+  const float* y;
+  float *ll, *rmse, *acc;
+  int n_rows, tile, classes;
+  bool divide;  // with cell_rows: ptnn's masked metrics, true divisions
+  float ll_const, inv_n, acc_n;
 };
 
 // Dynamic shared memory of a block, in floats: the chain's weights (rounded
@@ -104,9 +133,24 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The register cap of an instantiation: 128, the most a 512-thread block
+// allows, except where a row group's warps (HG = ceil(H / HPW)) are so many
+// that a block of the most row groups fits twice in an SM's 64K registers at
+// 88 or more a thread: then that cap, so that the grid's blocks (chains x
+// sets x cluster) take one wave of the SMs, not two (Ionosphere's 10 chains:
+// 160 blocks of 320 threads; 0.0143 ms a pair at one block an SM, 0.0088 at
+// two, measured on the H100). Past 34 inputs the row's accumulators need
+// more (bank-additional's (51, 50, 2) spills at 96), so it keeps 128.
+constexpr int eval_maxreg(int i, int h, int hpw) {
+  const int hg = h == 0 ? 1 : (h + hpw - 1) / hpw;
+  const int threads = 32 * hg * (MAX_WARPS / hg);
+  const int two = (65536 / (2 * threads)) & ~7;
+  return h == 0 || i > 34 || two < 88 ? 128 : two;
+}
+
 // CI == 0: the generic instantiation (sizes from the parameters).
 template <int CI, int CH, int CO, int HPW>
-__global__ void __launch_bounds__(MAX_WARPS * 32) fnn_eval_kernel(const EvalParams p) {
+__global__ void __maxnreg__(eval_maxreg(CI, CH, HPW)) fnn_eval_kernel(const EvalParams p) {
   constexpr bool GEN = CI == 0;
   constexpr int MO = GEN ? MAX_OUT : CO;  // bound of the per-row output registers
   const int I = GEN ? p.n_in : CI, H = GEN ? p.n_hid : CH, O = GEN ? p.n_out : CO;
@@ -124,28 +168,53 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) fnn_eval_kernel(const EvalPara
   const int rank = (int)cluster.block_rank();
   const int cs = (int)blockIdx.x / p.cluster;  // chain * n_sets + set
   const int c = cs / p.n_sets;
-  const EvalSet s = (cs - c * p.n_sets) == 0 ? p.set[0] : p.set[1];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rg = warp / HG, hg = warp - rg * HG;
   const int row = rg * TILE + lane;  // the lane's row in a pass
 
+  __shared__ SetView sv;
+  if (tid == 0) {
+    // the set's fields, each selected on its own (a copy of the whole
+    // struct would go to local memory)
+    const bool first = (cs - c * p.n_sets) == 0;
+#define SET(f) (first ? p.set[0].f : p.set[1].f)
+    const int cell = c / p.chains_per_cell;
+    const int* cell_rows = SET(cell_rows);
+    const int n = cell_rows ? cell_rows[cell] : SET(n_rows);
+    sv.x = SET(x) + (size_t)cell * SET(x_cell);
+    sv.y = SET(y) + (size_t)cell * SET(y_cell);
+    sv.ll = SET(ll);
+    sv.rmse = SET(rmse);
+    sv.acc = SET(acc);
+    sv.n_rows = n;
+    sv.tile = cell_rows ? (n + p.cluster - 1) / p.cluster : SET(tile_rows);
+    sv.classes = p.cell_classes ? p.cell_classes[cell] : O;
+    sv.divide = cell_rows != nullptr;
+    sv.ll_const = cell_rows ? -0.5f * (float)n : SET(ll_const);
+    sv.inv_n = SET(inv_n);
+    sv.acc_n = SET(acc_n);
+#undef SET
+  }
   const float* wc = p.w + (size_t)c * W;
   for (int k = tid; k < W; k += NT) s_w[k] = wc[k];
-  const int r_lo = min(s.n_rows, rank * s.tile_rows);
-  const int r_hi = min(s.n_rows, r_lo + s.tile_rows);
+  __syncthreads();  // sv is set
+  const int r_lo = min(sv.n_rows, rank * sv.tile);
+  const int r_hi = min(sv.n_rows, r_lo + sv.tile);
 
   float a0 = 0.f, a1 = 0.f, a2 = 0.f;  // a loss warp's sums: sse | (ll, err^2, matches)
   int par = 0;
   for (int base = r_lo; base < r_hi; base += ROWS) {
     const int len = min(ROWS, r_hi - base);
+    const float* xs = sv.x;
+    const float* ys = sv.y;
     // stage the pass's rows: every warp is done with the previous pass's
     // (the barrier after their use), and the loss warps read only shares
     // and registers after it
     for (int k = tid; k < ROWS * I; k += NT) {
       const int r = k / I, i = k - r * I;
-      s_x[i * XS + r] = r < len ? s.x[(size_t)base * I + k] : 0.f;
+      s_x[i * XS + r] = r < len ? xs[(size_t)base * I + k] : 0.f;
     }
-    for (int k = tid; k < ROWS; k += NT) s_y[k] = k < len ? s.y[base + k] : 0.f;
+    for (int k = tid; k < ROWS; k += NT) s_y[k] = k < len ? ys[base + k] : 0.f;
     __syncthreads();
     const float y = s_y[row];
 
@@ -199,6 +268,14 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) fnn_eval_kernel(const EvalPara
         const float d = y - v[0];
         a0 += d * d;
       } else {
+        // a grid's padded classes out of the softmax and the argmax, as
+        // ptnn's -1e9 fill takes them (exp(-1e9 - m) is 0)
+        if (p.cell_classes) {
+          const int oc = sv.classes;
+#pragma unroll
+          for (int o = 1; o < MO; ++o)
+            if (o < O && o >= oc) v[o] = -1e9f;
+        }
         // softmax over the sigmoid outputs; first argmax (a later class
         // wins only if strictly larger)
         float m = v[0], best = v[0];
@@ -265,15 +342,17 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) fnn_eval_kernel(const EvalPara
       b1 += rs[1];
       b2 += rs[2];
     }
+    // with cell_rows: ptnn's masked metrics, true divisions by the count
+    const float nf = (float)sv.n_rows;
     if (p.task_cls) {
-      s.ll[c] = b0;
-      s.rmse[c] = sqrtf(b1 * s.inv_n);
-      s.acc[c] = b2 * s.acc_n;
+      sv.ll[c] = b0;
+      sv.rmse[c] = sv.divide ? sqrtf(b1 / nf) : sqrtf(b1 * sv.inv_n);
+      sv.acc[c] = sv.divide ? 100.f * b2 / nf : b2 * sv.acc_n;
     } else {
       const float tau = p.tau[c];
-      s.ll[c] = s.ll_const * (p.log_2pi + logf(tau)) - 0.5f * b0 / tau;
-      s.rmse[c] = sqrtf(b0 * s.inv_n);
-      s.acc[c] = 0.f;
+      sv.ll[c] = sv.ll_const * (p.log_2pi + logf(tau)) - 0.5f * b0 / tau;
+      sv.rmse[c] = sv.divide ? sqrtf(b0 / nf) : sqrtf(b0 * sv.inv_n);
+      sv.acc[c] = 0.f;
     }
   }
   cluster.sync();  // no block leaves while rank 0 reads its sums
@@ -341,7 +420,8 @@ int ptnn_fnn_eval(const EvalParams* p, int smem_bytes, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (p->n_out < 1 || p->n_out > MAX_OUT || p->n_sets < 1 || p->n_sets > 2 ||
       p->cluster < 1 || p->cluster > MAX_CLUSTER || p->row_groups < 1 || p->hid_groups < 1 ||
-      p->row_groups * p->hid_groups > MAX_WARPS)
+      p->row_groups * p->hid_groups > MAX_WARPS || p->chains_per_cell < 1 ||
+      p->chains % p->chains_per_cell != 0)
     return (int)cudaErrorInvalidValue;
 #define TRY(I, H, O, G, HPW)                          \
   if (p->n_in == I && p->n_hid == H && p->n_out == O) \

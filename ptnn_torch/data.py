@@ -106,20 +106,36 @@ def zscore_and_split(
 def _bank_processed(root: str) -> np.ndarray:
     """Reproduce DATA/Bank/preprocess.py exactly: min-max scaled numerical
     columns + get_dummies one-hot categoricals + binary label, from raw
-    bank.csv."""
-    import pandas as pd
+    bank.csv. Read with the csv module and NumPy (no pandas): a column is
+    numerical when every value parses as a number, as pandas' reader types
+    it; each categorical column becomes one 0/1 column a value, the values
+    in sorted order, as ``get_dummies`` orders them."""
+    import csv
 
-    df = pd.read_csv(os.path.join(root, "classification", "Bank", "bank.csv"), sep=";")
-    cols_numerical = list(df.select_dtypes(include="number").columns)
-    cols_categorical = [
-        c for c in df.columns if c not in cols_numerical and c != "y"
-    ]
-    y = pd.get_dummies(df["y"])["yes"].values.astype("float64")
-    X = df[cols_numerical]
-    X = (X - X.min(axis=0)) / (X.max(axis=0) - X.min(axis=0))
-    for name in cols_categorical:
-        X = pd.concat((X, pd.get_dummies(df[name])), axis=1)
-    return np.hstack([X.values.astype("float64"), y.reshape(-1, 1)])
+    path = os.path.join(root, "classification", "Bank", "bank.csv")
+    with open(path, newline="") as f:
+        header, *body = [r for r in csv.reader(f, delimiter=";") if r]
+    columns = dict(zip(header, (list(c) for c in zip(*body))))
+
+    def numbers(vals):
+        try:
+            return np.asarray([float(v) for v in vals], np.float64)
+        except ValueError:
+            return None
+
+    num, cat = [], []
+    for name in header:
+        if name == "y":
+            continue
+        arr = numbers(columns[name])
+        if arr is None:
+            vals = np.asarray(columns[name])
+            cat.append((vals[:, None] == np.unique(vals)[None, :])
+                       .astype(np.float64))
+        else:
+            num.append(((arr - arr.min()) / (arr.max() - arr.min()))[:, None])
+    y = (np.asarray(columns["y"]) == "yes").astype(np.float64)
+    return np.hstack(num + cat + [y.reshape(-1, 1)])
 
 
 def _append_complement(data: np.ndarray) -> np.ndarray:

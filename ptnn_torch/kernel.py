@@ -18,7 +18,10 @@ traces (``record_ll_state``); ``set_static_reference`` injects a fitted
 reference. ``StepFn`` also runs the surrogate modes (``use_surrogate``:
 ``Surrogate``, ptnn's anchored ``step`` and delayed-acceptance
 ``step_da`` with ``DAState``, ``close_segment``, ``refit_surrogate``,
-``refit_anchor``), each step's branch decided on the host.
+``refit_anchor``), each step's branch decided on the host, and a sweep's
+cells side by side on the chain axis (``Grid``: ptnn's vmapped cells with
+their traced overrides; the padded ``Dataset`` with ptnn's masks,
+``mask_reason`` for what ptnn refuses on it).
 
 Every evaluation of the network on data (``train_loglik``,
 ``init_state``'s ll, ``recompute_ll``) goes through ``spec_eval``, the
@@ -176,16 +179,74 @@ class ChainState:
 
 @dataclasses.dataclass
 class Dataset:
-    x_train: torch.Tensor  # (N, I) float32
-    y_train: torch.Tensor  # (N,)
+    """The problem's rows on the device. A grid of runs
+    (``ptnn_torch.sweeps``, ptnn's ``Dataset`` with a leading cell axis)
+    gives each cell its own rows: x (G, N, I), y (G, N), t (G, N, O),
+    padded to the grid's largest set, with ptnn's {0, 1} masks: the row
+    validity ``mask_train`` / ``mask_test`` (G, N), the valid rows first;
+    ``class_mask`` (G, O), the real classes first, whose padded columns
+    leave the softmax and the argmax; ``w_mask`` (G, W), the parameters of
+    each cell's own network in the envelope, pinned at 0 (init, proposal
+    noise and every drift update). The kernels take the counts the masks
+    give (``rows_train``, ``rows_test``, ``classes``: (G,) int32, set on
+    construction, which checks that the padding trails)."""
+
+    x_train: torch.Tensor  # (N, I) float32, or (G, N, I)
+    y_train: torch.Tensor  # (N,), or (G, N)
     x_test: torch.Tensor
     y_test: torch.Tensor
     t_train: Optional[torch.Tensor] = None  # (N, O) delta-rule targets
+    mask_train: Optional[torch.Tensor] = None  # (G, N) float32 {0, 1}
+    mask_test: Optional[torch.Tensor] = None
+    class_mask: Optional[torch.Tensor] = None  # (G, O)
+    w_mask: Optional[torch.Tensor] = None  # (G, W)
+    rows_train: Optional[torch.Tensor] = dataclasses.field(default=None,
+                                                           init=False)
+    rows_test: Optional[torch.Tensor] = dataclasses.field(default=None,
+                                                          init=False)
+    classes: Optional[torch.Tensor] = dataclasses.field(default=None,
+                                                        init=False)
+
+    def __post_init__(self):
+        def count(mask, what):
+            if mask is None:
+                return None
+            m = mask.reshape(-1, mask.shape[-1])
+            n = m.sum(-1).to(torch.int32)
+            lead = (torch.arange(m.shape[-1], device=m.device)[None, :]
+                    < n[:, None]).to(m.dtype)
+            if not torch.equal(m, lead):
+                raise ValueError(f"{what}: the valid entries of each cell "
+                                 f"must come first (the padding trails)")
+            return n
+        self.rows_train = count(self.mask_train, "mask_train")
+        self.rows_test = count(self.mask_test, "mask_test")
+        self.classes = count(self.class_mask, "class_mask")
+
+    @property
+    def cells(self) -> int:
+        """Cells with rows of their own (1: one dataset for every chain)."""
+        return self.x_train.shape[0] if self.x_train.dim() == 3 else 1
+
+    @property
+    def masked(self) -> bool:
+        """Whether the rows or the parameters are padded (ptnn's masks)."""
+        return (self.mask_train is not None or self.w_mask is not None
+                or self.class_mask is not None)
+
+    def chain_w_mask(self, chains: int) -> Optional[torch.Tensor]:
+        """``w_mask`` repeated to the chains, (C, W), or None."""
+        if self.w_mask is None:
+            return None
+        wm = self.w_mask if self.w_mask.dim() == 2 else self.w_mask[None]
+        return wm.repeat_interleave(chains // wm.shape[0], dim=0)
 
 
-def swap_due(cfg: PTConfig, i: int) -> bool:
-    """Whether a replica-exchange sweep runs after step ``i``."""
-    si = cfg.swap_interval
+def swap_due(cfg: PTConfig, i: int, si: Optional[int] = None) -> bool:
+    """Whether a replica-exchange sweep runs after step ``i``, at the
+    interval ``si`` (default ``cfg.swap_interval``; a grid's cell has its
+    own)."""
+    si = cfg.swap_interval if si is None else int(si)
     if si <= 0 or si > cfg.n_steps:
         return False
     k = i + cfg.swap_offset
@@ -197,14 +258,25 @@ def default_spec(cfg: PTConfig) -> model_api.ModelSpec:
     return model_api.fnn_spec(cfg.topology, cfg.drift_mode)
 
 
+def _fnn_only(spec: model_api.ModelSpec, x: torch.Tensor, grid) -> None:
+    if spec.fnn_topology is None and (x.dim() == 3 or grid):
+        raise ValueError("a grid's per-cell rows and masks are evaluated by "
+                         "the reference FNN only (ptnn_torch.sweeps)")
+
+
 def spec_eval(cfg: PTConfig, spec: model_api.ModelSpec, w: torch.Tensor,
               x: torch.Tensor, y: torch.Tensor,
-              tau: Optional[torch.Tensor]):
+              tau: Optional[torch.Tensor],
+              rows: Optional[torch.Tensor] = None,
+              classes: Optional[torch.Tensor] = None):
     """Every chain's untempered (ll, rmse, acc), each (C,), on the rows
     (x, y): ``_batched_evals`` of ptnn/kernel.py. ``tau`` (C,) is the noise
-    variance (regression)."""
+    variance (regression); a grid's ``rows`` and ``classes`` are the
+    ``Dataset``'s counts (``ops.fnn_eval``)."""
     if spec.fnn_topology is not None:
-        return fnn_eval(w, x, y, tau, spec.fnn_topology, cfg.task)
+        return fnn_eval(w, x, y, tau, spec.fnn_topology, cfg.task, rows,
+                        classes)
+    _fnn_only(spec, x, rows is not None or classes is not None)
     out = (spec.batched_forward or spec.forward)(w, x)
     if cfg.task == "regression":
         ev = likelihood.regression_eval_from_fx(out[:, :, 0], y, tau)
@@ -216,13 +288,17 @@ def spec_eval(cfg: PTConfig, spec: model_api.ModelSpec, w: torch.Tensor,
 def spec_eval_pair(cfg: PTConfig, spec: model_api.ModelSpec,
                    w: torch.Tensor, x_tr: torch.Tensor, y_tr: torch.Tensor,
                    x_te: torch.Tensor, y_te: torch.Tensor,
-                   tau: Optional[torch.Tensor]):
+                   tau: Optional[torch.Tensor],
+                   data: Optional["Dataset"] = None):
     """``spec_eval`` on the train rows and on the test rows: the reference
     FNN evaluates both in one call (one kernel launch on the card), any
-    other spec in two."""
+    other spec in two. ``data`` gives a grid's counts."""
     if spec.fnn_topology is not None:
+        counts = ((None,) * 3 if data is None else
+                  (data.rows_train, data.rows_test, data.classes))
         return fnn_eval_pair(w, x_tr, y_tr, x_te, y_te, tau,
-                             spec.fnn_topology, cfg.task)
+                             spec.fnn_topology, cfg.task, *counts)
+    _fnn_only(spec, x_tr, data is not None and data.masked)
     return (spec_eval(cfg, spec, w, x_tr, y_tr, tau),
             spec_eval(cfg, spec, w, x_te, y_te, tau))
 
@@ -232,7 +308,18 @@ def train_loglik(cfg: PTConfig, w: torch.Tensor, eta: torch.Tensor,
                  spec: Optional[model_api.ModelSpec] = None) -> torch.Tensor:
     """The untempered train log-likelihood of every chain at (w, eta)."""
     return spec_eval(cfg, spec or default_spec(cfg), w, data.x_train,
-                     data.y_train, torch.exp(eta))[0]
+                     data.y_train, torch.exp(eta), data.rows_train,
+                     data.classes)[0]
+
+
+def prior_dim_classification(spec: model_api.ModelSpec, data: Dataset,
+                             chains: int):
+    """The classification prior's dimension term: ``w_size``, or under a
+    grid's parameter mask each chain's count of real parameters, (C,)
+    float32 (ptnn/kernel.py:272-279; masked parameters stay 0 and add
+    nothing to sum w^2)."""
+    wm = data.chain_w_mask(chains)
+    return spec.prior_dim_classification if wm is None else wm.sum(-1)
 
 
 def recorded_chains(cfg: PTConfig) -> slice:
@@ -320,17 +407,26 @@ def init_state(
     init_w: Optional[torch.Tensor] = None,
     init_eta: Optional[torch.Tensor] = None,
     spec: Optional[model_api.ModelSpec] = None,
+    cells: Optional[int] = None,
 ) -> ChainState:
     """Initial state: standard-normal weights (from ``generator``, or
     ``init_w``), and ll/prior computed at that point. Regression: eta = log
     of the population variance of the initial residuals (or ``init_eta``);
     classification: eta = 0, the multinomial ll and the prior with
-    dimension term w_size. ``spec`` defaults to the reference FNN."""
+    dimension term w_size. ``spec`` defaults to the reference FNN.
+
+    ``cells``: a grid of that many runs of ``cfg.num_chains`` chains,
+    cell-major (``ptnn_torch.sweeps``): the swap counters count per cell,
+    (G,); the weights are multiplied by the data's ``w_mask``, and each
+    cell's eta is its residual variance over its own valid rows."""
     cls = cfg.task == "classification"
     dev = data.x_train.device
     spec = spec or default_spec(cfg)
     precond = cfg.proposal in PRECOND
-    c, w_dim = cfg.num_chains, spec.w_size
+    c, w_dim = cfg.num_chains * (cells or 1), spec.w_size
+    if data.cells not in (1, c // cfg.num_chains):
+        raise ValueError(f"{data.cells} cells of rows for "
+                         f"{c // cfg.num_chains} cells of chains")
     if init_w is None:
         w = torch.randn((c, w_dim), generator=generator, device=dev,
                         dtype=torch.float32)
@@ -338,15 +434,16 @@ def init_state(
         w = torch.as_tensor(init_w, dtype=torch.float32, device=dev)
         if tuple(w.shape) != (c, w_dim):
             raise ValueError(f"init_w shape {tuple(w.shape)} != {(c, w_dim)}")
+    wm = data.chain_w_mask(c)
+    if wm is not None:
+        w = w * wm
     if cls:
         eta = torch.zeros((c,), dtype=torch.float32, device=dev)
         ll = train_loglik(cfg, w, eta, data, spec)
         prior = likelihood.classification_log_prior_dim(
-            w, spec.prior_dim_classification, cfg.sigma_sq)
+            w, prior_dim_classification(spec, data, c), cfg.sigma_sq)
     else:
-        pred = spec.forward(w, data.x_train)[:, :, 0]
-        resid = pred - data.y_train[None, :]
-        eta = torch.log(torch.var(resid, dim=1, correction=0))
+        eta = _init_eta(spec, w, data)
         if init_eta is not None:
             eta = torch.as_tensor(init_eta, dtype=torch.float32, device=dev)
             if tuple(eta.shape) != (c,):
@@ -436,14 +533,40 @@ def init_state(
         pair_prop_count=zeros(torch.int32),
         n_accept=zeros(torch.int32),
         n_langevin=zeros(torch.int32),
-        n_swap_accepted=torch.zeros((), dtype=torch.int32, device=dev),
-        n_swap_proposed=torch.zeros((), dtype=torch.int32, device=dev),
+        n_swap_accepted=torch.zeros(() if cells is None else (cells,),
+                                    dtype=torch.int32, device=dev),
+        n_swap_proposed=torch.zeros(() if cells is None else (cells,),
+                                    dtype=torch.int32, device=dev),
         fx_train=fx_train,
         fx_test=fx_test,
         surr=surr,
         da=da,
         **vr,
     )
+
+
+def _init_eta(spec: model_api.ModelSpec, w: torch.Tensor,
+              data: Dataset) -> torch.Tensor:
+    """Regression's initial eta: the log of the population variance of
+    each chain's residuals at ``w``; on a grid, each cell's over its own
+    valid rows, so that a cell starts as its own single run does."""
+    if data.x_train.dim() == 2 and data.rows_train is None:
+        pred = spec.forward(w, data.x_train)[:, :, 0]
+        resid = pred - data.y_train[None, :]
+        return torch.log(torch.var(resid, dim=1, correction=0))
+    g = data.cells
+    cpc = w.shape[0] // g
+    n = data.x_train.shape[-2]
+    rows = ([n] * g if data.rows_train is None
+            else data.rows_train.tolist())
+    parts = []
+    for k in range(g):
+        x = data.x_train[k] if data.x_train.dim() == 3 else data.x_train
+        y = data.y_train[k] if data.y_train.dim() == 2 else data.y_train
+        pred = spec.forward(w[k * cpc:(k + 1) * cpc], x[:rows[k]])[:, :, 0]
+        resid = pred - y[None, :rows[k]]
+        parts.append(torch.log(torch.var(resid, dim=1, correction=0)))
+    return torch.cat(parts)
 
 
 def set_static_reference(state: ChainState, cfg: PTConfig, mu, var,
@@ -677,11 +800,16 @@ def do_swap(
     us: torch.Tensor,
     pair_mask: Optional[torch.Tensor] = None,
     vr: Optional[VRef] = None,
+    cells: Optional[int] = None,
+    parity=None,
 ) -> ChainState:
     """One replica-exchange event after step ``i`` with uniforms ``us``
     (C-1,). ``pair_mask`` comes from ``swap.pair_mask`` for replicated
     ladders. Under the variational reference ``vr`` the swap energy is E =
-    LL - corr, exact for the corrected path."""
+    LL - corr, exact for the corrected path. A grid (``cells``) counts its
+    swaps per cell, (G,), and its pairs take the ``parity`` of the even/odd
+    sweep that ``Grid.swap_plan`` gives them (default: ``(i //
+    swap_interval) % 2``)."""
     adapttemp = adapttemp_at(cfg, temps, i)
     if vr is not None:
         payload = state.ll - vr.corr(state, i, state.w, state.eta)
@@ -694,7 +822,9 @@ def do_swap(
     if cfg.swap_style == "even_odd":
         res = swap_mod.disjoint_pair_permutation(
             payload, us, rule=cfg.swap_rule, betas=1.0 / adapttemp,
-            parity=(i // cfg.swap_interval) % 2, pair_mask=pair_mask,
+            parity=((i // cfg.swap_interval) % 2 if parity is None
+                    else parity),
+            pair_mask=pair_mask,
         )
     else:
         res = swap_mod.sweep_permutation(
@@ -707,13 +837,21 @@ def do_swap(
     else:
         ll, prior = swap_mod.apply_permutation(res.perm, state.ll, state.prior)
     pad = lambda a: torch.nn.functional.pad(a, (0, 1))
+    n_acc, n_prop = res.n_accepted, res.n_proposed
+    if cells is not None:
+        # pair k lies in cell k // (C / G); the pairs across a boundary are
+        # never proposed
+        def per_cell(v):
+            return pad(v.to(torch.int32)).view(cells, -1).sum(
+                1, dtype=torch.int32)
+        n_acc, n_prop = per_cell(res.pair_swapped), per_cell(res.pair_active)
     out = state.replace(
         w=w,
         eta=eta,
         ll=ll,
         prior=prior,
-        n_swap_accepted=state.n_swap_accepted + res.n_accepted,
-        n_swap_proposed=state.n_swap_proposed + res.n_proposed,
+        n_swap_accepted=state.n_swap_accepted + n_acc,
+        n_swap_proposed=state.n_swap_proposed + n_prop,
         pair_accept_sum=state.pair_accept_sum
         + pad(res.pair_accept.to(torch.float32)),
         pair_prop_count=state.pair_prop_count
@@ -753,14 +891,76 @@ def step_reason(cfg: PTConfig,
                 "proposals)")
     if cfg.eval_dtype != "float32":
         return f"eval_dtype={cfg.eval_dtype!r}"
-    if cfg.adapt_step_size and cfg.use_langevin_gradients and not (
-            spec is not None and spec.drift_per_chain_rate):
+    spec = spec or default_spec(cfg)
+    if cfg.adapt_step_size and cfg.use_langevin_gradients \
+            and spec.adapt_ties_drift and not spec.drift_per_chain_rate:
         return ("adapt_step_size with Langevin gradients (the drift rate "
                 "tied to each chain's adapted step) on a drift that takes "
                 "one rate")
     if cfg.task == "regression" and cfg.topology[2] != 1:
         return "regression with more than one output"
     return None
+
+
+def mask_reason(cfg: PTConfig, data: Dataset) -> Optional[str]:
+    """What ptnn refuses on a padded (masked) dataset, in ptnn's words
+    (ptnn/kernel.py:643-670, 708-712); None: ``cfg`` runs on it."""
+    has_mask = data.mask_train is not None or data.class_mask is not None
+    has_w_mask = data.w_mask is not None
+    if (has_mask or has_w_mask) and (cfg.proposal != "reference"
+                                     or cfg.use_surrogate):
+        return ("masked (padded) datasets support the reference proposal "
+                "machinery only (sweeps.dataset_grid / classification_grid "
+                "scope)")
+    if has_w_mask and cfg.task == "regression":
+        return ("parameter masks target the classification envelope grid; "
+                "the regression sets share one topology (and the regression "
+                "prior's dimension term is not the parameter count, so a "
+                "traced mask-sum would be wrong there)")
+    if has_w_mask and cfg.record_fx:
+        return ("record_fx with an envelope-padded classification dataset "
+                "would trace per-row predictions of padded rows; run grids "
+                "with record_fx=False")
+    if cfg.variational_reference and (has_mask or has_w_mask):
+        return ("variational_reference is not supported under "
+                "envelope-padded (masked) datasets: the fitted q would "
+                "couple padded coordinates")
+    if (has_mask or has_w_mask) and cfg.use_langevin_gradients \
+            and cfg.drift_mode == "pallas":
+        return ("the Pallas drift kernel has no row/parameter-mask support; "
+                "use drift_mode='sequential' or 'batch' with padded "
+                "datasets")
+    return None
+
+
+def grid_reason(cfg: PTConfig) -> Optional[str]:
+    """The feature of ``cfg`` a grid of runs (``Grid``) does not run yet;
+    None: it runs ``cfg``."""
+    if cfg.proposal != "reference":
+        return f"proposal={cfg.proposal!r}"
+    if cfg.use_surrogate:
+        return "use_surrogate"
+    if cfg.variational_reference:
+        return "variational_reference"
+    if cfg.drift_chain_microbatch > 1:
+        return "drift_chain_microbatch > 1"
+    return None
+
+
+@dataclasses.dataclass
+class Grid:
+    """A sweep's cells on the chain axis (ptnn's vmapped cells,
+    ptnn/sweeps.py): ``cells`` runs of ``cfg.num_chains`` chains each,
+    cell-major, each on its own ladder (the step's ``temps``), and, where
+    given, ptnn's traced overrides: ``swap_interval`` one host int a cell
+    (its own swap events and even/odd parity; a cell with an interval <= 0
+    or past the run never swaps), ``langevin_prob`` and ``learn_rate``
+    float32 (C,), one a chain. Cells never swap with each other."""
+
+    cells: int
+    swap_interval: Optional[Tuple[int, ...]] = None
+    langevin_prob: Optional[torch.Tensor] = None
+    learn_rate: Optional[torch.Tensor] = None
 
 
 def step_noise_names(cfg: PTConfig) -> Tuple[str, ...]:
@@ -880,15 +1080,34 @@ class StepFn:
 
     def __init__(self, cfg: PTConfig, data: Dataset, temps: torch.Tensor,
                  spec: model_api.ModelSpec,
-                 surrogate_proj: Optional[torch.Tensor] = None):
+                 surrogate_proj: Optional[torch.Tensor] = None,
+                 grid: Optional[Grid] = None):
         reason = step_reason(cfg, spec)
         if reason is not None:
             raise NotImplementedError(
                 f"ptnn_torch's per-step sampler does not run {reason}: not "
                 f"yet ported")
+        reason = mask_reason(cfg, data)
+        if reason is not None:
+            raise ValueError(reason)
         if cfg.use_langevin_gradients and data.t_train is None:
             raise ValueError("Langevin gradients need data.t_train")
+        if grid is None and data.cells > 1:
+            grid = Grid(data.cells)
+        if grid is not None:
+            reason = grid_reason(cfg)
+            if reason is not None:
+                raise NotImplementedError(
+                    f"ptnn_torch's grid of runs does not run {reason}: not "
+                    f"yet ported")
+            if data.cells not in (1, grid.cells):
+                raise ValueError(f"{data.cells} cells of rows for a grid of "
+                                 f"{grid.cells} cells")
+        if (grid is not None or data.masked) and spec.fnn_topology is None:
+            _fnn_only(spec, data.x_train, True)
         self.cfg, self.data, self.temps, self.spec = cfg, data, temps, spec
+        self.grid = grid
+        self.chains = temps.shape[0]
         self.cls = cfg.task == "classification"
         self.diagnostics = False
         self.ones = torch.ones_like(temps)
@@ -896,10 +1115,24 @@ class StepFn:
         self.pair_mask = swap_mod.pair_mask(cfg.num_chains,
                                             cfg.rungs_per_ladder,
                                             temps.device)
+        self._swap_plans: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
         self.burn_end = int(cfg.samples_per_chain * cfg.burn_in) - 1
+        # ptnn's traced overrides, one a chain, else the config's
+        self.lprob = cfg.langevin_prob
+        self.lrate = cfg.learn_rate
+        if grid is not None and grid.langevin_prob is not None:
+            self.lprob = grid.langevin_prob
+        if grid is not None and grid.learn_rate is not None:
+            self.lrate = grid.learn_rate
+        # a grid's parameter mask (C, W) and the prior's and the legacy
+        # ratio's dimension: each chain's count of real parameters
+        self.w_mask = data.chain_w_mask(self.chains)
+        self.prior_dim = prior_dim_classification(spec, data, self.chains)
+        dim = (torch.tensor(float(spec.w_size), dtype=torch.float32)
+               if self.w_mask is None else self.w_mask.sum(-1).cpu())
         # the ldpt_legacy ratio's MVN normaliser with COVARIANCE step_w, in
         # float32 as ptnn forms it
-        self.log_norm = torch.tensor(-0.5 * spec.w_size, dtype=torch.float32) \
+        self.log_norm = -0.5 * dim \
             * torch.log(torch.tensor(2.0 * np.pi * cfg.step_w,
                                      dtype=torch.float32))
         self.log_norm = self.log_norm.to(temps.device)
@@ -914,7 +1147,7 @@ class StepFn:
         cfg, spec = self.cfg, self.spec
         if self.cls:
             return likelihood.classification_log_prior_dim(
-                w, spec.prior_dim_classification, cfg.sigma_sq)
+                w, self.prior_dim, cfg.sigma_sq)
         return likelihood.regression_log_prior_dim(
             w, tau, spec.prior_dim_regression, cfg.sigma_sq, cfg.nu_1,
             cfg.nu_2)
@@ -925,11 +1158,15 @@ class StepFn:
         numbers are the whole batch's, and a gradient drift keeps the
         activations of one chunk at a time."""
         d, mb = self.data, self.cfg.drift_chain_microbatch
+        kw = {}
+        if d.masked:
+            kw = dict(rows=d.rows_train, w_mask=d.w_mask)
         if mb <= 1:
-            return self.spec.drift(w, d.x_train, d.t_train, lrate)
+            return self.spec.drift(w, d.x_train, d.t_train, lrate, **kw)
         rates = (lrate.chunk(mb) if isinstance(lrate, torch.Tensor)
                  else [lrate] * mb)
-        return torch.cat([self.spec.drift(wk, d.x_train, d.t_train, lk)
+        return torch.cat([self.spec.drift(wk, d.x_train, d.t_train, lk,
+                                          **kw)
                           for wk, lk in zip(w.chunk(mb), rates)])
 
     def _propose(self, state: ChainState, noise: Noise, at: torch.Tensor):
@@ -943,14 +1180,20 @@ class StepFn:
             sw = cfg.step_w
             sq = cfg.step_w * cfg.step_w
         nw = noise["w"] * sw
+        if self.w_mask is not None:
+            # a masked parameter never moves: no noise, no drift (masked in
+            # the epoch), so its q-ratio terms are 0 too
+            nw = nw * self.w_mask
         if not cfg.use_langevin_gradients:
             return state.w + nw, torch.zeros_like(state.ll), state.n_langevin
-        use_l = noise["l"] < cfg.langevin_prob
+        use_l = noise["l"] < self.lprob
         # with step-size adaptation the drift scale is tied to each chain's
         # adapted step (MALA: drift = (sigma^2 / 2) grad log pi) and
-        # cfg.learn_rate is ignored (ptnn/kernel.py:688-707)
+        # the learning rate is ignored (ptnn/kernel.py:688-707), where the
+        # spec ties them (``adapt_ties_drift``)
         lrate = (0.5 * torch.exp(2.0 * state.log_step_w)
-                 if cfg.adapt_step_size else cfg.learn_rate)
+                 if cfg.adapt_step_size and self.spec.adapt_ties_drift
+                 else self.lrate)
 
         def drift(w):
             return self._drift(w, lrate)
@@ -1031,7 +1274,7 @@ class StepFn:
         else:
             (ll_prop, rmse_tr, acc_tr), (_ll, rmse_te, acc_te) = \
                 spec_eval_pair(cfg, spec, w_prop, d.x_train, d.y_train,
-                               d.x_test, d.y_test, tau_prop)
+                               d.x_test, d.y_test, tau_prop, d)
         log_mh = (ll_prop - state.ll) / at + (prior_prop - state.prior) \
             + diff_prop
         if self.vr is not None:
@@ -1292,7 +1535,9 @@ class StepFn:
         vr_corr_cur, its path correction with the statistics as of step
         i + 1 (``record_ll_state``); the replica ids."""
         cfg, vr = self.cfg, self.vr
-        if swap_due(cfg, i):
+        if self.grid is not None:
+            new = self._grid_swap(new, i, noise["u_swap"])
+        elif swap_due(cfg, i):
             new = do_swap(cfg, new, self.temps, i, noise["u_swap"],
                           self.pair_mask, vr)
             if vr is not None and cfg.vr_regen:
@@ -1312,6 +1557,36 @@ class StepFn:
         if cfg.track_replicas:
             trace["replica"] = new.replica_id
         return new, trace
+
+    def _grid_swap(self, new: ChainState, i: int,
+                   us: torch.Tensor) -> ChainState:
+        """A grid's swap event after step ``i``: each cell whose interval
+        is due sweeps its own pairs, at its own even/odd parity ``(i //
+        si) % 2`` (``us`` holds one uniform a pair, the pairs across a cell
+        boundary never proposed); the others stay. The pair mask and the
+        pairs' parities are built once for each pattern of due cells."""
+        cfg, grid = self.cfg, self.grid
+        sis = grid.swap_interval or (cfg.swap_interval,) * grid.cells
+        due = tuple(swap_due(cfg, i, si) for si in sis)
+        if not any(due):
+            return new
+        par = tuple((i // si) % 2 if d else 0 for si, d in zip(sis, due))
+        plan = self._swap_plans.get((due, par))
+        if plan is None:
+            cpc = self.chains // grid.cells
+            k = np.arange(self.chains - 1)
+            cell = k // cpc
+            mask = ((k + 1) % cpc != 0) & np.asarray(due)[cell]
+            if cfg.n_ladders > 1:
+                mask &= (k + 1) % cfg.rungs_per_ladder != 0
+            # pair k is pair k - cell * cpc of its cell
+            parity = (np.asarray(par)[cell] + cell * cpc) % 2
+            dev = self.temps.device
+            plan = (torch.as_tensor(mask, device=dev),
+                    torch.as_tensor(parity, device=dev))
+            self._swap_plans[(due, par)] = plan
+        return do_swap(cfg, new, self.temps, i, us, plan[0], None,
+                       grid.cells, plan[1])
 
     def recompute_ll(self, state: ChainState) -> ChainState:
         return recompute_ll(self.cfg, state, self.data, self.spec)
@@ -1647,13 +1922,16 @@ class PrecondStepFn(StepFn):
 
 def make_step_fn(cfg: PTConfig, data: Dataset, temps: torch.Tensor,
                  spec: Optional[model_api.ModelSpec] = None,
-                 surrogate_proj: Optional[torch.Tensor] = None) -> StepFn:
+                 surrogate_proj: Optional[torch.Tensor] = None,
+                 grid: Optional[Grid] = None) -> StepFn:
     """The per-step sampler's step for ``cfg``: ``PrecondStepFn`` for the
     preconditioned family, else ``StepFn`` (the reference proposal, with or
     without Langevin gradients); ``spec`` defaults to the reference FNN
-    with ``cfg.drift_mode``. Raises NotImplementedError naming a feature
-    that is not ported (``step_reason``)."""
+    with ``cfg.drift_mode``; ``grid`` runs a sweep's cells at once. Raises
+    NotImplementedError naming a feature that is not ported
+    (``step_reason``, ``grid_reason``) and ValueError for what ptnn refuses
+    on a padded dataset (``mask_reason``)."""
     spec = spec or default_spec(cfg)
-    if cfg.proposal in PRECOND:
+    if cfg.proposal in PRECOND and grid is None:
         return PrecondStepFn(cfg, data, temps, spec)
-    return StepFn(cfg, data, temps, spec, surrogate_proj)
+    return StepFn(cfg, data, temps, spec, surrogate_proj, grid)

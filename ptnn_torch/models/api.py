@@ -35,7 +35,8 @@ class ModelSpec:
     log_probs: Callable[[torch.Tensor], torch.Tensor]
     # drift(w (C, W), x, t, lrate) -> (C, W): one Langevin drift of every
     # chain (an SGD epoch for the reference FNN, one full-batch gradient
-    # step for ``grad_drift`` models)
+    # step for ``grad_drift`` models); the FNN's also takes a grid's
+    # ``rows`` and ``w_mask`` (``ops.drift.sgd_epoch``)
     drift: Callable[[torch.Tensor, torch.Tensor, torch.Tensor, Rate],
                     torch.Tensor]
     # the reference prior's dimension constants
@@ -47,9 +48,14 @@ class ModelSpec:
     # drift is unaffected: its gradient flows through ``forward``.
     batched_forward: Optional[Callable] = None
     # whether ``drift`` takes a per-chain (C,) rate: what adapt_step_size
-    # with Langevin gradients needs (``grad_drift`` does, the FNN's drift
-    # kernel takes one float)
+    # with Langevin gradients needs (``grad_drift`` and the FNN's drift
+    # kernel do)
     drift_per_chain_rate: bool = False
+    # whether adapt_step_size ties the Langevin drift's rate to each
+    # chain's adapted step: ptnn ties it where the spec has a per-chain
+    # drift (``spec.drift``), which its FNN lacks in drift_mode "pallas"
+    # (the batched kernel alone), so there the rate stays cfg.learn_rate
+    adapt_ties_drift: bool = True
     # the reference FNN's topology: its evals go through ``ops.fnn_eval``
     # (the eval kernel on the card). None for every other model.
     fnn_topology: Optional[Tuple[int, int, int]] = None
@@ -68,12 +74,15 @@ def fnn_spec(topo: Tuple[int, int, int],
         w_size=fnn.w_size(topo),
         forward=functools.partial(fnn.batched_forward, topo=topo),
         log_probs=fnn.log_class_probs,
-        drift=lambda w, x, t, lrate: drift_mod.sgd_epoch(
-            w, x, t, topo, lrate, mode=drift_mode),
+        drift=lambda w, x, t, lrate, rows=None, w_mask=None:
+        drift_mod.sgd_epoch(w, x, t, topo, lrate, mode=drift_mode, rows=rows,
+                            w_mask=w_mask),
         # pt_classification.py:227: d*h + h + o + h*o (== w_size)
         prior_dim_classification=i * h + h + o + h * o,
         # pt_timeseries_regression.py:218: d*h + h + 2
         prior_dim_regression=i * h + h + 2,
+        drift_per_chain_rate=True,
+        adapt_ties_drift=drift_mode != "pallas",
         fnn_topology=tuple(topo),
     )
 

@@ -120,17 +120,21 @@ ARGMAX_DZ = 1e-5  # logit move the argmax must survive (rounding: ~1e-6)
 
 
 def argmax_fragile(w: torch.Tensor, x: torch.Tensor, topo,
-                   dz: float = ARGMAX_DZ) -> torch.Tensor:
+                   dz: float = ARGMAX_DZ,
+                   classes: Optional[int] = None) -> torch.Tensor:
     """(C,) bool: whether moving the two largest output logits of some row
     of x by ``dz`` in opposite directions changes that row's first argmax of
     the float32 sigmoid outputs. Near saturation many logits round to the
     same output and the tie goes to the first class, so the logit gap alone
     does not say; this perturbs and compares. Two float32 forwards that sum
     in different orders differ by ~1e-6 in a logit, so rmse and accuracy
-    evaluated where no row is fragile are the same in both."""
+    evaluated where no row is fragile are the same in both. ``classes``:
+    the real classes of a grid's cell, the first of the O (the padded ones
+    never win)."""
     p = fnn.unpack(w, topo)
     hid = torch.sigmoid(torch.matmul(x, p.w1) - p.b1[:, None, :])
     z = torch.matmul(hid, p.w2) - p.b2[:, None, :]  # (C, N, O) logits
+    z = z[..., :classes]
     top2 = torch.topk(torch.sigmoid(z), 2, dim=-1)
     za, zb = torch.gather(z, -1, top2.indices).unbind(-1)
     a_first = top2.indices[..., 0] < top2.indices[..., 1]

@@ -36,7 +36,12 @@ topology with at most ``32 * HPL`` hidden units. ``launches`` counts both;
 ``variant_launches`` says which ran.
 
 Weights are chains-major flat vectors (C, W) in the codec of
-``models/fnn.py``; x (N, I), t (N, O) float32.
+``models/fnn.py``; x (N, I), t (N, O) float32. A grid of runs
+(``ptnn_torch.sweeps``, ptnn's masked epochs) passes a rate a chain (C,),
+each cell's rows x (G, N, I), t (G, N, O) with the chains cell-major,
+``rows`` (G,) int32, each cell's valid rows (the padding after them, whose
+updates scale by 0: the kernel skips them), and ``w_mask`` (G, W) {0, 1},
+which multiplies every per-row update.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import types
-from typing import Mapping, Optional, Tuple
+from typing import Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -56,6 +61,7 @@ from ptnn_torch.ops.block_step import _SMEM_LIMIT, _check
 launches = 0  # launches of csrc/drift_epoch.cu (the plain version counts none)
 variant_launches = {"register": 0, "generic": 0}  # which kernel they ran
 
+Rate = Union[float, torch.Tensor]  # one learning rate, or one a chain (C,)
 MODES = ("sequential", "pallas", "batch")
 _SOURCE = "drift_epoch.cu"
 _TILE_FLOATS = 16384  # rows staged per tile: at most 64 KB of (x, t)
@@ -101,54 +107,150 @@ def make_targets(y: torch.Tensor, n_out: int, task: str) -> torch.Tensor:
     return y.reshape(-1, 1).to(torch.float32)
 
 
+def per_chain(a: torch.Tensor, chains: int) -> torch.Tensor:
+    """A per-cell array (G, ...) repeated to the chains (C, ...), cell-major:
+    chain c belongs to cell ``c // (C // G)``."""
+    return a.repeat_interleave(chains // a.shape[0], dim=0)
+
+
+def row_mask(rows: torch.Tensor, n: int) -> torch.Tensor:
+    """The {0, 1} float32 row validity (G, n) of cells with ``rows`` (G,)
+    valid rows first, the padding after them (ptnn's ``mask_*``)."""
+    idx = torch.arange(n, device=rows.device)
+    return (idx[None, :] < rows[:, None]).to(torch.float32)
+
+
+def _cells(w: torch.Tensor, x: torch.Tensor) -> int:
+    """The grid's cells: x (G, N, I) holds each cell's rows, and the
+    chains (C, W) split evenly over them; 1 for a dataset (N, I) that every
+    chain shares."""
+    if x.dim() == 2:
+        return 1
+    g, c = x.shape[0], w.shape[0]
+    if c % g:
+        raise ValueError(f"{c} chains do not split evenly over {g} cells")
+    return g
+
+
+def _lead(v, nd: int):
+    """A per-chain (C,) factor shaped to broadcast over (C, ...) of ``nd``
+    dimensions; a float or a 0-d tensor as it is."""
+    if isinstance(v, torch.Tensor) and v.dim() == 1:
+        return v.reshape(v.shape + (1,) * (nd - 1))
+    return v
+
+
 def sgd_epoch_sequential(w: torch.Tensor, x: torch.Tensor, t: torch.Tensor,
-                         topo: Topology, lrate: float,
-                         depth: int = 1) -> torch.Tensor:
+                         topo: Topology, lrate: Rate, depth: int = 1,
+                         rows: Optional[torch.Tensor] = None,
+                         w_mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """``depth`` epochs of per-row SGD in dataset order for every chain: w
     (C, W) -> (C, W). The plain version, on any device, in the order and
-    with the rounding of ptnn's scan (``_delta_updates``)."""
+    with the rounding of ptnn's scan (``_delta_updates``).
+
+    The grid's arguments (ptnn's ``mask`` / ``w_mask``): ``lrate`` is one
+    float or a (C,) rate a chain; x (G, N, I) and t (G, N, O) give each
+    cell its own rows; ``rows`` (G,) counts each cell's valid rows, the
+    padding after them, whose updates are scaled by exactly 0; ``w_mask``
+    (W,) or (G, W) {0, 1} multiplies every per-row update, so a masked
+    parameter never leaves its initial 0 and a padded hidden unit never
+    reaches a real output mid-epoch."""
     p = fnn.unpack(w, topo)
     w1, b1 = p.w1.clone(), p.b1.clone()  # (C, I, H), (C, H)
     w2, b2 = p.w2.clone(), p.b2.clone()  # (C, H, O), (C, O)
-    n = x.shape[0]
+    c, n = w.shape[0], x.shape[-2]
+    cells = x.dim() == 3
+    if cells:
+        _cells(w, x)
+        x, t = per_chain(x, c), per_chain(t, c)  # (C, N, I), (C, N, O)
+    m = None
+    if rows is not None:
+        m = per_chain(row_mask(rows, n), c) if cells else row_mask(rows, n)[0]
+    mp = None
+    if w_mask is not None:
+        wm = per_chain(w_mask, c) if w_mask.dim() == 2 else w_mask
+        mp = fnn.unpack(wm, topo)
     for k in range(n * depth):
-        xi, ti = x[k % n], t[k % n]
-        hid = torch.sigmoid(torch.matmul(xi, w1) - b1)  # (C, H)
+        r = k % n
+        if cells:
+            xi, ti = x[:, r], t[:, r]  # (C, I), (C, O)
+            hid = torch.sigmoid(torch.matmul(xi[:, None, :], w1)[:, 0, :] - b1)
+            xw = xi[:, :, None]
+        else:
+            xi, ti = x[r], t[r]
+            hid = torch.sigmoid(torch.matmul(xi, w1) - b1)  # (C, H)
+            xw = xi[None, :, None]
         out = torch.sigmoid(torch.matmul(hid[:, None, :], w2)[:, 0, :] - b2)
         od = (ti - out) * out * (1.0 - out)  # (C, O)
         hd = torch.matmul(w2, od[:, :, None])[:, :, 0] * hid * (1.0 - hid)
-        w2 += lrate * (hid[:, :, None] * od[:, None, :])
-        b2 += lrate * -od
-        w1 += lrate * (xi[None, :, None] * hd[:, None, :])
-        b1 += lrate * -hd
+        dw2, db2 = hid[:, :, None] * od[:, None, :], -od
+        dw1, db1 = xw * hd[:, None, :], -hd
+        if mp is not None:
+            dw1, db1, dw2, db2 = dw1 * mp.w1, db1 * mp.b1, dw2 * mp.w2, \
+                db2 * mp.b2
+        lm = lrate
+        if m is not None:
+            lm = lrate * (m[:, r] if cells else m[r])
+        w2 += _lead(lm, 3) * dw2
+        b2 += _lead(lm, 2) * db2
+        w1 += _lead(lm, 3) * dw1
+        b1 += _lead(lm, 2) * db1
     return fnn.pack(fnn.FnnParams(w1=w1, b1=b1, w2=w2, b2=b2))
 
 
 def sgd_epoch_batch(w: torch.Tensor, x: torch.Tensor, t: torch.Tensor,
-                    topo: Topology, lrate: float) -> torch.Tensor:
+                    topo: Topology, lrate: Rate,
+                    rows: Optional[torch.Tensor] = None,
+                    w_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Every row's delta-rule update evaluated at ``w`` and summed: w (C, W)
-    -> (C, W)."""
+    -> (C, W). The grid's arguments as in ``sgd_epoch_sequential``: a
+    padded row's output delta is scaled by 0 (the hidden delta inherits
+    it), and ``w_mask`` multiplies the result (every update is taken at the
+    initial weights, where a padded unit reaches no real output)."""
+    c = w.shape[0]
+    g = _cells(w, x)
     p = fnn.unpack(w, topo)
-    hid = torch.sigmoid(torch.matmul(x, p.w1) - p.b1[:, None, :])  # (C, N, H)
-    out = torch.sigmoid(torch.matmul(hid, p.w2) - p.b2[:, None, :])  # (C, N, O)
-    od = (t - out) * out * (1.0 - out)
+    if x.dim() == 3:
+        # (G, chains a cell, ...) against each cell's rows (G, 1, N, .)
+        p = fnn.FnnParams(*(a.reshape((g, c // g) + a.shape[1:]) for a in p))
+        x, t = x[:, None], t[:, None]
+        if isinstance(lrate, torch.Tensor) and lrate.dim() == 1:
+            lrate = lrate.reshape(g, c // g)
+    lead = p.b1.dim()  # 2 (shared rows), 3 (per cell)
+    hid = torch.sigmoid(torch.matmul(x, p.w1) - p.b1[..., None, :])
+    out = torch.sigmoid(torch.matmul(hid, p.w2) - p.b2[..., None, :])
+    od = (t - out) * out * (1.0 - out)  # (..., N, O)
+    if rows is not None:
+        m = row_mask(rows, x.shape[-2])
+        od = od * (m[:, None, :, None] if lead == 3 else m[0, :, None])
     hd = torch.matmul(od, p.w2.transpose(-1, -2)) * hid * (1.0 - hid)
-    return fnn.pack(fnn.FnnParams(
-        w1=p.w1 + lrate * torch.matmul(x.T, hd),
-        b1=p.b1 - lrate * torch.sum(hd, dim=1),
-        w2=p.w2 + lrate * torch.matmul(hid.transpose(-1, -2), od),
-        b2=p.b2 - lrate * torch.sum(od, dim=1),
-    ))
+    lr2 = lrate
+    if isinstance(lrate, torch.Tensor) and lrate.dim() >= 1:
+        lr2 = lrate[..., None]
+    lr3 = lr2[..., None] if isinstance(lr2, torch.Tensor) else lr2
+    nxt = fnn.pack(fnn.FnnParams(
+        w1=p.w1 + lr3 * torch.matmul(x.transpose(-1, -2), hd),
+        b1=p.b1 - lr2 * torch.sum(hd, dim=-2),
+        w2=p.w2 + lr3 * torch.matmul(hid.transpose(-1, -2), od),
+        b2=p.b2 - lr2 * torch.sum(od, dim=-2),
+    )).reshape(c, -1)
+    if w_mask is not None:
+        nxt = nxt * (per_chain(w_mask, c) if w_mask.dim() == 2 else w_mask)
+    return nxt
 
 
 class _DriftParams(ctypes.Structure):
     """Mirror of ``struct DriftParams`` in csrc/drift_epoch.cu (same field
     order)."""
 
-    _fields_ = [(name, ctypes.c_void_p) for name in ("w", "x", "t", "o_w")] + [
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "w", "x", "t", "o_w", "lrates", "cell_rows", "w_mask")] + [
+        (name, ctypes.c_longlong) for name in ("x_cell", "t_cell")
+    ] + [
         (name, ctypes.c_int)
         for name in ("chains", "n_rows", "n_in", "n_hid", "n_out", "depth",
-                     "tile_rows")
+                     "tile_rows", "cells", "chains_per_cell")
     ] + [("lrate", ctypes.c_float)]
 
 
@@ -157,41 +259,64 @@ def tile_rows(n_rows: int, depth: int, n_in: int, n_out: int) -> int:
     return max(1, min(n_rows * depth, _TILE_FLOATS // (n_in + n_out)))
 
 
-def smem_bytes(n_rows: int, depth: int, topo: Topology) -> int:
-    """Dynamic shared memory of one block: a tile of rows and, for the
-    generic kernel, one weight vector per chain of the block (the register
-    kernel keeps its weights in registers)."""
+def smem_bytes(n_rows: int, depth: int, topo: Topology,
+               masked: bool = False) -> int:
+    """Dynamic shared memory of one block: a tile of rows, for the generic
+    kernel one weight vector per chain of the block (the register kernel
+    keeps its weights in registers), and with a parameter mask the block's
+    cell's mask."""
     i, _h, o = topo
     tile = tile_rows(n_rows, depth, i, o) * (i + o)
     if variant(topo)[0] == "generic":
         tile += _define("WARPS") * fnn.w_size(topo)
+    if masked:
+        tile += fnn.w_size(topo)
     return 4 * tile
 
 
-def _launch_cuda(w, x, t, topo, lrate, depth):
+def _launch_cuda(w, x, t, topo, lrate, depth, rows=None, w_mask=None):
     global launches
 
     n_in, n_hid, n_out = topo
-    c, n = w.shape[0], x.shape[0]
+    c, n = w.shape[0], x.shape[-2]
     dev = w.device
     kind = variant(topo)[0]
-    if not isinstance(lrate, (int, float)):
-        raise ValueError("the drift kernel takes one float learning rate")
-    if depth < 1 or n < 1:
-        raise ValueError(f"depth {depth} and rows {n} must be positive")
+    g = _cells(w, x)
+    if depth < 1 or n < 1 or n * depth >= 2**31:
+        raise ValueError(f"depth {depth} and rows {n} must be positive, "
+                         f"their product under 2^31")
     _check(w, "w", (c, fnn.w_size(topo)), torch.float32, dev)
-    _check(x, "x", (n, n_in), torch.float32, dev)
-    _check(t, "t", (n, n_out), torch.float32, dev)
-    smem = smem_bytes(n, depth, topo)
+    lead = (g,) if x.dim() == 3 else ()
+    _check(x, "x", lead + (n, n_in), torch.float32, dev)
+    _check(t, "t", lead + (n, n_out), torch.float32, dev)
+    lrates = None
+    if isinstance(lrate, torch.Tensor):
+        lrates = lrate
+        _check(lrates, "lrate", (c,), torch.float32, dev)
+    elif not isinstance(lrate, (int, float)):
+        raise ValueError("the drift kernel takes a float rate or a (C,) "
+                         "float32 tensor")
+    if rows is not None:
+        _check(rows, "rows", (g,), torch.int32, dev)
+    if w_mask is not None:
+        if w_mask.dim() == 1:
+            w_mask = w_mask.expand(g, -1).contiguous()
+        _check(w_mask, "w_mask", (g, fnn.w_size(topo)), torch.float32, dev)
+    smem = smem_bytes(n, depth, topo, w_mask is not None)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"topology {tuple(topo)} needs {smem} bytes of shared "
                          f"memory per block; a Hopper block has {_SMEM_LIMIT}")
     lib = _build.build("drift_epoch").lib
     out = torch.empty_like(w)
+    ptr = lambda a: None if a is None else a.data_ptr()
     params = _DriftParams(
         w=w.data_ptr(), x=x.data_ptr(), t=t.data_ptr(), o_w=out.data_ptr(),
+        lrates=ptr(lrates), cell_rows=ptr(rows), w_mask=ptr(w_mask),
+        x_cell=n * n_in if lead else 0, t_cell=n * n_out if lead else 0,
         chains=c, n_rows=n, n_in=n_in, n_hid=n_hid, n_out=n_out, depth=depth,
-        tile_rows=tile_rows(n, depth, n_in, n_out), lrate=float(lrate),
+        tile_rows=tile_rows(n, depth, n_in, n_out), cells=g,
+        chains_per_cell=c // g,
+        lrate=0.0 if lrates is not None else float(lrate),
     )
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
@@ -208,22 +333,25 @@ def _launch_cuda(w, x, t, topo, lrate, depth):
 
 
 def sgd_epoch(w: torch.Tensor, x: torch.Tensor, t: torch.Tensor,
-              topo: Topology, lrate: float, mode: str = "sequential",
-              depth: int = 1) -> torch.Tensor:
+              topo: Topology, lrate: Rate, mode: str = "sequential",
+              depth: int = 1, rows: Optional[torch.Tensor] = None,
+              w_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The Langevin drift of every chain: ``depth`` epochs of ``mode``
     ("sequential" and "pallas": the per-row epoch; "batch": the summed
-    update). CUDA tensors launch the drift kernel for the per-row epoch;
-    CPU tensors run the plain version."""
+    update), with the grid's arguments of ``sgd_epoch_sequential``. CUDA
+    tensors launch the drift kernel for the per-row epoch; CPU tensors run
+    the plain version."""
     if mode == "batch":
         for _ in range(depth):
-            w = sgd_epoch_batch(w, x, t, topo, lrate)
+            w = sgd_epoch_batch(w, x, t, topo, lrate, rows, w_mask)
         return w
     if mode not in MODES:
         raise ValueError(f"unknown drift mode {mode!r}")
     kinds = {a.device.type for a in (w, x, t)}
     if kinds == {"cpu"}:
-        return sgd_epoch_sequential(w, x, t, topo, lrate, depth)
+        return sgd_epoch_sequential(w, x, t, topo, lrate, depth, rows,
+                                    w_mask)
     if kinds == {"cuda"}:
-        return _launch_cuda(w, x, t, topo, lrate, depth)
+        return _launch_cuda(w, x, t, topo, lrate, depth, rows, w_mask)
     raise ValueError(f"sgd_epoch needs all tensors on one device type, got "
                      f"{sorted(kinds)}")

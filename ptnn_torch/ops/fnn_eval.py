@@ -19,6 +19,16 @@ ptnn's bit for bit. CUDA tensors launch the hand-written kernel
 ``csrc/fnn_eval.cu`` (one thread-block cluster per chain and row set, laid
 out by ``launch_plan``); CPU tensors run ``fnn_eval_reference``. A CUDA
 tensor never takes the plain version.
+
+A grid of runs (``ptnn_torch.sweeps``) evaluates every cell in the same
+launch: the chains are cell-major, x (G, N, I) and y (G, N) give each cell
+its own rows, ``rows`` (G,) int32 its count of valid rows (the padding
+trails; ptnn's ``mask_*``) and ``classes`` (G,) int32 its count of real
+classes (the padded class columns trail; ptnn's ``class_mask``). With
+``rows`` the metrics are ptnn's masked ones: a padded row adds nothing and
+rmse and acc divide by the count (``100 * matches / n``, a true division,
+as ptnn's traced count makes it); the padded class columns take -1e9
+before the log-softmax and the argmax.
 """
 
 from __future__ import annotations
@@ -42,12 +52,55 @@ _MAX_WARPS = 16  # MAX_WARPS: warps a block
 _TILE = 32  # TILE: rows of a row group a pass, one a lane
 
 Eval = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+Rows = Optional[torch.Tensor]
+
+
+def _grid_reference(w, x, y, tau, topo, task, rows, classes) -> Eval:
+    """The plain version on a grid: each cell's chains on its own rows,
+    with ptnn's masked likelihood and metrics where ``rows`` is given."""
+    from ptnn_torch.ops.drift import row_mask
+
+    if x.dim() == 2:
+        x, y = x[None], y[None]
+    g, n = x.shape[0], x.shape[-2]
+    cpc = w.shape[0] // g
+    cls = task == "classification"
+    parts = []
+    for k in range(g):
+        sl = slice(k * cpc, (k + 1) * cpc)
+        mask = None if rows is None else row_mask(rows[k:k + 1], n)[0]
+        out = fnn.batched_forward(w[sl], x[k], topo)
+        if not cls:
+            fx = out[:, :, 0]
+            if mask is None:
+                parts.append(fnn_eval_reference(w[sl], x[k], y[k], tau[sl],
+                                                topo, task))
+                continue
+            ev = likelihood.regression_eval_from_fx(fx, y[k], tau[sl], mask)
+            parts.append((ev.loglik, ev.rmse, torch.zeros_like(ev.loglik)))
+            continue
+        if classes is not None:
+            real = torch.arange(out.shape[-1], device=out.device) < classes[k]
+            out = torch.where(real, out, -1e9)
+        logp = fnn.log_class_probs(out)
+        if mask is None:
+            yi = y[k].to(torch.int64)
+            ll = torch.gather(logp, -1, yi.expand(out.shape[:-1])[..., None]
+                              )[..., 0].sum(-1)
+            parts.append((ll,) + tuple(block_step.cls_metrics(out, yi)))
+            continue
+        ev = likelihood.classification_eval_from_logp(logp, out, y[k], mask)
+        parts.append((ev.loglik, ev.rmse, ev.acc))
+    return tuple(torch.cat([p[j] for p in parts]) for j in range(3))
 
 
 def fnn_eval_reference(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                        tau: Optional[torch.Tensor], topo: Topology,
-                       task: str) -> Eval:
+                       task: str, rows: Rows = None,
+                       classes: Rows = None) -> Eval:
     """The plain PyTorch version of ``fnn_eval``, on any device."""
+    if x.dim() == 3 or rows is not None or classes is not None:
+        return _grid_reference(w, x, y, tau, topo, task, rows, classes)
     n = x.shape[0]
     if task == "classification":
         return block_step.cls_eval(w, x, y.to(torch.int64), topo)
@@ -61,11 +114,15 @@ def fnn_eval_reference(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
 def fnn_eval_pair_reference(w: torch.Tensor, x_tr: torch.Tensor,
                             y_tr: torch.Tensor, x_te: torch.Tensor,
                             y_te: torch.Tensor, tau: Optional[torch.Tensor],
-                            topo: Topology, task: str) -> Tuple[Eval, Eval]:
+                            topo: Topology, task: str, rows_tr: Rows = None,
+                            rows_te: Rows = None,
+                            classes: Rows = None) -> Tuple[Eval, Eval]:
     """The plain PyTorch version of ``fnn_eval_pair``: two
     ``fnn_eval_reference`` calls."""
-    return (fnn_eval_reference(w, x_tr, y_tr, tau, topo, task),
-            fnn_eval_reference(w, x_te, y_te, tau, topo, task))
+    return (fnn_eval_reference(w, x_tr, y_tr, tau, topo, task, rows_tr,
+                               classes),
+            fnn_eval_reference(w, x_te, y_te, tau, topo, task, rows_te,
+                               classes))
 
 
 @functools.lru_cache(maxsize=None)
@@ -143,7 +200,11 @@ class _EvalSet(ctypes.Structure):
     order)."""
 
     _fields_ = [
-        (name, ctypes.c_void_p) for name in ("x", "y", "ll", "rmse", "acc")
+        (name, ctypes.c_void_p) for name in ("x", "y", "cell_rows")
+    ] + [
+        (name, ctypes.c_longlong) for name in ("x_cell", "y_cell")
+    ] + [
+        (name, ctypes.c_void_p) for name in ("ll", "rmse", "acc")
     ] + [
         (name, ctypes.c_int) for name in ("n_rows", "tile_rows")
     ] + [
@@ -157,16 +218,18 @@ class _EvalParams(ctypes.Structure):
 
     _fields_ = [
         ("w", ctypes.c_void_p), ("tau", ctypes.c_void_p),
-        ("set", _EvalSet * 2),
+        ("cell_classes", ctypes.c_void_p), ("set", _EvalSet * 2),
     ] + [
         (name, ctypes.c_int)
         for name in ("chains", "n_sets", "n_in", "n_hid", "n_out", "task_cls",
-                     "cluster", "row_groups", "hid_groups")
+                     "chains_per_cell", "cluster", "row_groups",
+                     "hid_groups")
     ] + [("log_2pi", ctypes.c_float)]
 
 
-def _launch_cuda(w, sets, tau, topo, task) -> Tuple[Eval, ...]:
-    """One launch over the row sets ``sets`` = ((x, y), ...)."""
+def _launch_cuda(w, sets, tau, topo, task,
+                 classes: Rows = None) -> Tuple[Eval, ...]:
+    """One launch over the row sets ``sets`` = ((x, y, rows), ...)."""
     global launches
     from ptnn_torch.ops import _build
 
@@ -174,41 +237,56 @@ def _launch_cuda(w, sets, tau, topo, task) -> Tuple[Eval, ...]:
     c = w.shape[0]
     dev = w.device
     cls = task == "classification"
+    g = sets[0][0].shape[0] if sets[0][0].dim() == 3 else 1
     if n_out > _MAX_OUT:
         raise ValueError(f"the eval kernel takes at most {_MAX_OUT} outputs, "
                          f"not {n_out}")
-    if c < 1 or min(x.shape[0] for x, _y in sets) < 1:
+    if c < 1 or min(x.shape[-2] for x, _y, _r in sets) < 1:
         raise ValueError(f"chains {c} and rows "
-                         f"{[x.shape[0] for x, _y in sets]} must be positive")
+                         f"{[x.shape[-2] for x, _y, _r in sets]} must be "
+                         f"positive")
+    if c % g:
+        raise ValueError(f"{c} chains do not split evenly over {g} cells")
     _check(w, "w", (c, fnn.w_size(topo)), torch.float32, dev)
-    for x, y in sets:
-        n = x.shape[0]
-        _check(x, "x", (n, n_in), torch.float32, dev)
-        _check(y, "y", (n,), torch.float32, dev)
+    for x, y, rows in sets:
+        lead = (g,) if x.dim() == 3 else ()
+        n = x.shape[-2]
+        _check(x, "x", lead + (n, n_in), torch.float32, dev)
+        _check(y, "y", lead + (n,), torch.float32, dev)
+        if rows is not None:
+            _check(rows, "rows", (g,), torch.int32, dev)
+    if classes is not None:
+        _check(classes, "classes", (g,), torch.int32, dev)
     if not cls:
         _check(tau, "tau", (c,), torch.float32, dev)
-    plan = _plan(c, tuple(x.shape[0] for x, _y in sets), tuple(topo))
+    plan = _plan(c, tuple(x.shape[-2] for x, _y, _r in sets), tuple(topo))
     if plan.smem > _SMEM_LIMIT:
         raise ValueError(f"topology {tuple(topo)} needs {plan.smem} bytes of "
                          f"shared memory per block; a Hopper block has "
                          f"{_SMEM_LIMIT}")
     lib = _build.build("fnn_eval").lib
     outs, c_sets = [], (_EvalSet * 2)()
-    for k, ((x, y), tile) in enumerate(zip(sets, plan.tile_rows)):
-        n = x.shape[0]
+    for k, ((x, y, rows), tile) in enumerate(zip(sets, plan.tile_rows)):
+        n = x.shape[-2]
         ll, rmse, acc = (torch.empty((c,), dtype=torch.float32, device=dev)
                          for _ in range(3))
         outs.append((ll, rmse, acc))
+        per_cell = x.dim() == 3
         c_sets[k] = _EvalSet(
-            x=x.data_ptr(), y=y.data_ptr(), ll=ll.data_ptr(),
-            rmse=rmse.data_ptr(), acc=acc.data_ptr(), n_rows=n,
+            x=x.data_ptr(), y=y.data_ptr(),
+            cell_rows=None if rows is None else rows.data_ptr(),
+            x_cell=n * n_in if per_cell else 0, y_cell=n if per_cell else 0,
+            ll=ll.data_ptr(), rmse=rmse.data_ptr(), acc=acc.data_ptr(),
+            n_rows=n,
             tile_rows=tile, ll_const=-0.5 * n,
             inv_n=block_step.inv_rows(n),
             acc_n=block_step.inv_rows(n, 100.0))
     params = _EvalParams(
-        w=w.data_ptr(), tau=None if cls else tau.data_ptr(), set=c_sets,
-        chains=c, n_sets=len(sets), n_in=n_in, n_hid=n_hid, n_out=n_out,
-        task_cls=int(cls), cluster=plan.cluster, row_groups=plan.row_groups,
+        w=w.data_ptr(), tau=None if cls else tau.data_ptr(),
+        cell_classes=None if classes is None else classes.data_ptr(),
+        set=c_sets, chains=c, n_sets=len(sets), n_in=n_in, n_hid=n_hid,
+        n_out=n_out, task_cls=int(cls), chains_per_cell=c // g,
+        cluster=plan.cluster, row_groups=plan.row_groups,
         hid_groups=plan.hid_groups, log_2pi=likelihood._LOG_2PI)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -232,21 +310,24 @@ def _device_kind(task: str, tensors) -> str:
 
 
 def fnn_eval(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-             tau: Optional[torch.Tensor], topo: Topology, task: str) -> Eval:
+             tau: Optional[torch.Tensor], topo: Topology, task: str,
+             rows: Rows = None, classes: Rows = None) -> Eval:
     """Every chain's (ll, rmse, acc) on the rows (x, y): w (C, W), x (N, I),
     y (N,) float32 (class indices as floats), tau (C,) the noise variance
-    (regression; None or ignored for classification). CUDA tensors launch
-    the kernel, CPU tensors run the plain version."""
+    (regression; None or ignored for classification); a grid's x (G, N, I),
+    y (G, N), ``rows`` and ``classes`` as in the module docstring. CUDA
+    tensors launch the kernel, CPU tensors run the plain version."""
     tensors = [w, x, y] + ([tau] if task == "regression" else [])
     if _device_kind(task, tensors) == "cpu":
-        return fnn_eval_reference(w, x, y, tau, topo, task)
-    return _launch_cuda(w, ((x, y),), tau, topo, task)[0]
+        return fnn_eval_reference(w, x, y, tau, topo, task, rows, classes)
+    return _launch_cuda(w, ((x, y, rows),), tau, topo, task, classes)[0]
 
 
 def fnn_eval_pair(w: torch.Tensor, x_tr: torch.Tensor, y_tr: torch.Tensor,
                   x_te: torch.Tensor, y_te: torch.Tensor,
                   tau: Optional[torch.Tensor], topo: Topology,
-                  task: str) -> Tuple[Eval, Eval]:
+                  task: str, rows_tr: Rows = None, rows_te: Rows = None,
+                  classes: Rows = None) -> Tuple[Eval, Eval]:
     """``fnn_eval`` on the train rows and on the test rows of the same
     weights: ((ll, rmse, acc) of the train rows, the same of the test
     rows). CUDA tensors launch the kernel once for both sets, CPU tensors
@@ -255,6 +336,7 @@ def fnn_eval_pair(w: torch.Tensor, x_tr: torch.Tensor, y_tr: torch.Tensor,
         [tau] if task == "regression" else [])
     if _device_kind(task, tensors) == "cpu":
         return fnn_eval_pair_reference(w, x_tr, y_tr, x_te, y_te, tau, topo,
-                                       task)
-    tr, te = _launch_cuda(w, ((x_tr, y_tr), (x_te, y_te)), tau, topo, task)
+                                       task, rows_tr, rows_te, classes)
+    tr, te = _launch_cuda(w, ((x_tr, y_tr, rows_tr), (x_te, y_te, rows_te)),
+                          tau, topo, task, classes)
     return tr, te

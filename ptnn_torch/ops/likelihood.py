@@ -11,7 +11,7 @@ accuracy is a percentage.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -39,19 +39,31 @@ def accuracy(pred: torch.Tensor, actual: torch.Tensor) -> torch.Tensor:
 
 
 def classification_eval_from_logp(
-    logp: torch.Tensor, out: torch.Tensor, y: torch.Tensor
+    logp: torch.Tensor, out: torch.Tensor, y: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
 ) -> ClassEval:
     """Multinomial log-likelihood ``sum_i logp[..., i, y_i]`` and the
     metrics from log class probabilities ``logp`` (..., N, O), the raw
     outputs ``out`` for the first-argmax prediction and integer-valued
-    labels ``y`` (N,)."""
+    labels ``y`` (N,). ``mask``: optional (N,) {0, 1} row validity; a
+    padded row adds nothing, and the metrics divide by ``mask.sum()`` (a
+    true division, as ptnn's traced row count makes it)."""
     yi = y.to(torch.int64)
     idx = yi.expand(logp.shape[:-1])[..., None]
     gathered = torch.gather(logp, -1, idx)[..., 0]
     pred = fnn.predict_class(out).to(logp.dtype)
     yf = y.to(logp.dtype)
-    return ClassEval(loglik=torch.sum(gathered, dim=-1), rmse=rmse(pred, yf),
-                     acc=accuracy(pred, yf), fx=pred)
+    if mask is None:
+        return ClassEval(loglik=torch.sum(gathered, dim=-1),
+                         rmse=rmse(pred, yf), acc=accuracy(pred, yf), fx=pred)
+    n = torch.sum(mask)
+    return ClassEval(
+        loglik=torch.sum(mask * gathered, dim=-1),
+        rmse=torch.sqrt(torch.sum(mask * torch.square(pred - yf), dim=-1)
+                        / n),
+        acc=100.0 * torch.sum(mask * (pred == yf).to(pred.dtype), dim=-1)
+        / n,
+        fx=pred)
 
 
 def classification_eval(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -82,13 +94,21 @@ class RegEval(NamedTuple):
 
 
 def regression_eval_from_fx(
-    fx: torch.Tensor, y: torch.Tensor, tau_sq: torch.Tensor
+    fx: torch.Tensor, y: torch.Tensor, tau_sq: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
 ) -> RegEval:
     """Gaussian log-likelihood ``sum_i [-log(2 pi tau^2)/2 - (y_i - fx_i)^2 /
-    (2 tau^2)]`` from predictions fx (..., N), targets y (N,), tau_sq (...)."""
-    n = fx.shape[-1]
-    sse = torch.sum(torch.square(y - fx), dim=-1)
-    rmse = torch.sqrt(torch.mean(torch.square(fx - y), dim=-1))
+    (2 tau^2)]`` from predictions fx (..., N), targets y (N,), tau_sq (...).
+    ``mask``: optional (N,) {0, 1} row validity; a padded row adds nothing
+    and N is ``mask.sum()``."""
+    if mask is None:
+        n = fx.shape[-1]
+        sse = torch.sum(torch.square(y - fx), dim=-1)
+        rmse = torch.sqrt(torch.mean(torch.square(fx - y), dim=-1))
+    else:
+        n = torch.sum(mask)
+        sse = torch.sum(mask * torch.square(y - fx), dim=-1)
+        rmse = torch.sqrt(sse / n)
     loglik = -0.5 * n * (_LOG_2PI + torch.log(tau_sq)) - 0.5 * sse / tau_sq
     return RegEval(loglik=loglik, rmse=rmse, fx=fx)
 

@@ -38,6 +38,7 @@ class SwapResult(NamedTuple):
     n_proposed: torch.Tensor  # () int32
     pair_accept: torch.Tensor  # (C-1,) expected acceptance of each pair
     pair_active: torch.Tensor  # (C-1,) bool: the pair was proposed
+    pair_swapped: torch.Tensor  # (C-1,) bool: the pair's rungs exchanged
 
 
 def pair_accept_prob(lh1, lh2, rule: str, beta1=None, beta2=None, penalty=None):
@@ -93,7 +94,7 @@ def sweep_permutation(
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         return SwapResult(
             torch.zeros((c,), dtype=torch.int64, device=dev), zero, zero,
-            empty, mask,
+            empty, mask, mask,
         )
     ll = payload_ll
     # A[j, k]: acceptance of pair k when rung j's payload is travelling
@@ -137,6 +138,7 @@ def sweep_permutation(
         n_proposed=mask.sum(dtype=torch.int32),
         pair_accept=pair_accept,
         pair_active=mask,
+        pair_swapped=swaps,
     )
 
 
@@ -145,12 +147,14 @@ def disjoint_pair_permutation(
     us: torch.Tensor,
     rule: str = "metropolis",
     betas: Optional[torch.Tensor] = None,
-    parity: int = 0,
+    parity=0,
     pair_penalty: Optional[torch.Tensor] = None,
     pair_mask: Optional[torch.Tensor] = None,
 ) -> SwapResult:
     """One even/odd sweep: the pairs (k, k+1) with ``k % 2 == parity`` are
-    proposed together, so every rung moves at most one place."""
+    proposed together, so every rung moves at most one place. ``parity``
+    is an int, or a (C-1,) integer tensor giving each pair its own (a
+    grid's cells keep their own parities)."""
     _check(rule, betas, pair_penalty)
     c = payload_ll.shape[0]
     dev = payload_ll.device
@@ -161,7 +165,8 @@ def disjoint_pair_permutation(
         pair_penalty,
     )
     k_idx = torch.arange(c - 1, device=dev)
-    active = (k_idx % 2) == (int(parity) % 2)
+    par = parity % 2 if isinstance(parity, torch.Tensor) else int(parity) % 2
+    active = (k_idx % 2) == par
     if pair_mask is not None:
         active = active & _mask(pair_mask, c, dev)
     swap = (us < a) & active
@@ -178,6 +183,7 @@ def disjoint_pair_permutation(
         pair_accept=torch.where(active, a, torch.zeros((), dtype=a.dtype,
                                                        device=dev)),
         pair_active=active,
+        pair_swapped=swap,
     )
 
 

@@ -99,6 +99,72 @@ def make_dataset(cfg: PTConfig, train, test, device) -> Dataset:
                    t_train=drift.make_targets(y_tr, o, cfg.task))
 
 
+def envelope_w_mask(small, env) -> np.ndarray:
+    """{0, 1} float32 parameter mask embedding a ``small = (i, h, o)`` FNN
+    in the ``env = (I, H, O)`` envelope, in the flat layout ``[W1, W2, B1,
+    B2]``: ptnn's ``sweeps.envelope_w_mask``. A padded hidden unit keeps
+    zero outgoing weights, so its sigmoid(0) never reaches a real output,
+    and the padded class columns leave the softmax by ``class_mask``."""
+    i, h, o = small
+    ei, eh, eo = env
+    w1 = np.zeros((ei, eh), np.float32)
+    w1[:i, :h] = 1.0
+    w2 = np.zeros((eh, eo), np.float32)
+    w2[:h, :o] = 1.0
+    b1 = np.zeros(eh, np.float32)
+    b1[:h] = 1.0
+    b2 = np.zeros(eo, np.float32)
+    b2[:o] = 1.0
+    return np.concatenate([w1.ravel(), w2.ravel(), b1, b2])
+
+
+def make_grid_dataset(cfg: PTConfig, cells, device,
+                      envelope: bool = False) -> Dataset:
+    """A grid's rows: one ``(train, test, topology)`` a cell, each made by
+    ``make_dataset`` at the cell's own topology, then padded to the largest
+    set's rows (zero rows after the valid ones, ``mask_train`` /
+    ``mask_test``) and, with ``envelope``, to ``cfg.topology``'s columns
+    (zero features; the one-hot targets' padded classes out of the softmax
+    by ``class_mask``; ``w_mask`` pinning the parameters outside the cell's
+    own network at 0): ptnn's ``sweeps.dataset_grid`` and
+    ``classification_grid`` padding, a leading cell axis on every array."""
+    n_tr = max(tr.shape[0] for tr, _te, _topo in cells)
+    n_te = max(te.shape[0] for _tr, te, _topo in cells)
+    env = tuple(cfg.topology)
+    parts = []
+    for train, test, topo in cells:
+        d = make_dataset(dataclasses.replace(cfg, topology=tuple(topo)),
+                         train, test, device)
+
+        def pad(a, n, cols=None):
+            spec = [0, 0] * (a.dim() - 1) + [0, n - a.shape[0]]
+            if cols is not None:
+                spec[0:2] = [0, cols - a.shape[1]]
+            return torch.nn.functional.pad(a, spec)
+
+        def mask(a, n):
+            m = torch.zeros((n,), dtype=torch.float32, device=device)
+            m[:a.shape[0]] = 1.0
+            return m
+
+        part = dict(
+            x_train=pad(d.x_train, n_tr, env[0] if envelope else None),
+            y_train=pad(d.y_train, n_tr),
+            t_train=pad(d.t_train, n_tr, env[2] if envelope else None),
+            x_test=pad(d.x_test, n_te, env[0] if envelope else None),
+            y_test=pad(d.y_test, n_te),
+            mask_train=mask(d.x_train, n_tr), mask_test=mask(d.x_test, n_te))
+        if envelope:
+            cm = torch.zeros((env[2],), dtype=torch.float32, device=device)
+            cm[:topo[2]] = 1.0
+            part["class_mask"] = cm
+            part["w_mask"] = torch.as_tensor(envelope_w_mask(topo, env),
+                                             device=device)
+        parts.append(part)
+    return Dataset(**{k: torch.stack([p[k] for p in parts])
+                      for k in parts[0]})
+
+
 def seed_of(*words: int) -> int:
     """A generator seed from integer words (run seed, stream, start)."""
     seq = np.random.SeedSequence(list(words))
@@ -111,6 +177,24 @@ def init_chains(cfg: PTConfig, data: Dataset, seed: int,
     gen = torch.Generator(device=data.x_train.device)
     gen.manual_seed(seed_of(seed, 0))
     return kernel.init_state(cfg, data, generator=gen, spec=spec)
+
+
+def init_grid(cfg: PTConfig, data: Dataset, seeds,
+              spec: Optional[model_api.ModelSpec] = None) -> ChainState:
+    """A grid's initial state, one cell a seed: cell k's weights are the
+    draws of ``init_chains`` for ``seeds[k]`` (a generator seeded from
+    it), so a cell starts where the single run of its seed starts; then
+    ``kernel.init_state`` over the whole grid (one evaluation)."""
+    dev = data.x_train.device
+    spec = spec or kernel.default_spec(cfg)
+    ws = []
+    for s in seeds:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed_of(s, 0))
+        ws.append(torch.randn((cfg.num_chains, spec.w_size), generator=gen,
+                              device=dev, dtype=torch.float32))
+    return kernel.init_state(cfg, data, init_w=torch.cat(ws), spec=spec,
+                             cells=len(seeds))
 
 
 def merge_rows(traces: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -297,6 +381,39 @@ def step_noise(seed: int, device, names) -> NoiseFn:
     return noise_fn
 
 
+# the per-step draws of one chain each (C, ...); the others are the step's
+# own (vr_z, u_regen, u_surr) or its pairs' (u_swap)
+CHAIN_NOISE = ("w", "l", "eta", "u", "u_eta", "jit", "u_seg")
+
+
+def grid_noise(seeds, device, names, chains_per_cell: int) -> NoiseFn:
+    """A grid's noise, one stream a cell: cell k draws what the single run
+    of ``seeds[k]`` draws (``step_noise``), the cells side by side on the
+    chain axis, and "u_swap" with one filler uniform (1.0, never below an
+    acceptance) for the pair across each cell boundary, which is never
+    proposed."""
+    streams = [step_noise(s, device, names) for s in seeds]
+
+    def noise_fn(start: int, length: int, c: int, w: int) -> Noise:
+        parts = [f(start, length, chains_per_cell, w) for f in streams]
+        out = {}
+        for name in parts[0]:
+            if name == "u_swap":
+                fill = torch.ones((length, 1), dtype=torch.float32,
+                                  device=device)
+                cols = []
+                for p in parts:
+                    cols += [p[name], fill]
+                out[name] = torch.cat(cols[:-1], dim=1)
+            elif name in CHAIN_NOISE:
+                out[name] = torch.cat([p[name] for p in parts], dim=1)
+            else:
+                raise ValueError(f"a grid draws no {name!r}")
+        return out
+
+    return noise_fn
+
+
 CloseFn = Callable[[int, int], torch.Tensor]
 
 
@@ -353,7 +470,7 @@ class _PerStep:
         n, switch = cfg.n_steps, cfg.temper_switch_step
         segments = [(0, switch), (switch, n)] if 0 < switch < n else [(0, n)]
         target = max(1, min(cfg.chunk_steps, n))
-        c, w = cfg.num_chains, fn.spec.w_size
+        c, w = fn.chains, fn.spec.w_size
         surr = fn.surr
         if surr is not None:
             surr.fitted = surr.active = None  # read from this run's state

@@ -33,6 +33,7 @@ from ptnn_torch.models import fnn
 from ptnn_torch.models import cnn
 from ptnn_torch.ops import (block_step, conv_stage, likelihood,
                             precond_cls_step, precond_step)
+from ptnn_torch import sampler
 from ptnn_torch.sampler import make_dataset
 
 torch.set_num_threads(1)
@@ -723,6 +724,130 @@ def test_eval_kernel_matches_plain_version(cuda, topo, task, c, n, n_te):
                 assert torch.equal(acc[sure], r_acc[sure])
                 assert torch.equal(rmse[sure], r_rmse[sure])
             assert bool(((ll - r_ll).abs() <= 1e-4 + 1e-4 * terms).all())
+
+
+def _grid_inputs(rng, device, topo, rows, cpc, task, env=None,
+                 classes=None):
+    """A grid's drift and eval inputs on ``device``: len(rows) cells of
+    ``cpc`` chains, each cell's valid rows first and zero rows after, in
+    the envelope ``env`` with each cell's ``classes`` and parameter mask;
+    weights of half scale, zero outside each cell's own network."""
+    env = env or topo
+    g, n = len(rows), max(rows)
+    i, _h, o = env
+    cls = classes or [o] * g
+    x = np.zeros((g, n, i), np.float32)
+    y = np.zeros((g, n), np.float32)
+    wm = np.ones((g, fnn.w_size(env)), np.float32)
+    for k, r in enumerate(rows):
+        x[k, :r, :topo[0]] = rng.normal(size=(r, topo[0]))
+        y[k, :r] = (rng.integers(0, cls[k], size=r)
+                    if task == "classification" else rng.uniform(size=r))
+        wm[k] = sampler.envelope_w_mask((topo[0], topo[1], cls[k]), env)
+    w = (rng.normal(size=(g * cpc, fnn.w_size(env))) * 0.5).astype(
+        np.float32) * np.repeat(wm, cpc, axis=0)
+    f = lambda a: torch.as_tensor(a, device=device).contiguous()
+    yt = torch.as_tensor(y, device=device)
+    t = drift_ops.make_targets(yt.reshape(-1), o, task).reshape(g, n, o)
+    return dict(w=f(w), x=f(x), y=f(y), t=t.contiguous(), w_mask=f(wm),
+                rows=torch.tensor(rows, dtype=torch.int32, device=device),
+                classes=torch.tensor(cls, dtype=torch.int32, device=device),
+                lr=f(rng.uniform(0.005, 0.1, size=g * cpc).astype(
+                    np.float32)))
+
+
+# the grid's drift routes: a rate a chain on one dataset (the regression
+# grid's 210 chains), each cell's rows (its seven series, ACFinance's 238
+# rows padded to 298), the envelope's parameter mask by the generic kernel
+# (the small bucket's (34, 50, 3)) and by the masked register instantiation
+# (Ionosphere's (34, 50, 2) with Cancer's (9, 12, 2) in it)
+GRID_DRIFT_CASES = [
+    ("rate", (4, 10, 1), None, [298], 210, "regression", False),
+    ("cells", (4, 10, 1), None, [298] * 6 + [238], 10, "regression", False),
+    ("envelope", (9, 12, 2), (34, 50, 3), [105, 245, 489], 10,
+     "classification", True),
+    ("envelope register", (9, 12, 2), (34, 50, 2), [489, 245], 10,
+     "classification", True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,topo,env,rows,cpc,task,masked",
+                         GRID_DRIFT_CASES)
+def test_drift_kernel_grid_routes_match_plain_version(
+        cuda, label, topo, env, rows, cpc, task, masked):
+    """A rate a chain, each cell's rows and row count, the parameter mask:
+    one launch against the plain version, floats within rtol 2e-4 of each
+    chain's scale and atol 2e-5, the masked parameters exactly 0."""
+    rng = np.random.default_rng(43)
+    d = _grid_inputs(rng, cuda, topo, rows, cpc, task, env)
+    net = env or topo
+    if label == "rate":
+        x, t, rows_t = d["x"][0], d["t"][0], None
+    else:
+        x, t, rows_t = d["x"], d["t"], d["rows"]
+    wm = d["w_mask"] if masked else None
+    before = drift_ops.launches
+    got = drift_ops.sgd_epoch(d["w"], x, t, net, d["lr"], rows=rows_t,
+                              w_mask=wm)
+    assert drift_ops.launches == before + 1
+    want = drift_ops.sgd_epoch_sequential(d["w"], x, t, net, d["lr"], 1,
+                                          rows_t, wm)
+    torch.cuda.synchronize()
+    scale = want.abs().amax(dim=-1, keepdim=True)
+    assert bool(((got - want).abs() <= 2e-5 + 2e-4 * scale).all())
+    assert float((want - d["w"]).abs().max()) > 1e-3
+    if masked:
+        off = drift_ops.per_chain(d["w_mask"], got.shape[0]) == 0
+        assert bool((got[off] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["regression", "classification"])
+def test_eval_kernel_grid_route_matches_plain_version(cuda, task):
+    """Each cell's rows, row counts and (classification) real classes, the
+    train and test sets in one launch, against the plain version: ll on
+    the size of its terms, rmse within rtol 2e-4, acc exact where no row's
+    argmax is fragile."""
+    rng = np.random.default_rng(47)
+    if task == "regression":
+        topo, env, cpc = (4, 10, 1), None, 10
+        rows, rows_te = [298] * 6 + [238], [198] * 6 + [158]
+        classes = None
+    else:
+        topo, env, cpc = (9, 12, 2), (34, 50, 3), 10
+        rows, rows_te, classes = [105, 245, 489], [45, 109, 210], [3, 2, 2]
+    d = _grid_inputs(rng, cuda, topo, rows, cpc, task, env, classes)
+    dt = _grid_inputs(rng, cuda, topo, rows_te, cpc, task, env, classes)
+    net = env or topo
+    cls = None if classes is None else d["classes"]
+    tau = torch.as_tensor(rng.uniform(0.01, 0.2, size=d["w"].shape[0]),
+                          dtype=torch.float32, device=cuda)
+    before = eval_ops.launches
+    got = eval_ops.fnn_eval_pair(d["w"], d["x"], d["y"], dt["x"], dt["y"],
+                                 tau, net, task, d["rows"], dt["rows"], cls)
+    assert eval_ops.launches == before + 1
+    want = eval_ops.fnn_eval_pair_reference(d["w"], d["x"], d["y"], dt["x"],
+                                            dt["y"], tau, net, task,
+                                            d["rows"], dt["rows"], cls)
+    torch.cuda.synchronize()
+    for (ll, rmse, acc), (r_ll, r_rmse, r_acc), (x, rw) in zip(
+            got, want, ((d["x"], rows), (dt["x"], rows_te))):
+        n = torch.tensor(rw, device=cuda).repeat_interleave(cpc)
+        if task == "regression":
+            terms = 0.5 * n * torch.log(2 * math.pi * tau).abs() \
+                + 0.5 * n * r_rmse ** 2 / tau
+            assert not bool(acc.any())
+        else:
+            terms = r_ll.abs()
+            sure = torch.ones_like(acc, dtype=torch.bool)
+            for k, r in enumerate(rw):
+                sl = slice(k * cpc, (k + 1) * cpc)
+                sure[sl] = ~block_step.argmax_fragile(
+                    d["w"][sl], x[k, :r], net, classes=classes[k])
+            assert torch.equal(acc[sure], r_acc[sure])
+        torch.testing.assert_close(rmse, r_rmse, rtol=2e-4, atol=2e-5)
+        assert bool(((ll - r_ll).abs() <= 1e-4 + 1e-4 * terms).all())
 
 
 @pytest.mark.cuda

@@ -54,6 +54,7 @@ MODULES = (
     "ptnn_torch.parallel.swap",
     "ptnn_torch.surrogate",
     "ptnn_torch.auto",
+    "ptnn_torch.sweeps",
 )
 
 
@@ -163,7 +164,7 @@ def test_port_exports_ptnn_surface_or_names_what_is_missing():
     exported = set(ptnn_torch.__all__)
     missing = set(ptnn.__all__) - exported
     assert missing == set(ptnn_torch.NOT_PORTED), sorted(missing)
-    assert set(ptnn_torch.NOT_PORTED) == {"sweeps", "profiling"}
+    assert set(ptnn_torch.NOT_PORTED) == {"profiling"}
     # auto and the surrogate are ported; auto is exported as a module,
     # loaded on first access (a `python -m` entry point)
     import ptnn_torch.surrogate  # noqa: F401

@@ -259,6 +259,29 @@ def _assert_runs_match(got, ref):
     _assert_states_match(got.final_state, ref.final_state, cfg)
 
 
+def test_sunspot_lg_adapt_step_size_run_matches_ptnn():
+    """``adapt_step_size`` with Langevin gradients on the FNN. ptnn ties
+    the drift rate to each chain's adapted step, sigma^2 / 2
+    (ptnn/kernel.py:688-707), where the spec has a per-chain drift: drift
+    mode "sequential", the port's drift taking one rate a chain (in
+    "pallas" ptnn has the batched kernel alone and keeps ``learn_rate``,
+    as the port's spec says). 40 steps of lg_pallas in "sequential"
+    against ``ptnn.sample(fused_step=False)`` on ptnn's state and draws:
+    every decision, the adapted steps and the traces as in the other
+    runs."""
+    from ptnn_torch.models import api
+
+    assert not api.fnn_spec((4, 10, 1), "pallas").adapt_ties_drift
+    got, ref = _run_both(_sunspot_lg(adapt_step_size=True,
+                                     drift_mode="sequential"),
+                         load_regression("Sunspot"), seed=2)
+    _assert_runs_match(got, ref)
+    np.testing.assert_allclose(got.final_state.log_step_w.numpy(),
+                               np.asarray(ref.final_state.log_step_w),
+                               rtol=RTOL, atol=ATOL)
+    assert float(np.ptp(got.final_state.log_step_w.numpy())) > 0
+
+
 def test_sunspot_lg_run_matches_ptnn():
     got, ref = _run_both(_sunspot_lg(), load_regression("Sunspot"), seed=2)
     cfg = got.config
@@ -310,8 +333,7 @@ RUN_NOW = ("record_fx", "record_ll_state")
          swap_payload="untempered", swap_rule="metropolis",
          stale_likelihood_after_swap=False, pt_phase_frac=1.0),
     dict(record_fx=True),
-    dict(record_ll_state=True),
-    dict(adapt_step_size=True), dict(eval_dtype="bfloat16"),
+    dict(record_ll_state=True), dict(eval_dtype="bfloat16"),
 ])
 def test_per_step_refuses_what_is_not_ported(feature):
     """A feature the per-step sampler does not run raises naming it; the

@@ -287,7 +287,10 @@ def test_zoo_refusals_name_the_feature():
     """bfloat16 evals raise naming the feature on a zoo spec; ``record_fx``
     runs there (since it was ported), its traces the plain forward's
     predicted classes at each chain's last accepted proposal (its run
-    against ptnn's: ``test_zoo_run_matches_ptnn[mlp_fx]``)."""
+    against ptnn's: ``test_zoo_run_matches_ptnn[mlp_fx]``); the FNN's
+    ``adapt_step_size`` with Langevin gradients runs since its drift takes
+    a rate a chain (its run against ptnn's:
+    ``tests/test_torch_step.py::test_sunspot_lg_adapt_step_size_run_matches_ptnn``)."""
     train, test = _digits_rows()
     spec = mlp.spec((64, 8, 10))
     cfg = ptnn_torch.PTConfig(**_digits_cfg(
@@ -307,10 +310,12 @@ def test_zoo_refusals_name_the_feature():
         want = kernel.spec_fx(cfg, spec, fin.w_last, torch.from_numpy(
             rows[:, :64].astype(np.float32))).numpy()
         np.testing.assert_array_equal(fx[-1][moved], want[moved])
-    # the FNN's drift kernel takes one rate: adapt + Langevin stays refused
+    # the FNN's drift takes a rate a chain: adapt + Langevin runs, each
+    # chain at its own adapted step
     cfg = ptnn_torch.PTConfig(**_digits_cfg(adapt_step_size=True)).validate()
-    with pytest.raises(NotImplementedError, match="adapt_step_size"):
-        ptnn_torch.sample(cfg, train[:16], test[:8], device="cpu")
+    res = ptnn_torch.sample(cfg, train[:16], test[:8], device="cpu")
+    lsw = res.final_state.log_step_w.numpy()
+    assert np.isfinite(res.traces["ll"]).all() and np.ptp(lsw) > 0
 
 
 def test_throughput_runner_takes_a_model_spec():
