@@ -76,7 +76,16 @@ not 0):
      CNN's fused stage 1, conv1_relu_pool, at the digits widths (256 and
      128 chains x 1257 and 540 images, the fixed-shape kernel), ragged shapes, three
      input channels and the MNIST side (the generic kernel), and the fused
-     CNN forward against the plain one;
+     CNN forward against the plain one; the wide networks
+     (phase_wide_kernels): the drift epoch and the eval
+     pair at (4, 200, 1) on Sunspot's rows at 64 chains, (784, 16, 10) on
+     1000 / 200 seeded rows at 64, (16, 20, 40) (40 classes, two output
+     chunks) at 64, (784, 80, 10) (one chain's weights past a block: in
+     device memory) at 8 and (3000, 8, 3) (the eval's inputs a tile at a
+     time) at 4, each against its plain version (w within rtol 2e-4 of each
+     chain's scale, ll within rtol 1e-4 of its terms, acc exact outside
+     fragile argmaxes) with the route it took and its time, and the
+     per-step Langevin run at (4, 200, 1), 64 x 500, its launches the plan;
   4. end to end, each path with its launch counts set to 0 just before it,
      through ptnn_torch.sample, each checked against the bands of the JAX
      package's records: the Sunspot rw_fused sampler (64 chains x 5000,
@@ -193,10 +202,26 @@ not 0):
      per-step run of its stream (accept and swap counts equal, statistics
      within rtol 2e-4); the big bucket (bank-additional, PenDigit, chess)
      in batch drift mode, 500 steps, finite, launches as planned; each
-     grid's chain-steps/s beside the card's name and power limit;
+     grid's chain-steps/s beside the card's name and power limit; then
+     replica-exchange SGLD and the bfloat16 eval (phase_sgld_bf16):
+     scripts/sgld_lr_scale_study.py's configuration (Sunspot, 8 chains x
+     4000 steps, B = 32, corrected swaps every 10 with SVRG anchors every
+     20) in both sg_lr_scale arms and with exact swaps, seeds 0-2, medians
+     of swap %, cold test RMSE and round trips inside the mean +- 4 sigma
+     of ptnn's runs on the CPU (seeds 0-19), launches exactly the plan (one
+     eval a swap event, one an anchor refresh, init's; no drift); python -m
+     ptnn_torch.experiments.cnn_digits --chains 64 --steps 300
+     --sgld-batch 32 as a subprocess and its configuration on the CNN with
+     the fused eval in this process, both against ptnn's command line
+     (seeds 0-4), conv launches the plan; a sgld run SIGKILLed after its
+     first checkpoint and resumed bit for bit, anchors included;
+     scripts/bench_modes.py's bf16_eval and da_mala_bf16 arms (Sunspot 64
+     x 2000) against ptnn's bands, no eval launch; each path's ms a step
+     and chain-steps/s beside the card's name and power limit;
   5. throughput: throughput_runner at 2000 samples per chain (Sunspot
      rw_fused at 64 and 1024 chains, mala_fused_16x4, chees16_fused_256x4;
-     iris chees16_fused_16x4 and chees16_fused_64x4; lg_pallas), and each
+     iris chees16_fused_16x4 and chees16_fused_64x4; lg_pallas at 500),
+     and each
      kernel's time against its plain version's for one block (one epoch,
      one eval) at its path's widths (the RW and MALA blocks, both tasks,
      also as device time, a CUDA graph of 100 calls; the RW blocks also at
@@ -204,13 +229,14 @@ not 0):
      Ionosphere presets' widths;
      the eval at Sunspot, Ionosphere and
      PenDigit, one set and the pair; the iris MALA block also at 256 and
-     1024 chains at 4 and at 1 warp a chain); the CNN's chain-steps/s, the conv
+     1024 chains at 4 and at 1 warp a chain); the CNN's chain-steps/s (256
+     chains x 50 steps), the conv
      kernel's time against its plain version's and the library's
      (F.conv2d + relu + F.avg_pool2d), one drift and one eval of a CNN
      step, and stage 2 as the port multiplies it against one grouped
      F.conv2d; the per-step preconditioned family's chain-steps/s (the CNN
-     with MALA and ChEES at 128 chains x 50 steps, Sunspot mala_16x4 and
-     chees16_16x4 at 64 x 500) and one CNN value-and-grad beside one
+     with MALA and ChEES at 128 chains x 10 steps, Sunspot mala_16x4 and
+     chees16_16x4 at 64 x 100) and one CNN value-and-grad beside one
      Langevin drift at 128 and 256 chains;
   6. one JSON line listing the kernels (time, device time where measured,
      plain time, bound, launches,
@@ -495,13 +521,26 @@ def phase_build():
               f"({plan.why}), {plan.smem} bytes of shared memory")
     from ptnn_torch.ops import fnn_eval
 
-    for label, c, rows, topo in EVAL_PLANS:
+    wide = tuple((f"{label} pair", c, (n_tr or 298, n_te or 198), topo)
+                 for label, topo, _t, c, n_tr, n_te in WIDE_CASES)
+    for label, c, rows, topo in EVAL_PLANS + wide:
         plan = fnn_eval.launch_plan(c, rows, topo)
         print(f"[2/6] build: fnn_eval {label} {topo} C={c} rows {rows}: "
               f"clusters of {plan.cluster} blocks, {plan.tile_rows} rows a "
               f"block, {plan.row_groups} x {plan.hid_groups} warps (HPW "
               f"{plan.hid_per_warp}), {plan.blocks} blocks, {plan.smem} bytes "
-              f"of shared memory")
+              f"of shared memory, weights "
+              f"{'in device memory' if plan.w_global else 'staged'}, inputs "
+              f"{plan.in_tile} a stage, outputs {plan.out_chunk} a chunk")
+    from ptnn_torch.ops import drift
+
+    for label, c, rows, topo in wide:
+        lay = drift.plan(c, rows[0], 1, topo)
+        print(f"[2/6] build: drift_epoch {label.split()[0]} {topo} C={c} "
+              f"rows {rows[0]}: the {lay.kind} kernel, "
+              f"{lay.chains_per_block} chains a block, weights in "
+              f"{lay.weights} memory, tiles of {lay.tile_rows} rows, "
+              f"{lay.blocks} blocks, {lay.smem} bytes of shared memory")
 
 
 def demangle(name):
@@ -1747,7 +1786,8 @@ def reset_launch_counts():
                    precond_step.hmc_routes, precond_cls_step.hmc_cls_routes,
                    precond_step.mala_wpcs, precond_cls_step.mala_cls_wpcs,
                    block_step.variant_launches, block_step.cls_variant_launches,
-                   block_step.rw_cls_warps, drift.variant_launches):
+                   block_step.rw_cls_warps, drift.variant_launches,
+                   drift.route_launches):
         for key in counts:
             counts[key] = 0
 
@@ -2447,7 +2487,7 @@ def phase_per_step_end_to_end():
 
 
 def phase_per_step_throughput():
-    """lg_pallas chain-steps/s (throughput_runner, 2000 samples), and one
+    """lg_pallas chain-steps/s (throughput_runner, LG_THR_SAMPLES), and one
     epoch and one eval at each width against the plain versions; returns
     the kernels' line entries at the main path's widths (Sunspot, 64
     chains: one epoch, and the eval of the train rows, as before the pair
@@ -2460,11 +2500,12 @@ def phase_per_step_throughput():
     from ptnn_torch.ops import drift
 
     prob = sunspot()
-    runner = ptnn_torch.throughput_runner(lg_cfg(64, 2000), prob.train,
-                                          prob.test, device=DEVICE)
+    runner = ptnn_torch.throughput_runner(lg_cfg(64, LG_THR_SAMPLES),
+                                          prob.train, prob.test,
+                                          device=DEVICE)
     reps = [runner() for _ in range(3)]
     rate = statistics.median(r["chain_steps_per_sec"] for r in reps)
-    print(f"[5/6] throughput: lg_pallas 64 chains x 2000 samples: median "
+    print(f"[5/6] throughput: lg_pallas 64 chains x {LG_THR_SAMPLES} samples: median "
           f"{rate:.0f} chain-steps/s over 3 reps (accept "
           f"{reps[0]['accept_pct']:.1f}%, swap {reps[0]['swap_pct']:.1f}%, "
           f"Langevin {reps[0]['langevin_pct']:.1f}%)")
@@ -2695,10 +2736,28 @@ def zoo_stats(cfg, res):
 
 
 def phase_zoo_end_to_end():
-    """The model zoo through ptnn_torch.sample on the card; returns the conv
-    kernel's launches in the full-width run."""
+    """The model zoo through ptnn_torch.sample on the card, the cnn_digits
+    command line as a subprocess meanwhile; returns the conv kernel's
+    launches in the full-width run."""
     import shutil
 
+    out = ROOT / "build" / "chip_smoke_cnn"
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "ptnn_torch.experiments.cnn_digits",
+           "--chains", str(CLI_CHAINS), "--steps", str(CLI_STEPS), "--adapt",
+           "--out", str(out)]
+    t0 = time.perf_counter()
+    cli = popen(cmd)
+    try:
+        return _zoo_end_to_end(cli, out, t0)
+    finally:  # a failed check leaves no subprocess behind
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+
+
+def _zoo_end_to_end(cli, out, t0):
+    """The body of ``phase_zoo_end_to_end`` once its command line runs."""
     import numpy as np
 
     from ptnn_torch import kernel
@@ -2791,19 +2850,10 @@ def phase_zoo_end_to_end():
     check(LANGEVIN[0] <= st["langevin"] <= LANGEVIN[1],
           f"MLP Langevin share {st['langevin']:.2f}")
     check(0.0 < st["accept"] < 100.0, "MLP accepted all or nothing")
-    # --- the command line, as a subprocess -----------------------------------
-    out = ROOT / "build" / "chip_smoke_cnn"
-    shutil.rmtree(out, ignore_errors=True)
-    cmd = [sys.executable, "-m", "ptnn_torch.experiments.cnn_digits",
-           "--chains", str(CLI_CHAINS), "--steps", str(CLI_STEPS), "--adapt",
-           "--out", str(out)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
+    # --- the command line, a subprocess since the phase began ---------------
+    stdout = finished(cli, "cnn_digits")
     wall = time.perf_counter() - t0
-    check(proc.returncode == 0, f"cnn_digits exited with {proc.returncode}: "
-          f"{proc.stderr[-2000:]}")
-    line = proc.stdout.strip().splitlines()[-1]
+    line = stdout.strip().splitlines()[-1]
     check(line.startswith(f"[digits] chains={CLI_CHAINS} test_acc mean="),
           line)
     run = out / "digits_0"
@@ -2818,7 +2868,8 @@ def phase_zoo_end_to_end():
     check(acc.shape == (CLI_STEPS,) and np.isfinite(acc).all()
           and (run / "metrics.jsonl").is_file(), "cnn_digits artifacts")
     print(f"[4/6] end to end: python -m ptnn_torch.experiments.cnn_digits "
-          f"--chains {CLI_CHAINS} --steps {CLI_STEPS} --adapt exited 0 in {wall:.1f} s: "
+          f"--chains {CLI_CHAINS} --steps {CLI_STEPS} --adapt exited 0 "
+          f"(beside this phase's runs; collected after {wall:.1f} s): "
           f"{line.split(' -> ')[0]}; {n_files} text files, config.json and "
           f"metrics.jsonl under {run.relative_to(ROOT)}")
     return launches
@@ -2872,8 +2923,14 @@ PER_STEP_ACCEPT = (40.0, 75.0)
 # keep the smoke inside its time
 PER_STEP_SAMPLES = {"mala": 5000, "hmc": 2000, "mala_16x4": 5000,
                     "chees16_16x4": 2000}
-PC_THR_CNN_STEPS = 50  # phase 5's CNN throughput runs, steps a chain
-PC_THR_SUNSPOT_SAMPLES = 500  # and the Sunspot per-step ones
+# phase 5's CNN throughput runs, steps a chain, and the Sunspot per-step
+# ones (measurements only: short, to keep the smoke inside its time)
+PC_THR_CNN_STEPS = 10
+PC_THR_SUNSPOT_SAMPLES = 100
+# phase 5's full-width CNN throughput run, steps a chain
+ZOO_THR_STEPS = 50
+# phase 5's lg_pallas throughput run, samples a chain
+LG_THR_SAMPLES = 500
 
 
 def sunspot_variant(name, chains=64, samples=5000):
@@ -3201,12 +3258,12 @@ def phase_zoo_throughput():
 
     prob = digits()
     fused = cnn.digits_spec(fused_eval=True)
-    cfg = cnn_cfg(CNN_CHAINS, BAND_STEPS)
+    cfg = cnn_cfg(CNN_CHAINS, ZOO_THR_STEPS)
     runner = ptnn_torch.throughput_runner(cfg, prob.train, prob.test,
                                           device=DEVICE, model_spec=fused)
     reps = [runner() for _ in range(2)]
     rate = statistics.median(r["chain_steps_per_sec"] for r in reps)
-    print(f"[5/6] throughput: digits CNN {CNN_CHAINS} chains x {BAND_STEPS} "
+    print(f"[5/6] throughput: digits CNN {CNN_CHAINS} chains x {ZOO_THR_STEPS} "
           f"samples: "
           f"median {rate:.0f} chain-steps/s over 2 reps "
           f"({1e3 * CNN_CHAINS / rate:.2f} ms a step; accept "
@@ -4241,7 +4298,10 @@ ptnn_torch.sample(cfg, prob.train, prob.test, seed=0, device="cuda",
                   checkpoint_path=sys.argv[2], checkpoint_every=1)
 """
 SURR_TILE = (1, 64)  # bench_modes.py --tile: the train rows repeated
-SURR_TILE_SHAPE = (64, 500, 100)  # chains, samples, chunk_steps at tile 64
+# chains, samples, chunk_steps at tile 64: 200 samples in chunks of 50 is
+# the shortest run whose delayed-acceptance arm still takes surrogate steps
+# (at 100 its fit is not yet trusted)
+SURR_TILE_SHAPE = (64, 200, 50)
 # results/auto_study.md:5-6's command lines, two subprocesses at once
 AUTO_RUNS = (("Sunspot", "quality"), ("iris", "speed"))
 AUTO_ARGS = ["--chains", "64", "--steps", "8000", "--replicate", "3"]
@@ -4815,6 +4875,186 @@ def phase_grid_kernels():
     return d_err, e_err, times
 
 
+# The wide networks (ROADMAP Queue 3, F1: the drift and eval kernels took at
+# most 128 hidden units, 32 outputs and four chains' weights beside a 64 KB
+# tile): (label, topology, task, chains, train rows, test rows; None:
+# Sunspot's own). (784, 80, 10) passes a block with one chain's weights (the
+# weights in device memory), (3000, 8, 3) stages its inputs a tile at a time.
+WIDE_CASES = (("Sunspot", (4, 200, 1), "regression", 64, None, None),
+              ("synthetic", (784, 16, 10), "classification", 64, 1000, 200),
+              ("synthetic", (16, 20, 40), "classification", 64, 300, 100),
+              ("synthetic", (784, 80, 10), "classification", 8, 200, 50),
+              ("synthetic", (3000, 8, 3), "classification", 4, 100, 40))
+WIDE_STEP = (64, 500)  # the per-step Langevin run at (4, 200, 1)
+
+
+def wide_inputs(label, topo, task, c, n_tr, n_te, rng):
+    """Weights (C, W), standard normal with W1 at 2 / sqrt(I) at most (the
+    hidden sigmoids out of saturation, the epoch moves w, and the outputs
+    apart), the delta-rule targets and both row sets on the card: Sunspot's
+    rows or seeded rows in [0, 1) with seeded labels."""
+    import numpy as np
+    import torch
+
+    from ptnn_torch.models import fnn
+    from ptnn_torch.ops import drift
+
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                  device=DEVICE).contiguous()
+    i, _h, o = topo
+    if label == "Sunspot":
+        prob = sunspot()
+        tr, te = prob.train, prob.test
+    else:
+        def rows(n):
+            y = rng.integers(0, o, size=n) if task == "classification" \
+                else rng.uniform(size=n)
+            return np.hstack([rng.uniform(size=(n, i)), y[:, None]])
+        tr, te = rows(n_tr), rows(n_te)
+    w = rng.normal(size=(c, fnn.w_size(topo)))
+    w[:, :i * topo[1]] *= min(1.0, 2 / i ** 0.5)
+    w = f(w)
+    train, test = (f(tr[:, :i]), f(tr[:, i])), (f(te[:, :i]), f(te[:, i]))
+    t = drift.make_targets(train[1], o, task).contiguous()
+    return w, t, train, test
+
+
+def phase_wide_kernels():
+    """The drift and eval kernels on the wide networks (F1) against their
+    plain versions on the card, with the route each call takes and its
+    device time beside the plain version's and the bound; then the
+    per-step Langevin run at (4, 200, 1). Returns (drift err, eval err,
+    times)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from ptnn_torch.ops import block_step, drift, fnn_eval
+
+    rng = np.random.default_rng(59)
+    d_err = e_err = 0.0
+    times = {}
+    for label, topo, task, c, n_tr, n_te in WIDE_CASES:
+        w, t, train, test = wide_inputs(label, topo, task, c, n_tr, n_te,
+                                        rng)
+        x = train[0]
+        n = x.shape[0]
+        # --- the drift epoch ---------------------------------------------
+        lay = drift.plan(c, n, 1, topo)
+        before = drift.launches, dict(drift.route_launches)
+        got = drift.sgd_epoch(w, x, t, topo, 0.01, mode="pallas")
+        check(drift.launches == before[0] + 1
+              and drift.route_launches[lay.weights]
+              == before[1][lay.weights] + 1,
+              f"drift {topo}: not one launch by the {lay.weights} route")
+        want = drift.sgd_epoch_sequential(w, x, t, topo, 0.01)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"drift {topo}: not finite")
+        scale = want.abs().amax(dim=-1, keepdim=True)
+        diff = (got - want).abs()
+        bad = int((diff > G_ATOL + G_RTOL * scale).sum())
+        check(bad == 0, f"drift {topo}: {bad} entries off, max |diff| "
+              f"{float(diff.max()):.3g}")
+        moved = float((want - w).abs().max())
+        check(moved > 1e-4, f"drift {topo}: the epoch did not move w")
+        d_err = max(d_err, float(diff.max()))
+        d_ms = time_ms(lambda: drift.sgd_epoch(w, x, t, topo, 0.01,
+                                               mode="pallas"), reps=5)
+        d_plain = time_ms(lambda: drift.sgd_epoch_sequential(
+            w, x, t, topo, 0.01), reps=1, warm=0)
+        d_b, d_by = bound(drift_ops(topo, c, n, 1),
+                          4 * (2 * w.numel() + x.numel() + t.numel()))
+        times[f"drift {topo}"] = (d_ms, d_plain, d_b, d_by)
+        print(f"[3/6] kernel: drift_epoch wide {label} {topo} C={c} N={n}: "
+              f"the {lay.kind} kernel, {lay.chains_per_block} chains a "
+              f"block, weights in {lay.weights} memory, tiles of "
+              f"{lay.tile_rows} rows, {lay.smem} bytes of shared memory; w "
+              f"within rtol {G_RTOL} of each chain's scale, atol {G_ATOL} "
+              f"(max |diff| {float(diff.max()):.3g}; the epoch moved w by "
+              f"up to {moved:.3g}); {d_ms:.4f} ms a launch, plain version "
+              f"{d_plain:.2f} ms, bound {d_b:.6f} ms ({d_by})")
+        # --- the eval pair ---------------------------------------------------
+        tau = torch.as_tensor(rng.uniform(0.01, 0.2, size=c),
+                              dtype=torch.float32, device=DEVICE)
+        plan = fnn_eval.launch_plan(c, (n, test[0].shape[0]), topo)
+        args = (w, *train, *test, tau, topo, task)
+        before = fnn_eval.launches
+        got = fnn_eval.fnn_eval_pair(*args)
+        check(fnn_eval.launches == before + 1,
+              f"fnn_eval {topo}: {fnn_eval.launches - before} launches")
+        want = fnn_eval.fnn_eval_pair_reference(*args)
+        torch.cuda.synchronize()
+        worst, n_fragile = 0.0, 0
+        for (ll, rmse, acc), (r_ll, r_rmse, r_acc), (xs, _y) in zip(
+                got, want, (train, test)):
+            m = xs.shape[0]
+            if task == "regression":
+                terms = (0.5 * m * torch.log(2 * math.pi * tau).abs()
+                         + 0.5 * m * r_rmse ** 2 / tau)
+                check(bool(((rmse - r_rmse).abs()
+                            <= G_ATOL + G_RTOL * r_rmse).all()),
+                      f"fnn_eval {topo}: rmse")
+                check(not bool(acc.any()), f"fnn_eval {topo}: acc not 0")
+            else:
+                terms = r_ll.abs()
+                sure = ~block_step.argmax_fragile(w, xs, topo)
+                n_fragile += int((~sure).sum())
+                check(int((~sure).sum()) <= max(1, 0.1 * c),
+                      f"fnn_eval {topo}: {int((~sure).sum())} chains with "
+                      f"fragile argmaxes")
+                check(torch.equal(acc[sure], r_acc[sure])
+                      and torch.equal(rmse[sure], r_rmse[sure]),
+                      f"fnn_eval {topo}: acc or rmse differs")
+            diff = (ll - r_ll).abs()
+            check(bool((diff <= G_ATOL + G_LL_RTOL * terms).all()),
+                  f"fnn_eval {topo}: ll off, max |diff| "
+                  f"{float(diff.max()):.3g}")
+            worst = max(worst, float(diff.max()))
+        e_err = max(e_err, worst)
+        e_ms = graph_ms(lambda: fnn_eval.fnn_eval_pair(*args), calls=20)
+        e_plain = time_ms(lambda: fnn_eval.fnn_eval_pair_reference(*args),
+                          reps=3, warm=1)
+        rows = n + test[0].shape[0]
+        e_b, e_by = bound(c * rows * row_ops(topo, task == "classification",
+                                             False),
+                          4 * (w.numel() + 7 * c + rows * (topo[0] + 1)))
+        times[f"eval {topo}"] = (e_ms, e_plain, e_b, e_by)
+        metrics = (f"rmse within rtol {G_RTOL}" if task == "regression" else
+                   f"acc and rmse exact outside {n_fragile} chains with "
+                   f"fragile argmaxes")
+        chunks = -(-topo[2] // plan.out_chunk)
+        print(f"[3/6] kernel: fnn_eval wide {label} {topo} C={c} N={n} + "
+              f"{test[0].shape[0]}, one launch: clusters of {plan.cluster} "
+              f"blocks, {plan.row_groups} x {plan.hid_groups} warps, weights "
+              f"{'in device memory' if plan.w_global else 'staged'}, inputs "
+              f"{plan.in_tile} of {topo[0]} a stage, {chunks} output "
+              f"chunk(s) of {plan.out_chunk}, {plan.smem} bytes of shared "
+              f"memory; ll within rtol {G_LL_RTOL} of its terms (max |diff| "
+              f"{worst:.3g}), {metrics}; device {e_ms:.4f} ms a launch (CUDA "
+              f"graph), plain version {e_plain:.3f} ms, bound {e_b:.6f} ms "
+              f"({e_by})")
+    # --- the per-step Langevin run at (4, 200, 1) -----------------------------
+    c, samples = WIDE_STEP
+    cfg = lg_cfg(c, samples, topology=(4, 200, 1))
+    res, got = run_per_step_counted(cfg, sunspot())
+    for name in ("ll", "rmse_train", "rmse_test", "accept_count"):
+        check(np.isfinite(res.traces[name]).all(), f"(4, 200, 1) {name}")
+    st = per_step_stats(cfg, res)
+    check(0.0 < st["mean_accept"] < 100.0 and 0.0 < st["langevin"] < 100.0,
+          "(4, 200, 1): accepted all or nothing")
+    ms = 1e3 * res.elapsed_s / cfg.n_steps
+    print(f"[3/6] kernel: per-step Langevin Sunspot (4, 200, 1) {c} x "
+          f"{samples} ({card_line()}): {ms:.3f} ms a step, "
+          f"{res.chain_steps_per_sec:,.0f} chain-steps/s incl. trace fetch; "
+          f"cold test RMSE {st['cold_rmse']:.5f}, mean accept "
+          f"{st['mean_accept']:.2f}%, swap {st['swap']:.2f}%, Langevin "
+          f"{st['langevin']:.2f}%; launches drift_epoch "
+          f"{got['drift_epoch']} (generic kernel, {drift.route_launches}), "
+          f"fnn_eval {got['fnn_eval']} (as planned: 2 and 1 a step + 2)")
+    return d_err, e_err, times
+
+
 def grid_counted(fn, *args, **kw):
     """One grid through its entry point with every launch count set to 0
     just before it: (output, launches by kernel, wall s)."""
@@ -4967,41 +5207,441 @@ def phase_sweeps():
     return total
 
 
+# ---------------------------------------------------------------------------
+# Replica-exchange SGLD and the bfloat16 eval on the per-step sampler.
+
+# scripts/sgld_lr_scale_study.py:38-47's configuration: Sunspot (4, 10, 1), 8
+# chains x 4000 steps, maxtemp 5, B = 32, sg_step 2e-5, swaps every 10 steps
+# (untempered metropolis, even/odd, no temper switch), corrected swaps with
+# SVRG anchors every 20 steps, replicas tracked, chunks of 500; its two
+# sg_lr_scale arms, and the exact swap (no anchors) beside them
+SGLD_BASE = dict(task="regression", topology=(4, 10, 1),
+                 num_samples=8 * 4000, num_chains=8, maxtemp=5.0,
+                 swap_interval=10, swap_offset=0, swap_payload="untempered",
+                 swap_rule="metropolis", swap_style="even_odd",
+                 pt_phase_frac=2.0, proposal="sgld", sg_batch=32,
+                 sg_step=2e-5, sg_swap="corrected", sg_vr=True,
+                 sg_anchor_interval=20, track_replicas=True, chunk_steps=500)
+SGLD_ARMS = {"none": dict(sg_lr_scale="none"),
+             "temperature": dict(sg_lr_scale="temperature"),
+             "exact": dict(sg_swap="exact", sg_vr=False,
+                           sg_anchor_interval=0)}
+SGLD_SEEDS = (0, 1, 2)
+# python -m ptnn_torch.experiments.cnn_digits at 64 chains x 300 steps with
+# minibatches of 32 (exact swaps every 100 steps, sg_step 1e-5)
+SGLD_CNN_ARGS = ["--chains", "64", "--steps", "300", "--sgld-batch", "32"]
+# scripts/bench_modes.py:91-95's two bfloat16 arms, on the surrogate arms'
+# base (Sunspot, 64 x 2000, Langevin, maxtemp 5, chunks of 250)
+BF16_ARMS = {"bf16_eval": dict(eval_dtype="bfloat16"),
+             "da_mala_bf16": dict(SURR_ARMS["da_mala"],
+                                  eval_dtype="bfloat16")}
+
+
+# bands: the mean +- 4 sigma of ptnn's own runs on the CPU, rounded outward
+# (``python tests/test_torch_sgld.py ARM 0 ... 19``, ``... cnn 0 1 2 3 4``,
+# ``python tests/test_torch_bf16_eval.py ARM 0 ... 19``); PERF.md section 2
+# gives the means and sigmas. The sgld arms are held on the medians of
+# seeds 0-2; a swap band that reaches 0 is held above it too (every ptnn
+# seed accepted swaps), and no seed of ptnn's made a round trip.
+SGLD_BANDS = {
+    "none": dict(swap=(0.0, 29.8), rmse=(0.0229, 0.0605), trips=(0.0, 0.0)),
+    "temperature": dict(swap=(0.0, 36.6), rmse=(0.0216, 0.0605),
+                        trips=(0.0, 0.0)),
+    "exact": dict(swap=(0.0, 30.2), rmse=(0.0218, 0.0620), trips=(0.0, 0.0)),
+}
+# the cnn_digits line's test mean (every chain after burn-in), swap and
+# accept (every move accepted: 298 of 300 rows counted, as ptnn prints it)
+SGLD_CNN_BANDS = dict(test_mean=(32.4, 43.0), swap=(64.6, 99.6),
+                      accept=(99.33, 99.33))
+BF16_BANDS = {
+    "bf16_eval": dict(rmse=(0.0245, 0.0391), accept=(19.0, 20.9),
+                      cold_accept=(7.9, 16.9), swap=(57.5, 73.1)),
+    "da_mala_bf16": dict(rmse=(0.0277, 0.0410), accept=(35.9, 42.0),
+                         cold_accept=(25.8, 40.0), swap=(52.6, 70.9),
+                         segments=(350, 451), seg_accept=(21.8, 29.6)),
+}
+# runs one sgld arm's seeds in a subprocess, each with its launch counts
+# zeroed just before it, one line a run; with a path, seed 0 saves its
+# finished run there (the uninterrupted twin of the killed run)
+SGLD_ARM_PROBE = """
+import json, os, sys
+import numpy as np
+import ptnn_torch
+from chip_smoke import KERNELS, launch_count, reset_launch_counts, sgld_stats
+from ptnn_torch.config import from_json_dict
+from ptnn_torch.data import load_regression
+cfg = from_json_dict(json.loads(sys.argv[1]))
+prob = load_regression("Sunspot")
+for seed in json.loads(sys.argv[2]):
+    reset_launch_counts()
+    ck = sys.argv[3] if seed == 0 and sys.argv[3] else None
+    res = ptnn_torch.sample(cfg, prob.train, prob.test, seed=seed,
+                            device=os.environ.get("PTNN_DEVICE", "cuda"),
+                            checkpoint_path=ck, checkpoint_every=10**9)
+    print("run " + json.dumps(dict(
+        seed=seed, launches={n: launch_count(n) for n in KERNELS},
+        stats=sgld_stats(res), elapsed=res.elapsed_s,
+        rate=res.chain_steps_per_sec,
+        finite=bool(np.isfinite(res.traces["ll"]).all()),
+        accept_min=float(res.accept_ratio_per_chain.min()))), flush=True)
+"""
+SGLD_CKPT_PROBE = """
+import json, os, signal, sys
+import ptnn_torch
+from ptnn_torch import checkpoint
+from ptnn_torch.config import from_json_dict
+from ptnn_torch.data import load_regression
+cfg = from_json_dict(json.loads(sys.argv[1]))
+if sys.argv[3] == "kill":
+    save = checkpoint.save
+
+    def save_then_die(path, state, done, *a, **k):
+        save(path, state, done, *a, **k)
+        if done < cfg.n_steps:
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    checkpoint.save = save_then_die
+prob = load_regression("Sunspot")
+ptnn_torch.sample(cfg, prob.train, prob.test, seed=0,
+                  device=os.environ.get("PTNN_DEVICE", "cuda"),
+                  checkpoint_path=sys.argv[2], checkpoint_every=1)
+"""
+
+
+def sgld_cfg(arm, **kw):
+    """The sgld study's configuration with the arm's swap and step knobs."""
+    from ptnn_torch import PTConfig
+
+    return PTConfig(**dict(SGLD_BASE, **SGLD_ARMS[arm], **kw)).validate()
+
+
+def sgld_stats(res):
+    """A sgld run's figures (ptnn's result or the port's): swap %, the cold
+    rung's mean test RMSE over the second half (the study's), and round
+    trips per 1k steps."""
+    import numpy as np
+
+    from ptnn_torch.ops.roundtrip import roundtrip_stats
+
+    b = res.config.samples_per_chain // 2
+    rt = roundtrip_stats(np.asarray(res.traces["replica"]))
+    return dict(swap=float(res.swap_percent),
+                rmse=float(np.mean(res.traces["rmse_test"][b:, 0])),
+                trips=float(rt.rate_per_kstep))
+
+
+def digits_line(line):
+    """The figures of cnn_digits's last line, ``[digits] chains=C
+    test_acc mean=M max=X accept%=A swap%=S (...)``."""
+    words = dict(w.split("=", 1) for w in line.split(" (")[0].split()
+                 if "=" in w)
+    return dict(test_mean=float(words["mean"]), test_max=float(words["max"]),
+                accept=float(words["accept%"]), swap=float(words["swap%"]))
+
+
+def bf16_cfg(arm, **kw):
+    """bench_modes.py's bfloat16 arm on the surrogate arms' base."""
+    return surrogate_cfg("plain", **dict(BF16_ARMS[arm], **kw))
+
+
+def sgld_plan(cfg, res=None):
+    """The launches of a sgld run: the eval of init's ll; at each swap event
+    one eval pair (exact swaps) or one eval of the test rows (corrected);
+    under anchors one eval of the train rows a refresh; no drift. For the
+    FNN the eval kernel (a pair is one launch), for the CNN's fused eval
+    the conv stage (a pair is two)."""
+    from ptnn_torch import kernel
+
+    n = cfg.n_steps
+    events = sum(kernel.swap_due(cfg, i) for i in range(n))
+    refresh = (sum(i % cfg.sg_anchor_interval == 0 for i in range(n))
+               if cfg.sg_vr else 0)
+    return 1 + events + refresh, events
+
+
+def phase_sgld_bf16():
+    """Replica-exchange SGLD and the bfloat16 eval on the card. At once, as
+    subprocesses: each sgld arm of scripts/sgld_lr_scale_study.py's
+    configuration (both sg_lr_scale arms and the exact swap, seeds 0-2,
+    launches exactly the plan; the "none" arm's seed 0 saves its finished
+    run), the cnn_digits --sgld-batch 32 command line, and a sgld run that
+    SIGKILLs itself after its first checkpoint. In this process meanwhile:
+    the command line's configuration on the CNN with the fused eval (conv
+    launches the plan) and bench_modes.py's two bfloat16 arms (no eval
+    launch). Then the arms' medians against ptnn's bands, and the killed
+    run resumed and held to the uninterrupted one bit for bit. Returns the
+    phase's launches."""
+    import shutil
+
+    from ptnn_torch import config
+
+    out = LIFE_OUT.parent / "chip_smoke_sgld"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    arms = {arm: popen([sys.executable, "-c", SGLD_ARM_PROBE,
+                        json.dumps(config.to_json_dict(sgld_cfg(arm))),
+                        json.dumps(SGLD_SEEDS),
+                        str(out / "full.npz") if arm == "none" else ""])
+            for arm in SGLD_ARMS}
+    cnn_proc = popen([sys.executable, "-c", CLI_PROBE,
+                      "ptnn_torch.experiments.cnn_digits", *SGLD_CNN_ARGS,
+                      "--out", str(out / "cnn")])
+    ck_cfg = sgld_cfg("none")
+    ck = out / "sgld.npz"
+    ck_cmd = [sys.executable, "-c", SGLD_CKPT_PROBE,
+              json.dumps(config.to_json_dict(ck_cfg)), str(ck)]
+    victim = popen(ck_cmd + ["kill"])
+    procs = [*arms.values(), cnn_proc, victim]
+    try:
+        return _sgld_bf16(out, procs, arms, cnn_proc, victim, ck_cfg, ck,
+                          ck_cmd, t_phase)
+    finally:  # a failed check leaves no subprocess behind
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _sgld_bf16(out, procs, arms, cnn_proc, victim, ck_cfg, ck, ck_cmd,
+               t_phase):
+    """The body of ``phase_sgld_bf16`` once its subprocesses run."""
+    import signal
+
+    import numpy as np
+
+    import ptnn_torch
+    from ptnn_torch import checkpoint, config, kernel, results
+    from ptnn_torch.data import load_digits
+    from ptnn_torch.models import cnn
+
+    prob = sunspot()
+    launches = dict(fnn_eval=0, drift_epoch=0, conv1_relu_pool=0)
+    card = card_line()
+    # --- the bfloat16 arms -----------------------------------------------------
+    for arm in BF16_ARMS:
+        cfg = bf16_cfg(arm)
+        reset_launch_counts()
+        res = ptnn_torch.sample(cfg, prob.train, prob.test, seed=0,
+                                device=DEVICE)
+        got = dict(fnn_eval=launch_count("fnn_eval"),
+                   drift_epoch=launch_count("drift_epoch"))
+        plan = dict(surrogate_plan(cfg, res), fnn_eval=0)
+        check(got == plan, f"bf16 {arm}: launches {got}, planned {plan}")
+        launches["drift_epoch"] += got["drift_epoch"]
+        st = surrogate_stats(res)
+        print(f"[4/6] bf16: {arm} {cfg.num_chains} x {cfg.samples_per_chain} "
+              f"(Langevin, bfloat16 evals, chunks of {cfg.chunk_steps}): cold "
+              f"test RMSE {st['rmse']:.5f}, accept {st['accept']:.2f}% (cold "
+              f"{st['cold_accept']:.2f}%), swap {st['swap']:.2f}%"
+              + (f", {st['segments']} segments, closures accepted "
+                 f"{st['seg_accept']:.2f}%" if "segments" in st else "")
+              + f"; {1e3 * res.elapsed_s / cfg.n_steps:.3f} ms a step, "
+              f"{res.chain_steps_per_sec:,.0f} chain-steps/s ({card}; beside "
+              f"the phase's subprocesses); "
+              f"launches {got} (no eval kernel: as planned)")
+        for what, band in BF16_BANDS[arm].items():
+            in_band(f"bf16 {arm}", what, st[what], band)
+    # --- the killed sgld run, resumed ----------------------------------------
+    victim.communicate(timeout=600)
+    check(victim.returncode == -signal.SIGKILL, f"the sgld run to kill ended "
+          f"with {victim.returncode}")
+    spec_name = kernel.default_spec(ck_cfg).name
+    _st, killed_at, _ = checkpoint.load(str(ck), ck_cfg, 0, spec_name)
+    check(0 < killed_at < ck_cfg.n_steps, f"the sgld run was killed at "
+          f"{killed_at}")
+    resumed = popen(ck_cmd + ["resume"])
+    procs.append(resumed)
+    # --- the CNN on the fused eval, once the command line wrote its config --
+    stdout = finished(cnn_proc, "cnn_digits --sgld-batch")
+    lines = stdout.strip().splitlines()
+    cli_launches = json.loads(lines[-1][len("launches "):])
+    line = next(ln for ln in lines if ln.startswith("[digits]"))
+    digits = digits_line(line)
+    cli_cfg = config.from_json_dict(json.loads(
+        (out / "cnn" / "digits_0" / "config.json").read_text()))
+    check(cli_cfg.proposal == "sgld" and cli_cfg.sg_batch == 32,
+          "cnn_digits --sgld-batch: config.json")
+    check(all(v == 0 for v in cli_launches.values()),
+          f"cnn_digits --sgld-batch (the plain CNN eval): launches "
+          f"{cli_launches}, planned none")
+    for what, band in SGLD_CNN_BANDS.items():
+        in_band("cnn_digits --sgld-batch", what, digits[what], band)
+    print(f"[4/6] sgld: python -m ptnn_torch.experiments.cnn_digits "
+          f"{' '.join(SGLD_CNN_ARGS)}: {line.split(' -> ')[0]}; launches "
+          f"none (the command line's CNN evaluates with the plain forward, as "
+          f"ptnn's; as planned)")
+    rows = load_digits(0)
+    reset_launch_counts()
+    res = ptnn_torch.sample(cli_cfg, rows.train, rows.test, seed=0,
+                            device=DEVICE,
+                            model_spec=cnn.digits_spec(fused_eval=True))
+    got = {name: launch_count(name) for name in KERNELS}
+    _evals, events = sgld_plan(cli_cfg)
+    want = dict({name: 0 for name in KERNELS}, conv1_relu_pool=1 + 2 * events)
+    check(got == want, f"sgld CNN fused eval: launches {got}, planned {want}")
+    launches["conv1_relu_pool"] += want["conv1_relu_pool"]
+    summ = results.summarize(res, "digits")
+    fig = dict(test_mean=summ.test_mean, swap=summ.swap_perc,
+               accept=round(summ.accept_per, 2))
+    for what, band in SGLD_CNN_BANDS.items():
+        in_band("sgld CNN fused eval", what, fig[what], band)
+    print(f"[4/6] sgld: the same configuration on the CNN with the fused "
+          f"eval, in this process: test mean {fig['test_mean']:.2f}%, swap "
+          f"{fig['swap']:.2f}%, accept {fig['accept']:.2f}%; "
+          f"{1e3 * res.elapsed_s / cli_cfg.n_steps:.3f} ms a step, "
+          f"{res.chain_steps_per_sec:,.0f} chain-steps/s ({card}; beside the "
+          f"sgld arms' subprocesses); launches "
+          f"conv1_relu_pool {got['conv1_relu_pool']} (init + 2 x {events} "
+          f"swap events, as planned)")
+    # --- the sgld arms ---------------------------------------------------------
+    for arm, proc in arms.items():
+        cfg = sgld_cfg(arm)
+        evals, events = sgld_plan(cfg)
+        want = dict({name: 0 for name in KERNELS}, fnn_eval=evals)
+        runs = [json.loads(ln[len("run "):]) for ln in
+                finished(proc, f"sgld {arm}").splitlines()
+                if ln.startswith("run ")]
+        check([r["seed"] for r in runs] == list(SGLD_SEEDS),
+              f"sgld {arm}: runs of seeds {[r['seed'] for r in runs]}")
+        for r in runs:
+            check(r["launches"] == want, f"sgld {arm} seed {r['seed']}: "
+                  f"launches {r['launches']}, planned {want}")
+            check(r["finite"] and r["accept_min"] > 99.0, f"sgld {arm} seed "
+                  f"{r['seed']}: ll not finite or a move refused")
+            launches["fnn_eval"] += evals
+            st = r["stats"]
+            print(f"[4/6] sgld: {arm} seed {r['seed']}, Sunspot 8 x "
+                  f"{cfg.samples_per_chain} (B {cfg.sg_batch}, "
+                  f"{cfg.sg_swap} swaps every {cfg.swap_interval}"
+                  + (f", anchors every {cfg.sg_anchor_interval}"
+                     if cfg.sg_vr else "")
+                  + f"): swap {st['swap']:.2f}%, cold test RMSE "
+                  f"{st['rmse']:.5f}, round trips {st['trips']:.2f} / 1k "
+                  f"steps; {1e3 * r['elapsed'] / cfg.n_steps:.3f} ms a step, "
+                  f"{r['rate']:,.0f} chain-steps/s (a subprocess beside two "
+                  f"others; {card}); launches fnn_eval "
+                  f"{r['launches']['fnn_eval']} (init + {events} swap events"
+                  + (f" + {evals - 1 - events} anchor refreshes"
+                     if cfg.sg_vr else "")
+                  + "), drift_epoch 0 (as planned)")
+        med = {k: float(np.median([r["stats"][k] for r in runs]))
+               for k in runs[0]["stats"]}
+        print(f"[4/6] sgld: {arm} medians over seeds {SGLD_SEEDS}: swap "
+              f"{med['swap']:.2f}%, cold test RMSE {med['rmse']:.5f}, round "
+              f"trips {med['trips']:.2f} (bands {SGLD_BANDS[arm]})")
+        for what, band in SGLD_BANDS[arm].items():
+            in_band(f"sgld {arm}", what, med[what], band)
+        check(med["swap"] > 0.0, f"sgld {arm}: no swap accepted")
+    # --- the resumed run against the uninterrupted one ------------------------
+    finished(resumed, "the resumed sgld run")
+    state, done, traces = checkpoint.load(str(ck), ck_cfg, 0, spec_name)
+    w_state, w_done, w_traces = checkpoint.load(str(out / "full.npz"),
+                                                ck_cfg, 0, spec_name)
+    check(done == w_done == ck_cfg.n_steps, f"the resumed run's checkpoint "
+          f"at {done}, the uninterrupted one's at {w_done}")
+    check(set(traces) == set(w_traces), f"traces {sorted(traces)}")
+    for k, v in traces.items():
+        check(np.array_equal(v, w_traces[k]), f"resumed sgld trace {k} "
+              f"differs from the uninterrupted run's")
+    a, b = state_arrays(state), state_arrays(w_state)
+    check(set(a) == set(b), f"resumed state fields {sorted(set(a) ^ set(b))}")
+    for k in a:
+        check(np.array_equal(a[k], b[k]), f"resumed sgld state {k} differs")
+    check("sg_anchor_w" in a, "the resumed sgld state has no anchors")
+    print(f"[4/6] sgld: none seed 0, checkpoint every chunk: SIGKILLed after "
+          f"its checkpoint at step {killed_at}, resumed; every trace "
+          f"({len(traces)}) and every state tensor ({len(a)}: the anchors "
+          f"sg_anchor_w, sg_anchor_eta, sg_anchor_full included) equal the "
+          f"uninterrupted run's bit for bit")
+    print(f"[4/6] sgld and bf16: phase in {time.perf_counter() - t_phase:.1f} "
+          f"s; launches {launches}")
+    return launches
+
+
+class clock:
+    """``with clock(what):`` prints the block's wall time on a line of its
+    own."""
+
+    def __init__(self, what):
+        self.what = what
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        print(f"[time] {self.what}: {time.perf_counter() - self.t0:.1f} s")
+
+
 def main() -> int:
-    phase_device()
-    phase_build()
-    errs = {"rw_block": phase_kernel()}
-    errs.update(phase_precond_kernels())
-    errs.update(phase_cls_kernels())
-    errs["drift_epoch"] = phase_drift_kernel()
-    errs["fnn_eval"] = phase_eval_kernel()
-    d_err, e_err, _grid_times = phase_grid_kernels()
+    with clock("phase_device"):
+        phase_device()
+    with clock("phase_build"):
+        phase_build()
+    with clock("phase_kernel"):
+        errs = {"rw_block": phase_kernel()}
+    with clock("phase_precond_kernels"):
+        errs.update(phase_precond_kernels())
+    with clock("phase_cls_kernels"):
+        errs.update(phase_cls_kernels())
+    with clock("phase_drift_kernel"):
+        errs["drift_epoch"] = phase_drift_kernel()
+    with clock("phase_eval_kernel"):
+        errs["fnn_eval"] = phase_eval_kernel()
+    with clock("phase_grid_kernels"):
+        d_err, e_err, _grid_times = phase_grid_kernels()
     errs["drift_epoch"] = max(errs["drift_epoch"], d_err)
     errs["fnn_eval"] = max(errs["fnn_eval"], e_err)
-    errs["conv1_relu_pool"] = phase_conv_kernel()
-    phase_swap()
+    with clock("phase_wide_kernels"):
+        d_err, e_err, _wide_times = phase_wide_kernels()
+    errs["drift_epoch"] = max(errs["drift_epoch"], d_err)
+    errs["fnn_eval"] = max(errs["fnn_eval"], e_err)
+    with clock("phase_conv_kernel"):
+        errs["conv1_relu_pool"] = phase_conv_kernel()
+    with clock("phase_swap"):
+        phase_swap()
     times = {"rw_block": time_block(64, 100, record_w=True)}
-    launches = {"rw_block": phase_end_to_end(),
-                "hmc_block": phase_flagship()}
-    launches["mala_block"], mala_twin = phase_mala_end_to_end()
-    launches.update(phase_iris_end_to_end())
-    phase_cls_rw_end_to_end()
-    lg = phase_per_step_end_to_end()
+    with clock("phase_end_to_end, phase_flagship"):
+        launches = {"rw_block": phase_end_to_end(),
+                    "hmc_block": phase_flagship()}
+    with clock("phase_mala_end_to_end"):
+        launches["mala_block"], mala_twin = phase_mala_end_to_end()
+    with clock("phase_iris_end_to_end"):
+        launches.update(phase_iris_end_to_end())
+    with clock("phase_cls_rw_end_to_end"):
+        phase_cls_rw_end_to_end()
+    with clock("phase_per_step_end_to_end"):
+        lg = phase_per_step_end_to_end()
     launches.update(drift_epoch=lg["drift_epoch"], fnn_eval=lg["fnn_eval"])
-    launches["conv1_relu_pool"] = phase_zoo_end_to_end()
-    phase_per_step_precond_end_to_end(mala_twin)
-    phase_run_lifecycle()
-    phase_vr_paths()
-    for name, n in phase_surrogate_auto().items():
-        launches[name] = launches.get(name, 0) + n
-    for name, n in phase_sweeps().items():
-        launches[name] = launches.get(name, 0) + n
-    phase_throughput()
-    times.update(phase_precond_throughput())
-    times.update(phase_cls_throughput())
-    times.update(phase_per_step_throughput())
-    times.update(phase_zoo_throughput())
-    phase_per_step_precond_throughput()
+    with clock("phase_zoo_end_to_end"):
+        launches["conv1_relu_pool"] = phase_zoo_end_to_end()
+    with clock("phase_per_step_precond_end_to_end"):
+        phase_per_step_precond_end_to_end(mala_twin)
+    with clock("phase_run_lifecycle"):
+        phase_run_lifecycle()
+    with clock("phase_vr_paths"):
+        phase_vr_paths()
+    with clock("phase_surrogate_auto"):
+        for name, n in phase_surrogate_auto().items():
+            launches[name] = launches.get(name, 0) + n
+    with clock("phase_sweeps"):
+        for name, n in phase_sweeps().items():
+            launches[name] = launches.get(name, 0) + n
+    with clock("phase_sgld_bf16"):
+        for name, n in phase_sgld_bf16().items():
+            launches[name] = launches.get(name, 0) + n
+    with clock("phase_throughput"):
+        phase_throughput()
+    with clock("phase_precond_throughput"):
+        times.update(phase_precond_throughput())
+    with clock("phase_cls_throughput"):
+        times.update(phase_cls_throughput())
+    with clock("phase_per_step_throughput"):
+        times.update(phase_per_step_throughput())
+    with clock("phase_zoo_throughput"):
+        times.update(phase_zoo_throughput())
+    with clock("phase_per_step_precond_throughput"):
+        phase_per_step_precond_throughput()
     import torch
 
     print(json.dumps({"kernels": [dict({

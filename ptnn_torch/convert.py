@@ -32,7 +32,8 @@ FIELDS = tuple(f.name for f in dataclasses.fields(ChainState))
 OPTIONAL = ("log_step_w", "g_like", "pc_mean", "pc_m2", "log_step_eta",
             "log_traj", "chees_m1", "chees_v2", "replica_id", "fx_train",
             "fx_test", "vr_mean", "vr_m2", "vr_chol", "n_regen_accepted",
-            "n_regen_proposed", "surr", "da")
+            "n_regen_proposed", "surr", "da", "sg_anchor_w",
+            "sg_anchor_eta", "sg_anchor_full")
 NESTED = {"surr": SurrogateState, "da": DAState}
 
 

@@ -37,10 +37,15 @@
 //   registers allow, each lane loads row r + 1 while row r computes, which
 //   takes the tile load off the row's critical path. Units past H are zero
 //   and never updated, so they add exactly 0 to the output sums.
-// * The generic kernel, `drift_epoch_kernel`, for any other topology with
-//   H <= 32 * HPL: one warp per chain, WARPS chains a block, the weights in
-//   shared memory and runtime loops.
-//
+// * The generic kernel, `drift_epoch_kernel`, for any other topology: one
+//   warp a chain, runtime loops, the hidden units in chunks of 32 * HPL, a
+//   row's hidden activations and output deltas staged in shared memory, so
+//   it fits any width. ops/drift.py `plan` (pure Python) lays it out:
+//   WARPS chains a block with the weights in shared memory where they fit
+//   beside a tile of rows, else fewer chains a block, down to one (and a
+//   shorter tile); where one chain's weights do not fit a block, the
+//   weights stay in device memory, the (C, W) output buffer the working
+//   copy that the epoch updates in place (GLOBAL).
 // Either grid runs every chain in one launch; a tile holds up to 64 KB of
 // rows, so PenDigit's 7494 rows stream in 12 tiles and any row count is one
 // launch.
@@ -70,9 +75,8 @@
 
 #include "fnn_layouts.cuh"  // FNN_LAYOUTS: the bundled networks and G
 
-#define WARPS 4  // generic kernel: chains per block
-#define THREADS (WARPS * 32)
-#define HPL 4  // generic kernel: hidden units per lane, n_hid <= 32 * HPL
+#define WARPS 4  // generic kernel: the most chains a block
+#define HPL 4  // generic kernel: hidden units a lane in a chunk of the forward
 #define REG_THREADS 128  // register kernel: threads per block
 #define FULL_MASK 0xffffffffu
 
@@ -87,6 +91,8 @@ struct DriftParams {
   long long x_cell, t_cell;  // floats from one cell's rows to the next (0: shared)
   int chains, n_rows, n_in, n_hid, n_out, depth, tile_rows;
   int cells, chains_per_cell;  // chain c is in cell c / chains_per_cell
+  int warps;     // generic kernel: chains a block, 1..WARPS
+  int w_global;  // generic kernel: 1 = the weights stay in device memory
   float lrate;
 };
 
@@ -114,13 +120,26 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The generic kernel: one warp a chain, `warps` chains a block. GLOBAL:
+// the weights stay in device memory, in the flat codec, with the output
+// buffer as the working copy; else they are staged in shared memory, W2
+// transposed. A row's hidden activations and output deltas are staged in
+// shared memory (H + O floats a chain), so no register holds a whole layer
+// and any width runs: the forward takes the hidden units in chunks of
+// 32 * HPL (HPL independent sums a lane), the O output sums reduce over the
+// warp one by one, and only then, with every output delta known, does the
+// second pass over the units form each hidden delta from W2 before its
+// update and update W2, W1 and B1. Lane l owns the units h = l + 32 k in
+// both passes, so no lane reads a unit another lane writes.
+template <bool GLOBAL>
 __global__ void __maxnreg__(255) drift_epoch_kernel(const DriftParams p) {
   extern __shared__ float smem[];
   const int I = p.n_in, H = p.n_hid, O = p.n_out;
   const int W = I * H + H * O + H + O;
   const int stride = I + O;
+  const int nt = p.warps * 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const CellSlot cs = cell_slot(p.chains_per_cell, WARPS, warp);
+  const CellSlot cs = cell_slot(p.chains_per_cell, p.warps, warp);
   const int c = cs.chain;
   const bool live = cs.live;
   const int n_rows = p.cell_rows ? p.cell_rows[cs.cell] : p.n_rows;
@@ -129,37 +148,69 @@ __global__ void __maxnreg__(255) drift_epoch_kernel(const DriftParams p) {
   const bool masked = p.w_mask != nullptr;
   const int s1 = I * H, s2 = s1 + H * O;
   float* s_tile = smem;  // tile_rows x (I + O)
-  // the cell's parameter mask in the layout of the weights below (masked)
-  float* s_m1 = s_tile + p.tile_rows * stride;
-  float* s_mb1 = s_m1 + I * H;
-  float* s_m2t = s_mb1 + H;
-  float* s_mb2 = s_m2t + O * H;
-  float* s_w1 = s_m1 + (masked ? W : 0) + warp * W;
-  float* s_b1 = s_w1 + I * H;
-  float* s_w2t = s_b1 + H;  // s_w2t[o * H + h] = W2[h, o]
-  float* s_b2 = s_w2t + O * H;
+  // the cell's parameter mask, in the layout of the weights (staged only
+  // beside staged weights)
+  float* s_mask = s_tile + p.tile_rows * stride;
+  const int per_chain = (GLOBAL ? 0 : W) + H + O;
+  float* s_chain = s_mask + (masked && !GLOBAL ? W : 0) + warp * per_chain;
+  float* s_hid = s_chain + (GLOBAL ? 0 : W);  // the row's hidden activations
+  float* s_od = s_hid + H;                    // and output deltas
   const float lr = p.lrates ? p.lrates[live ? c : 0] : p.lrate;
-
-  if (masked) {
-    const float* mc = p.w_mask + (size_t)cs.cell * W;
-    for (int k = threadIdx.x; k < s1; k += THREADS) s_m1[k] = mc[k];
-    for (int k = threadIdx.x; k < H * O; k += THREADS) s_m2t[(k % O) * H + k / O] = mc[s1 + k];
-    for (int k = threadIdx.x; k < H; k += THREADS) s_mb1[k] = mc[s2 + k];
-    for (int k = threadIdx.x; k < O; k += THREADS) s_mb2[k] = mc[s2 + H + k];
+  // W1[i, h] = w1[i * H + h], B1 = b1, W2[h, o] = w2[o * o_step + h *
+  // h_step], B2 = b2; the mask alike (m1, mb1, m2, mb2)
+  float *w1, *b1, *w2, *b2;
+  const float *m1 = nullptr, *mb1 = nullptr, *m2 = nullptr, *mb2 = nullptr;
+  int o_step, h_step;
+  const float* mc = masked ? p.w_mask + (size_t)cs.cell * W : nullptr;
+  if (GLOBAL) {
+    w1 = p.o_w + (size_t)(live ? c : 0) * W;
+    w2 = w1 + s1;
+    b1 = w1 + s2;
+    b2 = b1 + H;
+    o_step = 1;
+    h_step = O;
+    if (masked) {
+      m1 = mc;
+      m2 = mc + s1;
+      mb1 = mc + s2;
+      mb2 = mb1 + H;
+    }
+  } else {
+    w1 = s_chain;
+    b1 = w1 + s1;
+    w2 = b1 + H;
+    b2 = w2 + O * H;
+    o_step = H;
+    h_step = 1;
+    if (masked) {
+      for (int k = threadIdx.x; k < s1; k += nt) s_mask[k] = mc[k];
+      for (int k = threadIdx.x; k < H; k += nt) s_mask[s1 + k] = mc[s2 + k];
+      for (int k = threadIdx.x; k < H * O; k += nt)
+        s_mask[s1 + H + (k % O) * H + k / O] = mc[s1 + k];
+      for (int k = threadIdx.x; k < O; k += nt) s_mask[s1 + H + O * H + k] = mc[s2 + H + k];
+      m1 = s_mask;
+      mb1 = m1 + s1;
+      m2 = mb1 + H;
+      mb2 = m2 + O * H;
+    }
   }
   if (live) {
     const float* wc = p.w + (size_t)c * W;
-    for (int k = lane; k < s1; k += 32) s_w1[k] = wc[k];
-    for (int k = lane; k < H * O; k += 32) s_w2t[(k % O) * H + k / O] = wc[s1 + k];
-    for (int k = lane; k < H; k += 32) s_b1[k] = wc[s2 + k];
-    for (int k = lane; k < O; k += 32) s_b2[k] = wc[s2 + H + k];
+    if (GLOBAL) {
+      for (int k = lane; k < W; k += 32) w1[k] = wc[k];
+    } else {
+      for (int k = lane; k < s1; k += 32) w1[k] = wc[k];
+      for (int k = lane; k < H * O; k += 32) w2[(k % O) * H + k / O] = wc[s1 + k];
+      for (int k = lane; k < H; k += 32) b1[k] = wc[s2 + k];
+      for (int k = lane; k < O; k += 32) b2[k] = wc[s2 + H + k];
+    }
   }
 
   const int total = n_rows * p.depth;  // < 2^31 (ops/drift.py checks)
   for (int base = 0; base < total; base += p.tile_rows) {
     const int len = min(total - base, p.tile_rows);
     __syncthreads();  // the previous tile is consumed (and the weights loaded)
-    for (int k = threadIdx.x; k < len * stride; k += THREADS) {
+    for (int k = threadIdx.x; k < len * stride; k += nt) {
       const int r = k / stride, f = k - r * stride;
       const int n = (base + r) % n_rows;
       s_tile[k] = f < I ? xg[(size_t)n * I + f] : tg[(size_t)n * O + (f - I)];
@@ -170,64 +221,67 @@ __global__ void __maxnreg__(255) drift_epoch_kernel(const DriftParams p) {
     for (int r = 0; r < len; ++r) {
       const float* xr = s_tile + r * stride;
       const float* tr = xr + I;
-      float hid[HPL], hd[HPL];
+      // forward: the hidden units in chunks of 32 HPL
+      for (int h0 = 0; h0 < H; h0 += 32 * HPL) {
+        float z[HPL];
 #pragma unroll
-      for (int j = 0; j < HPL; ++j) {
-        const int h = lane + 32 * j;
-        hid[j] = 0.f;
-        hd[j] = 0.f;
-        if (h < H) {
-          float z = 0.f;
-          for (int i = 0; i < I; ++i) z += xr[i] * s_w1[i * H + h];
-          hid[j] = sigmoid_f(z - s_b1[h]);
+        for (int j = 0; j < HPL; ++j) z[j] = 0.f;
+        for (int i = 0; i < I; ++i) {
+          const float xi = xr[i];
+          const float* wi = w1 + i * H + h0 + lane;
+#pragma unroll
+          for (int j = 0; j < HPL; ++j)
+            if (h0 + lane + 32 * j < H) z[j] += xi * wi[32 * j];
+        }
+#pragma unroll
+        for (int j = 0; j < HPL; ++j) {
+          const int h = h0 + lane + 32 * j;
+          if (h < H) s_hid[h] = sigmoid_f(z[j] - b1[h]);
         }
       }
+      // the O output sums over the warp, each output's delta and B2
       for (int o = 0; o < O; ++o) {
         float part = 0.f;
-#pragma unroll
-        for (int j = 0; j < HPL; ++j) {
-          const int h = lane + 32 * j;
-          if (h < H) part += hid[j] * s_w2t[o * H + h];
-        }
-        const float b2 = s_b2[o];
-        const float out = sigmoid_f(warp_sum(part) - b2);
+        for (int h = lane; h < H; h += 32) part += s_hid[h] * w2[o * o_step + h * h_step];
+        const float bo = b2[o];
+        const float out = sigmoid_f(warp_sum(part) - bo);
         const float od = (tr[o] - out) * out * (1.0f - out);
-#pragma unroll
-        for (int j = 0; j < HPL; ++j) {
-          const int h = lane + 32 * j;
-          if (h < H) {
-            const float w2 = s_w2t[o * H + h];
-            hd[j] += w2 * od;  // hid_delta sees W2 before this row's update
-            const float u = hid[j] * od;
-            s_w2t[o * H + h] = w2 + lr * (masked ? u * s_m2t[o * H + h] : u);
-          }
-        }
         __syncwarp();  // every lane has read B2[o]
-        if (lane == 0) s_b2[o] = b2 + lr * (masked ? -od * s_mb2[o] : -od);
-      }
-#pragma unroll
-      for (int j = 0; j < HPL; ++j) {
-        const int h = lane + 32 * j;
-        if (h < H) {
-          const float d = hd[j] * hid[j] * (1.0f - hid[j]);
-          for (int i = 0; i < I; ++i) {
-            const float u = xr[i] * d;
-            s_w1[i * H + h] += lr * (masked ? u * s_m1[i * H + h] : u);
-          }
-          s_b1[h] += lr * (masked ? -d * s_mb1[h] : -d);
+        if (lane == 0) {
+          s_od[o] = od;
+          b2[o] = bo + lr * (masked ? -od * mb2[o] : -od);
         }
       }
-      __syncwarp();  // B2 is visible to the next row
+      __syncwarp();  // the deltas are visible
+      // the hidden deltas (W2 before this row's update), then the updates
+      for (int h = lane; h < H; h += 32) {
+        const float hv = s_hid[h];
+        float hd = 0.f;
+        for (int o = 0; o < O; ++o) {
+          const int k = o * o_step + h * h_step;
+          const float wv = w2[k], odv = s_od[o];
+          hd += wv * odv;
+          const float u = hv * odv;
+          w2[k] = wv + lr * (masked ? u * m2[k] : u);
+        }
+        const float d = hd * hv * (1.0f - hv);
+        for (int i = 0; i < I; ++i) {
+          const float u = xr[i] * d;
+          w1[i * H + h] += lr * (masked ? u * m1[i * H + h] : u);
+        }
+        b1[h] += lr * (masked ? -d * mb1[h] : -d);
+      }
+      __syncwarp();  // B2 and the deltas are read before the next row writes them
     }
   }
 
-  if (live) {
+  if (live && !GLOBAL) {
     __syncwarp();
     float* oc = p.o_w + (size_t)c * W;
-    for (int k = lane; k < s1; k += 32) oc[k] = s_w1[k];
-    for (int k = lane; k < H * O; k += 32) oc[s1 + k] = s_w2t[(k % O) * H + k / O];
-    for (int k = lane; k < H; k += 32) oc[s2 + k] = s_b1[k];
-    for (int k = lane; k < O; k += 32) oc[s2 + H + k] = s_b2[k];
+    for (int k = lane; k < s1; k += 32) oc[k] = w1[k];
+    for (int k = lane; k < H * O; k += 32) oc[s1 + k] = w2[(k % O) * H + k / O];
+    for (int k = lane; k < H; k += 32) oc[s2 + k] = b1[k];
+    for (int k = lane; k < O; k += 32) oc[s2 + H + k] = b2[k];
   }
 }
 
@@ -454,20 +508,22 @@ int ptnn_drift_epoch_reg(const DriftParams* p, int smem_bytes, void* stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-// Launches the generic kernel: cells x ceil(chains_per_cell / WARPS) blocks
-// on `stream`; returns the cudaError_t of the attribute call or of the
-// launch (0 = success). Does not synchronise.
+// Launches the generic kernel: cells x ceil(chains_per_cell / warps)
+// blocks of `warps` warps on `stream`, the weights in shared memory or, with
+// w_global, in device memory (the output buffer); returns the cudaError_t of
+// the attribute call or of the launch (0 = success). Does not synchronise.
 int ptnn_drift_epoch(const DriftParams* p, int smem_bytes, void* stream) {
-  if (p->cells < 1 || p->chains_per_cell < 1 || p->cells * p->chains_per_cell != p->chains)
+  if (p->cells < 1 || p->chains_per_cell < 1 || p->cells * p->chains_per_cell != p->chains ||
+      p->warps < 1 || p->warps > WARPS)
     return (int)cudaErrorInvalidValue;
+  auto kern = p->w_global ? drift_epoch_kernel<true> : drift_epoch_kernel<false>;
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        drift_epoch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  const int blocks = p->cells * ((p->chains_per_cell + WARPS - 1) / WARPS);
-  drift_epoch_kernel<<<blocks, THREADS, smem_bytes, (cudaStream_t)stream>>>(*p);
+  const int blocks = p->cells * ((p->chains_per_cell + p->warps - 1) / p->warps);
+  kern<<<blocks, p->warps * 32, smem_bytes, (cudaStream_t)stream>>>(*p);
   return (int)cudaGetLastError();
 }
 

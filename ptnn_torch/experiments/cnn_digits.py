@@ -12,11 +12,13 @@ the CPU).
 The default run is the reference proposal with Langevin gradients (``--adapt``
 ties the drift rate to each chain's adapted step); ``--mala`` runs
 preconditioned MALA and ``--hmc L`` preconditioned HMC with L leapfrog steps,
-both per step (Langevin and ``--adapt`` off, as in ptnn). ``--checkpoint
-FILE`` saves the run every few chunks and resumes it from FILE after a
-crash, bit-identically. ``--sgld-batch`` and ``--mesh`` parse as in ptnn and
-raise ``NotImplementedError`` naming the ROADMAP item that brings them. The
-plots are written when matplotlib is installed.
+both per step (Langevin and ``--adapt`` off, as in ptnn). ``--sgld-batch B``
+runs replica-exchange SGLD on minibatches of B rows (``--sgld-step``,
+``--sgld-swap``, ``--sgld-vr``, ``--sgld-lr-scale``: ptnn's flags and
+settings). ``--checkpoint FILE`` saves the run every few chunks and resumes
+it from FILE after a crash, bit-identically. ``--mesh`` parses as in ptnn
+and raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+The plots are written when matplotlib is installed.
 """
 
 from __future__ import annotations
@@ -35,8 +37,6 @@ from ptnn_torch.models import cnn
 # the flags whose samplers are not ported yet, with the ROADMAP item (Queue 1)
 # that brings each
 _NOT_PORTED = {
-    "sgld_batch": "--sgld-batch (proposal='sgld'): ROADMAP Queue 1 item 12, "
-                  "the model zoo's stochastic-gradient proposals",
     "mesh": "--mesh (chain-sharded runs): ROADMAP Queue 1 item 14, the "
             "multi-GPU mesh",
 }
@@ -220,19 +220,38 @@ def main(argv=None) -> None:
                 if args.chains >= 1024 and args.chains % m == 0
             ) if args.chains >= 1024 else 1
         ),
-        adapt_step_size=args.adapt and not (args.mala or args.hmc),
-        # --sgld-batch raised above
-        proposal=("hmc" if args.hmc
+        adapt_step_size=args.adapt
+        and not (args.mala or args.hmc or args.sgld_batch),
+        proposal=("sgld" if args.sgld_batch
+                  else "hmc" if args.hmc
                   else "precond_mala" if args.mala else "reference"),
         hmc_leapfrog=args.hmc or 8,
         precond_power=args.precond_power,
         precond_start_frac=args.precond_start,
-        warmstart_frac=args.warmstart_frac,
+        warmstart_frac=0.0 if args.sgld_batch else args.warmstart_frac,
         warmstart_step=args.warmstart_step,
         record_w=False,  # 3.7k-3M params x chains x steps: keep scalars only
         chunk_steps=min(args.chunk_steps, args.steps),
         **(
             {"swap_style": args.swap_style} if args.swap_style else {}
+        ),
+        **(
+            # sgld requires the metropolis/untempered swap machinery and
+            # the canonical (no temper-switch) schedule
+            {
+                "sg_batch": args.sgld_batch,
+                "sg_step": args.sgld_step,
+                "sg_swap": args.sgld_swap,
+                "sg_vr": args.sgld_vr > 0,
+                "sg_anchor_interval": args.sgld_vr,
+                "sg_lr_scale": args.sgld_lr_scale,
+                "swap_payload": "untempered",
+                "swap_rule": "metropolis",
+                "pt_phase_frac": 2.0,
+                "use_langevin_gradients": False,
+            }
+            if args.sgld_batch
+            else {}
         ),
     )
     res = ptnn_torch.sample(

@@ -80,7 +80,7 @@ def fused_reason(cfg: PTConfig) -> Optional[str]:
     if cfg.record_fx or cfg.record_ll_state:
         return "no fx/ll_cur traces"
     if cfg.eval_dtype != "float32":
-        return "float32 only"
+        return "fused_step is float32-only"  # ptnn/fused.py:106's words
     return None
 
 

@@ -7,10 +7,12 @@ preconditioned family's state), ``like_value_and_grad``, ``swap_due``,
 ``vdc_u``, the ``do_swap`` and ``recompute_ll`` closures of
 ``make_step_fn`` as plain functions, and ``make_step_fn``: ``StepFn`` for
 the reference proposal (the per-step random walk with the optional
-Langevin-gradient drift and its q-ratio, "reference" or "ldpt_legacy"), and
+Langevin-gradient drift and its q-ratio, "reference" or "ldpt_legacy"),
 ``PrecondStepFn`` for the preconditioned family (``precond_rw``,
 ``precond_mala``, ``hmc`` with and without ChEES, ``pcn``: ptnn's
-``step_precond``). Both run the variational-reference path
+``step_precond``), and ``SgldStepFn`` for replica-exchange SGLD (ptnn's
+``step_sgld``: minibatch Langevin moves, exact or variance-corrected swaps,
+SVRG anchors). Both run the variational-reference path
 (``variational_reference``: ``VRef``, the corrected MH term, swap energy
 and gradient, the Welford fit and the hot rung's regeneration), the
 posterior-predictive carries (``record_fx``) and the state likelihood
@@ -29,7 +31,8 @@ step's train and test evals through ``spec_eval_pair``, and the drift
 through the model spec's ``drift``. For the reference FNN those are
 ``ops.fnn_eval.fnn_eval``, ``ops.fnn_eval.fnn_eval_pair`` (one launch for
 both row sets) and ``ops.drift.sgd_epoch``, on the card the two
-hand-written kernels. Any
+hand-written kernels; under ``eval_dtype="bfloat16"`` the evals take a
+plain bfloat16 forward (``eval_forward``) and no eval kernel. Any
 other spec (``models.mlp``, ``models.cnn``) evaluates with its
 ``batched_forward`` where it has one (the CNN's hand-written stage 1), else
 its ``forward``, then ``log_probs`` and the likelihood of
@@ -166,6 +169,13 @@ class ChainState:
     # "delayed_acceptance")
     surr: Optional[surrogate_mod.SurrogateState] = None
     da: Optional[DAState] = None
+    # sgld's SVRG control-variate anchors for the corrected swap test (None
+    # unless proposal "sgld" with sg_vr): the coordinates and the full-data
+    # untempered ll of each chain at its last anchor refresh; they travel
+    # with (w, eta) on swaps
+    sg_anchor_w: Optional[torch.Tensor] = None  # (C, W)
+    sg_anchor_eta: Optional[torch.Tensor] = None  # (C,)
+    sg_anchor_full: Optional[torch.Tensor] = None  # (C,)
 
     def replace(self, **kw) -> "ChainState":
         return dataclasses.replace(self, **kw)
@@ -264,6 +274,29 @@ def _fnn_only(spec: model_api.ModelSpec, x: torch.Tensor, grid) -> None:
                          "the reference FNN only (ptnn_torch.sweeps)")
 
 
+def eval_forward(cfg: PTConfig, spec: model_api.ModelSpec, w: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """The chain-batched forward of the evals, (C, N, O) float32 (ptnn's
+    ``fwd_b``): under ``eval_dtype="bfloat16"`` the spec's plain forward on
+    w and x cast to bfloat16 (a bfloat16 ``torch.matmul``; ptnn keeps its
+    Pallas evals off this mode, and so does the port: no hand-written eval
+    runs), its outputs back in float32, so that every likelihood reduction
+    and decision stays float32; else ``batched_forward`` where the spec has
+    one, else ``forward``. ptnn's bfloat16 FNN also lowers its products to
+    ``Precision.DEFAULT``, which on the CPU changes nothing; the drift and
+    the gradients stay float32."""
+    if cfg.eval_dtype == "bfloat16":
+        bf = torch.bfloat16
+        return spec.forward(w.to(bf), x.to(bf)).to(torch.float32)
+    return (spec.batched_forward or spec.forward)(w, x)
+
+
+def _fnn_kernel(cfg: PTConfig, spec: model_api.ModelSpec) -> bool:
+    """Whether the evals take ``ops.fnn_eval`` (the eval kernel on the
+    card): the reference FNN in float32."""
+    return spec.fnn_topology is not None and cfg.eval_dtype == "float32"
+
+
 def spec_eval(cfg: PTConfig, spec: model_api.ModelSpec, w: torch.Tensor,
               x: torch.Tensor, y: torch.Tensor,
               tau: Optional[torch.Tensor],
@@ -272,12 +305,13 @@ def spec_eval(cfg: PTConfig, spec: model_api.ModelSpec, w: torch.Tensor,
     """Every chain's untempered (ll, rmse, acc), each (C,), on the rows
     (x, y): ``_batched_evals`` of ptnn/kernel.py. ``tau`` (C,) is the noise
     variance (regression); a grid's ``rows`` and ``classes`` are the
-    ``Dataset``'s counts (``ops.fnn_eval``)."""
-    if spec.fnn_topology is not None:
+    ``Dataset``'s counts (``ops.fnn_eval``). Under ``eval_dtype=
+    "bfloat16"`` every spec takes ``eval_forward``'s bfloat16 forward."""
+    if _fnn_kernel(cfg, spec):
         return fnn_eval(w, x, y, tau, spec.fnn_topology, cfg.task, rows,
                         classes)
     _fnn_only(spec, x, rows is not None or classes is not None)
-    out = (spec.batched_forward or spec.forward)(w, x)
+    out = eval_forward(cfg, spec, w, x)
     if cfg.task == "regression":
         ev = likelihood.regression_eval_from_fx(out[:, :, 0], y, tau)
         return ev.loglik, ev.rmse, torch.zeros_like(ev.rmse)
@@ -292,8 +326,9 @@ def spec_eval_pair(cfg: PTConfig, spec: model_api.ModelSpec,
                    data: Optional["Dataset"] = None):
     """``spec_eval`` on the train rows and on the test rows: the reference
     FNN evaluates both in one call (one kernel launch on the card), any
-    other spec in two. ``data`` gives a grid's counts."""
-    if spec.fnn_topology is not None:
+    other spec (and bfloat16 evals) in two. ``data`` gives a grid's
+    counts."""
+    if _fnn_kernel(cfg, spec):
         counts = ((None,) * 3 if data is None else
                   (data.rows_train, data.rows_test, data.classes))
         return fnn_eval_pair(w, x_tr, y_tr, x_te, y_te, tau,
@@ -352,6 +387,34 @@ ValueAndGrad = Callable[[torch.Tensor],
                               torch.Tensor]]
 
 
+def value_and_grad_rows(cfg: PTConfig, spec: model_api.ModelSpec,
+                        w: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
+    """``((val, aux), g)`` of ``like_value_and_grad`` on the rows (x, y):
+    -SSE/2 (regression) or the multinomial ll (classification) of every
+    chain, (C,), the raw outputs (None for the FNN's regression) and d val
+    / d w (C, W). The reference FNN takes its hand-written backprops, any
+    other spec autograd over ``spec.forward`` in full float32."""
+    reg = cfg.task == "regression"
+    topo = spec.fnn_topology
+    if topo is not None:
+        if reg:
+            val, g = fnn.neg_half_sse_grad(w, x, y, topo)
+            return (val, None), g
+        val, g, out = fnn.multinomial_ll_grad(w, x, y, topo)
+        return (val, out), g
+    with torch.enable_grad(), full_float32():
+        wg = w.detach().requires_grad_(True)
+        out = spec.forward(wg, x)
+        if reg:
+            val = -0.5 * torch.sum(torch.square(y - out[:, :, 0]), dim=-1)
+        else:
+            logp = spec.log_probs(out)
+            idx = y.to(torch.int64).expand(logp.shape[:-1])[..., None]
+            val = torch.sum(torch.gather(logp, -1, idx)[..., 0], dim=-1)
+        (g,) = torch.autograd.grad(val.sum(), wg)
+    return (val.detach(), out.detach()), g
+
+
 def like_value_and_grad(cfg: PTConfig, spec: model_api.ModelSpec,
                         data: Dataset) -> ValueAndGrad:
     """ptnn's ``_like_value_and_grad``: ``fn(w (C, W)) -> ((val, aux), g)``.
@@ -359,33 +422,15 @@ def like_value_and_grad(cfg: PTConfig, spec: model_api.ModelSpec,
     for regression and the multinomial log-likelihood for classification;
     ``aux`` the raw outputs (C, N, O) the classification metrics need (None
     for the FNN's regression, whose metrics come from ``val``); ``g`` (C, W)
-    is d val / d w. The reference FNN takes its hand-written backprops
-    (``fnn.neg_half_sse_grad``, ``fnn.multinomial_ll_grad``), any other
-    spec autograd over ``spec.forward`` in full float32 (ptnn runs at
-    ``Precision.HIGHEST``). With ``drift_chain_microbatch`` > 1 the chains
-    go in that many sequential chunks, as the drift does."""
+    is d val / d w (``value_and_grad_rows`` on the train rows: the FNN's
+    hand-written backprops, autograd over ``spec.forward`` for any other
+    spec, in full float32 as ptnn runs at ``Precision.HIGHEST``). With
+    ``drift_chain_microbatch`` > 1 the chains go in that many sequential
+    chunks, as the drift does."""
     x, y = data.x_train, data.y_train
-    reg = cfg.task == "regression"
-    topo = spec.fnn_topology
 
     def one(w):
-        if topo is not None:
-            if reg:
-                val, g = fnn.neg_half_sse_grad(w, x, y, topo)
-                return (val, None), g
-            val, g, out = fnn.multinomial_ll_grad(w, x, y, topo)
-            return (val, out), g
-        with torch.enable_grad(), full_float32():
-            wg = w.detach().requires_grad_(True)
-            out = spec.forward(wg, x)
-            if reg:
-                val = -0.5 * torch.sum(torch.square(y - out[:, :, 0]), dim=-1)
-            else:
-                logp = spec.log_probs(out)
-                idx = y.to(torch.int64).expand(logp.shape[:-1])[..., None]
-                val = torch.sum(torch.gather(logp, -1, idx)[..., 0], dim=-1)
-            (g,) = torch.autograd.grad(val.sum(), wg)
-        return (val.detach(), out.detach()), g
+        return value_and_grad_rows(cfg, spec, w, x, y)
 
     mb = cfg.drift_chain_microbatch
     if mb <= 1:
@@ -542,7 +587,18 @@ def init_state(
         surr=surr,
         da=da,
         **vr,
+        **_sg_anchors(cfg, w, eta, ll),
     )
+
+
+def _sg_anchors(cfg: PTConfig, w: torch.Tensor, eta: torch.Tensor,
+                ll: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """sgld's SVRG anchors at init: the initial (w, eta, ll) under
+    ``sg_vr``, else none."""
+    if cfg.proposal != "sgld" or not cfg.sg_vr:
+        return {}
+    return dict(sg_anchor_w=w.clone(), sg_anchor_eta=eta.clone(),
+                sg_anchor_full=ll.clone())
 
 
 def _init_eta(spec: model_api.ModelSpec, w: torch.Tensor,
@@ -802,14 +858,18 @@ def do_swap(
     vr: Optional[VRef] = None,
     cells: Optional[int] = None,
     parity=None,
-) -> ChainState:
+    pair_penalty: Optional[torch.Tensor] = None,
+    result: bool = False,
+):
     """One replica-exchange event after step ``i`` with uniforms ``us``
     (C-1,). ``pair_mask`` comes from ``swap.pair_mask`` for replicated
     ladders. Under the variational reference ``vr`` the swap energy is E =
     LL - corr, exact for the corrected path. A grid (``cells``) counts its
     swaps per cell, (G,), and its pairs take the ``parity`` of the even/odd
     sweep that ``Grid.swap_plan`` gives them (default: ``(i //
-    swap_interval) % 2``)."""
+    swap_interval) % 2``). ``pair_penalty`` (C-1,) lowers each pair's
+    metropolis exponent (sgld's corrected swap). With ``result`` the sweep's
+    ``SwapResult`` comes back beside the state."""
     adapttemp = adapttemp_at(cfg, temps, i)
     if vr is not None:
         payload = state.ll - vr.corr(state, i, state.w, state.eta)
@@ -824,12 +884,13 @@ def do_swap(
             payload, us, rule=cfg.swap_rule, betas=1.0 / adapttemp,
             parity=((i // cfg.swap_interval) % 2 if parity is None
                     else parity),
+            pair_penalty=pair_penalty,
             pair_mask=pair_mask,
         )
     else:
         res = swap_mod.sweep_permutation(
             payload, us, rule=cfg.swap_rule, betas=1.0 / adapttemp,
-            pair_mask=pair_mask,
+            pair_penalty=pair_penalty, pair_mask=pair_mask,
         )
     w, eta = swap_mod.apply_permutation(res.perm, state.w, state.eta)
     if cfg.stale_likelihood_after_swap:
@@ -865,7 +926,14 @@ def do_swap(
     if state.replica_id is not None:
         (rid,) = swap_mod.apply_permutation(res.perm, state.replica_id)
         out = out.replace(replica_id=rid)
-    return out
+    if state.sg_anchor_w is not None:
+        # the control variate describes the travelling configuration
+        a_w, a_e, a_f = swap_mod.apply_permutation(
+            res.perm, state.sg_anchor_w, state.sg_anchor_eta,
+            state.sg_anchor_full)
+        out = out.replace(sg_anchor_w=a_w, sg_anchor_eta=a_e,
+                          sg_anchor_full=a_f)
+    return (out, res) if result else out
 
 
 def recompute_ll(cfg: PTConfig, state: ChainState, data: Dataset,
@@ -886,11 +954,6 @@ def step_reason(cfg: PTConfig,
                 spec: Optional[model_api.ModelSpec] = None) -> Optional[str]:
     """The feature of ``cfg`` the per-step sampler does not run yet on
     ``spec`` (default: the reference FNN); None: it runs ``cfg``."""
-    if cfg.proposal == "sgld":
-        return ("proposal='sgld' (the model zoo's stochastic-gradient "
-                "proposals)")
-    if cfg.eval_dtype != "float32":
-        return f"eval_dtype={cfg.eval_dtype!r}"
     spec = spec or default_spec(cfg)
     if cfg.adapt_step_size and cfg.use_langevin_gradients \
             and spec.adapt_ties_drift and not spec.drift_per_chain_rate:
@@ -944,6 +1007,31 @@ def grid_reason(cfg: PTConfig) -> Optional[str]:
         return "variational_reference"
     if cfg.drift_chain_microbatch > 1:
         return "drift_chain_microbatch > 1"
+    if cfg.eval_dtype != "float32":
+        return f"eval_dtype={cfg.eval_dtype!r}"
+    return None
+
+
+def plan_reason(cfg: PTConfig, spec: model_api.ModelSpec,
+                data: Dataset) -> Optional[str]:
+    """What the hand-written kernels cannot lay out for ``cfg`` on ``data``,
+    naming the limit (``ops.drift.plan``, ``ops.fnn_eval.launch_plan``:
+    pure Python, so that a run is refused alike on every device); None:
+    both fit."""
+    topo = spec.fnn_topology
+    if topo is None:
+        return None
+    from ptnn_torch.ops import drift as drift_mod
+    from ptnn_torch.ops import fnn_eval as eval_mod
+
+    try:
+        if cfg.use_langevin_gradients and cfg.drift_mode != "batch":
+            drift_mod.plan(cfg.num_chains, data.x_train.shape[-2], 1, topo)
+        if _fnn_kernel(cfg, spec):
+            eval_mod.launch_plan(cfg.num_chains, (data.x_train.shape[-2],
+                                                  data.x_test.shape[-2]), topo)
+    except ValueError as e:
+        return str(e)
     return None
 
 
@@ -983,7 +1071,22 @@ def step_noise_names(cfg: PTConfig) -> Tuple[str, ...]:
     them from ``ksu`` of ``split(key, 6)`` (anchored) and ``ksu, kseg`` of
     ``split(key, 7)`` (delayed acceptance: kp, kl, ke, ku, ks, ksu, kseg).
     A segment closed at a chunk boundary or at the run's end reads the
-    sampler's ``close_noise`` draw of that boundary instead."""
+    sampler's ``close_noise`` draw of that boundary instead. sgld reads "w"
+    normal (C, W), "eta" normal (C,) (regression), "u_swap", and "batch"
+    int64 (B,): the step's minibatch, B = min(sg_batch, N) row indices, a
+    prefix of a uniform permutation of the train rows (B = N: every row);
+    under ``sg_swap="corrected"`` also "batch_swap", the swap event's own
+    minibatch. ptnn draws them from ``kb, kn, ke, ks = split(key, 4)``:
+    batch = ``permutation(kb, N)[:B]``, w, eta, and u_swap from ks, or
+    under the corrected swap batch_swap and u_swap from ``kb2, ks2 =
+    split(ks)``."""
+    if cfg.proposal == "sgld":
+        names = ("w", "u_swap", "batch")
+        if cfg.task == "regression":
+            names += ("eta",)
+        if cfg.sg_swap == "corrected":
+            names += ("batch_swap",)
+        return names
     names = ("w", "u", "u_swap")
     if cfg.use_langevin_gradients:
         names += ("l",)
@@ -1005,9 +1108,11 @@ def step_noise_names(cfg: PTConfig) -> Tuple[str, ...]:
 def spec_fx(cfg: PTConfig, spec: model_api.ModelSpec, w: torch.Tensor,
             x: torch.Tensor) -> torch.Tensor:
     """Every chain's predictions on the rows ``x`` by the plain forward
-    (``record_fx``): the output (regression), the predicted class index
-    as float32 (classification)."""
-    out = spec.forward(w, x)
+    (``record_fx``; bfloat16 evals: ``eval_forward``'s, as ptnn traces its
+    evals' outputs): the output (regression), the predicted class index as
+    float32 (classification)."""
+    out = (eval_forward(cfg, spec, w, x) if cfg.eval_dtype == "bfloat16"
+           else spec.forward(w, x))
     if cfg.task == "regression":
         return out[:, :, 0]
     return fnn.predict_class(out).to(torch.float32)
@@ -1087,7 +1192,7 @@ class StepFn:
             raise NotImplementedError(
                 f"ptnn_torch's per-step sampler does not run {reason}: not "
                 f"yet ported")
-        reason = mask_reason(cfg, data)
+        reason = mask_reason(cfg, data) or plan_reason(cfg, spec, data)
         if reason is not None:
             raise ValueError(reason)
         if cfg.use_langevin_gradients and data.t_train is None:
@@ -1140,6 +1245,8 @@ class StepFn:
                    if cfg.variational_reference else None)
         self.surr = (Surrogate(cfg, spec.w_size, temps.device, surrogate_proj)
                      if cfg.use_surrogate else None)
+        # sgld's minibatch (train rows, rows a batch): the "batch" noise
+        self.batch_shape: Optional[Tuple[int, int]] = None
 
     def _prior(self, w, tau):
         """The log prior of (w, tau) for every chain (tau: regression's
@@ -1920,18 +2027,207 @@ class PrecondStepFn(StepFn):
             chees_m1=m1, chees_v2=v2)
 
 
+class SgldStepFn(StepFn):
+    """ptnn's ``step_sgld`` (ptnn/kernel.py:2159-2413): replica-exchange
+    stochastic-gradient Langevin dynamics (PAPERS.md arXiv 2301.01898,
+    2010.01084). Each step every rung takes one unadjusted Euler-Maruyama
+    move on its tempered posterior, with the likelihood's gradient from the
+    step's shared minibatch ("batch", B rows) scaled by N / B:
+
+        grad = beta (N / B) g_l - w / sigma^2,
+        w' = w + eps grad / 2 + sqrt(eps) z,
+
+    g_l the gradient of -SSE/2 over tau (regression) or of the multinomial
+    ll, and for regression an eta move alike with ptnn's minibatch dll and
+    the prior's dpr. ``eps`` is a rung's: ``sg_step``, or ``sg_step T_k``
+    under ``sg_lr_scale="temperature"``. No MH test: every move counts as
+    accepted (and as a Langevin move). The minibatch value and gradient are
+    plain PyTorch (the FNN's hand-written backprops, autograd over a zoo
+    spec's forward), as ptnn leaves them to XLA; the kernels run in the
+    full-data evals:
+
+    * SVRG anchors (``sg_vr``): every ``sg_anchor_interval`` steps, before
+      any swap of the step, each chain's (w, eta) and its full-data train
+      ll (one ``spec_eval``) become its anchor;
+    * the exact swap (``sg_swap="exact"``): at a swap event the train ll,
+      the metrics and the prior are refreshed from one evaluation of both
+      row sets (``spec_eval_pair``: one ``fnn_eval_pair`` launch), then the
+      sweep;
+    * the corrected swap: a fresh minibatch ("batch_swap") gives each
+      chain's per-example ll terms c (C, B), centred by the anchors' under
+      ``sg_vr``; the energy is (N / B) sum c (plus the anchor's full ll),
+      and each pair's exponent drops ``(d beta)^2 var_pair / 2``,
+      ``var_pair = N^2 / B var(c_k+1 - c_k)``; the test rows are evaluated
+      exactly (``spec_eval``), the train metrics from the minibatch.
+
+    With ``diagnostics`` the trace carries "margin": |u_swap - a| of each
+    proposed pair k at entry k (inf elsewhere)."""
+
+    def __init__(self, cfg: PTConfig, data: Dataset, temps: torch.Tensor,
+                 spec: model_api.ModelSpec):
+        super().__init__(cfg, data, temps, spec)
+        n = data.y_train.shape[0]
+        self.n_train = n
+        self.bsz = min(cfg.sg_batch, n)
+        self.batch_shape = (n, self.bsz)
+        self.scale = n / self.bsz
+        self.betas = 1.0 / temps  # the canonical schedule: no temper switch
+        if cfg.sg_lr_scale == "temperature":
+            self.eps_c = cfg.sg_step * temps
+        else:
+            self.eps_c = cfg.sg_step * torch.ones_like(temps)
+        self.eps = self.eps_c[:, None]
+
+    def _per_example(self, w: torch.Tensor, xb: torch.Tensor,
+                     yb: torch.Tensor) -> torch.Tensor:
+        """Each chain's per-example likelihood terms on a minibatch, (C, B):
+        -(y - fx)^2 / 2 (tau-free, regression) or log p(y | x)."""
+        out = self.spec.forward(w, xb)
+        if not self.cls:
+            return -0.5 * torch.square(yb - out[:, :, 0])
+        logp = self.spec.log_probs(out)
+        idx = yb.to(torch.int64).expand(logp.shape[:-1])[..., None]
+        return torch.gather(logp, -1, idx)[..., 0]
+
+    def step(self, state: ChainState, i: int,
+             noise: Noise) -> Tuple[ChainState, Dict[str, torch.Tensor]]:
+        cfg, d = self.cfg, self.data
+        idx = noise["batch"]
+        xb, yb = d.x_train[idx], d.y_train[idx]
+        (val, _aux), g = value_and_grad_rows(cfg, self.spec, state.w, xb, yb)
+        if self.cls:
+            gl, eta_new = g, state.eta
+        else:
+            inv_tau = torch.exp(-state.eta)
+            gl = g * inv_tau[:, None]
+        grad_post = self.betas[:, None] * self.scale * gl \
+            - state.w / cfg.sigma_sq
+        w_new = state.w + 0.5 * self.eps * grad_post \
+            + torch.sqrt(self.eps) * noise["w"]
+        if not self.cls:
+            # d log pi_beta / d eta with the minibatch SSE (val = -SSE_b/2)
+            dll = -0.5 * self.n_train - self.scale * val * inv_tau
+            dpr = -(1.0 + cfg.nu_1) + cfg.nu_2 * inv_tau
+            eta_new = state.eta + 0.5 * self.eps_c * (self.betas * dll + dpr) \
+                + torch.sqrt(self.eps_c) * noise["eta"]
+        new = state.replace(w=w_new, eta=eta_new, w_last=w_new,
+                            n_accept=state.n_accept + 1,
+                            n_langevin=state.n_langevin + 1)
+        if cfg.sg_vr and i % max(cfg.sg_anchor_interval, 1) == 0:
+            tau = None if self.cls else torch.exp(new.eta)
+            ll = spec_eval(cfg, self.spec, new.w, d.x_train, d.y_train,
+                           tau)[0]
+            new = new.replace(sg_anchor_w=new.w, sg_anchor_eta=new.eta,
+                              sg_anchor_full=ll)
+        margin = None
+        if swap_due(cfg, i):
+            if cfg.sg_swap == "exact":
+                new = self._refresh_full(new)
+                pen = None
+            else:
+                new, pen = self._corrected_energy(new, noise["batch_swap"])
+            new, res = do_swap(cfg, new, self.temps, i, noise["u_swap"],
+                               self.pair_mask, pair_penalty=pen, result=True)
+            if self.diagnostics:
+                margin = torch.where(res.pair_active,
+                                     torch.abs(noise["u_swap"]
+                                               - res.pair_accept), math.inf)
+        trace = {
+            "ll": new.ll,
+            "rmse_train": new.rmse_train,
+            "rmse_test": new.rmse_test,
+            "acc_train": new.acc_train,
+            "acc_test": new.acc_test,
+            "accept_count": state.n_accept,
+        }
+        if cfg.record_w:
+            trace["w"] = new.w_last[self.rec]
+        if cfg.record_eta and not self.cls:
+            trace["eta"] = new.eta[self.rec]
+        if cfg.record_ll_state:
+            trace["ll_cur"] = new.ll
+        if cfg.track_replicas:
+            trace["replica"] = new.replica_id
+        if self.diagnostics:
+            m = torch.full_like(state.ll, math.inf)
+            if margin is not None:
+                m[:-1] = margin
+            trace["margin"] = m
+        return new, trace
+
+    def _refresh_full(self, s: ChainState) -> ChainState:
+        """The exact swap's full-data energy, metrics and prior."""
+        d = self.data
+        tau = None if self.cls else torch.exp(s.eta)
+        (ll, rmse_tr, acc_tr), (_ll, rmse_te, acc_te) = spec_eval_pair(
+            self.cfg, self.spec, s.w, d.x_train, d.y_train, d.x_test,
+            d.y_test, tau)
+        if not self.cls:
+            acc_tr, acc_te = s.acc_train, s.acc_test
+        return s.replace(ll=ll, prior=self._prior(s.w, tau),
+                         rmse_train=rmse_tr, rmse_test=rmse_te,
+                         acc_train=acc_tr, acc_test=acc_te)
+
+    def _corrected_energy(self, s: ChainState, idx: torch.Tensor):
+        """The corrected swap's minibatch energies (SVRG-centred under
+        ``sg_vr``), exact test metrics and prior, minibatch train metrics,
+        and each pair's variance penalty (C-1,)."""
+        cfg, d = self.cfg, self.data
+        xb, yb = d.x_train[idx], d.y_train[idx]
+        per = self._per_example(s.w, xb, yb)  # (C, B)
+        tau = None if self.cls else torch.exp(s.eta)
+        _ll, rmse_te, acc_te = spec_eval(cfg, self.spec, s.w, d.x_test,
+                                         d.y_test, tau)
+        if self.cls:
+            cb = per
+            rmse_tr = s.rmse_train
+            pred = fnn.predict_class(self.spec.forward(s.w, xb))
+            hit = (pred == yb.to(torch.int64)[None, :]).to(torch.float32)
+            acc_tr = 100.0 * torch.mean(hit, dim=-1)
+        else:
+            cb = -0.5 * (likelihood._LOG_2PI + s.eta)[:, None] \
+                + per * torch.exp(-s.eta)[:, None]
+            rmse_tr = torch.sqrt(-2.0 * torch.mean(per, dim=-1))
+            acc_tr, acc_te = s.acc_train, s.acc_test
+        if cfg.sg_vr:
+            per_a = self._per_example(s.sg_anchor_w, xb, yb)
+            if self.cls:
+                cb_a = per_a
+            else:
+                eta_a = s.sg_anchor_eta[:, None]
+                cb_a = -0.5 * (likelihood._LOG_2PI + eta_a) \
+                    + per_a * torch.exp(-eta_a)
+            cb = cb - cb_a
+            ll_hat = self.scale * torch.sum(cb, dim=-1) + s.sg_anchor_full
+        else:
+            ll_hat = self.scale * torch.sum(cb, dim=-1)
+        diff = cb[1:] - cb[:-1]  # (C-1, B)
+        var_pair = (float(self.n_train) ** 2 / self.bsz) \
+            * torch.var(diff, dim=-1, correction=0)
+        dbeta = self.betas[:-1] - self.betas[1:]
+        pen = 0.5 * torch.square(dbeta) * var_pair
+        s = s.replace(ll=ll_hat, prior=self._prior(s.w, tau),
+                      rmse_train=rmse_tr, rmse_test=rmse_te,
+                      acc_train=acc_tr, acc_test=acc_te)
+        return s, pen
+
+
 def make_step_fn(cfg: PTConfig, data: Dataset, temps: torch.Tensor,
                  spec: Optional[model_api.ModelSpec] = None,
                  surrogate_proj: Optional[torch.Tensor] = None,
                  grid: Optional[Grid] = None) -> StepFn:
-    """The per-step sampler's step for ``cfg``: ``PrecondStepFn`` for the
-    preconditioned family, else ``StepFn`` (the reference proposal, with or
-    without Langevin gradients); ``spec`` defaults to the reference FNN
-    with ``cfg.drift_mode``; ``grid`` runs a sweep's cells at once. Raises
+    """The per-step sampler's step for ``cfg``: ``SgldStepFn`` for
+    ``proposal="sgld"``, ``PrecondStepFn`` for the preconditioned family,
+    else ``StepFn`` (the reference proposal, with or without Langevin
+    gradients); ``spec`` defaults to the reference FNN with
+    ``cfg.drift_mode``; ``grid`` runs a sweep's cells at once. Raises
     NotImplementedError naming a feature that is not ported
     (``step_reason``, ``grid_reason``) and ValueError for what ptnn refuses
-    on a padded dataset (``mask_reason``)."""
+    on a padded dataset (``mask_reason``) or the kernels cannot lay out
+    (``plan_reason``)."""
     spec = spec or default_spec(cfg)
+    if grid is None and cfg.proposal == "sgld":
+        return SgldStepFn(cfg, data, temps, spec)
     if cfg.proposal in PRECOND and grid is None:
         return PrecondStepFn(cfg, data, temps, spec)
     return StepFn(cfg, data, temps, spec, surrogate_proj, grid)

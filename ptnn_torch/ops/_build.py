@@ -331,9 +331,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                                f"library ({n} rows) differs from the source's")
         _check_query(lib, name, "ptnn_eval_max_warps", ev._MAX_WARPS,
                      "MAX_WARPS")
-        lib.ptnn_eval_smem_floats.argtypes = [ctypes.c_int] * 5
+        _check_query(lib, name, "ptnn_eval_gen_warps",
+                     cu_define("fnn_eval.cu", "GEN_WARPS"), "GEN_WARPS")
+        lib.ptnn_eval_smem_floats.argtypes = [ctypes.c_int] * 8
         lib.ptnn_eval_smem_floats.restype = ctypes.c_int
-        for topo, groups in (((34, 50, 2), (1, 10)), ((5, 40, 32), (3, 5))):
+        for topo, groups in (((34, 50, 2), (1, 10, 1, 34, 2)),
+                             ((5, 40, 32), (3, 5, 1, 5, 32)),
+                             ((900, 16, 40), (1, 4, 0, 300, 32))):
             want = ev.smem_floats(topo, *groups)
             got = lib.ptnn_eval_smem_floats(*topo, *groups)
             if got != want:

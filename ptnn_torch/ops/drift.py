@@ -31,9 +31,13 @@ never by failure: the register kernel for the topologies of the
 ``FNN_LAYOUTS`` table of ``csrc/fnn_layouts.cuh`` (every network the
 repository bundles), with a
 lane group of G lanes per chain and the weights in registers; the generic
-kernel (one warp per chain, the weights in shared memory) for any other
-topology with at most ``32 * HPL`` hidden units. ``launches`` counts both;
-``variant_launches`` says which ran.
+kernel (one warp per chain) for any other topology, of any width: ``plan``
+(pure Python) gives it WARPS chains a block with their weights in shared
+memory where they fit, fewer chains a block down to one where they do not,
+and where one chain's weights do not fit a block, weights in device memory
+(the output buffer, updated in place). ``launches`` counts both kernels;
+``variant_launches`` says which ran, ``route_launches`` how the generic
+kernel held its weights.
 
 Weights are chains-major flat vectors (C, W) in the codec of
 ``models/fnn.py``; x (N, I), t (N, O) float32. A grid of runs
@@ -49,7 +53,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import types
-from typing import Mapping, Optional, Tuple, Union
+from typing import Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -60,6 +64,7 @@ from ptnn_torch.ops.block_step import _SMEM_LIMIT, _check
 
 launches = 0  # launches of csrc/drift_epoch.cu (the plain version counts none)
 variant_launches = {"register": 0, "generic": 0}  # which kernel they ran
+route_launches = {"registers": 0, "shared": 0, "global": 0}  # the weights'
 
 Rate = Union[float, torch.Tensor]  # one learning rate, or one a chain (C,)
 MODES = ("sequential", "pallas", "batch")
@@ -69,9 +74,9 @@ _TILE_FLOATS = 16384  # rows staged per tile: at most 64 KB of (x, t)
 
 def _define(name: str) -> int:
     """A layout constant of csrc/drift_epoch.cu, read from the source at
-    first use: WARPS (the generic kernel's chains a block), HPL (its hidden
-    units a lane, n_hid <= 32 HPL), REG_THREADS (the register kernel's
-    threads a block)."""
+    first use: WARPS (the generic kernel's most chains a block), HPL (its
+    hidden units a lane in a chunk of the forward), REG_THREADS (the
+    register kernel's threads a block)."""
     return _build.cu_define(_SOURCE, name)
 
 
@@ -86,15 +91,10 @@ def reg_layouts() -> Mapping[Tuple[int, int, int], int]:
 
 def variant(topo: Topology) -> Tuple[str, Optional[int]]:
     """The kernel a CUDA epoch of ``topo`` launches: ("register", G) for a
-    topology of the register table, else ("generic", None) for at most
-    ``32 * HPL`` hidden units; anything else raises."""
-    topo = tuple(topo)
-    g = reg_layouts().get(topo)
+    topology of the register table, else ("generic", None)."""
+    g = reg_layouts().get(tuple(topo))
     if g is not None:
         return "register", g
-    if topo[1] > 32 * _define("HPL"):
-        raise ValueError(f"the drift kernel takes at most "
-                         f"{32 * _define('HPL')} hidden units, not {topo[1]}")
     return "generic", None
 
 
@@ -250,28 +250,86 @@ class _DriftParams(ctypes.Structure):
     ] + [
         (name, ctypes.c_int)
         for name in ("chains", "n_rows", "n_in", "n_hid", "n_out", "depth",
-                     "tile_rows", "cells", "chains_per_cell")
+                     "tile_rows", "cells", "chains_per_cell", "warps",
+                     "w_global")
     ] + [("lrate", ctypes.c_float)]
 
 
 def tile_rows(n_rows: int, depth: int, n_in: int, n_out: int) -> int:
-    """Rows (x and t) staged in shared memory at a time."""
+    """Rows (x and t) staged in shared memory at a time, at most 64 KB."""
     return max(1, min(n_rows * depth, _TILE_FLOATS // (n_in + n_out)))
+
+
+class DriftPlan(NamedTuple):
+    """One launch of the drift kernel: ``kind`` ("register" or "generic"),
+    ``chains_per_block``, where a chain's weights live (``weights``:
+    "registers", "shared" or "global", the generic kernel's working copy in
+    device memory), ``tile_rows`` staged at a time, ``blocks`` and
+    ``smem`` bytes a block."""
+    kind: str
+    chains_per_block: int
+    weights: str
+    tile_rows: int
+    blocks: int
+    smem: int
+
+
+def plan(chains: int, n_rows: int, depth: int, topo: Topology,
+         masked: bool = False, cells: int = 1) -> DriftPlan:
+    """The launch of an epoch of ``chains`` chains in ``cells`` cells over
+    ``n_rows`` rows, ``depth`` times. Pure Python.
+
+    The register kernel stages a tile of rows (and a masked grid's mask)
+    beside its weights in registers, ``REG_THREADS / G`` chains a block.
+    The generic kernel stages for each chain of a block its weights and its
+    row's hidden activations and output deltas (W + H + O floats), and a
+    tile of rows: WARPS chains a block, fewer down to one while that does
+    not fit, then one chain with a shorter tile; where one chain's weights
+    do not fit beside a single row, they stay in device memory (the mask
+    too) and the block stages the rest, WARPS chains down to one with the
+    tile shortened to fit. Raises ValueError only where one row and one
+    chain's activations (I + O + H + O floats) pass a Hopper block's
+    shared memory."""
+    i, h, o = (int(d) for d in topo)
+    w = fnn.w_size((i, h, o))
+    kind, g = variant((i, h, o))
+    tile = tile_rows(n_rows, depth, i, o)
+    cap = _SMEM_LIMIT // 4  # floats a block
+    cpc = chains // cells
+
+    def made(cpb, where, t, floats):
+        return DriftPlan(kind, cpb, where, t, cells * -(-cpc // cpb),
+                         4 * floats)
+
+    if kind == "register":
+        cpb = _define("REG_THREADS") // g
+        return made(cpb, "registers", tile,
+                    tile * (i + o) + (w if masked else 0))
+    per = h + o  # a chain's staged activations
+    mask = w if masked else 0
+    for cpb in range(_define("WARPS"), 0, -1):
+        floats = tile * (i + o) + mask + cpb * (w + per)
+        if floats <= cap:
+            return made(cpb, "shared", tile, floats)
+    short = (cap - mask - w - per) // (i + o)
+    if short >= 1:
+        return made(1, "shared", short,
+                    short * (i + o) + mask + w + per)
+    for cpb in range(_define("WARPS"), 0, -1):
+        t = min(tile, (cap - cpb * per) // (i + o))
+        if t >= 1:
+            return made(cpb, "global", t, t * (i + o) + cpb * per)
+    raise ValueError(
+        f"topology {(i, h, o)}: the drift kernel stages a row and one "
+        f"chain's hidden activations and output deltas, {i + o + per} "
+        f"floats ({4 * (i + o + per)} bytes); a Hopper block has "
+        f"{_SMEM_LIMIT}")
 
 
 def smem_bytes(n_rows: int, depth: int, topo: Topology,
                masked: bool = False) -> int:
-    """Dynamic shared memory of one block: a tile of rows, for the generic
-    kernel one weight vector per chain of the block (the register kernel
-    keeps its weights in registers), and with a parameter mask the block's
-    cell's mask."""
-    i, _h, o = topo
-    tile = tile_rows(n_rows, depth, i, o) * (i + o)
-    if variant(topo)[0] == "generic":
-        tile += _define("WARPS") * fnn.w_size(topo)
-    if masked:
-        tile += fnn.w_size(topo)
-    return 4 * tile
+    """Dynamic shared memory of one block at WARPS chains (``plan``'s)."""
+    return plan(_define("WARPS"), n_rows, depth, topo, masked).smem
 
 
 def _launch_cuda(w, x, t, topo, lrate, depth, rows=None, w_mask=None):
@@ -302,10 +360,7 @@ def _launch_cuda(w, x, t, topo, lrate, depth, rows=None, w_mask=None):
         if w_mask.dim() == 1:
             w_mask = w_mask.expand(g, -1).contiguous()
         _check(w_mask, "w_mask", (g, fnn.w_size(topo)), torch.float32, dev)
-    smem = smem_bytes(n, depth, topo, w_mask is not None)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"topology {tuple(topo)} needs {smem} bytes of shared "
-                         f"memory per block; a Hopper block has {_SMEM_LIMIT}")
+    lay = plan(c, n, depth, topo, w_mask is not None, g)
     lib = _build.build("drift_epoch").lib
     out = torch.empty_like(w)
     ptr = lambda a: None if a is None else a.data_ptr()
@@ -314,21 +369,23 @@ def _launch_cuda(w, x, t, topo, lrate, depth, rows=None, w_mask=None):
         lrates=ptr(lrates), cell_rows=ptr(rows), w_mask=ptr(w_mask),
         x_cell=n * n_in if lead else 0, t_cell=n * n_out if lead else 0,
         chains=c, n_rows=n, n_in=n_in, n_hid=n_hid, n_out=n_out, depth=depth,
-        tile_rows=tile_rows(n, depth, n_in, n_out), cells=g,
-        chains_per_cell=c // g,
+        tile_rows=lay.tile_rows, cells=g, chains_per_cell=c // g,
+        warps=lay.chains_per_block, w_global=int(lay.weights == "global"),
         lrate=0.0 if lrates is not None else float(lrate),
     )
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         if kind == "register":
-            err = lib.ptnn_drift_epoch_reg(ctypes.byref(params), smem, stream)
+            err = lib.ptnn_drift_epoch_reg(ctypes.byref(params), lay.smem,
+                                           stream)
         else:
-            err = lib.ptnn_drift_epoch(ctypes.byref(params), smem, stream)
+            err = lib.ptnn_drift_epoch(ctypes.byref(params), lay.smem, stream)
     if err != 0:
         raise RuntimeError(
             f"drift_epoch launch failed: {_build.error_string(lib, err)}")
     launches += 1
     variant_launches[kind] += 1
+    route_launches[lay.weights] += 1
     return out
 
 

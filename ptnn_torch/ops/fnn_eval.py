@@ -17,8 +17,10 @@ test) in one launch. The metrics multiply by ``block_step.inv_rows``, the
 float32 constants XLA folds ptnn's means into, so the accuracy traces match
 ptnn's bit for bit. CUDA tensors launch the hand-written kernel
 ``csrc/fnn_eval.cu`` (one thread-block cluster per chain and row set, laid
-out by ``launch_plan``); CPU tensors run ``fnn_eval_reference``. A CUDA
-tensor never takes the plain version.
+out by ``launch_plan`` for any width: fewer row groups, the weights read
+from device memory, the inputs staged a tile at a time, the outputs in
+chunks of 32, as the block's shared memory asks); CPU tensors run
+``fnn_eval_reference``. A CUDA tensor never takes the plain version.
 
 A grid of runs (``ptnn_torch.sweeps``) evaluates every cell in the same
 launch: the chains are cell-major, x (G, N, I) and y (G, N) give each cell
@@ -46,9 +48,12 @@ from ptnn_torch.ops.block_step import _SMEM_LIMIT, _check
 
 launches = 0  # launches of csrc/fnn_eval.cu (the plain version counts none)
 
-_MAX_OUT = 32  # MAX_OUT of csrc/fnn_eval.cu: the most outputs it takes
+_MAX_OUT = 32  # MAX_OUT of csrc/fnn_eval.cu: outputs a chunk
 _MAX_CLUSTER = 8  # MAX_CLUSTER: blocks of a (chain, set) cluster
 _MAX_WARPS = 16  # MAX_WARPS: warps a block
+# the bytes of a block's shared memory its dynamic share leaves to the
+# kernel's static one (SetView, 80 bytes in ptxas' report), with room
+_STATIC_SMEM = 1024
 _TILE = 32  # TILE: rows of a row group a pass, one a lane
 
 Eval = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -135,16 +140,22 @@ def layouts() -> dict:
             for row in _build.cu_rows("fnn_layouts.cuh", "FNN_LAYOUTS")}
 
 
-def smem_floats(topo: Topology, row_groups: int, hid_groups: int) -> int:
+def smem_floats(topo: Topology, row_groups: int, hid_groups: int,
+                w_smem: bool = True, in_tile: Optional[int] = None,
+                out_chunk: Optional[int] = None) -> int:
     """Dynamic shared memory of one block in floats (``eval_smem_floats``
-    of csrc/fnn_eval.cu): the chain's weights rounded up to 4, the staged
-    rows and their targets, two parities of the warps' output shares, the
-    row groups' sums and the block's."""
+    of csrc/fnn_eval.cu): the chain's weights rounded up to 4 (unless they
+    stay in device memory), the staged rows (``in_tile`` inputs, default
+    all) and their targets, two parities of the warps' output shares
+    (``out_chunk`` outputs, default all), the row groups' sums and the
+    block's."""
     n_in, _n_hid, n_out = topo
     w = fnn.w_size(topo)
     rows = _TILE * row_groups
-    return ((w + 3) // 4 * 4 + n_in * (rows + 1) + rows
-            + 2 * row_groups * hid_groups * n_out * _TILE + 4 * row_groups + 4)
+    it = n_in if in_tile is None else in_tile
+    oc = n_out if out_chunk is None else out_chunk
+    return (((w + 3) // 4 * 4 if w_smem else 0) + it * (rows + 1) + rows
+            + 2 * row_groups * hid_groups * oc * _TILE + 4 * row_groups + 4)
 
 
 class EvalPlan(NamedTuple):
@@ -152,7 +163,10 @@ class EvalPlan(NamedTuple):
     ``tile_rows`` the rows a block takes in each set, ``row_groups`` x
     ``hid_groups`` warps a block (a pass takes 32 rows a row group; the
     warps of a row group split the hidden units, ``hid_per_warp`` at a
-    time), ``blocks`` in the grid and ``smem`` bytes a block."""
+    time), ``blocks`` in the grid and ``smem`` bytes a block; the wide
+    routes of the generic instantiation: ``w_global`` (the weights read
+    from device memory), ``in_tile`` inputs staged at a time and
+    ``out_chunk`` outputs a chunk."""
     cluster: int
     tile_rows: Tuple[int, ...]
     row_groups: int
@@ -160,6 +174,9 @@ class EvalPlan(NamedTuple):
     hid_per_warp: int
     blocks: int
     smem: int
+    w_global: bool
+    in_tile: int
+    out_chunk: int
 
 
 def launch_plan(chains: int, n_rows: Sequence[int], topo: Topology) -> EvalPlan:
@@ -170,26 +187,57 @@ def launch_plan(chains: int, n_rows: Sequence[int], topo: Topology) -> EvalPlan:
     the largest set, at most 8; block ``rank`` takes rows ``[rank R, (rank
     + 1) R)`` of each set, R = ceil(n / T) for that set. A row group has HG
     = ceil(H / HPW) warps (HPW from FNN_LAYOUTS, else GEN_HPW, at most
-    MAX_WARPS warps); a block has as many row groups as make one pass of its
-    largest tile, within MAX_WARPS warps."""
+    MAX_WARPS warps, GEN_WARPS for the generic instantiation, the warps
+    then looping over the units); a block has as many row groups as make
+    one pass of its largest tile, within those warps, fewer while the block
+    does not fit a Hopper block's shared memory (less the kernel's static
+    share). Past that (the generic instantiation):
+    the weights read from device memory, the row groups again from the most
+    down to one; then one row group with the inputs staged ``in_tile`` at a
+    time. Outputs past MAX_OUT go in chunks of MAX_OUT."""
     n_rows = tuple(int(n) for n in n_rows)
     if not 1 <= len(n_rows) <= 2 or min(n_rows) < 1 or chains < 1:
         raise ValueError(f"{chains} chains on row sets {n_rows}: needs one or "
                          f"two non-empty sets and at least one chain")
     topo = tuple(int(d) for d in topo)
+    n_in, n_hid, n_out = topo
     cluster = min(_MAX_CLUSTER, -(-max(n_rows) // _TILE))
     tiles = tuple(-(-n // cluster) for n in n_rows)
-    hpw = layouts().get(topo)
-    if hpw is None:  # the generic instantiation
-        from ptnn_torch.ops import _build
+    oc = min(n_out, _MAX_OUT)
+    limit = _SMEM_LIMIT - _STATIC_SMEM  # the dynamic share's bytes
 
-        hpw = _build.cu_define("fnn_eval.cu", "GEN_HPW")
-    hid_groups = min(_MAX_WARPS, -(-topo[1] // hpw))
-    row_groups = max(1, min(-(-max(tiles) // _TILE),
-                            _MAX_WARPS // hid_groups))
-    return EvalPlan(cluster, tiles, row_groups, hid_groups, hpw,
-                    chains * len(n_rows) * cluster,
-                    4 * smem_floats(topo, row_groups, hid_groups))
+    def made(hpw, warps, rg, w_smem, it):
+        hg = min(warps, -(-n_hid // hpw))
+        return EvalPlan(cluster, tiles, rg, hg, hpw,
+                        chains * len(n_rows) * cluster,
+                        4 * smem_floats(topo, rg, hg, w_smem, it, oc),
+                        not w_smem, it, oc)
+
+    def row_groups(hpw, warps):  # the most: one pass of the largest tile
+        hg = min(warps, -(-n_hid // hpw))
+        return range(max(1, min(-(-max(tiles) // _TILE), warps // hg)), 0, -1)
+
+    fixed = layouts().get(topo)
+    if fixed is not None:  # the compile-time instantiation: staged only
+        for rg in row_groups(fixed, _MAX_WARPS):
+            plan = made(fixed, _MAX_WARPS, rg, True, n_in)
+            if plan.smem <= limit:
+                return plan
+    from ptnn_torch.ops import _build
+
+    hpw = _build.cu_define("fnn_eval.cu", "GEN_HPW")
+    warps = _build.cu_define("fnn_eval.cu", "GEN_WARPS")
+    for w_smem in (True, False):
+        for rg in row_groups(hpw, warps):
+            plan = made(hpw, warps, rg, w_smem, n_in)
+            if plan.smem <= limit:
+                return plan
+    hg = min(warps, -(-n_hid // hpw))
+    it = (limit // 4 - smem_floats(topo, 1, hg, False, 0, oc)) // (_TILE + 1)
+    if it < 1:
+        raise ValueError(f"topology {topo}: one row group's output shares "
+                         f"pass a Hopper block's {_SMEM_LIMIT} bytes")
+    return made(hpw, warps, 1, False, min(it, n_in))
 
 
 _plan = functools.lru_cache(maxsize=64)(launch_plan)
@@ -223,7 +271,7 @@ class _EvalParams(ctypes.Structure):
         (name, ctypes.c_int)
         for name in ("chains", "n_sets", "n_in", "n_hid", "n_out", "task_cls",
                      "chains_per_cell", "cluster", "row_groups",
-                     "hid_groups")
+                     "hid_groups", "w_global", "in_tile", "out_chunk")
     ] + [("log_2pi", ctypes.c_float)]
 
 
@@ -238,9 +286,6 @@ def _launch_cuda(w, sets, tau, topo, task,
     dev = w.device
     cls = task == "classification"
     g = sets[0][0].shape[0] if sets[0][0].dim() == 3 else 1
-    if n_out > _MAX_OUT:
-        raise ValueError(f"the eval kernel takes at most {_MAX_OUT} outputs, "
-                         f"not {n_out}")
     if c < 1 or min(x.shape[-2] for x, _y, _r in sets) < 1:
         raise ValueError(f"chains {c} and rows "
                          f"{[x.shape[-2] for x, _y, _r in sets]} must be "
@@ -260,10 +305,6 @@ def _launch_cuda(w, sets, tau, topo, task,
     if not cls:
         _check(tau, "tau", (c,), torch.float32, dev)
     plan = _plan(c, tuple(x.shape[-2] for x, _y, _r in sets), tuple(topo))
-    if plan.smem > _SMEM_LIMIT:
-        raise ValueError(f"topology {tuple(topo)} needs {plan.smem} bytes of "
-                         f"shared memory per block; a Hopper block has "
-                         f"{_SMEM_LIMIT}")
     lib = _build.build("fnn_eval").lib
     outs, c_sets = [], (_EvalSet * 2)()
     for k, ((x, y, rows), tile) in enumerate(zip(sets, plan.tile_rows)):
@@ -287,7 +328,9 @@ def _launch_cuda(w, sets, tau, topo, task,
         set=c_sets, chains=c, n_sets=len(sets), n_in=n_in, n_hid=n_hid,
         n_out=n_out, task_cls=int(cls), chains_per_cell=c // g,
         cluster=plan.cluster, row_groups=plan.row_groups,
-        hid_groups=plan.hid_groups, log_2pi=likelihood._LOG_2PI)
+        hid_groups=plan.hid_groups, w_global=int(plan.w_global),
+        in_tile=plan.in_tile, out_chunk=plan.out_chunk,
+        log_2pi=likelihood._LOG_2PI)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ptnn_fnn_eval(ctypes.byref(params), plan.smem,

@@ -4,8 +4,9 @@
 (``ptnn_torch.fused``) when ``cfg.fused_step`` is set and the fused path can
 run ``cfg`` (``fused.runtime_reason``); otherwise, with a warning for a
 fused config, the per-step sampler here: the reference proposal, with or
-without the Langevin-gradient drift, and the preconditioned family
-(``precond_rw``, ``precond_mala``, ``hmc`` with or without ChEES, ``pcn``). ``model_spec`` names the model
+without the Langevin-gradient drift, the preconditioned family
+(``precond_rw``, ``precond_mala``, ``hmc`` with or without ChEES, ``pcn``)
+and replica-exchange SGLD (``sgld``). ``model_spec`` names the model
 (``models.cnn.digits_spec()``, ``models.mlp.spec(...)``; default: the
 reference FNN of ``cfg.topology``); a spec that is not the reference FNN
 never takes the fused path. Every entry point takes an explicit ``device``;
@@ -21,9 +22,11 @@ traces stay on the device until the chunk ends. Noise is drawn per chunk by
 Langevin "l" (L, C) uniform, for regression "eta" (L, C) normal, for
 the preconditioned family "u_eta" (L, C) (regression) and "jit" (L, C)
 (HMC) uniform, and for the variational reference's regeneration "vr_z"
-(L, W+1) normal and "u_regen" (L,) uniform (``kernel.step_noise_names``). The default (``step_noise``) draws pages of
-steps from a ``torch.Generator`` on the run's device seeded from (seed, page
-index), so a step's noise does not depend on ``chunk_steps``. ``ptnn``
+(L, W+1) normal and "u_regen" (L,) uniform; sgld's "batch" (L, B) int64
+minibatch rows (``kernel.step_noise_names``). The default (``step_noise``)
+draws pages of steps from a ``torch.Generator`` on the run's device seeded
+from (seed, page index), so a step's noise does not depend on
+``chunk_steps``. ``ptnn``
 derives each step's noise from ``split(fold_in(k_run, i), 6)`` (the
 preconditioned family: 5) instead, so
 runs of the two packages agree in distribution, and exactly when ptnn's
@@ -328,23 +331,38 @@ PAGE_STEPS = 256  # steps of per-step noise drawn at a time
 PAGE_FLOATS = 16 * 2**20  # at most 64 MB of w-noise in a page
 
 
-def page_steps(c: int, w: int) -> int:
+def page_steps(c: int, w: int, n: int = 0) -> int:
     """Steps in one page of the per-step noise: ``PAGE_STEPS``, fewer where
-    a page of (steps, C, W) w-noise would pass ``PAGE_FLOATS``. A function
-    of the run's widths only, never of ``chunk_steps``."""
-    return max(1, min(PAGE_STEPS, PAGE_FLOATS // max(c * w, 1)))
+    a page of (steps, C, W) w-noise, or of (steps, N) keys of sgld's
+    minibatch permutations, would pass ``PAGE_FLOATS``. A function of the
+    run's widths only, never of ``chunk_steps``."""
+    return max(1, min(PAGE_STEPS, PAGE_FLOATS // max(c * w, n, 1)))
 
 
-def step_noise(seed: int, device, names) -> NoiseFn:
+def _batches(steps: int, batch, gen: torch.Generator, device) -> torch.Tensor:
+    """sgld's minibatches of a page, (steps, B) int64: each step's B = ``batch
+    [1]`` row indices, a prefix of a uniform permutation of the ``batch[0]``
+    train rows (the order of uniform keys), drawn in one sort."""
+    n, b = batch
+    keys = torch.rand((steps, n), dtype=torch.float32, device=device,
+                      generator=gen)
+    return torch.argsort(keys, dim=1)[:, :b]
+
+
+def step_noise(seed: int, device, names,
+               batch: Optional[tuple] = None) -> NoiseFn:
     """The per-step sampler's default noise, drawing ``names``
-    (``kernel.step_noise_names``). It is drawn in pages of ``page_steps``
-    steps, page p from a ``torch.Generator`` on ``device`` seeded from
-    (seed, 2, p), and a chunk takes the slices of the pages it covers, so a
-    step's noise depends on its absolute index alone: results are invariant
-    to chunking, as ptnn's per-step keys make them. The last page drawn is
-    kept for the next chunk."""
+    (``kernel.step_noise_names``); sgld's "batch" and "batch_swap" need
+    ``batch`` = (train rows N, rows a batch B). It is drawn in pages of
+    ``page_steps`` steps, page p from a ``torch.Generator`` on ``device``
+    seeded from (seed, 2, p), each name of a page in one device op, and a
+    chunk takes the slices of the pages it covers, so a step's noise
+    depends on its absolute index alone: results are invariant to chunking,
+    as ptnn's per-step keys make them. The last page drawn is kept for the
+    next chunk."""
     gen = torch.Generator(device=device)
     cache: Dict[int, Noise] = {}
+    n_rows = 0 if batch is None else batch[0]
 
     def page(p: int, steps: int, c: int, w: int) -> Noise:
         if p not in cache:
@@ -362,13 +380,15 @@ def step_noise(seed: int, device, names) -> NoiseFn:
                 u_regen=lambda: torch.rand((steps,), **f32),
                 u_surr=lambda: torch.rand((steps,), **f32),
                 u_seg=lambda: torch.rand((steps, c), **f32),
+                batch=lambda: _batches(steps, batch, gen, device),
+                batch_swap=lambda: _batches(steps, batch, gen, device),
             )
             cache.clear()
             cache[p] = {name: draw[name]() for name in names}
         return cache[p]
 
     def noise_fn(start: int, length: int, c: int, w: int) -> Noise:
-        steps = page_steps(c, w)
+        steps = page_steps(c, w, n_rows)
         parts = []
         for p in range(start // steps, (start + length - 1) // steps + 1):
             lo = max(start - p * steps, 0)
@@ -543,7 +563,8 @@ def sample_per_step(
     state = (init_state if init_state is not None
              else init_chains(cfg, eng.data, seed, eng.step_fn.spec))
     if noise_fn is None:
-        noise_fn = step_noise(seed, eng.device, kernel.step_noise_names(cfg))
+        noise_fn = step_noise(seed, eng.device, kernel.step_noise_names(cfg),
+                              eng.step_fn.batch_shape)
     chunks: List[Dict[str, np.ndarray]] = []
     resume_at = 0
     if checkpoint_path is not None:
@@ -603,7 +624,8 @@ def throughput_build_per_step(
     state0 = init_chains(cfg2, eng.data, seed, eng.step_fn.spec)
     if noise_fn is None:
         noise_fn = step_noise(seed, eng.device,
-                              kernel.step_noise_names(cfg2))
+                              kernel.step_noise_names(cfg2),
+                              eng.step_fn.batch_shape)
 
     def run():
         sums: Dict[str, torch.Tensor] = {}

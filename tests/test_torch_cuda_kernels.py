@@ -726,6 +726,71 @@ def test_eval_kernel_matches_plain_version(cuda, topo, task, c, n, n_te):
             assert bool(((ll - r_ll).abs() <= 1e-4 + 1e-4 * terms).all())
 
 
+# the wide networks (ROADMAP Queue 3, F1): (topology, chains, train rows,
+# test rows, the drift's weights route): up to 200 hidden units, 784 and 3000
+# inputs, 40 classes; (784, 80, 10) keeps its weights in device memory in
+# both kernels, (3000, 8, 3) stages the eval's inputs a tile at a time
+WIDE_CASES = [((4, 200, 1), 64, 298, 198, "shared"),
+              ((784, 16, 10), 64, 1000, 200, "shared"),
+              ((16, 20, 40), 64, 300, 100, "shared"),
+              ((784, 80, 10), 8, 200, 50, "global"),
+              ((3000, 8, 3), 4, 100, 40, "shared")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topo,c,n,n_te,route", WIDE_CASES)
+def test_wide_kernels_match_plain_version(cuda, topo, c, n, n_te, route):
+    """The drift epoch and the eval pair on the wide networks, each one
+    launch by the route its plan gives, against the plain versions: w
+    within rtol 2e-4 of each chain's scale and atol 2e-5; ll within rtol
+    1e-4 of its terms, rmse within rtol 1e-4, classification acc and rmse
+    exact where no row's argmax is fragile."""
+    rng = np.random.default_rng(23)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+    i, h, o = topo
+    task = "regression" if o == 1 else "classification"
+
+    def rows(k):
+        y = (rng.uniform(size=k) if task == "regression"
+             else rng.integers(0, o, size=k))
+        return f(rng.uniform(size=(k, i))), f(y)
+
+    (x, y), (xt, yt) = rows(n), rows(n_te)
+    w = rng.normal(size=(c, fnn.w_size(topo)))
+    w[:, :i * h] *= min(1.0, 2 / i ** 0.5)
+    w = f(w)
+    t = drift_ops.make_targets(y, o, task)
+    assert drift_ops.plan(c, n, 1, topo).weights == route
+    before = drift_ops.route_launches[route]
+    got = drift_ops.sgd_epoch(w, x, t, topo, 0.01)
+    assert drift_ops.route_launches[route] == before + 1
+    want = drift_ops.sgd_epoch_sequential(w, x, t, topo, 0.01)
+    torch.cuda.synchronize()
+    scale = want.abs().amax(dim=-1, keepdim=True)
+    assert bool(((got - want).abs() <= 2e-5 + 2e-4 * scale).all())
+    assert float((want - w).abs().max()) > 1e-4
+    tau = f(rng.uniform(0.01, 0.2, size=c))
+    before = eval_ops.launches
+    got = eval_ops.fnn_eval_pair(w, x, y, xt, yt, tau, topo, task)
+    assert eval_ops.launches == before + 1
+    want = eval_ops.fnn_eval_pair_reference(w, x, y, xt, yt, tau, topo, task)
+    torch.cuda.synchronize()
+    for (ll, rmse, acc), (r_ll, r_rmse, r_acc), xs in zip(got, want,
+                                                         (x, xt)):
+        k = xs.shape[0]
+        if task == "regression":
+            terms = 0.5 * k * torch.log(2 * math.pi * tau).abs() \
+                + 0.5 * k * r_rmse ** 2 / tau
+            torch.testing.assert_close(rmse, r_rmse, rtol=1e-4, atol=1e-6)
+        else:
+            terms = r_ll.abs()
+            sure = ~block_step.argmax_fragile(w, xs, topo)
+            assert int(sure.sum()) >= c - max(1, c // 10)
+            assert torch.equal(acc[sure], r_acc[sure])
+            assert torch.equal(rmse[sure], r_rmse[sure])
+        assert bool(((ll - r_ll).abs() <= 2e-5 + 1e-4 * terms).all())
+
+
 def _grid_inputs(rng, device, topo, rows, cpc, task, env=None,
                  classes=None):
     """A grid's drift and eval inputs on ``device``: len(rows) cells of

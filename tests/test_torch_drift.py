@@ -121,9 +121,10 @@ def test_kernel_layouts_follow_the_source():
     FNN_LAYOUTS, read by ``reg_layouts``) covers every bundled network with one lane-group
     size each, under the rules the source states: G a power of two up to 32,
     128 / G chains a block, and the measured pick (one hidden unit a lane,
-    or a whole warp for H > 32). Every other topology with at most 32 * HPL
-    hidden units goes to the generic kernel, larger ones are refused, and
-    only the generic kernel keeps weights in shared memory."""
+    or a whole warp for H > 32). Every other topology, of any width, goes
+    to the generic kernel, and only the generic kernel keeps weights (and
+    each chain's hidden activations and output deltas) in shared
+    memory."""
     from ptnn_torch import data
     from ptnn_torch.ops import _build
 
@@ -143,12 +144,11 @@ def test_kernel_layouts_follow_the_source():
         assert drift.variant(topo) == ("register", g)
         i, _h, o = topo
         assert drift.smem_bytes(300, 1, topo) == 4 * 300 * (i + o)
-    for topo in ((5, 20, 3), (3, 128, 1)):
+    for topo in ((5, 20, 3), (3, 128, 1), (3, 129, 1)):
         assert drift.variant(topo) == ("generic", None)
         assert drift.smem_bytes(300, 1, topo) == 4 * (
-            300 * (topo[0] + topo[2]) + warps * fnn.w_size(topo))
-    with pytest.raises(ValueError, match="at most 128 hidden"):
-        drift.variant((3, 129, 1))
+            300 * (topo[0] + topo[2])
+            + warps * (fnn.w_size(topo) + topo[1] + topo[2]))
     # the CPU path ignores the layout: the plain version, no launch
     w, x, y = _inputs(np.random.default_rng(0), (5, 20, 3), "classification",
                       c=3, n=9)
@@ -157,3 +157,109 @@ def test_kernel_layouts_follow_the_source():
     drift.sgd_epoch(torch.from_numpy(w), torch.from_numpy(x), t, (5, 20, 3),
                     0.1)
     assert (drift.launches, drift.variant_launches) == before
+
+
+# The networks ptnn runs at any width and the card ran only up to 128 hidden
+# units and a 64 KB tile beside four chains' weights (ROADMAP Queue 3, F1):
+# (topology, chains, rows, the generic kernel's (chains a block, weights)).
+# (784, 80, 10) needs more than a block for one chain's weights and works
+# on them in device memory; (3000, 8, 3) fits one chain with a short tile.
+WIDE = [((4, 200, 1), 64, 298, (4, "shared")),
+        ((784, 16, 10), 64, 1000, (3, "shared")),
+        ((16, 20, 40), 16, 300, (4, "shared")),
+        ((784, 80, 10), 8, 200, (4, "global")),
+        ((3000, 8, 3), 4, 100, (1, "shared"))]
+
+
+@pytest.mark.parametrize("topo,c,n,route", WIDE)
+def test_plan_fits_any_width(topo, c, n, route):
+    """``plan`` (pure Python) lays out the generic kernel for any width:
+    the blocks take every chain once, the tiles every row, and a block fits
+    a Hopper block's shared memory (the weights it stages, each chain's
+    hidden activations and output deltas, the tile); fewer chains a block
+    where four chains' weights do not fit, the weights in device memory
+    where one chain's do not. A masked grid's plan fits too."""
+    i, h, o = topo
+    lay = drift.plan(c, n, 1, topo)
+    assert lay.kind == "generic" and drift.variant(topo) == ("generic", None)
+    assert (lay.chains_per_block, lay.weights) == route
+    cpb = lay.chains_per_block
+    slots = [b * cpb + k for b in range(lay.blocks) for k in range(cpb)]
+    assert sorted(s for s in slots if s < c) == list(range(c))
+    assert lay.blocks == -(-c // cpb)
+    assert 1 <= lay.tile_rows <= n
+    assert -(-n // lay.tile_rows) * lay.tile_rows >= n  # every row, a tile
+    staged = fnn.w_size(topo) if lay.weights == "shared" else 0
+    assert lay.smem == 4 * (lay.tile_rows * (i + o) + cpb * (staged + h + o))
+    assert lay.smem <= drift._SMEM_LIMIT
+    if lay.weights == "global":  # one chain's weights pass a block
+        assert 4 * (fnn.w_size(topo) + h + o + i + o) > drift._SMEM_LIMIT
+    grid = drift.plan(2 * c, n, 1, topo, masked=True, cells=2)
+    assert grid.smem <= drift._SMEM_LIMIT
+    assert grid.blocks == 2 * -(-c // grid.chains_per_block)
+
+
+def test_plan_refuses_naming_the_limit():
+    """What no layout fits (a row and one chain's activations past a
+    block) is refused on every device, naming the limit, by the sampler's
+    gate (``kernel.plan_reason``) as by the plan."""
+    from ptnn_torch import kernel
+    from ptnn_torch.config import PTConfig
+    from ptnn_torch.kernel import Dataset
+
+    topo = (60000, 4, 2)
+    with pytest.raises(ValueError, match="232448"):
+        drift.plan(4, 10, 1, topo)
+    cfg = PTConfig(task="classification", topology=topo, num_samples=4 * 4,
+                   num_chains=4, swap_interval=2,
+                   use_langevin_gradients=True).validate()
+    data = Dataset(x_train=torch.zeros((3, 60000)), y_train=torch.zeros(3),
+                   x_test=torch.zeros((2, 60000)), y_test=torch.zeros(2))
+    assert "232448" in kernel.plan_reason(cfg, kernel.default_spec(cfg),
+                                          data)
+    ok = PTConfig(task="classification", topology=(784, 80, 10),
+                  num_samples=4 * 4, num_chains=4, swap_interval=2,
+                  use_langevin_gradients=True).validate()
+    assert kernel.plan_reason(ok, kernel.default_spec(ok), data) is None
+
+
+@pytest.mark.parametrize("topo,task", [((16, 20, 40), "classification"),
+                                       ((4, 200, 1), "regression")])
+def test_wide_epoch_matches_ptnn(rng, topo, task):
+    """The plain epoch at the wide widths against ptnn's scan."""
+    w, x, y = _inputs(rng, topo, task, c=3, n=11, scale=0.5)
+    t = drift.make_targets(torch.from_numpy(y), topo[2], task)
+    got = drift.sgd_epoch(torch.from_numpy(w), torch.from_numpy(x), t, topo,
+                          0.05)
+    want = jax.vmap(lambda wi: jdrift.sgd_epoch_sequential(
+        wi, jnp.asarray(x), jnp.asarray(t.numpy()), topo, 0.05))(
+        jnp.asarray(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def _wide_rows(rng, topo, n):
+    task = "regression" if topo[2] == 1 else "classification"
+    x = rng.random((n, topo[0]))
+    y = (rng.random(n) if task == "regression"
+         else rng.integers(0, topo[2], n).astype(np.float64))
+    return task, np.hstack([x, y[:, None]])
+
+
+@pytest.mark.parametrize("topo", [(4, 200, 1), (784, 16, 10), (16, 20, 40)])
+def test_wide_networks_run_per_step(rng, topo):
+    """The per-step sampler runs the wide networks with Langevin gradients
+    on every device: ``step_reason`` and the plans accept them, and on CPU
+    tensors a few steps run through the plain versions."""
+    import ptnn_torch
+    from ptnn_torch import kernel
+
+    task, rows = _wide_rows(rng, topo, 40)
+    cfg = ptnn_torch.PTConfig(task=task, topology=topo, num_samples=4 * 4,
+                              num_chains=4, swap_interval=2,
+                              use_langevin_gradients=True,
+                              drift_mode="pallas").validate()
+    assert kernel.step_reason(cfg) is None
+    res = ptnn_torch.sample(cfg, rows[:30], rows[30:], seed=0, device="cpu")
+    assert np.isfinite(res.traces["ll"]).all()
+    assert res.langevin_ratio_per_chain.max() > 0.0

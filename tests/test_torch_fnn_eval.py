@@ -204,10 +204,15 @@ def test_launch_plan_covers_every_row_once(chains, n_rows, topo):
     # a bundled network's units a warp from FNN_LAYOUTS, else the generic 4
     assert plan.hid_per_warp == fnn_eval.layouts().get(tuple(topo), 4)
     hg, rg, hpw = plan.hid_groups, plan.row_groups, plan.hid_per_warp
+    # the warps a block: MAX_WARPS, GEN_WARPS for the generic instantiation
+    from ptnn_torch.ops import _build
+
+    cap = (16 if tuple(topo) in fnn_eval.layouts()
+           else _build.cu_define("fnn_eval.cu", "GEN_WARPS"))
     assert hg * hpw >= topo[1] and (hg - 1) * hpw < topo[1]  # every unit
-    assert rg * hg <= 16
+    assert rg * hg <= cap
     # one pass over a block's largest tile, where the warps allow it
-    assert rg * 32 >= max(plan.tile_rows) or (rg + 1) * hg > 16
+    assert rg * 32 >= max(plan.tile_rows) or (rg + 1) * hg > cap
     assert plan.smem <= block_step._SMEM_LIMIT
     assert plan.smem == 4 * fnn_eval.smem_floats(topo, rg, hg)
 
@@ -231,3 +236,75 @@ def test_eval_layouts_cover_the_bundled_networks():
         fnn_eval.launch_plan(4, (0,), (4, 10, 1))
     with pytest.raises(ValueError, match="non-empty"):
         fnn_eval.launch_plan(4, (5, 5, 5), (4, 10, 1))
+
+
+# the wide networks (ROADMAP Queue 3, F1): (chains, row sets, topology, the
+# plan's route: weights in device memory, inputs a tile, outputs a chunk)
+WIDE_PLANS = [(64, (298, 198), (4, 200, 1), (False, 4, 1)),
+              (64, (1000, 200), (784, 16, 10), (False, 784, 10)),
+              (16, (300, 100), (16, 20, 40), (False, 16, 32)),
+              (8, (200, 50), (784, 80, 10), (True, 784, 10)),
+              (4, (100, 40), (3000, 8, 3), (True, 1740, 3))]
+
+
+@pytest.mark.parametrize("chains,n_rows,topo,route", WIDE_PLANS)
+def test_launch_plan_fits_any_width(chains, n_rows, topo, route):
+    """``launch_plan`` lays out any width: fewer row groups where the rows
+    do not fit beside the weights, the weights read from device memory
+    where they do not fit even so, the inputs staged a tile at a time
+    where one row group's rows do not fit either, and outputs past 32 in
+    chunks of 32. Every row, hidden unit, input and output is covered once
+    and the block fits a Hopper block's shared memory."""
+    plan = fnn_eval.launch_plan(chains, n_rows, topo)
+    assert (plan.w_global, plan.in_tile, plan.out_chunk) == route
+    n_in, n_hid, n_out = topo
+    for n, tile in zip(n_rows, plan.tile_rows):
+        hits = np.zeros(n, dtype=int)
+        for rank in range(plan.cluster):
+            lo = min(n, rank * tile)
+            hits[lo:min(n, lo + tile)] += 1
+        np.testing.assert_array_equal(hits, np.ones(n, dtype=int))
+    hg, hpw = plan.hid_groups, plan.hid_per_warp
+    from ptnn_torch.ops import _build
+
+    gen_warps = _build.cu_define("fnn_eval.cu", "GEN_WARPS")
+    # the warps loop over chunks of hg * hpw units where they cannot take
+    # them all at once
+    assert hg * hpw >= n_hid or hg == gen_warps
+    assert plan.row_groups * hg <= gen_warps
+    for what, size, chunk in (("inputs", n_in, plan.in_tile),
+                              ("outputs", n_out, plan.out_chunk)):
+        k = -(-size // chunk)
+        assert 1 <= chunk <= size and (k - 1) * chunk < size <= k * chunk, \
+            what
+    assert plan.out_chunk <= fnn_eval._MAX_OUT
+    # the dynamic share leaves the kernel's static one its room
+    assert plan.smem <= block_step._SMEM_LIMIT - fnn_eval._STATIC_SMEM
+    assert plan.smem == 4 * fnn_eval.smem_floats(
+        topo, plan.row_groups, hg, not plan.w_global, plan.in_tile,
+        plan.out_chunk)
+
+
+def test_forty_class_eval_matches_ptnn(rng):
+    """A 40-class network (the eval's outputs past one chunk of 32 on the
+    card): the plain eval against ptnn's XLA eval, ll on its size, rmse
+    and acc exact outside fragile argmaxes."""
+    topo = (16, 20, 40)
+    c = 5
+    w = (rng.standard_normal((c, fnn.w_size(topo))) * 0.5).astype(np.float32)
+    x = rng.random((60, 16)).astype(np.float32)
+    y = rng.integers(0, 40, 60).astype(np.float32)
+    ll, rmse, acc = fnn_eval.fnn_eval(_t(w), _t(x), _t(y), None, topo,
+                                      "classification")
+    ref = jax.jit(jax.vmap(jlik.classification_eval,
+                           in_axes=(0, None, None, None)),
+                  static_argnums=3)(
+        jnp.asarray(w), jnp.asarray(x), jnp.asarray(y), topo)
+    want = np.asarray(ref.loglik)
+    assert np.all(np.abs(ll.numpy() - want) <= 1e-4 + 2e-5 * np.abs(want))
+    sure = ~block_step.argmax_fragile(_t(w), _t(x), topo).numpy()
+    assert sure.sum() >= c - 1
+    np.testing.assert_array_equal(acc.numpy()[sure],
+                                  np.asarray(ref.acc)[sure])
+    np.testing.assert_array_equal(rmse.numpy()[sure],
+                                  np.asarray(ref.rmse)[sure])

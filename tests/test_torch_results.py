@@ -136,7 +136,16 @@ def test_cnn_digits_cli_writes_the_tree_and_refuses_what_is_not_ported(
         cfg = json.load(f)
     assert cfg["adapt_step_size"] and cfg["use_langevin_gradients"]
     assert cfg["learn_rate"] == 0.01 * 0.01 / 2.0 and not cfg["record_w"]
-    for flags, word in ((["--sgld-batch", "8"], "sgld"),
-                        (["--mesh"], "mesh")):
-        with pytest.raises(NotImplementedError, match=word):
-            cnn_digits.main(["--chains", "4", "--steps", "10"] + flags)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        cnn_digits.main(["--chains", "4", "--steps", "10", "--mesh"])
+    # --sgld-batch runs since sgld was ported: minibatches of 8 rows, exact
+    # swaps every 5 steps
+    capsys.readouterr()
+    cnn_digits.main(["--chains", "4", "--steps", "10", "--swap-interval",
+                     "5", "--sgld-batch", "8", "--out", str(out / "sg")])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("[digits] chains=4 test_acc mean=")
+    with open(out / "sg" / "digits_0" / "config.json") as f:
+        sg = json.load(f)
+    assert sg["proposal"] == "sgld" and sg["sg_batch"] == 8
+    assert sg["swap_rule"] == "metropolis" and not sg["adapt_step_size"]

@@ -324,7 +324,8 @@ def test_fused_langevin_config_is_refused_and_others_fall_back():
 
 
 # features the per-step sampler runs since they were ported: a case of them
-# holds the run to ptnn's, the others' to the refusal
+# holds the run to ptnn's, the others (sgld and the bfloat16 eval, held to
+# ptnn's in tests/test_torch_sgld.py and tests/test_torch_bf16_eval.py) run
 RUN_NOW = ("record_fx", "record_ll_state")
 
 
@@ -336,10 +337,12 @@ RUN_NOW = ("record_fx", "record_ll_state")
     dict(record_ll_state=True), dict(eval_dtype="bfloat16"),
 ])
 def test_per_step_refuses_what_is_not_ported(feature):
-    """A feature the per-step sampler does not run raises naming it; the
-    posterior-predictive traces (``record_fx``) and the state likelihood
-    (``record_ll_state``) run, 40 steps of lg_pallas held to ptnn's run on
-    ptnn's state and draws, their new traces with the others."""
+    """Every feature here runs since it was ported: the posterior-predictive
+    traces (``record_fx``) and the state likelihood (``record_ll_state``),
+    40 steps of lg_pallas held to ptnn's run on ptnn's state and draws,
+    their new traces with the others; sgld and the bfloat16 eval, which
+    ``step_reason`` no longer refuses, 40 steps finite (sgld: every move
+    accepted, the minibatch of 16 rows a step)."""
     prob = load_regression("Sunspot")
     cfg = ptnn_torch.PTConfig(**_sunspot_lg(**feature)).validate()
     name = next(iter(feature))
@@ -361,9 +364,15 @@ def test_per_step_refuses_what_is_not_ported(feature):
             np.testing.assert_array_equal(
                 got.traces["ll_cur"][-1], got.final_state.ll.numpy())
         return
-    with pytest.raises(NotImplementedError, match="not yet ported") as e:
-        ptnn_torch.sample(cfg, prob.train, prob.test, device="cpu")
-    assert name.split("_")[0] in str(e.value)
+    assert kernel.step_reason(cfg) is None
+    res = ptnn_torch.sample(cfg, prob.train, prob.test, device="cpu")
+    for k in ("ll", "rmse_test", "w"):
+        assert np.isfinite(res.traces[k]).all(), k
+    if name == "proposal":
+        assert np.all(res.accept_ratio_per_chain > 97.0)
+        assert np.all(res.langevin_ratio_per_chain > 97.0)
+    else:
+        assert 0.0 < res.accept_ratio_per_chain.mean() < 100.0
 
 
 def test_throughput_runner_per_step_reps_repeat():

@@ -284,7 +284,9 @@ def test_zoo_specs_never_take_the_fused_path():
 
 
 def test_zoo_refusals_name_the_feature():
-    """bfloat16 evals raise naming the feature on a zoo spec; ``record_fx``
+    """bfloat16 evals run on a zoo spec since they were ported (its own
+    forward in bfloat16, the likelihood in float32; held to ptnn's in
+    tests/test_torch_bf16_eval.py); ``record_fx``
     runs there (since it was ported), its traces the plain forward's
     predicted classes at each chain's last accepted proposal (its run
     against ptnn's: ``test_zoo_run_matches_ptnn[mlp_fx]``); the FNN's
@@ -295,9 +297,10 @@ def test_zoo_refusals_name_the_feature():
     spec = mlp.spec((64, 8, 10))
     cfg = ptnn_torch.PTConfig(**_digits_cfg(
         eval_dtype="bfloat16")).validate()
-    with pytest.raises(NotImplementedError, match="eval_dtype"):
-        ptnn_torch.sample(cfg, train[:16], test[:8], device="cpu",
-                          model_spec=spec)
+    assert kernel.step_reason(cfg, spec) is None
+    res = ptnn_torch.sample(cfg, train[:16], test[:8], device="cpu",
+                            model_spec=spec)
+    assert np.isfinite(res.traces["ll"]).all()
     cfg = ptnn_torch.PTConfig(**_digits_cfg(record_fx=True)).validate()
     res = ptnn_torch.sample(cfg, train[:16], test[:8], device="cpu",
                             model_spec=spec)
