@@ -21,7 +21,9 @@ not 0):
      regression MALA variants (warps a chain), every drift_epoch
      instantiation, the three regression HMC variants, the nine
      classification HMC variants (warps a chain x route), the three
-     classification MALA variants (warps a chain), every fnn_eval
+     classification MALA variants (warps a chain), the MALA / HMC kernels'
+     generic route (csrc/gen_chain.cuh: one MALA and three HMC routes in
+     each task), every fnn_eval
      instantiation and both conv kernels must spill nothing, and every
      classification RW instantiation (both kernels, each fixed-shape
      network at each warps a chain) must have no stack frame either; the
@@ -31,8 +33,10 @@ not 0):
      chains, the classification HMC launch plan (warps a chain, route) at
      64, 256, 52 and 1024 chains, the classification MALA plan at 64, 256
      and 1024, the classification RW plan at the four RW presets' widths
-     and at 1000 chains, and the eval's plans (cluster, row tiles, warps) at the
-     per-step paths' widths;
+     and at 1000 chains, the generic route's plans (warps a block, where the
+     vectors live, warps a chain, exchange route) at Sunspot (4, 20, 1) and
+     (4, 64, 1) and at Cancer (9, 12, 2) and TicTac (9, 10, 2), and the
+     eval's plans (cluster, row tiles, warps) at the per-step paths' widths;
   3. kernel: each CUDA block kernel against its plain PyTorch version on the
      same CUDA tensors at the main paths' widths. Sunspot: RW at 1000 chains
      and at the path's 64 x 100 steps, adapt off and on, by the fixed-shape
@@ -56,7 +60,14 @@ not 0):
      block.) At the shapes ptnn_torch.auto builds (results/auto_study.md):
      Sunspot HMC with ChEES at 63 chains (7 ladders x 9 rungs, 8 blocks of
      8, the last ragged), and iris MALA and ChEES HMC on the (4, 10, 3)
-     network auto infers at 63 chains (9 ladders x 7 rungs). The per-step sampler's kernels: the drift epoch at Sunspot
+     network auto infers at 63 chains (9 ladders x 7 rungs). The MALA and
+     HMC kernels' generic route: mala_block and hmc_block (ChEES) at (4,
+     20, 1) and (4, 64, 1) on Sunspot's rows at 64 and 1024 chains (ChEES
+     over 256 x 4), mala_cls_block and hmc_cls_block with and without ChEES
+     at Cancer's (9, 12, 2) on its rows at 64 and 256 chains, and MALA and
+     ChEES at auto's (9, 10, 2) on TicTac's rows at 64, each held as above
+     (the generic MALA with the float64 witness too) and checked to take
+     the generic route. The per-step sampler's kernels: the drift epoch at Sunspot
      (4, 10, 1) 64 chains (depth 1 and 2), Ionosphere (34, 50, 2) 10 chains
      on 245 rows and PenDigit (16, 30, 10) 10 chains on all 7494 train
      rows, then every distinct bundled topology and one the generic kernel
@@ -98,6 +109,17 @@ not 0):
      a chain; the iris
      quality flagship chees16_fused_16x4 (64 x 8000, seeds 1-3) against the
      served-accuracy gate of 96.76; iris mala_fused_16x4 (64 x 8000);
+     the generic route (phase_generic_end_to_end): bench's _cls_variants
+     at Cancer's (9, 12, 2), mala_fused_16x4 and chees16_fused_16x4 (64 x
+     4000, seeds 1-3, medians) and Sunspot's at (4, 20, 1) (seed 0), cold
+     test accuracy or RMSE, accept, swap and round trips inside the mean
+     +- 4 sd of ptnn's per-step sampler on the CPU (GEN_REF), every block
+     launch by the generic route, one fnn_eval launch at init and one at
+     the temper switch; python -m ptnn_torch.auto Cancer --target speed
+     --chains 64 --steps 4000 --replicate 2 as a subprocess, fused with no
+     fallback warning, its cold accuracy in the Cancer MALA band; TicTac's
+     (9, 25, 2) mala_fused_16x4 (64 x 200) falling back with ptnn's
+     warning;
      then the per-step sampler: Sunspot lg_pallas (64 x 5000, Langevin
      gradients), Sunspot rw per-step (64 x 5000) and Ionosphere legacy LG
      (10 x 5000), each with its drift and eval launches held to the plan (one
@@ -240,7 +262,10 @@ not 0):
      Langevin drift at 128 and 256 chains;
   6. one JSON line listing the kernels (time, device time where measured,
      plain time, bound, launches,
-     largest difference from the plain version), then the device line
+     largest difference from the plain version; kernels 2-5 add their
+     generic route's ``generic_*`` time, device time, plain time, bound and
+     launches, timed at the generic end-to-end arms' 64 chains in phase 5),
+     then the device line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -340,6 +365,21 @@ CLS_RW_SETS = {"iris": (IRIS_TOPO, 150), "Cancer": ((9, 12, 2), 699),
 CLS_ROWS = {name: rows for name, (_t, rows) in CLS_RW_SETS.items()}
 # the bundled sets whose networks the generic kernel runs
 GENERIC_SETS = {"winequality-red": (11, 50, 10), "abalone": (8, 30, 29)}
+# the MALA / HMC kernels' generic route (csrc/gen_chain.cuh): the Sunspot
+# widths phase 3 holds, and the classification sets: Cancer's own network
+# and the (9, 10, 2) ptnn_torch.auto infers for Cancer and TicTac
+GEN_REG_TOPOS = ((4, 20, 1), (4, 64, 1))
+# (4, 64, 1) ChEES at the flagship's step 0.01 on N(0, 1) weights is
+# chaotic: in a few chains a trajectory parts the plain float32 version and
+# the kernel from float64 by more than the comparison's witness allows
+# (each as far as the other, in distribution). phase_generic_rounding holds
+# the two versions' rounding to one distribution there; the exact
+# comparison runs at half the step
+GEN_CHAOS_STEP = dict(step_w=0.005)
+# |kernel - float64| / |plain - float32 - float64| over the trace ll entries
+# of the chains that decide alike: the median and 90th percentile at most
+GEN_ROUNDING = (1.5, 8.0)
+CANCER_TOPO, AUTO_NINE = (9, 12, 2), (9, 10, 2)
 IRIS_GATE = 96.76  # served posterior-predictive cold accuracy, median
 # the iris RW preset (classification_preset((4, 12, 3), 50_000), fused):
 # ptnn's fused sampler on the CPU, seeds 0-4 (python
@@ -519,6 +559,38 @@ def phase_build():
         print(f"[2/6] build: mala_cls_block at {c} chains: WPC {plan.wpc}, "
               f"{plan.per_block} chains a block, {plan.blocks} blocks "
               f"({plan.why}), {plan.smem} bytes of shared memory")
+    # the MALA / HMC kernels' generic route at the widths phase 3 holds
+    for topo in GEN_REG_TOPOS:
+        for c in (64, 1024):
+            plans = (("mala_block", precond_step.card_mala_plan(
+                DEVICE, c, 496, topo)), ("hmc_block ChEES",
+                                        precond_step.card_hmc_plan(
+                                            DEVICE, c, min(c, 128), 496,
+                                            topo)))
+            for name, plan in plans:
+                print(f"[2/6] build: {name} {topo} at {c} chains: the "
+                      f"{plan.variant} route, {plan.warps} warps a block, "
+                      f"vectors in {plan.vectors} memory, WPC {plan.wpc}, "
+                      f"{plan.per_block} chains a block, {plan.blocks} blocks"
+                      f"{', route ' + plan.route if 'hmc' in name else ''} "
+                      f"({plan.why}), {plan.smem} bytes of shared memory")
+    for set_name, topo in (("Cancer", CANCER_TOPO), ("TicTac", AUTO_NINE)):
+        rows = CLS_ROWS[set_name]
+        for c in (64, 256):
+            plans = (("mala_cls_block", precond_cls_step.card_mala_plan(
+                DEVICE, c, rows, topo)),
+                     ("hmc_cls_block ChEES", precond_cls_step.card_plan(
+                         DEVICE, c, min(c, 128), rows, topo)),
+                     ("hmc_cls_block plain", precond_cls_step.card_plan(
+                         DEVICE, c, 0, rows, topo)))
+            for name, plan in plans:
+                print(f"[2/6] build: {name} {set_name} {topo} at {c} chains: "
+                      f"the {plan.variant} route, {plan.warps} warps a "
+                      f"block, vectors in {plan.vectors} memory, WPC "
+                      f"{plan.wpc}, {plan.per_block} chains a block, "
+                      f"{plan.blocks} blocks"
+                      f"{', route ' + plan.route if 'hmc' in name else ''} "
+                      f"({plan.why}), {plan.smem} bytes of shared memory")
     from ptnn_torch.ops import fnn_eval
 
     wide = tuple((f"{label} pair", c, (n_tr or 298, n_te or 198), topo)
@@ -867,15 +939,17 @@ def precond_inputs(cfg, k, start, phases, seed=7):
     from ptnn_torch.ops import block_step
     from ptnn_torch.sampler import make_dataset
 
+    from ptnn_torch.models import fnn
+
     rng = np.random.default_rng(seed)
     prob = sunspot()
-    c = cfg.num_chains
+    c, w = cfg.num_chains, fnn.w_size(cfg.topology)
     ds = make_dataset(cfg, prob.train, prob.test, DEVICE)
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=DEVICE)
-    st = kernel.init_state(cfg, ds, init_w=f(rng.normal(size=(c, 61))))
+    st = kernel.init_state(cfg, ds, init_w=f(rng.normal(size=(c, w))))
     state = fused._to_kernel_state(st, cfg)
     state["log_step_w"] = f(np.log(cfg.step_w) + 0.3 * rng.normal(size=c))
-    noise = dict(w=f(rng.normal(size=(k, c, 61))),
+    noise = dict(w=f(rng.normal(size=(k, c, w))),
                  eta=f(rng.normal(size=(k, c))),
                  u=f(rng.uniform(size=(k, c))),
                  u_eta=f(rng.uniform(size=(k, c))),
@@ -1030,6 +1104,49 @@ def compare_precond(cfg, k, start, phases, seed=7):
         past=past, r_needed=r_needed, worst=worst)
 
 
+def phase_generic_rounding():
+    """The generic HMC route at (4, 64, 1) on Sunspot's rows, ChEES at the
+    flagship's step, 64 and 1024 chains, where the trajectories are too
+    chaotic for compare_precond: the kernel's and the plain float32
+    version's distances from a float64 run over the trace ll entries of
+    the chains that decide alike (accept_count and traj_len) must be one
+    distribution (GEN_ROUNDING: the median and 90th percentile of their
+    ratio)."""
+    import torch
+
+    from ptnn_torch.ops import precond_step
+
+    phases = dict(warm_end=2, pc_start=4, burn_end=8)
+    for c in (64, 1024):
+        cfg = precond_cfg(c, 100, "hmc", topology=(4, 64, 1))
+        state, noise, kdata, at, scal = precond_inputs(cfg, 10, 0, phases)
+        args = (state, noise, 0, 10, kdata, at, cfg.topology, scal)
+        _new_k, tr_k = precond_step.fused_hmc_block(*args, record_w=False)
+        _new_r, tr_r = precond_step.hmc_block_reference(*args,
+                                                        record_w=False)
+        _new_d, tr_d = precond_step.hmc_block_reference(
+            upcast(state), upcast(noise), 0, 10, upcast(kdata), at.double(),
+            cfg.topology, scal, record_w=False)
+        torch.cuda.synchronize()
+        alike = torch.ones(c, dtype=torch.bool, device=DEVICE)
+        for n in ("accept_count", "traj_len"):
+            alike &= ((tr_k[n] == tr_r[n]) & (tr_d[n] == tr_r[n])).all(dim=0)
+        e_k = (tr_k["ll"].double() - tr_d["ll"]).abs()[:, alike].flatten()
+        e_p = (tr_r["ll"].double() - tr_d["ll"]).abs()[:, alike].flatten()
+        ratio = (e_k / e_p.clamp(min=1e-12)).float()
+        q50, q90 = (float(torch.quantile(ratio, q)) for q in (0.5, 0.9))
+        print(f"[3/6] kernel: hmc_block (4, 64, 1) by the generic route, "
+              f"ChEES, step {cfg.step_w}, C={c} K=10: over {int(alike.sum())}"
+              f" chains that decide alike, |kernel - float64| / |plain - "
+              f"float64| of trace ll median {q50:.3g}, 90th percentile "
+              f"{q90:.3g} (at most {GEN_ROUNDING}); largest |kernel - "
+              f"float64| {float(e_k.max()):.3g}, |plain - float64| "
+              f"{float(e_p.max()):.3g}")
+        check(q50 <= GEN_ROUNDING[0] and q90 <= GEN_ROUNDING[1],
+              f"generic hmc_block (4, 64, 1) rounds unlike its plain version: "
+              f"ratio median {q50:.3g}, 90th percentile {q90:.3g}")
+
+
 def witness_text(wit):
     if not wit["past"]:
         return "no entry past the float32 tolerance"
@@ -1067,25 +1184,53 @@ def phase_precond_kernels():
         ("hmc_block", precond_cfg(63, 100, "hmc", n_ladders=7), 10, 0,
          dict(warm_end=2, pc_start=4, burn_end=8)),
     )
+    # the generic route (csrc/gen_chain.cuh) on Sunspot's rows: (4, 20, 1)
+    # (the vectors in shared memory) and (4, 64, 1) (in device memory), at
+    # the fused paths' 64 chains and at 1024 (ChEES over 256 x 4). At (4,
+    # 64, 1) the N(0, 1) test weights make ChEES at the flagship's step
+    # chaotic (phase_generic_rounding): the exact comparison runs at half
+    # that step
+    cases += tuple(
+        (name, precond_cfg(c, 100, proposal, topology=topo, **(
+            GEN_CHAOS_STEP if name == "hmc_block" and topo[1] == 64
+            else {})), 10, 0, dict(warm_end=2, pc_start=4, burn_end=8))
+        for topo in GEN_REG_TOPOS for c in (64, 1024)
+        for name, proposal in (("mala_block", "precond_mala"),
+                               ("hmc_block", "hmc")))
     from ptnn_torch.ops import precond_step
 
     for name, cfg, k, start, phases in cases:
         routes = dict(precond_step.hmc_routes)
         wpcs = dict(precond_step.mala_wpcs)
+        variants = dict(precond_step.variant_launches[name])
         n_close, n_groups, n_acc, err, wit = compare_precond(cfg, k, start,
                                                              phases)
         route = [r for r in routes if precond_step.hmc_routes[r] > routes[r]]
         out[name] = max(out.get(name, 0.0), err)
+        topo = tuple(cfg.topology)
+        variant = "fixed" if topo in precond_step.TOPOLOGIES else "generic"
+        check(precond_step.variant_launches[name][variant]
+              == variants[variant] + 1, f"{name} at {topo} did not take "
+              f"its {variant} route")
         what = ("ChEES, " if cfg.hmc_adapt_traj and name == "hmc_block"
                 else "") + (f"leapfrog {cfg.hmc_leapfrog}, route "
                             f"{'/'.join(route)}, "
                             if name == "hmc_block" else "")
         if name == "mala_block":
-            plan = precond_step.card_mala_plan(DEVICE, cfg.num_chains, 496)
+            plan = precond_step.card_mala_plan(DEVICE, cfg.num_chains, 496,
+                                               topo)
             taken = [w for w in wpcs if precond_step.mala_wpcs[w] > wpcs[w]]
             check(taken == [plan.wpc], f"mala_block took WPC {taken}, "
                   f"planned {plan.wpc}")
             what = f"WPC {plan.wpc}, {plan.blocks} blocks, "
+        if variant == "generic":
+            plan = (precond_step.card_hmc_plan(
+                DEVICE, cfg.num_chains, precond_step.PANEL if cfg.num_chains
+                > precond_step.PANEL else cfg.num_chains, 496, topo)
+                    if name == "hmc_block" else plan)
+            what = (f"{topo} by the generic route ({plan.warps} warps a "
+                    f"block, vectors in {plan.vectors} memory, WPC "
+                    f"{plan.wpc}, {plan.blocks} blocks), " + what)
         print(f"[3/6] kernel: {name} {what}C={cfg.num_chains} K={k} "
               f"steps {start}-{start + k - 1} across {phases}: {n_acc} "
               f"accepts, counters{' and traj_len' if name == 'hmc_block' else ''}"
@@ -1211,11 +1356,12 @@ def precond_kernel_call(cfg, phases):
     return lambda: kern(*args, record_w=False), args
 
 
-def time_precond_block(cfg, phases):
+def time_precond_block(cfg, phases, graph=False):
     """Times of one 10-step Sunspot MALA or HMC block at cfg's widths and of
     its plain version, and the block's bound; for the MALA kernel, whose
-    call the host issues about as fast as the card runs it, also its device
-    time (``graph_ms``, a CUDA graph of 100 calls)."""
+    call the host issues about as fast as the card runs it, and with
+    ``graph``, also its device time (``graph_ms``, a CUDA graph of 100
+    calls)."""
     from ptnn_torch.ops import precond_step
 
     kern, args = precond_kernel_call(cfg, phases)
@@ -1231,7 +1377,7 @@ def time_precond_block(cfg, phases):
     b_ms, b_by = bound(ops, tensor_bytes(state, noise, kdata["rows"], at,
                                          new, tr))
     out = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
-    if not hmc:
+    if not hmc or graph:
         out["graph_ms"] = min(graph_ms(kern) for _ in range(2))
     return out
 
@@ -1457,7 +1603,7 @@ def compare_cls(kind, cfg, k, length, start, phases, seed=CLS_SEED,
     import torch
 
     from ptnn_torch.models import fnn
-    from ptnn_torch.ops import block_step
+    from ptnn_torch.ops import block_step, precond_cls_step
 
     state, noise, kdata, at, scal = cls_inputs(cfg, k, start, phases, seed,
                                                name)
@@ -1472,13 +1618,17 @@ def compare_cls(kind, cfg, k, length, start, phases, seed=CLS_SEED,
     new_d = tr_d = None
     c = cfg.num_chains
     same = torch.ones(c, dtype=torch.bool, device=DEVICE)
-    if kind == "hmc":  # the float64 witness: the same inputs in float64
+    # the float64 witness, the same inputs in float64: HMC's, and the
+    # generic route's MALA on hundreds of rows, as the regression MALA's
+    if kind == "hmc" or (kind == "mala"
+                         and topo not in precond_cls_step.TOPOLOGIES):
         new_d, tr_d = cls_call(kind, upcast(state), upcast(noise), start,
                                length, upcast(kdata), at.double(), scal,
                                plain=True, topo=topo)
         same = new_d["n_accept"] == new_r["n_accept"]
         for n in ("accept_count", "traj_len"):
-            same &= (tr_d[n] == tr_r[n]).all(dim=0)
+            if n in tr_r:
+                same &= (tr_d[n] == tr_r[n]).all(dim=0)
     torch.cuda.synchronize()
     close = tr_r["margin"] <= P_MARGIN
     if "traj_margin" in tr_r:
@@ -1698,21 +1848,47 @@ def phase_cls_kernels():
                                **AUTO_IRIS), 10, 10, 0,
               dict(warm_end=2, pc_start=5, burn_end=8), "iris"),
              ("hmc", hmc(63, **AUTO_IRIS), 10, 10, 0, phases, "iris")]
+    # the generic route: Cancer's (9, 12, 2) on its rows at 64 and 256
+    # chains, MALA and HMC with and without ChEES; auto's (9, 10, 2) on
+    # TicTac's rows at 64, MALA and ChEES
+    gen = lambda c, proposal, topo, **kw: iris_cfg(
+        c, 100, proposal, topology=topo, step_w=(
+            CLS_STEP_HMC if proposal == "hmc" else CLS_STEP_MALA), **kw)
+    mala_phases = dict(warm_end=2, pc_start=5, burn_end=8)
+    for c in (64, 256):
+        cases += [("mala", gen(c, "precond_mala", CANCER_TOPO), 10, 10, 0,
+                   mala_phases, "Cancer"),
+                  ("hmc", gen(c, "hmc", CANCER_TOPO), 10, 10, 0, phases,
+                   "Cancer"),
+                  ("hmc", gen(c, "hmc", CANCER_TOPO, **plain), 10, 10, 0,
+                   phases, "Cancer")]
+    cases += [("mala", gen(64, "precond_mala", AUTO_NINE), 10, 10, 0,
+               mala_phases, "TicTac"),
+              ("hmc", gen(64, "hmc", AUTO_NINE), 10, 10, 0, phases,
+               "TicTac")]
     for kind, cfg, k, length, start, phases, set_name in cases:
         routes = dict(precond_cls_step.hmc_cls_routes)
         wpcs = dict(precond_cls_step.mala_cls_wpcs)
         kinds = dict(block_step.cls_variant_launches)
         warps = dict(block_step.rw_cls_warps)
+        name = KERNEL_OF[kind]
+        topo = tuple(cfg.topology)
+        generic = kind != "rw" and topo not in precond_cls_step.TOPOLOGIES
+        variants = dict(precond_cls_step.variant_launches.get(name, {}))
         n_close, n_groups, n_acc, excluded, err, err_of, wit = compare_cls(
             kind, cfg, k, length, start, phases, name=set_name)
-        name = KERNEL_OF[kind]
         out[name] = max(out.get(name, 0.0), err)
         what, wit_txt = "", ""
+        rows = CLS_ROWS.get(set_name, 150)
+        if generic:
+            check(precond_cls_step.variant_launches[name]["generic"]
+                  == variants["generic"] + 1, f"{name} at {topo} did not "
+                  f"take the generic route")
+            wit_txt = f"; {witness_text(wit)}"
         if kind == "hmc":
             c = cfg.num_chains
             panel = min(c, 128) if cfg.hmc_adapt_traj else 0
-            plan = precond_cls_step.card_plan(DEVICE, c, panel, 150,
-                                              tuple(cfg.topology))
+            plan = precond_cls_step.card_plan(DEVICE, c, panel, rows, topo)
             taken = [r for r in routes
                      if precond_cls_step.hmc_cls_routes[r] > routes[r]]
             check(taken == [plan.route], f"hmc_cls_block took {taken}, "
@@ -1725,13 +1901,16 @@ def phase_cls_kernels():
             what = f"{tuple(cfg.topology)} {cfg.n_ladders} x " \
                 f"{cfg.rungs_per_ladder} rungs, " + what
         if kind == "mala":
-            plan = precond_cls_step.card_mala_plan(DEVICE, cfg.num_chains, 150,
-                                                   tuple(cfg.topology))
+            plan = precond_cls_step.card_mala_plan(DEVICE, cfg.num_chains,
+                                                   rows, topo)
             taken = [w for w in wpcs
                      if precond_cls_step.mala_cls_wpcs[w] > wpcs[w]]
             check(taken == [plan.wpc], f"mala_cls_block took WPC {taken}, "
                   f"planned {plan.wpc}")
             what += f"WPC {plan.wpc}, {plan.blocks} blocks, "
+        if generic:
+            what = (f"{set_name} by the generic route ({plan.warps} warps a "
+                    f"block, vectors in {plan.vectors} memory), " + what)
         if kind == "rw":
             what = rw_cls_taken(kinds, warps, cfg.topology, cfg.num_chains,
                                 CLS_ROWS.get(set_name), 1)
@@ -1787,7 +1966,9 @@ def reset_launch_counts():
                    precond_step.mala_wpcs, precond_cls_step.mala_cls_wpcs,
                    block_step.variant_launches, block_step.cls_variant_launches,
                    block_step.rw_cls_warps, drift.variant_launches,
-                   drift.route_launches):
+                   drift.route_launches,
+                   *precond_step.variant_launches.values(),
+                   *precond_cls_step.variant_launches.values()):
         for key in counts:
             counts[key] = 0
 
@@ -1965,6 +2146,203 @@ def phase_iris_end_to_end():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The MALA / HMC kernels' generic route end to end (phase_generic_end_to_end)
+
+# bench.py's _cls_variants at Cancer's (9, 12, 2) and the regression
+# mala_fused_16x4 / chees16_fused_16x4 shape at (4, 20, 1): 64 chains x
+# 4000 samples (bench's 8000 cut to keep the smoke inside its time); Cancer
+# on seeds 1-3 (their medians), Sunspot on seed 0. Each statistic must fall
+# inside the mean +- 4 sd of ptnn's PER-STEP sampler on the same
+# configuration on the CPU (ptnn holds its fused and per-step paths to one
+# distribution, ptnn/fused.py:37-42): ``python
+# tests/test_torch_precond_widths.py ARM SEED...`` over seeds 0-19 (MALA)
+# and 0-9 (ChEES, about 400 / 190 s a seed on the CPU). Sunspot's ChEES
+# takes ptnn's FUSED sampler (``... sunspot20-chees fused 0 ... 9``, about
+# 140 s a seed): there ptnn's two paths part, its fused runs spreading 3x
+# wider in cold RMSE (sd 1.32e-4 against 4.6e-5) and one (seed 6, 0.012533)
+# leaving the per-step band (0.012134-0.012503). (mean, sd) of the cold
+# rungs' test accuracy % (Cancer) or RMSE (Sunspot) over the second half,
+# mean accept %, swap %, round trips per ladder per 1k steps.
+GEN_SAMPLES, GEN_SEEDS = 4000, (1, 2, 3)
+GEN_REF = {  # (mean, sd) over ptnn's seeds on the CPU
+    "cancer-mala": dict(seeds=20, metric=(98.31007, 0.014896),
+                        accept=(55.25375, 0.79296), swap=(69.64785, 0.46106),
+                        trips=(25.04688, 0.21225)),
+    "cancer-chees": dict(seeds=10, metric=(98.31718, 0.0062796),
+                         accept=(70.655, 0.49518), swap=(69.71828, 0.49490),
+                         trips=(26.21563, 0.21573)),
+    "sunspot20-mala": dict(seeds=20, metric=(0.0298722, 0.00036589),
+                           accept=(47.716, 0.48108), swap=(44.81605, 0.50983),
+                           trips=(19.66094, 0.079688)),
+    "sunspot20-chees": dict(seeds=10, fused=True,
+                            metric=(0.0124058, 0.00013158),
+                            accept=(55.71418, 0.36387),
+                            swap=(45.83089, 0.45879),
+                            trips=(20.0875, 0.066373)),
+}
+GEN_ARMS = (("cancer-mala", "mala_fused_16x4"),
+            ("cancer-chees", "chees16_fused_16x4"),
+            ("sunspot20-mala", "mala_fused_16x4"),
+            ("sunspot20-chees", "chees16_fused_16x4"))
+# python -m ptnn_torch.auto Cancer --target speed (auto infers (9, 10, 2)),
+# beside the other auto lines (phase_surrogate_auto)
+AUTO_CANCER_ARGS = ["--target", "speed", "--chains", "64", "--steps",
+                    "4000", "--replicate", "2"]
+# ptnn refuses these fused configs (its VMEM gate): they must fall back
+# with ptnn's warning and run per step (TicTac's at a short depth: the
+# check is the gate's; Ionosphere's runs in phase_per_step_precond's bands)
+TICTAC_FALLBACK = (64, 200)
+
+
+def gen_band(arm, what):
+    mean, sd = GEN_REF[arm][what]
+    return (mean - 4.0 * sd, mean + 4.0 * sd)
+
+
+def gen_cfg(arm, chains=64, samples=GEN_SAMPLES):
+    """The generic-route arm ``arm`` (GEN_ARMS) of ptnn_torch, fused."""
+    where, prop = arm.split("-")
+    proposal = "hmc" if prop == "chees" else "precond_mala"
+    if where == "cancer":
+        return iris_cfg(chains, samples, proposal, topology=CANCER_TOPO)
+    return precond_cfg(chains, samples, proposal, topology=(4, 20, 1),
+                       track_replicas=True)
+
+
+def run_fused_counted(kern, cfg, prob, seed):
+    """One fused run through ptnn_torch.sample with every launch count set
+    to 0 just before it. The plan: ``kern`` one launch a block, every one
+    by the generic route; fnn_eval init_state's and the temper switch's;
+    every other kernel 0; no fallback warning."""
+    import warnings
+
+    import numpy as np
+
+    import ptnn_torch
+    from ptnn_torch import fused
+    from ptnn_torch.ops import precond_cls_step, precond_step
+
+    n_blocks = sum(len(seg) for seg in fused.block_plan(cfg))
+    n = cfg.n_steps
+    reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = ptnn_torch.sample(cfg, prob.train, prob.test, seed=seed,
+                                device=DEVICE)
+    fell = [str(w.message) for w in caught if "falling back" in
+            str(w.message)]
+    check(not fell, f"{cfg.topology} {cfg.proposal} fell back: {fell}")
+    got = {k: launch_count(k) for k in KERNELS}
+    want = dict({k: 0 for k in KERNELS}, **{
+        kern: n_blocks, "fnn_eval": 1 + int(0 < cfg.temper_switch_step < n)})
+    check(got == want, f"{kern} run launches {got}, planned {want}")
+    mod = precond_cls_step if cfg.task == "classification" else precond_step
+    check(mod.variant_launches[kern] == {"fixed": 0, "generic": n_blocks},
+          f"{kern} launches by variant {mod.variant_launches[kern]}")
+    for k in ("ll", "rmse_test", "acc_test", "accept_count", "replica"):
+        check(np.isfinite(res.traces[k]).all(), f"trace {k} not finite")
+    return res, n_blocks
+
+
+def phase_generic_end_to_end():
+    """The MALA and HMC kernels' generic route on the fused sampler: bench's
+    Cancer mala_fused_16x4 and chees16_fused_16x4 (seeds 1-3) and Sunspot's
+    at (4, 20, 1) (seed 0), each against ptnn's bands with its launches
+    the plan; TicTac's (9, 25, 2) MALA falling back with ptnn's warning
+    (python -m ptnn_torch.auto Cancer runs beside the other auto lines,
+    phase_surrogate_auto). Returns the generic launches of each kernel."""
+    import numpy as np
+
+    from ptnn_torch import data
+
+    launches = {}
+    probs = {"cancer": data.load_classification("Cancer"),
+             "sunspot20": sunspot()}
+    for arm, variant in GEN_ARMS:
+        where = arm.split("-")[0]
+        cfg, prob = gen_cfg(arm), probs[where]
+        cls = cfg.task == "classification"
+        kern = ("hmc" if cfg.proposal == "hmc" else "mala") + (
+            "_cls_block" if cls else "_block")
+        rows = []
+        for seed in (GEN_SEEDS if cls else (0,)):
+            res, n_blocks = run_fused_counted(kern, cfg, prob, seed)
+            launches[kern] = launches.get(kern, 0) + n_blocks
+            if cls:
+                metric, accept, trips = iris_stats(cfg, res)
+            else:
+                metric, accept, trips = cold_stats(res, cfg)
+            rows.append((metric, accept, res.swap_percent, trips))
+            line = (f"[4/6] generic: {where} {tuple(cfg.topology)} {variant} "
+                    f"seed {seed}, {cfg.num_chains} chains x "
+                    f"{cfg.samples_per_chain} samples in {res.elapsed_s:.3f} s "
+                    f"({res.chain_steps_per_sec:.0f} chain-steps/s incl. "
+                    f"trace fetch): cold test "
+                    f"{'accuracy' if cls else 'RMSE'} {metric:.5f}, mean "
+                    f"accept {accept:.2f}%, swap {res.swap_percent:.2f}%, "
+                    f"round trips {trips:.2f} per ladder per 1k steps")
+            if cfg.proposal == "hmc":
+                tl = res.traces["traj_len"][1:]
+                line += f", traj_len {tl.min():.0f}-{tl.max():.0f}"
+                check(tl.min() >= 1 and tl.max() <= 16
+                      and len(np.unique(tl)) > 1,
+                      f"{arm} traj_len stays in [1, 16] and varies")
+            print(line + f"; {kern} launches {n_blocks} (the plan, all by "
+                  f"the generic route), fnn_eval init's and the switch's")
+        med = [statistics.median(r[i] for r in rows) for i in range(4)]
+        text = []
+        for what, v in zip(("metric", "accept", "swap", "trips"), med):
+            lo, hi = gen_band(arm, what)
+            text.append(f"{what} {v:.5f} (band {lo:.5f}-{hi:.5f})")
+            check(lo <= v <= hi, f"{arm} {what} {v:.5f} outside ptnn's band "
+                  f"[{lo:.5f}, {hi:.5f}]")
+        print(f"[4/6] generic: {arm} {variant} "
+              f"{'medians over seeds 1-3' if cls else 'seed 0'}: "
+              + ", ".join(text) + f" (ptnn "
+              f"{'fused' if GEN_REF[arm].get('fused') else 'per step'}, "
+              f"{GEN_REF[arm]['seeds']} seeds)")
+    # --- TicTac (9, 25, 2): ptnn refuses it; it falls back and runs --------
+    prob = data.load_classification("TicTac")
+    c, samples = TICTAC_FALLBACK
+    cfg = dataclasses.replace(iris_cfg(c, samples, "precond_mala"),
+                              topology=(9, 25, 2)).validate()
+    res, plan, fell = run_precond_counted(cfg, prob, fallback=True)
+    acc, accept, _trips = iris_stats(cfg, res)
+    print(f"[4/6] generic: TicTac (9, 25, 2) mala_fused_16x4 {c} chains x "
+          f"{samples} samples falls back (\"{fell[0]}\") and runs per step "
+          f"in {res.elapsed_s:.3f} s: cold test accuracy {acc:.2f}%, mean "
+          f"accept {accept:.2f}%; fnn_eval launches {plan} (as planned)")
+    return launches
+
+
+def check_auto_cancer(stdout, out):
+    """python -m ptnn_torch.auto Cancer --target speed (AUTO_CANCER_ARGS):
+    fused by the generic route with no fallback warning, its launches the
+    plan, its cold accuracy in the Cancer MALA band. Returns its
+    launches."""
+    fig = parse_auto(stdout)
+    run_dir = out / "Cancer_0"
+    seeds = int(AUTO_CANCER_ARGS[AUTO_CANCER_ARGS.index("--replicate") + 1])
+    cfg, plan, got = auto_plan(run_dir, fig["launches"], seeds)
+    check(got == plan, f"auto Cancer: launches {got}, planned {plan}")
+    check(fig["fused"] and cfg.fused_step, f"auto Cancer did not fuse: "
+          f"{fig['execution']}")
+    check("falling back" not in stdout, "auto Cancer fell back")
+    lo, hi = gen_band("cancer-mala", "metric")
+    print(f"[4/6] auto: python -m ptnn_torch.auto Cancer "
+          f"{' '.join(AUTO_CANCER_ARGS)}: {fig['wall']:.1f} s; "
+          f"{tuple(cfg.topology)} by the generic route, {fig['ladders']} x "
+          f"{fig['rungs']} = {fig['chains']} chains, {fig['proposal']}, "
+          f"execution: {fig['execution']}; cold test acc % {fig['metric']} "
+          f"+- {fig['metric_sd']} (band {lo:.3f}-{hi:.3f}); R-hat "
+          f"{fig['rhat']:.3f} ({fig['verdict']}); launches {got} (as "
+          f"planned)")
+    check(lo <= fig["metric"] <= hi, f"auto Cancer cold accuracy "
+          f"{fig['metric']} outside [{lo:.3f}, {hi:.3f}]")
+    return got
+
+
 def phase_cls_rw_end_to_end():
     """The Cancer, TicTac and Ionosphere RW presets at full width and data,
     each run on seeds 0-4 and held to its launch plan and, on the medians
@@ -2018,12 +2396,13 @@ def cls_set(name):
     return data.load_classification(name)
 
 
-def time_cls_block(kind, cfg, k, phases, record_w, name="iris"):
+def time_cls_block(kind, cfg, k, phases, record_w, name="iris", graph=False,
+                   calls=100):
     """Times of one block of a classification kernel on the rows of the
     bundled set ``name`` (from the host loop) and its plain version, and
     the block's bound; for the MALA and RW kernels, whose calls the host
-    may issue more slowly than the card runs them, also the device time
-    (``graph_ms``, a CUDA graph of 100 calls)."""
+    may issue more slowly than the card runs them, and with ``graph``, also
+    the device time (``graph_ms``, a CUDA graph of ``calls`` calls)."""
     state, noise, kdata, at, scal = cls_inputs(cfg, k, 20, phases, name=name)
     topo = tuple(cfg.topology)
     args = (kind, state, noise, 20, k, kdata, at, scal)
@@ -2037,8 +2416,8 @@ def time_cls_block(kind, cfg, k, phases, record_w, name="iris"):
     b_ms, b_by = bound(ops, tensor_bytes(state, noise, kdata["rows"], at,
                                          new, tr))
     out = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
-    if kind in ("mala", "rw"):
-        out["graph_ms"] = min(graph_ms(kern), graph_ms(kern))
+    if kind in ("mala", "rw") or graph:
+        out["graph_ms"] = min(graph_ms(kern, calls), graph_ms(kern, calls))
     return out
 
 
@@ -2079,12 +2458,15 @@ def phase_cls_throughput():
                     ("Ionosphere", 1024)):
         topo, rows = CLS_RW_SETS[name]
         plan = block_step.card_rw_cls_plan(DEVICE, c, rows)
+        # at 1024 chains a block takes 0.7-11 ms, far past the host's
+        # issue time: a graph of 20 calls is enough
+        calls = 20 if c > 10 else 100
         t = time_cls_block("rw", rw_preset_cfg(name, 2000, c), 100,
-                           dict(adapt=False), False, name=name)
+                           dict(adapt=False), False, name=name, calls=calls)
         print(f"[5/6] throughput: rw_cls_block {name} {topo} at {c} chains "
               f"({plan.warps} warps a chain), K 100, no w trace: kernel "
-              f"{t['graph_ms']:.4f} ms of device time (a CUDA graph of 100 "
-              f"calls), {t['ms']:.4f} ms a call from the host loop, plain "
+              f"{t['graph_ms']:.4f} ms of device time (a CUDA graph of "
+              f"{calls} calls), {t['ms']:.4f} ms a call from the host loop, plain "
               f"version {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']})")
     t = time_cls_block("hmc", iris_cfg(256, 2000, "hmc"), 10, adapting, False)
@@ -2101,6 +2483,39 @@ def phase_cls_throughput():
               f"ms of device time (a CUDA graph of 100 calls), {t['ms']:.4f} "
               f"ms a call from the host loop, plain version "
               f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']})")
+    return out
+
+
+def phase_generic_throughput():
+    """One adapting 10-step block of each kernel's generic route at the
+    fused paths' widths (64 chains: Sunspot (4, 20, 1), Cancer (9, 12, 2),
+    HMC under ChEES): its time from the host loop and its device time (a
+    CUDA graph of 100 calls), its plain version's, its bound. Returns the
+    kernels line's ``generic_*`` fields."""
+    adapting = dict(warm_end=0, pc_start=0, burn_end=1000)
+    shapes = {"mala_block": ("Sunspot", gen_cfg("sunspot20-mala")),
+              "hmc_block": ("Sunspot", gen_cfg("sunspot20-chees")),
+              "mala_cls_block": ("Cancer", gen_cfg("cancer-mala")),
+              "hmc_cls_block": ("Cancer", gen_cfg("cancer-chees"))}
+    out = {}
+    for name, (set_name, cfg) in shapes.items():
+        if name.endswith("_cls_block"):
+            t = time_cls_block("hmc" if cfg.proposal == "hmc" else "mala",
+                               cfg, 10, adapting, False, name=set_name,
+                               graph=True)
+        else:
+            t = time_precond_block(cfg, adapting, graph=True)
+        out[name] = {f"generic_{k}": v for k, v in t.items()}
+        out[name]["generic_shape"] = (f"{set_name} {tuple(cfg.topology)}, "
+                                      f"{cfg.num_chains} chains, K 10")
+        print(f"[5/6] throughput: {name} generic route, {set_name} "
+              f"{tuple(cfg.topology)} {cfg.proposal}"
+              f"{' ChEES' if cfg.hmc_adapt_traj else ''} at "
+              f"{cfg.num_chains} chains, one adapting 10-step block: kernel "
+              f"{t['graph_ms']:.4f} ms of device time (a CUDA graph of 100 "
+              f"calls), {t['ms']:.4f} ms a call from the host loop, plain "
+              f"version {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms "
               f"({t['bound_by']})")
     return out
 
@@ -4390,16 +4805,18 @@ def parse_auto(stdout):
         launches=json.loads(stdout.strip().splitlines()[-1][len("launches "):]))
 
 
-def auto_plan(run_dir, got):
-    """The launches of an auto run: the pilot's per-step MALA (one eval a
-    step and init's, each round), then each seed's fused run (one block
-    launch a block, init's eval; tempering held, no switch)."""
+def auto_plan(run_dir, got, seeds=None):
+    """The launches of an auto run of ``seeds`` seeds (AUTO_ARGS' by
+    default): the pilot's per-step MALA (one eval a step and init's, each
+    round), then each seed's fused run (one block launch a block, init's
+    eval; tempering held, no switch)."""
     from ptnn_torch import fused
     from ptnn_torch.config import from_json_dict
 
     cfg = from_json_dict(json.loads((run_dir / "config.json").read_text()))
     rounds, samples = AUTO_PILOT
-    seeds = int(AUTO_ARGS[AUTO_ARGS.index("--replicate") + 1])
+    if seeds is None:
+        seeds = int(AUTO_ARGS[AUTO_ARGS.index("--replicate") + 1])
     plan = dict(fnn_eval=rounds * samples + seeds)
     if cfg.fused_step:
         kern = ("mala_cls_block" if cfg.task == "classification"
@@ -4437,6 +4854,9 @@ def phase_surrogate_auto():
         procs[name] = popen([sys.executable, "-c", CLI_PROBE,
                              "ptnn_torch.auto", name, "--target", target,
                              *AUTO_ARGS, "--out", str(out / name)])
+    procs["Cancer"] = popen([sys.executable, "-c", CLI_PROBE,
+                             "ptnn_torch.auto", "Cancer", *AUTO_CANCER_ARGS,
+                             "--out", str(out / "Cancer")])
     da_cfg = surrogate_cfg("da_rw")
     ck = out / "da.npz"
     ck_cmd = [sys.executable, "-c", SURR_CKPT_PROBE,
@@ -4568,6 +4988,10 @@ def _surrogate_auto(out, procs, victim, da_cfg, ck, ck_cmd, t_phase):
         for what, band in AUTO_BANDS.get(name, {}).items():
             in_band(f"auto {name}", what, fig[what], band)
         auto[name] = (run_dir, fig)
+    for k, v in check_auto_cancer(finished(procs["Cancer"],
+                                           "ptnn_torch.auto Cancer"),
+                                  out / "Cancer").items():
+        launches[k] = launches.get(k, 0) + v
     # --- serving the auto trees, the resumed run ------------------------------
     t0 = time.perf_counter()
     served = {name: popen([sys.executable, "-m", "ptnn_torch.predict",
@@ -5582,6 +6006,7 @@ def main() -> int:
         errs = {"rw_block": phase_kernel()}
     with clock("phase_precond_kernels"):
         errs.update(phase_precond_kernels())
+        phase_generic_rounding()
     with clock("phase_cls_kernels"):
         errs.update(phase_cls_kernels())
     with clock("phase_drift_kernel"):
@@ -5610,6 +6035,10 @@ def main() -> int:
         launches.update(phase_iris_end_to_end())
     with clock("phase_cls_rw_end_to_end"):
         phase_cls_rw_end_to_end()
+    with clock("phase_generic_end_to_end"):
+        generic = phase_generic_end_to_end()
+    for name, n in generic.items():
+        launches[name] = launches.get(name, 0) + n
     with clock("phase_per_step_end_to_end"):
         lg = phase_per_step_end_to_end()
     launches.update(drift_epoch=lg["drift_epoch"], fnn_eval=lg["fnn_eval"])
@@ -5636,6 +6065,10 @@ def main() -> int:
         times.update(phase_precond_throughput())
     with clock("phase_cls_throughput"):
         times.update(phase_cls_throughput())
+    with clock("phase_generic_throughput"):
+        for name, t in phase_generic_throughput().items():
+            times[name] = dict(times[name], **t,
+                               generic_launches=generic.get(name, 0))
     with clock("phase_per_step_throughput"):
         times.update(phase_per_step_throughput())
     with clock("phase_zoo_throughput"):

@@ -245,6 +245,23 @@ __device__ __forceinline__ void write_trace(const ClsPrecondParams& p, size_t kc
   }
 }
 
+// write_trace for the generic route (gen_chain.cuh): the w row from the
+// chain's slot `wl` of a runtime w_size.
+__device__ __forceinline__ void gen_cls_trace(const ClsPrecondParams& p, int w, size_t kc,
+                                              int lane, float ll_row, const ClsCarry& r,
+                                              int na_before, const float* wl) {
+  if (lane == 0) {
+    p.t_ll[kc] = ll_row;
+    p.t_rmse_tr[kc] = r.rtr;
+    p.t_rmse_te[kc] = r.rte;
+    p.t_acc_tr[kc] = r.atr;
+    p.t_acc_te[kc] = r.ate;
+    p.t_accept[kc] = na_before;
+  }
+  if (p.t_w != nullptr)
+    for (int e = lane; e < w; e += 32) p.t_w[kc * w + e] = wl[e];
+}
+
 template <int W, int PER>
 __device__ __forceinline__ void st_vec(float* dst, int lane, const float (&v)[PER]) {
 #pragma unroll

@@ -54,9 +54,17 @@
 //     not all fit at once but the whole grid does.
 // Without ChEES the kernel runs no exchange and no barrier after the rows
 // are loaded.
+//
+// The generic route (`hmc_gen_kernel`) runs any other (I, H, 1) given at
+// run time (gen_chain.cuh): the step and both exchanges of the
+// classification HMC kernels' layout, a chain's rows over WPC warps of a
+// block of 1-8 warps, its vectors in shared or device memory, each
+// evaluation's rows through the record tile (the last one takes the test
+// rows), the exchange slots sized from the runtime w_size.
 
 #include <cooperative_groups.h>
 
+#include "gen_chain.cuh"
 #include "reg_chain.cuh"
 
 namespace cg = cooperative_groups;
@@ -316,6 +324,216 @@ __global__ void __launch_bounds__(HMC_THREADS, 1) hmc_block_kernel(const Precond
   if constexpr (ROUTE == ROUTE_CLUSTER) cg::this_cluster().sync();  // keep the slots alive
 }
 
+// The generic route: the step of hmc_block_kernel at a runtime (I, H, 1)
+// (gen_chain.cuh's layout: blockDim.x = 32 g.warps); the grid route's
+// slots in p.exch, (C, 2, 2 VEC + 4) floats. ROUTE as above.
+template <int ROUTE>
+__global__ void __launch_bounds__(GEN_THREADS, 1)
+    hmc_gen_kernel(const PrecondParams p, const GenShape g, float* vdev) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  constexpr bool CHEES = ROUTE != ROUTE_PLAIN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cl = warp / g.wpc, sub = warp % g.wpc;
+  const int c = blockIdx.x * (g.warps / g.wpc) + cl;
+  const bool active = c < p.chains;
+  const bool lead = sub == 0;  // the warp that writes the chain's outputs
+  const int NI = g.ni, W = g.w, V = g.vec;
+  const int n_rows = p.n_tr + p.n_te;
+  float* s_rows = smem;
+  const int row_floats = gen_rows_floats(n_rows, NI);
+  const GenWarp L = gen_warp(smem, row_floats, g, warp, vdev);
+  load_rows(p, s_rows, NI);
+  __syncthreads();
+  if (!CHEES && !active) return;  // without ChEES no barrier follows
+
+  const float sq = p.sigma_sq;
+  const float leap_f = (float)p.leapfrog;
+  const float* te_rows = s_rows + p.n_tr * (NI + 1);
+  int r0, r1, t0, t1;
+  gen_share(p.n_tr, g.wpc, sub, r0, r1);
+  gen_share(p.n_te, g.wpc, sub, t0, t1);
+  const int bar_id = 1 + cl;  // barrier 0 is __syncthreads'
+  float* w = L.v;
+  float* wl = w + V;
+  float* gl = wl + V;
+  float* pm = gl + V;
+  float* p2 = pm + V;
+  float* m = p2 + V;
+  float* gr = m + V;   // the last evaluation's gradient of -SSE/2
+  float* pc = gr + V;  // the momentum
+  float* wo = pc + V;  // the pre-decision w (ChEES)
+  float* wn = L.wb;    // the leapfrog position, then the proposal
+  Carry r{};
+  float lt = 0.f, m1 = 0.f, v2 = 0.f;
+  if (active) {
+    const size_t cw = (size_t)c * W;
+    gen_load(w, p.w + cw, lane, g);
+    gen_load(wl, p.w_last + cw, lane, g);
+    gen_load(gl, p.g_like + cw, lane, g);
+    gen_load(pm, p.pc_mean + cw, lane, g);
+    gen_load(p2, p.pc_m2 + cw, lane, g);
+    r = load_carry(p, c);
+    if (CHEES) {
+      lt = p.log_traj[c];
+      m1 = p.chees_m1[c];
+      v2 = p.chees_v2[c];
+    }
+  }
+  // the chain's rung and the first replica of it in the panel
+  const int pbase = (c / max(p.panel, 1)) * p.panel;
+  const int rung0 = pbase + (c - pbase) % max(p.rungs, 1);
+  const int n_lad = p.panel / max(p.rungs, 1);
+  int epar = 0, xpar = 0;  // parities of the partial and the exchange slots
+
+  for (int k = 0; k < p.k_max; ++k) {
+    const int i = p.start + k;
+    const size_t kc = (size_t)k * p.chains + c;
+    float eps = 1.f;
+    if (active) {
+      eps = expf(r.lsw);
+      if (p.eps_jitter > 0.f) eps = eps * (1.f + p.eps_jitter * (2.f * p.u_jit[kc] - 1.f));
+    }
+    if (k >= p.length) {  // dead step: carries into the trace rows
+      if (active) {
+        if (lead) {
+          gen_reg_trace(p, W, wl, kc, lane, r.ll / r.at, r, r.na);
+          if (lane == 0) p.t_traj_len[kc] = 0.f;
+        }
+        r.lse = clipf(r.lse, p.log_lo_eta, p.log_hi);
+        if (CHEES) lt = clipf(lt, p.log_traj_lo, logf(eps * leap_f));
+        r.lsw = clipf(r.lsw, p.log_lo_w, p.log_hi);
+      }
+      continue;
+    }
+    const bool warm = i < p.warm_end;
+    const bool adapting = i >= p.warm_end && i < p.burn_end;
+    float a = 0.f, u_t = 0.f, tau_traj = 0.f;
+    if (active) {
+      gen_precond(p, p2, m, i, lane, V);
+      const float tau = expf(r.eta);
+      const float tat = tau * r.at;
+      // --- the trajectory schedule ------------------------------------------
+      float l_steps = leap_f;
+      if (CHEES) {
+        u_t = p.u_traj[k];
+        tau_traj = expf(lt) * u_t;
+        l_steps = clipf(ceilf(tau_traj / eps), 1.f, leap_f);
+      }
+      // --- leapfrog under the mass matrix diag(1/m) -------------------------
+      const float* nw = p.noise_w + kc * W;
+      float ki = 0.f;
+      for (int e = lane; e < V; e += 32) {
+        const float p0 = (e < W ? nw[e] : 0.f) / sqrtf(m[e]);
+        pc[e] = p0;
+        ki += m[e] * p0 * p0;
+        wn[e] = w[e];
+        gr[e] = gl[e];
+      }
+      const float k_init = 0.5f * warp_sum(ki);
+      // --- the evaluations: the leapfrog steps', or the warm start's ---------
+      if (warm) {
+        float t = 0.f;
+        for (int e = lane; e < V; e += 32) {
+          const float g_cur = gl[e] / tat - w[e] / sq;
+          t += g_cur * g_cur;
+        }
+        const float g_rms = sqrtf(warp_sum(t) / p.w_size_f);
+        const float d = fmaxf(g_rms, 1e-12f);
+        for (int e = lane; e < V; e += 32)
+          wn[e] = w[e] + p.warmstart_step * (gl[e] / tat - w[e] / sq) / d;
+      }
+      GenSums s{0.f, 0.f, 0.f, 0.f, 0.f};
+      const int n_eval = warm ? 1 : (int)l_steps;  // leapfrog >= 1
+      for (int n = 0; n < n_eval; ++n) {
+        if (!warm) {
+          for (int e = lane; e < V; e += 32) {
+            const float g_c = gr[e] / tat - wn[e] / sq;
+            const float p_half = pc[e] + 0.5f * eps * g_c;
+            pc[e] = p_half;
+            wn[e] = wn[e] + eps * m[e] * p_half;
+          }
+        }
+        // the last evaluation is the proposal's: it takes the test rows too
+        const bool last = n == n_eval - 1;
+        gen_eval<true>(g, s_rows, r0, r1, te_rows, last ? t0 : 0, last ? t1 : 0, wn, L.rec,
+                       L.part, epar, sub, bar_id, lane, gr, s);
+        if (!warm) {
+          for (int e = lane; e < V; e += 32) {
+            const float g_n = gr[e] / tat - wn[e] / sq;
+            pc[e] = pc[e] + 0.5f * eps * g_n;
+          }
+        }
+      }
+      float ke = 0.f;
+      for (int e = lane; e < V; e += 32) ke += m[e] * pc[e] * pc[e];
+      const float k_end = 0.5f * warp_sum(ke);
+      const float sse_tr = s.tr, sse_te = s.te_err2;
+      const float ssq = gen_dot(wn, wn, lane, V);
+      const float pr_p =
+          p.prior_const - ssq / (2.f * sq) - p.one_plus_nu1 * r.eta - p.nu2 / tau;
+      const float ll_p = p.ll_const * (p.log_2pi + r.eta) - 0.5f * sse_tr / tau;
+      const float log_mh = (ll_p - r.ll) / r.at + (pr_p - r.pr) + (k_init - k_end);
+      a = expf(fminf(log_mh, 0.f));
+      const bool accept = p.u[kc] < a || warm;
+      const int na_before = r.na;
+      if (CHEES && adapting)
+        for (int e = lane; e < V; e += 32) wo[e] = w[e];
+      if (accept) {
+        r.rtr = sqrtf(sse_tr / p.n_tr_f);
+        r.rte = sqrtf(sse_te / p.n_te_f);
+        for (int e = lane; e < V; e += 32) {
+          w[e] = wn[e];
+          wl[e] = wn[e];
+          gl[e] = gr[e];
+        }
+        r.ll = ll_p;
+        r.pr = pr_p;
+        r.na += 1;
+      }
+      if (lead) {
+        gen_reg_trace(p, W, wl, kc, lane, ll_p / r.at, r, na_before);
+        if (lane == 0) p.t_traj_len[kc] = l_steps;
+      }
+      // --- the eta block ------------------------------------------------------
+      eta_block(r.eta, r.ll, r.pr, r.lse, p.noise_eta[kc], p.u_eta[kc], r.at, i, p);
+    }
+    // --- ChEES: Adam on log_traj from the panel's rung means ----------------
+    if constexpr (CHEES) {
+      if (adapting)  // uniform over the grid
+        gen_chees<ROUTE>(p, g, L, p.exch, c, active, lead, lane, rung0, n_lad, wn, wo, m, pc, a,
+                         u_t, tau_traj, i, xpar, lt, m1, v2);
+      if (active) lt = clipf(lt, p.log_traj_lo, logf(eps * leap_f));
+    }
+    // --- Welford and the Robbins-Monro w scale ------------------------------
+    if (active) {
+      if (adapting) {
+        gen_welford(p, w, pm, p2, i, lane, V);
+        r.lsw = r.lsw + p.adapt_rate * (a - p.target);
+      }
+      r.lsw = clipf(r.lsw, p.log_lo_w, p.log_hi);
+    }
+  }
+
+  if (active && lead) {
+    const size_t cw = (size_t)c * W;
+    gen_store(p.o_w + cw, w, lane, g);
+    gen_store(p.o_w_last + cw, wl, lane, g);
+    gen_store(p.o_g_like + cw, gl, lane, g);
+    gen_store(p.o_pc_mean + cw, pm, lane, g);
+    gen_store(p.o_pc_m2 + cw, p2, lane, g);
+    if (lane == 0) {
+      store_carry(p, r, c);
+      if (CHEES) {
+        p.o_log_traj[c] = lt;
+        p.o_chees_m1[c] = m1;
+        p.o_chees_v2[c] = v2;
+      }
+    }
+  }
+  if constexpr (ROUTE == ROUTE_CLUSTER) cg::this_cluster().sync();  // keep the slots alive
+}
+
 // The attributes every launch of `kern` needs: its dynamic shared memory
 // and, for a cluster kernel, clusters above the portable 8 blocks.
 template <typename K>
@@ -408,6 +626,61 @@ int ptnn_hmc_block(const PrecondParams* p, int smem_bytes, int cluster, int rout
     if (e != cudaSuccess) return (int)e;
     void* args[] = {(void*)p};
     e = cudaLaunchCooperativeKernel((const void*)kern, dim3(grid), dim3(HMC_THREADS), args,
+                                    (size_t)smem_bytes, st);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The generic route's occupancy: clusters of `cluster` blocks of `threads`
+// threads at once, and blocks of the grid route at once, into *out;
+// returns the cudaError_t.
+int ptnn_hmc_gen_max_active_clusters(int threads, int smem_bytes, int cluster, int* out) {
+  return gen_max_active_clusters(hmc_gen_kernel<ROUTE_CLUSTER>, threads, smem_bytes, cluster,
+                                 out);
+}
+
+int ptnn_hmc_gen_coop_blocks(int threads, int smem_bytes, int* out) {
+  return gen_coop_blocks(hmc_gen_kernel<ROUTE_GRID>, threads, smem_bytes, out);
+}
+
+// Launches the generic route at the network and layout `g`: ceil(C /
+// (g.warps / g.wpc)) blocks of 32 g.warps threads on `stream` by `route`,
+// as ptnn_hmc_block; `vdev` holds the warps' vectors where g.vec_dev.
+int ptnn_hmc_gen(const PrecondParams* p, const GenShape* g, float* vdev, int smem_bytes,
+                 int cluster, int route, void* stream) {
+  if (!gen_shape_ok(g, vdev) || g->no != 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int cpb = g->warps / g->wpc, threads = 32 * g->warps;
+  const int grid = (p->chains + cpb - 1) / cpb;
+  if (route == ROUTE_PLAIN && !p->chees) {
+    auto kern = hmc_gen_kernel<ROUTE_PLAIN>;
+    cudaError_t e = gen_set_attributes(kern, smem_bytes, false);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, threads, smem_bytes, st>>>(*p, *g, vdev);
+    return (int)cudaGetLastError();
+  }
+  if (route == ROUTE_CLUSTER && p->chees) {
+    if (cluster < 1 || cluster > HMC_MAX_CLUSTER || grid % cluster != 0)
+      return (int)cudaErrorInvalidValue;
+    auto kern = hmc_gen_kernel<ROUTE_CLUSTER>;
+    cudaError_t e = gen_set_attributes(kern, smem_bytes, true);
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = gen_cluster_config(grid, threads, smem_bytes, cluster, st, attr);
+    e = cudaLaunchKernelEx(&cfg, kern, *p, *g, vdev);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
+  if (route == ROUTE_GRID && p->chees && p->exch != nullptr) {
+    auto kern = hmc_gen_kernel<ROUTE_GRID>;
+    cudaError_t e = gen_set_attributes(kern, smem_bytes, false);
+    if (e != cudaSuccess) return (int)e;
+    PrecondParams params = *p;
+    GenShape shape = *g;
+    void* args[] = {(void*)&params, (void*)&shape, (void*)&vdev};
+    e = cudaLaunchCooperativeKernel((const void*)kern, dim3(grid), dim3(threads), args,
                                     (size_t)smem_bytes, st);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();

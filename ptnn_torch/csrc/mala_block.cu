@@ -35,10 +35,17 @@
 //     2l+1) and of its carries; the chain's first warp writes the trace rows
 //     and the outputs.
 //
+// The generic route (`mala_gen_kernel`) runs any other (I, H, 1) given at
+// run time (gen_chain.cuh): the same step, with the chain's vectors in
+// shared or device memory and each evaluation's rows taken through the
+// record tile, so nothing scales a lane's registers with w_size (Sunspot at
+// any hidden width the fused gate admits, 385 weights at 64 units).
+//
 // No fast-math: expf, sqrtf and division are the IEEE-rounded versions. The
 // sums over rows run in another order than in the plain version (per lane,
 // per warp, then across warps), so ll and the gradient round differently.
 
+#include "gen_chain.cuh"
 #include "reg_chain.cuh"
 
 #define MALA_THREADS 256  // threads a block: 8 warps, WPC of them a chain
@@ -172,6 +179,138 @@ __global__ void __launch_bounds__(MALA_THREADS, 1) mala_block_kernel(const Preco
   }
 }
 
+// The generic route: the step of mala_block_kernel at a runtime (I, H, 1)
+// (gen_chain.cuh's layout: blockDim.x = 32 g.warps).
+__global__ void __launch_bounds__(GEN_THREADS, 1)
+    mala_gen_kernel(const PrecondParams p, const GenShape g, float* vdev) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cl = warp / g.wpc, sub = warp % g.wpc;
+  const int c = blockIdx.x * (g.warps / g.wpc) + cl;
+  const bool lead = sub == 0;  // the warp that writes the chain's outputs
+  const int NI = g.ni, W = g.w, V = g.vec;
+  const int n_rows = p.n_tr + p.n_te;
+  float* s_rows = smem;
+  const int row_floats = gen_rows_floats(n_rows, NI);
+  const GenWarp L = gen_warp(smem, row_floats, g, warp, vdev);
+  load_rows(p, s_rows, NI);
+  __syncthreads();
+  if (c >= p.chains) return;  // a chain's warps go together; no block barrier follows
+
+  const float sq = p.sigma_sq;
+  const float* te_rows = s_rows + p.n_tr * (NI + 1);
+  int r0, r1, t0, t1;
+  gen_share(p.n_tr, g.wpc, sub, r0, r1);
+  gen_share(p.n_te, g.wpc, sub, t0, t1);
+  const int bar_id = 1 + cl;  // barrier 0 is __syncthreads'
+  float* w = L.v;
+  float* wl = w + V;
+  float* gl = wl + V;
+  float* pm = gl + V;
+  float* p2 = pm + V;
+  float* m = p2 + V;
+  float* gr = m + V;  // the last evaluation's gradient of -SSE/2
+  float* wp = L.wb;   // the proposal, in the evaluation slot
+  const size_t cw = (size_t)c * W;
+  gen_load(w, p.w + cw, lane, g);
+  gen_load(wl, p.w_last + cw, lane, g);
+  gen_load(gl, p.g_like + cw, lane, g);
+  gen_load(pm, p.pc_mean + cw, lane, g);
+  gen_load(p2, p.pc_m2 + cw, lane, g);
+  Carry r = load_carry(p, c);
+  int epar = 0;  // parity of the partial slots
+
+  for (int k = 0; k < p.k_max; ++k) {
+    const int i = p.start + k;
+    const size_t kc = (size_t)k * p.chains + c;
+    if (k >= p.length) {  // dead step: carries into the trace rows
+      if (lead) gen_reg_trace(p, W, wl, kc, lane, r.ll / r.at, r, r.na);
+      r.lse = clipf(r.lse, p.log_lo_eta, p.log_hi);
+      r.lsw = clipf(r.lsw, p.log_lo_w, p.log_hi);
+      continue;
+    }
+    const bool warm = i < p.warm_end;
+    const float sig = expf(r.lsw);
+    gen_precond(p, p2, m, i, lane, V);
+    const float tau = expf(r.eta);
+    const float tat = tau * r.at;
+    const float* nw = p.noise_w + kc * W;
+    // --- the w block: MALA under m, or the warm start ----------------------
+    for (int e = lane; e < V; e += 32) {
+      const float g_cur = gl[e] / tat - w[e] / sq;
+      const float sig2m = sig * sig * m[e];
+      const float mean_fwd = w[e] + 0.5f * sig2m * g_cur;
+      wp[e] = mean_fwd + sig * sqrtf(m[e]) * (e < W ? nw[e] : 0.f);
+    }
+    if (warm) {
+      float t = 0.f;
+      for (int e = lane; e < V; e += 32) {
+        const float g_cur = gl[e] / tat - w[e] / sq;
+        t += g_cur * g_cur;
+      }
+      const float g_rms = sqrtf(gen_warp_sum(t) / p.w_size_f);
+      const float d = fmaxf(g_rms, 1e-12f);
+      for (int e = lane; e < V; e += 32)
+        wp[e] = w[e] + p.warmstart_step * (gl[e] / tat - w[e] / sq) / d;
+    }
+    const float ssq = gen_dot(wp, wp, lane, V);
+    const float pr_p = p.prior_const - ssq / (2.f * sq) - p.one_plus_nu1 * r.eta - p.nu2 / tau;
+    GenSums s;
+    gen_eval<true>(g, s_rows, r0, r1, te_rows, t0, t1, wp, L.rec, L.part, epar, sub, bar_id,
+                   lane, gr, s);
+    const float sse_tr = s.tr, sse_te = s.te_err2;
+    const float ll_p = p.ll_const * (p.log_2pi + r.eta) - 0.5f * sse_tr / tau;
+    float qf = 0.f, qr = 0.f;
+    for (int e = lane; e < V; e += 32) {
+      const float g_cur = gl[e] / tat - w[e] / sq;
+      const float sig2m = sig * sig * m[e];
+      const float mean_fwd = w[e] + 0.5f * sig2m * g_cur;
+      const float g_prop = gr[e] / tat - wp[e] / sq;
+      const float mean_rev = wp[e] + 0.5f * sig2m * g_prop;
+      const float d_fwd = wp[e] - mean_fwd;
+      const float d_rev = w[e] - mean_rev;
+      qf += d_fwd * d_fwd / m[e];
+      qr += d_rev * d_rev / m[e];
+    }
+    const float diff = (gen_warp_sum(qf) - gen_warp_sum(qr)) / (2.f * sig * sig);
+    const float log_mh = (ll_p - r.ll) / r.at + (pr_p - r.pr) + diff;
+    const float a = expf(fminf(log_mh, 0.f));
+    const bool accept = p.u[kc] < a || warm;
+    const int na_before = r.na;
+    if (accept) {
+      r.rtr = sqrtf(sse_tr / p.n_tr_f);
+      r.rte = sqrtf(sse_te / p.n_te_f);
+      for (int e = lane; e < V; e += 32) {
+        w[e] = wp[e];
+        wl[e] = wp[e];
+        gl[e] = gr[e];
+      }
+      r.ll = ll_p;
+      r.pr = pr_p;
+      r.na += 1;
+    }
+    if (lead) gen_reg_trace(p, W, wl, kc, lane, ll_p / r.at, r, na_before);
+    // --- the eta block ------------------------------------------------------
+    eta_block(r.eta, r.ll, r.pr, r.lse, p.noise_eta[kc], p.u_eta[kc], r.at, i, p);
+    // --- Welford and the Robbins-Monro w scale ------------------------------
+    if (i >= p.warm_end && i < p.burn_end) {
+      gen_welford(p, w, pm, p2, i, lane, V);
+      r.lsw = r.lsw + p.adapt_rate * (a - p.target);
+    }
+    r.lsw = clipf(r.lsw, p.log_lo_w, p.log_hi);
+  }
+
+  if (lead) {
+    gen_store(p.o_w + cw, w, lane, g);
+    gen_store(p.o_w_last + cw, wl, lane, g);
+    gen_store(p.o_g_like + cw, gl, lane, g);
+    gen_store(p.o_pc_mean + cw, pm, lane, g);
+    gen_store(p.o_pc_m2 + cw, p2, lane, g);
+    if (lane == 0) store_carry(p, r, c);
+  }
+}
+
 template <int WPC>
 static int launch(const PrecondParams* p, int smem_bytes, cudaStream_t stream) {
   constexpr int CPB = MALA_THREADS / 32 / WPC;
@@ -198,6 +337,21 @@ int ptnn_mala_block(const PrecondParams* p, int smem_bytes, int wpc, void* strea
   if (wpc == 2) return launch<2>(p, smem_bytes, st);
   if (wpc == 1) return launch<1>(p, smem_bytes, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Launches the generic route at the network and layout `g`: ceil(C /
+// (g.warps / g.wpc)) blocks of 32 g.warps threads on `stream`; `vdev` holds
+// the warps' vectors where g.vec_dev. Returns the cudaError_t of the
+// attribute call or of the launch (0 = success). Does not synchronise.
+int ptnn_mala_gen(const PrecondParams* p, const GenShape* g, float* vdev, int smem_bytes,
+                  void* stream) {
+  if (!gen_shape_ok(g, vdev) || g->no != 1) return (int)cudaErrorInvalidValue;
+  cudaError_t e = gen_set_attributes(mala_gen_kernel, smem_bytes, false);
+  if (e != cudaSuccess) return (int)e;
+  const int cpb = g->warps / g->wpc;
+  const int grid = (p->chains + cpb - 1) / cpb;
+  mala_gen_kernel<<<grid, 32 * g->warps, smem_bytes, (cudaStream_t)stream>>>(*p, *g, vdev);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

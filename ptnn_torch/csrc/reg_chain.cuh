@@ -179,3 +179,18 @@ __device__ __forceinline__ float2 chain_eval(const float* __restrict__ rows, int
   if (2 * lane + 1 >= N::W) g.y = 0.f;
   return g;
 }
+
+// write_trace for the generic route (gen_chain.cuh): the w row from the
+// chain's slot `wl` of a runtime w_size.
+__device__ __forceinline__ void gen_reg_trace(const PrecondParams& p, int w, const float* wl,
+                                              size_t kc, int lane, float ll_row, const Carry& r,
+                                              int na_before) {
+  if (lane == 0) {
+    p.t_ll[kc] = ll_row;
+    p.t_rmse_tr[kc] = r.rtr;
+    p.t_rmse_te[kc] = r.rte;
+    p.t_accept[kc] = na_before;
+  }
+  if (p.t_w != nullptr)
+    for (int e = lane; e < w; e += 32) p.t_w[kc * w + e] = wl[e];
+}

@@ -32,9 +32,11 @@ whole trace.
 
 Scope (``fused_reason``): the reference random-walk, preconditioned-MALA
 and HMC/ChEES proposals, regression and classification, float32, one
-device; (``topology_reason``) a network the CUDA block
-kernels are built for; and (``working_set_reason``) a network and dataset
-whose block fits the kernel's shared memory.
+device; (``working_set_reason``) for MALA and HMC a network and dataset
+that ptnn's own gate fuses (``vmem_k_cap``), and for every proposal a block
+with a Hopper plan (the rows and the kernel's slots fit shared memory); and
+(``topology_reason``) for the random walk, a network its comparison with
+the plain version holds.
 """
 
 from __future__ import annotations
@@ -84,39 +86,84 @@ def fused_reason(cfg: PTConfig) -> Optional[str]:
     return None
 
 
+_VMEM_BUDGET = 12 * 2**20  # ptnn's per-core VMEM working-set cap
+_K_MIN = 8  # ptnn's shortest block worth fusing
+_LANES = 128  # ptnn's chain lanes
+
+
+def vmem_k_cap(cfg: PTConfig, n_tr: int, n_te: int) -> int:
+    """The longest block ptnn's gate lets a fused MALA / HMC config of
+    ``cfg`` run on ``n_tr`` + ``n_te`` rows: the port's copy of
+    ``ptnn/fused.py:128-151`` (``_k_cap``, its VMEM working-set model),
+    evaluated with ``record_w=True`` as ptnn's ``sample_fused`` runs it; 0
+    when the working set does not fit even at 8 steps."""
+    pad8 = lambda n: (int(n) + 7) // 8 * 8
+    n_hid = cfg.topology[1]
+    p_pad = pad8(fnn.w_size(cfg.topology))
+    n_cls = cfg.topology[2] if cfg.task == "classification" else 0
+    per_k = 4 * _LANES * (p_pad + 8 + p_pad)
+    live = max(4, n_cls + 4)
+    if n_cls > 0:  # the hidden sigmoid and per-class delta planes
+        live += n_hid + n_cls
+    state_planes = 26 if cfg.proposal == "hmc" else 18
+    fixed = 4 * _LANES * (live * (pad8(n_tr) + pad8(n_te))
+                          + state_planes * p_pad)
+    if fixed + _K_MIN * per_k > _VMEM_BUDGET:
+        return 0
+    return min(128, (_VMEM_BUDGET - fixed) // per_k)
+
+
 def topology_reason(cfg: PTConfig) -> Optional[str]:
-    """Why the CUDA block kernel of ``cfg``'s proposal is not built for its
+    """Why the port's block kernel of ``cfg``'s proposal is not held at its
     FNN topology (None: it is), on every device, so that a configuration
     runs or falls back alike on the CPU and on the card. The random walk
     takes any topology (a fixed-shape kernel for the bundled networks, a
     generic one for the others) but the classification networks its
     comparison with the plain version cannot hold
-    (``block_step.RW_CLS_UNHELD``); the MALA and HMC kernels are
-    instantiated for the topologies their modules list."""
+    (``block_step.RW_CLS_UNHELD``). The MALA and HMC kernels take any
+    topology: a fixed-shape route for the networks of
+    ``precond_step.TOPOLOGIES`` / ``precond_cls_step.TOPOLOGIES`` and a
+    generic one for any other."""
     topo = tuple(cfg.topology)
-    if cfg.proposal == "reference":
-        if cfg.task == "classification" and topo in block_step.RW_CLS_UNHELD:
-            return (f"the CUDA classification RW block kernel is not held "
-                    f"against its plain version at {topo}: its argmax ties "
-                    f"exceed the comparison's 1 % of trace entries")
-        return None
-    built = (precond_cls_step.TOPOLOGIES if cfg.task == "classification"
-             else precond_step.TOPOLOGIES)
-    if topo in built:
-        return None
-    return (f"the CUDA {cfg.task} {cfg.proposal} block kernel is built for "
-            f"topologies {built}, not {topo}")
+    if (cfg.proposal == "reference" and cfg.task == "classification"
+            and topo in block_step.RW_CLS_UNHELD):
+        return (f"the CUDA classification RW block kernel is not held "
+                f"against its plain version at {topo}: its argmax ties "
+                f"exceed the comparison's 1 % of trace entries")
+    return None
 
 
 def working_set_reason(cfg: PTConfig, n_tr: int, n_te: int) -> Optional[str]:
-    """Why a block of ``cfg`` on ``n_tr`` + ``n_te`` rows does not fit the
-    CUDA kernel's shared memory (None: it does), on every device, so that a
-    configuration runs or is refused alike on the CPU and on the card."""
+    """Why a block of ``cfg`` on ``n_tr`` + ``n_te`` rows is refused for its
+    working set (None: it is not), on every device, so that a
+    configuration runs or falls back alike on the CPU and on the card.
+    MALA and HMC run wherever ptnn's own gate fuses them (``vmem_k_cap`` at
+    least 8, ptnn's VMEM working-set model); then, as the random walk, a
+    block must have a Hopper plan: the rows and the kernel's slots fit a
+    block's shared memory. At a network without a fixed-shape route the
+    MALA and HMC kernels take the generic route's layout
+    (``precond_step.gen_layout``: the vectors in device memory and fewer
+    warps a block before it gives up)."""
     n_in, _hid, _out = cfg.topology
     w = fnn.w_size(cfg.topology)
     rows = n_tr + n_te
     chees = cfg.proposal == "hmc" and cfg.hmc_adapt_traj
-    if cfg.task == "classification":
+    cls = cfg.task == "classification"
+    fixed = tuple(cfg.topology) in (precond_cls_step.TOPOLOGIES if cls
+                                    else precond_step.TOPOLOGIES)
+    if (cfg.proposal != "reference"
+            and vmem_k_cap(cfg, n_tr, n_te) < _K_MIN):
+        return (f"block working set exceeds the VMEM budget (w_size {w}, "
+                f"{n_tr}+{n_te} rows) — compute-bound; the per-step sampler "
+                f"is the right tool (ptnn's gate)")
+    if cfg.proposal != "reference" and not fixed:
+        kind = "hmc" if cfg.proposal == "hmc" else "mala"
+        try:
+            precond_step.gen_layout(kind, rows, cfg.topology)
+        except ValueError as e:
+            return str(e)
+        return None
+    if cls:
         if cfg.proposal == "reference":  # the larger of the two kernels'
             need = max([block_step.cls_smem_bytes(rows, cfg.topology,
                                                   "generic")]

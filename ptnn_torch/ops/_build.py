@@ -207,6 +207,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             lib.ptnn_hmc_coop_blocks.argtypes = [
                 ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
             lib.ptnn_hmc_coop_blocks.restype = ctypes.c_int
+        _declare_gen(name, lib, ctypes.POINTER(ps.PrecondParams))
     if name in ("mala_cls_block", "hmc_cls_block"):
         from ptnn_torch.ops import precond_cls_step as pcs
 
@@ -236,6 +237,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                      ctypes.sizeof(pcs.ClsPrecondParams),
                      "ClsPrecondParams size")
         _check_query(lib, name, "ptnn_cls_part", pcs._part(), "CLS_PART")
+        _declare_gen(name, lib, P)
         for topo in pcs.TOPOLOGIES:
             n_in, hid, n_out = topo
             _check_query(lib, name, "ptnn_cls_w_size",
@@ -395,6 +397,40 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                                        f"{warps} warps differs between "
                                        f"rw_block.cu ({got}) and its Python "
                                        f"mirror ({want})")
+
+
+def _declare_gen(name: str, lib: ctypes.CDLL, params) -> None:
+    """The generic route's entry points of a MALA / HMC library
+    (csrc/gen_chain.cuh): ``<prefix>(params, shape, [exch,] vectors, smem,
+    [cluster, route,] stream)`` and, for HMC, its occupancy queries
+    ``<prefix>_max_active_clusters(threads, smem, cluster, *out)`` and
+    ``<prefix>_coop_blocks(threads, smem, *out)``."""
+    from ptnn_torch.ops import precond_step as ps
+
+    i, v = ctypes.c_int, ctypes.c_void_p
+    prefix = {"mala_block": "ptnn_mala_gen", "hmc_block": "ptnn_hmc_gen",
+              "mala_cls_block": "ptnn_mala_cls_gen",
+              "hmc_cls_block": "ptnn_hmc_cls_gen"}[name]
+    shape = ctypes.POINTER(ps.GenShape)
+    launch = getattr(lib, prefix)
+    if name == "hmc_block":  # the exchange slots ride in PrecondParams
+        launch.argtypes = [params, shape, v, i, i, i, v]
+    elif name == "hmc_cls_block":
+        launch.argtypes = [params, shape, v, v, i, i, i, v]
+    else:
+        launch.argtypes = [params, shape, v, i, v]
+    launch.restype = i
+    if name.startswith("hmc"):
+        getattr(lib, f"{prefix}_max_active_clusters").argtypes = [
+            i, i, i, ctypes.POINTER(i)]
+        getattr(lib, f"{prefix}_max_active_clusters").restype = i
+        getattr(lib, f"{prefix}_coop_blocks").argtypes = [
+            i, i, ctypes.POINTER(i)]
+        getattr(lib, f"{prefix}_coop_blocks").restype = i
+    _check_query(lib, name, "ptnn_gen_shape_size",
+                 ctypes.sizeof(ps.GenShape), "GenShape size")
+    _check_query(lib, name, "ptnn_gen_part", cu_define("gen_chain.cuh",
+                                                       "GEN_PART"), "GEN_PART")
 
 
 def _check_query(lib: ctypes.CDLL, name: str, fn: str, want: int,

@@ -45,7 +45,12 @@ picks the MALA kernel's WPC from the card's SM count; ``launch_plan`` picks
 the HMC kernel's WPC and, under ChEES, the route of the panels' exchange
 (one thread-block cluster a panel, or a cooperative grid) from the card's
 occupancy. ``hmc_cls_routes`` counts the HMC launches by route,
-``mala_cls_wpcs`` the MALA launches by warps a chain.
+``mala_cls_wpcs`` the MALA launches by warps a chain. Those are the
+fixed-shape instantiations of ``TOPOLOGIES``; any other network takes both
+kernels' generic route (``csrc/gen_chain.cuh``, ``precond_step.gen_layout``:
+its shape at run time, a block of 8 warps down to 1, each warp's vectors
+in shared or device memory), which the same plans pick;
+``variant_launches`` counts the launches by route.
 """
 
 from __future__ import annotations
@@ -64,14 +69,21 @@ from ptnn_torch.ops.block_step import (_check, argmax_fragile, cls_eval,
                                        sm_count)
 from ptnn_torch.ops.precond_step import (PANEL, _LOG_HI, _LOG_LO_W, _LOG09,
                                          _LOG0999, _LOG_TRAJ_LO, _SMEM_LIMIT,
-                                         MalaPlan, _clip_traj, _dispatch,
-                                         _precond_diag, rung_sum, warp_plan)
+                                         HmcPlan, MalaPlan, _clip_traj,
+                                         _dispatch, _precond_diag,
+                                         card_gen_hmc_plan, gen_device_vectors,
+                                         gen_dims, gen_layout, gen_mala_plan,
+                                         gen_shape, rung_sum, warp_plan)
 
 launches = {"mala_cls_block": 0, "hmc_cls_block": 0}  # CUDA launches
 ROUTES = ("plain", "cluster", "grid")  # ROUTE_* of csrc/hmc_cls_block.cu
 hmc_cls_routes = {r: 0 for r in ROUTES}  # hmc_cls_block launches by route
-WPCS = (4, 2, 1)  # warps a chain the kernels are built for, largest first
-mala_cls_wpcs = {w: 0 for w in WPCS}  # mala_cls_block launches by warps a chain
+WPCS = (4, 2, 1)  # warps a chain the fixed kernels take, largest first
+# mala_cls_block launches by warps a chain (the generic route's up to 8)
+mala_cls_wpcs = {w: 0 for w in (8,) + WPCS}
+# launches of each kernel by variant: a fixed network of TOPOLOGIES, or the
+# generic route (csrc/gen_chain.cuh) for any other (I, H, O)
+variant_launches = {k: {"fixed": 0, "generic": 0} for k in launches}
 
 
 def _hmc(name: str) -> int:
@@ -92,9 +104,10 @@ def _mala_warps() -> int:
     return _build.cu_define("mala_cls_block.cu", "MALA_CLS_THREADS") // 32
 
 
-# the (I, H, O) the CUDA kernels instantiate (CLS_PRECOND_CASES of
+# the (I, H, O) of the fixed-shape instantiations (CLS_PRECOND_CASES of
 # csrc/cls_common.cuh): iris's bundled network, and the (4, 10, 3) that
-# ptnn_torch.auto infers for iris (hidden = max(10, n_in))
+# ptnn_torch.auto infers for iris (hidden = max(10, n_in)); every other
+# network takes the generic route
 TOPOLOGIES = ((4, 12, 3), (4, 10, 3))
 
 Tensors = Dict[str, torch.Tensor]
@@ -395,9 +408,12 @@ def _chain_smem_floats(n_rows: int, topo, warps: int) -> int:
 
 def hmc_smem_bytes(n_rows: int, topo, chees: bool, wpc: int) -> int:
     """Dynamic shared memory of one block of the HMC kernel at ``wpc`` warps
-    a chain: the layout of csrc/cls_chain.cuh and, under ChEES, per chain,
-    two parities of the cluster route's exchange slot (w', w_old and two
-    scalars)."""
+    a chain. A fixed network: the layout of csrc/cls_chain.cuh and, under
+    ChEES, per chain, two parities of the cluster route's exchange slot
+    (w', w_old and two scalars). Any other: the generic route's block
+    (``precond_step.gen_layout``), without the cluster route's slots."""
+    if tuple(topo) not in TOPOLOGIES:
+        return gen_layout("hmc", n_rows, topo).smem
     vec = 32 * -(-fnn.w_size(topo) // 32)
     warps = _hmc("HMC_CLS_THREADS") // 32
     floats = _chain_smem_floats(n_rows, topo, warps)
@@ -408,7 +424,10 @@ def hmc_smem_bytes(n_rows: int, topo, chees: bool, wpc: int) -> int:
 
 def mala_smem_bytes(n_rows: int, topo) -> int:
     """Dynamic shared memory of one block of the MALA kernel: the layout of
-    csrc/cls_chain.cuh, whatever the warps a chain."""
+    csrc/cls_chain.cuh, whatever the warps a chain, for a fixed network;
+    the generic route's block for any other."""
+    if tuple(topo) not in TOPOLOGIES:
+        return gen_layout("mala", n_rows, topo).smem
     return 4 * _chain_smem_floats(n_rows, topo, _mala_warps())
 
 
@@ -416,7 +435,10 @@ def mala_launch_plan(chains: int, n_rows: int, topo, sms: int) -> MalaPlan:
     """The MALA kernel's launch for ``chains`` chains on ``n_rows`` data
     rows, on a card of ``sms`` SMs (pure Python): ``precond_step.warp_plan``'s
     rule, the largest WPC whose blocks fit one wave of the card, one block
-    an SM; past that, WPC 1 in waves."""
+    an SM; past that, WPC 1 in waves. A network not in TOPOLOGIES takes
+    the generic route (``precond_step.gen_mala_plan``)."""
+    if tuple(topo) not in TOPOLOGIES:
+        return gen_mala_plan(chains, n_rows, topo, sms)
     return warp_plan(chains, _mala_warps(), sms, WPCS,
                      mala_smem_bytes(n_rows, topo))
 
@@ -427,24 +449,11 @@ def card_mala_plan(device, chains: int, n_rows: int,
     return mala_launch_plan(chains, n_rows, topo, sm_count(device))
 
 
-class HmcClsPlan(NamedTuple):
-    """One launch of the HMC kernel: ``wpc`` warps a chain, ``per_block``
-    chains a block, ``blocks``, ``cluster`` blocks a panel (1 without
-    ChEES), ``route`` (one of ROUTES), ``smem`` bytes a block, ``why``."""
-    wpc: int
-    per_block: int
-    blocks: int
-    cluster: int
-    route: str
-    smem: int
-    why: str
-
-
 def launch_plan(chains: int, panel: int, n_rows: int, topo,
                 fits: Callable[[int, int, int], int],
-                coop: Callable[[int, int], int]) -> HmcClsPlan:
+                coop: Callable[[int, int], int]) -> HmcPlan:
     """The HMC kernel's launch for ``chains`` chains on ``n_rows`` data
-    rows; ``panel`` > 0 under ChEES (the chains whose rung sums one
+    rows of a fixed network; ``panel`` > 0 under ChEES (the chains whose rung sums one
     exchange couples), 0 without. ``fits(wpc, smem, cluster)`` is how many
     clusters of ``cluster`` blocks the card holds at once, ``coop(wpc,
     smem)`` how many blocks of the grid route (the card's occupancy
@@ -460,7 +469,7 @@ def launch_plan(chains: int, panel: int, n_rows: int, topo,
     if not panel:
         wpc = WPCS[0]
         per = warps // wpc
-        return HmcClsPlan(wpc, per, -(-chains // per), 1, "plain",
+        return HmcPlan(wpc, per, -(-chains // per), 1, "plain",
                           hmc_smem_bytes(n_rows, topo, False, wpc),
                           "no ChEES: no exchange")
     if chains % panel or (panel != chains and panel != PANEL):
@@ -476,20 +485,20 @@ def launch_plan(chains: int, panel: int, n_rows: int, topo,
         if cluster <= most:
             n_fit = fits(wpc, smem, cluster)
             if n_fit >= n_panels:
-                return HmcClsPlan(wpc, per, blocks, cluster, "cluster", smem,
+                return HmcPlan(wpc, per, blocks, cluster, "cluster", smem,
                                   f"WPC {wpc}: {n_fit} clusters of "
                                   f"{cluster} blocks fit at once, {n_panels} "
                                   f"panels")
         n_coop = coop(wpc, smem)
         if blocks <= n_coop:
-            return HmcClsPlan(wpc, per, blocks, cluster, "grid", smem,
+            return HmcPlan(wpc, per, blocks, cluster, "grid", smem,
                               f"WPC {wpc}: all {blocks} blocks fit "
                               f"at once ({n_coop})")
     per = warps
     blocks, cluster = -(-chains // per), -(-panel // per)
     smem = hmc_smem_bytes(n_rows, topo, True, 1)
     if cluster <= most and fits(1, smem, cluster) >= 1:
-        return HmcClsPlan(1, per, blocks, cluster, "cluster", smem,
+        return HmcPlan(1, per, blocks, cluster, "cluster", smem,
                           f"WPC 1: {n_panels} clusters of {cluster} "
                           f"blocks in waves")
     raise ValueError(f"a ChEES panel of {panel} chains fits neither one "
@@ -498,7 +507,7 @@ def launch_plan(chains: int, panel: int, n_rows: int, topo,
 
 @functools.lru_cache(maxsize=None)
 def _card_plan(device_index: int, chains: int, panel: int, n_rows: int,
-               topo) -> HmcClsPlan:
+               topo) -> HmcPlan:
     def query(fn, *args):
         lib = _build.build("hmc_cls_block").lib
         out = ctypes.c_int(0)
@@ -516,8 +525,13 @@ def _card_plan(device_index: int, chains: int, panel: int, n_rows: int,
 
 
 def card_plan(device, chains: int, panel: int, n_rows: int,
-              topo=TOPOLOGIES[0]) -> HmcClsPlan:
-    """``launch_plan`` with the occupancy of the card ``device``."""
+              topo=TOPOLOGIES[0]) -> HmcPlan:
+    """``launch_plan`` with the occupancy of the card ``device``; a network
+    not in TOPOLOGIES takes the generic route
+    (``precond_step.gen_hmc_plan``)."""
+    if tuple(topo) not in TOPOLOGIES:
+        return card_gen_hmc_plan("hmc_cls_block", "ptnn_hmc_cls_gen", device,
+                                 chains, panel, n_rows, topo)
     dev = torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     with torch.cuda.device(index):
@@ -533,9 +547,6 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
     k_max, c, w_dim = noise["w"].shape
     n_in = topo[0]
     n_tr, n_te = int(data["n_tr"]), int(data["n_te"])
-    if tuple(topo) not in TOPOLOGIES:
-        raise ValueError(f"the CUDA {name} kernel is instantiated for "
-                         f"topologies {TOPOLOGIES}, not {tuple(topo)}")
     if w_dim != fnn.w_size(topo):
         raise ValueError(f"noise width {w_dim} does not fit topology {topo}")
     if not 0 <= int(length) <= k_max:
@@ -627,24 +638,40 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
         log_hi=_LOG_HI, log_traj_lo=_LOG_TRAJ_LO, log09=_LOG09,
         log0999=_LOG0999,
     )
+    fixed = plan.variant == "fixed"
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if not fixed:
+            kind = "hmc" if hmc else "mala"
+            shape = gen_shape(topo, plan, kind)
+            vdev = gen_device_vectors(plan, kind, topo, dev)
         if hmc:
             exch = None
             if plan.route == "grid":  # (C, 2, EX) slots in device memory
-                vec = 32 * -(-w_dim // 32)
+                vec = gen_dims(topo)[0]
                 exch = torch.empty((c, 2, 2 * vec + 4), dtype=f32, device=dev)
-            err = lib.ptnn_hmc_cls_block(
-                ctypes.byref(params), p(exch), smem, plan.wpc, topo[1],
-                plan.cluster, ROUTES.index(plan.route), stream)
-        else:
+            if fixed:
+                err = lib.ptnn_hmc_cls_block(
+                    ctypes.byref(params), p(exch), smem, plan.wpc, topo[1],
+                    plan.cluster, ROUTES.index(plan.route), stream)
+            else:
+                err = lib.ptnn_hmc_cls_gen(
+                    ctypes.byref(params), ctypes.byref(shape), p(exch),
+                    p(vdev), smem, plan.cluster, ROUTES.index(plan.route),
+                    stream)
+        elif fixed:
             err = lib.ptnn_mala_cls_block(ctypes.byref(params), smem,
                                           plan.wpc, topo[1], stream)
+        else:
+            err = lib.ptnn_mala_cls_gen(ctypes.byref(params),
+                                        ctypes.byref(shape), p(vdev), smem,
+                                        stream)
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed: {_build.error_string(lib, err)}"
         )
     launches[name] += 1
+    variant_launches[name][plan.variant] += 1
     if hmc:
         hmc_cls_routes[plan.route] += 1
     else:

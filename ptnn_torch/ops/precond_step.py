@@ -59,7 +59,10 @@ read from the source (``_build.cu_define``). Under ChEES a panel's blocks
 exchange rung sums (``hmc_layout``, ``exchange_reads``) by one of two routes
 (``hmc_route``): one thread-block cluster a panel, or a cooperative launch
 of the whole grid with the exchange slots in device memory. ``hmc_routes``
-counts the launches of each.
+counts the launches of each. Those are the fixed (4, 10, 1) instantiations;
+any other (I, H, 1) takes both kernels' generic route
+(``csrc/gen_chain.cuh``: ``gen_layout``, ``gen_mala_plan``,
+``gen_hmc_plan``), and ``variant_launches`` counts the launches by route.
 """
 
 from __future__ import annotations
@@ -67,7 +70,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +84,9 @@ ROUTES = ("plain", "cluster", "grid")  # ROUTE_* of csrc/hmc_block.cu
 hmc_routes = {r: 0 for r in ROUTES}  # hmc_block launches by route
 MALA_WPCS = (8, 4, 2, 1)  # warps a chain of mala_block.cu, largest first
 mala_wpcs = {w: 0 for w in MALA_WPCS}  # mala_block launches by warps a chain
+# launches of each kernel by variant: the fixed (4, 10, 1) network, or the
+# generic route (csrc/gen_chain.cuh) for any other (I, H, 1)
+variant_launches = {k: {"fixed": 0, "generic": 0} for k in launches}
 
 ETA_TARGET_ACCEPT = 0.44  # 1-D random-walk optimum (ptnn's convention)
 PANEL = 128  # ChEES pools rung replicas within runs of this many chains
@@ -538,14 +544,36 @@ def smem_bytes(n_rows: int, n_in: int, chees: bool, hmc: bool = False) -> int:
 
 
 class MalaPlan(NamedTuple):
-    """One launch of a MALA kernel (regression or iris): ``wpc`` warps a
-    chain, ``per_block`` chains a block, ``blocks``, ``smem`` bytes a
-    block, ``why``."""
+    """One launch of a MALA kernel (regression or classification): ``wpc``
+    warps a chain, ``per_block`` chains a block, ``blocks``, ``smem`` bytes
+    a block, ``why``; ``variant`` "fixed" (a compile-time network, the
+    chain's vectors in registers) or "generic" (``gen_layout``: ``warps``
+    warps a block, the vectors in "shared" or "device" memory)."""
     wpc: int
     per_block: int
     blocks: int
     smem: int
     why: str
+    variant: str = "fixed"
+    warps: int = 8
+    vectors: str = "registers"
+
+
+class HmcPlan(NamedTuple):
+    """One launch of an HMC kernel: ``wpc`` warps a chain, ``per_block``
+    chains a block, ``blocks``, ``cluster`` blocks a panel (1 without
+    ChEES), ``route`` (one of ROUTES), ``smem`` bytes a block, ``why``;
+    ``variant``, ``warps`` and ``vectors`` as ``MalaPlan``'s."""
+    wpc: int
+    per_block: int
+    blocks: int
+    cluster: int
+    route: str
+    smem: int
+    why: str
+    variant: str = "fixed"
+    warps: int = 8
+    vectors: str = "registers"
 
 
 def warp_plan(chains: int, warps: int, sms: int, wpcs: Sequence[int],
@@ -555,8 +583,8 @@ def warp_plan(chains: int, warps: int, sms: int, wpcs: Sequence[int],
     (pure Python): the largest of ``wpcs`` whose blocks fit one wave of the
     card, one block an SM (a block takes the SM's registers); past that,
     one warp a chain in waves. More warps a chain shorten each evaluation;
-    more than one wave would run the blocks one after the other. Both MALA
-    kernels take this rule."""
+    more than one wave would run the blocks one after the other. Every
+    MALA kernel takes this rule."""
     for wpc in wpcs:
         per = warps // wpc
         blocks = -(-chains // per)
@@ -569,17 +597,226 @@ def warp_plan(chains: int, warps: int, sms: int, wpcs: Sequence[int],
                     f"WPC 1: {blocks} blocks in waves over {sms} SMs")
 
 
-def mala_launch_plan(chains: int, n_rows: int, sms: int) -> MalaPlan:
+# --- the generic route (csrc/gen_chain.cuh): any (I, H, O) -----------------
+
+GEN_WARPS = (8, 4, 2, 1)  # warps a block of a generic kernel, largest first
+GEN_VECTORS = {"mala": 7, "hmc": 9}  # a warp's vectors outside its eval slot
+
+
+def gen_dims(topo) -> Tuple[int, int]:
+    """(VEC, STRIDE) of the generic route: a chain vector's floats (w_size
+    rounded up to 32; lane l owns entries l, l + 32, ...) and the odd
+    stride of a row's backprop record [s (H), dh (H), d2 (O), x (I), 1]."""
+    n_in, n_hid, n_out = (int(d) for d in topo)
+    vec = 32 * -(-fnn.w_size(topo) // 32)
+    return vec, (2 * n_hid + n_out + n_in + 1) | 1
+
+
+def gen_smem_bytes(n_rows: int, topo, kind: str, warps: int, vectors: str,
+                   ex_chains: int = 0) -> int:
+    """Dynamic shared memory of one block of a generic kernel: the data rows
+    (padded to 16 bytes); per warp its evaluation slot (VEC floats), a
+    32-row record tile (32 x STRIDE) and, with ``vectors`` "shared", its
+    GEN_VECTORS[kind] vectors; per warp two parities of its partial slot
+    (VEC + GEN_PART floats); and, for the ChEES cluster route, two parities
+    of ``ex_chains`` chains' exchange slots (w', w_old, two scalars)."""
+    vec, stride = gen_dims(topo)
+    rows = (n_rows * (int(topo[0]) + 1) + 3) // 4 * 4
+    own = GEN_VECTORS[kind] * vec if vectors == "shared" else 0
+    part = _build.cu_define("gen_chain.cuh", "GEN_PART")
+    return 4 * (rows + warps * (vec + 32 * stride + own + 2 * (vec + part))
+                + ex_chains * 2 * (2 * vec + 4))
+
+
+class GenLayout(NamedTuple):
+    """Where a generic kernel keeps a block's warps' state: ``warps`` warps
+    a block, the vectors in ``vectors`` ("shared" or "device") memory,
+    ``smem`` bytes a block without ChEES slots."""
+    warps: int
+    vectors: str
+    smem: int
+
+
+def gen_layout(kind: str, n_rows: int, topo) -> GenLayout:
+    """The generic kernel's layout for ``kind`` ("mala" or "hmc") on
+    ``n_rows`` data rows of ``topo`` (pure Python): eight warps with their
+    vectors in shared memory when that fits a Hopper block, else the
+    vectors in device memory (each warp its own slots, through L1) with the
+    most warps, eight down to one, whose record tiles fit beside the rows.
+    Raises ValueError where not even one warp fits: no Hopper plan."""
+    cands = [(GEN_WARPS[0], "shared")] + [(w, "device") for w in GEN_WARPS]
+    for warps, where in cands:
+        smem = gen_smem_bytes(n_rows, topo, kind, warps, where)
+        if smem <= _SMEM_LIMIT:
+            return GenLayout(warps, where, smem)
+    raise ValueError(
+        f"no Hopper plan fits {kind} at {tuple(topo)} on {n_rows} rows: the "
+        f"rows, one warp's record tile and its slots need {smem} bytes of "
+        f"shared memory; a Hopper block has {_SMEM_LIMIT}")
+
+
+def gen_mala_plan(chains: int, n_rows: int, topo, sms: int) -> MalaPlan:
+    """The generic MALA launch (pure Python): ``gen_layout``'s block,
+    ``warp_plan``'s rule over the warps a chain that divide it."""
+    lay = gen_layout("mala", n_rows, topo)
+    wpcs = [w for w in GEN_WARPS if w <= lay.warps]
+    return warp_plan(chains, lay.warps, sms, wpcs, lay.smem)._replace(
+        variant="generic", warps=lay.warps, vectors=lay.vectors)
+
+
+def gen_hmc_plan(chains: int, panel: int, n_rows: int, topo, sms: int,
+                 fits: Callable[[int, int, int], int],
+                 coop: Callable[[int, int], int]) -> HmcPlan:
+    """The generic HMC launch (pure Python, given the card's occupancy:
+    ``fits(threads, smem, cluster)`` clusters of ``cluster`` blocks at
+    once, ``coop(threads, smem)`` blocks of the grid route at once).
+    Without ChEES (``panel`` 0), ``warp_plan``'s rule. Under ChEES, the
+    largest WPC at which every panel's exchange runs at once: one cluster a
+    panel when the slots fit beside the block and every panel's cluster
+    fits at once, else the cooperative grid when all its blocks fit; else
+    clusters in waves at one warp a chain. A panel must tile the chains
+    and, past one panel, cover whole blocks."""
+    lay = gen_layout("hmc", n_rows, topo)
+    wpcs = [w for w in GEN_WARPS if w <= lay.warps]
+    gen = dict(variant="generic", warps=lay.warps, vectors=lay.vectors)
+    if not panel:
+        m = warp_plan(chains, lay.warps, sms, wpcs, lay.smem)
+        return HmcPlan(m.wpc, m.per_block, m.blocks, 1, "plain", m.smem,
+                       "no ChEES: no exchange; " + m.why, **gen)
+    if chains % panel or (panel != chains and panel != PANEL):
+        raise ValueError(f"ChEES panel of {panel} chains does not tile "
+                         f"{chains} chains")
+    most, threads = _hmc("HMC_MAX_CLUSTER"), 32 * lay.warps
+    n_panels = chains // panel
+
+    def cluster_smem(per):
+        return gen_smem_bytes(n_rows, topo, "hmc", lay.warps, lay.vectors,
+                              ex_chains=per)
+
+    for wpc in wpcs:
+        per = lay.warps // wpc
+        blocks, cluster = -(-chains // per), -(-panel // per)
+        if n_panels > 1 and panel % per:
+            continue
+        smem = cluster_smem(per)
+        if cluster <= most and smem <= _SMEM_LIMIT:
+            n_fit = fits(threads, smem, cluster)
+            if n_fit >= n_panels:
+                return HmcPlan(wpc, per, blocks, cluster, "cluster", smem,
+                               f"WPC {wpc}: {n_fit} clusters of {cluster} "
+                               f"blocks fit at once, {n_panels} panels",
+                               **gen)
+        n_coop = coop(threads, lay.smem)
+        if blocks <= n_coop:
+            return HmcPlan(wpc, per, blocks, cluster, "grid", lay.smem,
+                           f"WPC {wpc}: all {blocks} blocks fit at once "
+                           f"({n_coop})", **gen)
+    per = lay.warps
+    blocks, cluster = -(-chains // per), -(-panel // per)
+    smem = cluster_smem(per)
+    if (cluster <= most and smem <= _SMEM_LIMIT
+            and fits(threads, smem, cluster) >= 1):
+        return HmcPlan(1, per, blocks, cluster, "cluster", smem,
+                       f"WPC 1: {n_panels} clusters of {cluster} blocks in "
+                       f"waves", **gen)
+    raise ValueError(f"a ChEES panel of {panel} chains fits neither one "
+                     f"cluster of {most} blocks nor the card at once")
+
+
+@functools.lru_cache(maxsize=None)
+def _gen_occupancy(lib_name: str, prefix: str, device_index: int,
+                   what: str, threads: int, smem: int, cluster: int) -> int:
+    lib = _build.build(lib_name).lib
+    out = ctypes.c_int(0)
+    if what == "clusters":
+        err = getattr(lib, f"{prefix}_max_active_clusters")(
+            threads, smem, cluster, ctypes.byref(out))
+    else:
+        err = getattr(lib, f"{prefix}_coop_blocks")(threads, smem,
+                                                    ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"{prefix} occupancy query failed: "
+                           f"{_build.error_string(lib, err)}")
+    return out.value
+
+
+def card_gen_hmc_plan(lib_name: str, prefix: str, device, chains: int,
+                      panel: int, n_rows: int, topo) -> HmcPlan:
+    """``gen_hmc_plan`` with the SM count and occupancy of the card
+    ``device``, from the generic kernel of ``lib_name`` (its queries
+    ``<prefix>_max_active_clusters`` and ``<prefix>_coop_blocks``)."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    with torch.cuda.device(index):
+        return gen_hmc_plan(
+            chains, panel, n_rows, topo, sm_count(dev),
+            fits=lambda t, s, c: _gen_occupancy(lib_name, prefix, index,
+                                                "clusters", t, s, c),
+            coop=lambda t, s: _gen_occupancy(lib_name, prefix, index, "coop",
+                                             t, s, 0))
+
+
+class GenShape(ctypes.Structure):
+    """Mirror of ``struct GenShape`` in csrc/gen_chain.cuh (same field
+    order): the network and the generic kernel's layout of a launch."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "ni", "nh", "no", "w", "vec", "stride", "warps", "wpc", "nv",
+        "vec_dev")]
+
+
+def gen_shape(topo, plan, kind: str) -> GenShape:
+    """The ``GenShape`` of a generic launch of ``plan`` at ``topo``."""
+    vec, stride = gen_dims(topo)
+    return GenShape(ni=int(topo[0]), nh=int(topo[1]), no=int(topo[2]),
+                    w=fnn.w_size(topo), vec=vec, stride=stride,
+                    warps=plan.warps, wpc=plan.wpc, nv=GEN_VECTORS[kind],
+                    vec_dev=int(plan.vectors == "device"))
+
+
+def gen_device_vectors(plan, kind: str, topo, device):
+    """The device-memory vector slots of a generic launch whose plan keeps
+    them there (blocks x warps x GEN_VECTORS[kind] x VEC floats), else
+    None."""
+    if plan.vectors != "device":
+        return None
+    vec = gen_dims(topo)[0]
+    return torch.empty((plan.blocks * plan.warps * GEN_VECTORS[kind] * vec,),
+                       dtype=torch.float32, device=device)
+
+
+def mala_launch_plan(chains: int, n_rows: int, sms: int,
+                     topo=TOPOLOGIES[0]) -> MalaPlan:
     """The regression MALA kernel's launch for ``chains`` chains on
-    ``n_rows`` data rows of the (4, 10, 1) network, on a card of ``sms``
-    SMs (pure Python; ``warp_plan``'s rule)."""
+    ``n_rows`` data rows, on a card of ``sms`` SMs (pure Python;
+    ``warp_plan``'s rule): the fixed (4, 10, 1) kernel, or the generic
+    route for any other ``topo`` (``gen_mala_plan``)."""
+    if tuple(topo) not in TOPOLOGIES:
+        return gen_mala_plan(chains, n_rows, topo, sms)
     return warp_plan(chains, _mala_warps(), sms, MALA_WPCS,
                      smem_bytes(n_rows, TOPOLOGIES[0][0], False))
 
 
-def card_mala_plan(device, chains: int, n_rows: int) -> MalaPlan:
+def card_mala_plan(device, chains: int, n_rows: int,
+                   topo=TOPOLOGIES[0]) -> MalaPlan:
     """``mala_launch_plan`` with the SM count of the card ``device``."""
-    return mala_launch_plan(chains, n_rows, sm_count(device))
+    return mala_launch_plan(chains, n_rows, sm_count(device), topo)
+
+
+def card_hmc_plan(device, chains: int, panel: int, n_rows: int,
+                  topo) -> HmcPlan:
+    """The regression HMC launch on the card ``device``: the fixed (4, 10,
+    1) kernel (``hmc_layout``, ``hmc_route``: 8 chains a block, one warp
+    each), or the generic route (``gen_hmc_plan``)."""
+    if tuple(topo) in TOPOLOGIES:
+        blocks, cluster = hmc_layout(chains, panel)
+        smem = smem_bytes(n_rows, topo[0], bool(panel), True)
+        route, why = hmc_route(device, smem, cluster, hmc_layout(chains)[0],
+                               bool(panel))
+        return HmcPlan(1, _hmc("HMC_WARPS"), blocks, cluster, route, smem,
+                       why, warps=_hmc("HMC_WARPS"), vectors="shared")
+    return card_gen_hmc_plan("hmc_block", "ptnn_hmc_gen", device, chains,
+                             panel, n_rows, topo)
 
 
 @functools.lru_cache(maxsize=None)
@@ -627,8 +864,6 @@ def hmc_route(device, smem: int, cluster: int, blocks: int,
 def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
                  length: int, data: dict, adapttemp: torch.Tensor, topo,
                  scal: dict, record_w: bool):
-    from ptnn_torch.ops import _build
-
     hmc = name == "hmc_block"
     chees = hmc and bool(scal["chees"])
     lib = _build.build(name).lib
@@ -636,25 +871,30 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
     k_max, c, w_dim = noise["w"].shape
     n_in, n_hid, n_out = topo
     n_tr, n_te = int(data["n_tr"]), int(data["n_te"])
-    if tuple(topo) not in TOPOLOGIES:
-        raise ValueError(f"the CUDA {name} kernel is instantiated for "
-                         f"topologies {TOPOLOGIES}, not {tuple(topo)}")
+    if n_out != 1:
+        raise ValueError(f"the CUDA {name} kernel is regression: one output, "
+                         f"not {tuple(topo)}")
     if w_dim != fnn.w_size(topo):
         raise ValueError(f"noise width {w_dim} does not fit topology {topo}")
     if not 0 <= int(length) <= k_max:
         raise ValueError(f"length {length} outside [0, {k_max}]")
-    plan = None if hmc else card_mala_plan(dev, c, n_tr + n_te)
-    smem = smem_bytes(n_tr + n_te, n_in, chees, hmc)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"{n_tr}+{n_te} data rows need {smem} bytes of shared memory per "
-            f"block; a Hopper block has {_SMEM_LIMIT}"
-        )
-    rungs = panel = cluster = 1
+    fixed = tuple(topo) in TOPOLOGIES
+    if fixed:
+        smem = smem_bytes(n_tr + n_te, n_in, chees, hmc)
+        if smem > _SMEM_LIMIT:
+            raise ValueError(
+                f"{n_tr}+{n_te} data rows need {smem} bytes of shared memory "
+                f"per block; a Hopper block has {_SMEM_LIMIT}")
+    rungs = panel = 1
     if chees:
         rungs = int(scal["rungs"])
         panel = rungs * int(scal["n_ladders"])
-        cluster = hmc_layout(c, panel)[1]
+    if hmc:
+        plan = card_hmc_plan(dev, c, panel if chees else 0, n_tr + n_te,
+                             topo)
+    else:
+        plan = card_mala_plan(dev, c, n_tr + n_te, topo)
+    smem, cluster, route = plan.smem, getattr(plan, "cluster", 1), None
     f32, i32 = torch.float32, torch.int32
     _check(data["rows"], "rows", (n_tr + n_te, n_in + 1), f32, dev)
     _check(adapttemp, "adapttemp", (c,), f32, dev)
@@ -676,11 +916,12 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
         tr["traj_len"] = kc()
     if record_w:
         tr["w"] = torch.empty((k_max, c, w_dim), dtype=f32, device=dev)
-    route = exch = None
+    exch = None
     if hmc:
-        route = hmc_route(dev, smem, cluster, hmc_layout(c)[0], chees)[0]
-        if route == "grid":
-            exch = torch.empty((c, 2, _ex_floats()), dtype=f32, device=dev)
+        route = plan.route
+        if route == "grid":  # (C, 2, EX) slots in device memory
+            ex = _ex_floats() if fixed else 2 * gen_dims(topo)[0] + 4
+            exch = torch.empty((c, 2, ex), dtype=f32, device=dev)
     p = lambda t: None if t is None else t.data_ptr()
     g = lambda d, k: p(d.get(k))
     sq = float(scal["sigma_sq"])
@@ -733,17 +974,29 @@ def _launch_cuda(name: str, state: Tensors, noise: Tensors, start: int,
     )
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        if hmc:
+        if not fixed:
+            kind = "hmc" if hmc else "mala"
+            shape = gen_shape(topo, plan, kind)
+            vdev = gen_device_vectors(plan, kind, topo, dev)
+        if hmc and fixed:
             err = lib.ptnn_hmc_block(ctypes.byref(params), smem, cluster,
                                      ROUTES.index(route), stream)
-        else:
+        elif hmc:
+            err = lib.ptnn_hmc_gen(ctypes.byref(params), ctypes.byref(shape),
+                                   p(vdev), smem, cluster,
+                                   ROUTES.index(route), stream)
+        elif fixed:
             err = lib.ptnn_mala_block(ctypes.byref(params), smem, plan.wpc,
                                       stream)
+        else:
+            err = lib.ptnn_mala_gen(ctypes.byref(params), ctypes.byref(shape),
+                                    p(vdev), smem, stream)
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed: {_build.error_string(lib, err)}"
         )
     launches[name] += 1
+    variant_launches[name][plan.variant] += 1
     if hmc:
         hmc_routes[route] += 1
     else:

@@ -130,26 +130,29 @@ P_RTOL, P_ATOL = 1e-3, 1e-4
 WITNESS_R = 4.0  # the float64 witness of the MALA/HMC comparisons
 
 
-def _precond_inputs(device, c, proposal, k=12, start=0, seed=5, **kw):
+def _precond_inputs(device, c, proposal, k=12, start=0, seed=5, topo=TOPO,
+                    n_rows=(37, 23), **kw):
     """A precond state from init_state at N(0, 1) weights on random rows
-    (37 train, 23 test), noise, and the block scalars with the warm start
-    to 3, the preconditioner from 6 and adaptation to 9."""
+    (``n_rows`` train, test), noise, and the block scalars with the warm
+    start to 3, the preconditioner from 6 and adaptation to 9."""
     rng = np.random.default_rng(seed)
     kw.setdefault("step_w", 0.1)  # both samplers reject some proposals
+    w_dim = fnn.w_size(topo)
     rows = lambda n: np.concatenate(
-        [rng.normal(size=(n, 4)), rng.uniform(size=(n, 1))], 1)
-    train, test = rows(37), rows(23)
+        [rng.normal(size=(n, topo[0])), rng.uniform(size=(n, 1))], 1)
+    train, test = rows(n_rows[0]), rows(n_rows[1])
     cfg = ptnn_torch.PTConfig(
-        task="regression", topology=TOPO, num_samples=c * 100, num_chains=c,
+        task="regression", topology=topo, num_samples=c * 100, num_chains=c,
         proposal=proposal, n_ladders=kw.pop("n_ladders", 1),
         swap_style="even_odd", swap_interval=10, warmstart_frac=0.1,
         precond_start_frac=0.3, adapt_rate=0.1, fused_step=True,
         **kw).validate()
     ds = make_dataset(cfg, train, test, device)
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
-    st = kernel.init_state(cfg, ds, init_w=f(rng.normal(size=(c, 61))))
+    st = kernel.init_state(cfg, ds, init_w=f(rng.normal(size=(c, w_dim))))
     state = fused._to_kernel_state(st, cfg)
-    noise = dict(w=f(rng.normal(size=(k, c, 61))), eta=f(rng.normal(size=(k, c))),
+    noise = dict(w=f(rng.normal(size=(k, c, w_dim))),
+                 eta=f(rng.normal(size=(k, c))),
                  u=f(rng.uniform(size=(k, c))), u_eta=f(rng.uniform(size=(k, c))))
     if proposal == "hmc":
         noise["u_jit"] = f(rng.uniform(size=(k, c)))
@@ -159,7 +162,7 @@ def _precond_inputs(device, c, proposal, k=12, start=0, seed=5, **kw):
     data = block_step.prep_data(ds.x_train, ds.y_train, ds.x_test, ds.y_test)
     temps = np.geomspace(1.0, 4.0, cfg.rungs_per_ladder)
     at = f(np.tile(temps, cfg.n_ladders))
-    return (state, noise, start, k, data, at, TOPO, scal), cfg
+    return (state, noise, start, k, data, at, topo, scal), cfg
 
 
 def _upcast(tree):
@@ -225,7 +228,7 @@ def _check_precond(hmc, args, cfg):
             scale = v.abs() + new_r["chees_v2"].abs().sqrt()
         if n == "g_like":  # the gradient at the kernel's own w
             v = fnn.neg_half_sse_grad(new_k["w"], data["x_tr"], data["y_tr"],
-                                      TOPO)[1]
+                                      topo)[1]
             scale, wit = vec(v), None
         assert close_enough(new_k[n], v, wit, scale, 0), n
     for n in ("rmse_train", "rmse_test", "w"):
@@ -291,9 +294,56 @@ def test_precond_kernels_reject_what_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="one device type"):
         precond_step.fused_mala_block(state, dict(noise, u=noise["u"].cpu()),
                                       *args[2:])
-    with pytest.raises(ValueError, match="topolog"):
-        precond_step.fused_mala_block(state, noise, *args[2:6], (4, 9, 1),
+    # the generic route takes any (I, H, 1): only what no plan fits is
+    # refused (more rows than a Hopper block's shared memory holds), and a
+    # network with more than one output
+    with pytest.raises(ValueError, match="one output"):
+        precond_step.fused_mala_block(state, noise, *args[2:6], (4, 9, 2),
                                       args[7])
+    for kern, (a, _cfg) in (
+            (precond_step.fused_mala_block, (args, _cfg)),
+            (precond_step.fused_hmc_block,
+             _precond_inputs(cuda, 8, "hmc", k=4, hmc_leapfrog=4))):
+        k, c = a[1]["w"].shape[:2]
+        narrow = dict(a[1], w=torch.zeros((k, c, fnn.w_size((4, 9, 1))),
+                                          device=cuda))
+        big = dict(a[4], n_tr=60_000)
+        with pytest.raises(ValueError, match="no Hopper plan"):
+            kern(a[0], narrow, a[2], a[3], big, a[5], (4, 9, 1), a[7])
+
+
+# The generic routes (csrc/gen_chain.cuh) at the widths ptnn fuses beyond
+# the fixed-shape networks: Sunspot-like rows at (4, 20, 1) (vectors in
+# shared memory) and (4, 64, 1) (in device memory), MALA and HMC with and
+# without ChEES; each launch by the generic route.
+GEN_REG = [(64, (4, 20, 1), "precond_mala", False),
+           (1024, (4, 20, 1), "precond_mala", False),
+           (64, (4, 64, 1), "precond_mala", False),
+           (64, (4, 20, 1), "hmc", True),
+           (256, (4, 64, 1), "hmc", True),
+           (130, (4, 64, 1), "hmc", False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chains, topo, proposal, chees", GEN_REG)
+def test_generic_precond_kernels_match_plain_version(cuda, chains, topo,
+                                                     proposal, chees):
+    """At (4, 64, 1) HMC's fixed 8-step trajectories on N(0, 1) weights
+    turn chaotic at a step of 0.05 (chip_smoke.py's GEN_CHAOS_STEP): both
+    float32 versions then part from float64 by more than the witness
+    allows; under ChEES the shorter trajectories hold at 0.05."""
+    hmc = proposal == "hmc"
+    kw = dict(hmc_leapfrog=8, hmc_adapt_traj=chees) if hmc else {}
+    if chees:
+        kw["n_ladders"] = chains // 4
+    step = 0.005 if hmc and topo[1] == 64 and not chees else 0.05
+    args, cfg = _precond_inputs(cuda, chains, proposal, start=1, topo=topo,
+                                n_rows=(298, 198), step_w=step, **kw)
+    name = "hmc_block" if hmc else "mala_block"
+    before = dict(precond_step.variant_launches[name])
+    _check_precond(hmc, args, cfg)
+    assert precond_step.variant_launches[name] == dict(
+        before, generic=before["generic"] + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -369,7 +419,7 @@ def _check_cls(kind, state, noise, start, k, data, at, scal, cfg, length):
         nz = dict(noise)
         if not hmc:
             del nz["u_jit"], nz["u_traj"]
-        args = (state, nz, start, length, data, at, CLS_TOPO, scal)
+        args = (state, nz, start, length, data, at, topo, scal)
         kern = (precond_cls_step.fused_hmc_cls_block if hmc
                 else precond_cls_step.fused_mala_cls_block)
         plain = (precond_cls_step.hmc_cls_block_reference if hmc
@@ -389,13 +439,17 @@ def _check_cls(kind, state, noise, start, k, data, at, scal, cfg, length):
     same = torch.ones(c, dtype=torch.bool, device=at.device)
     if kind == "rw" and topo in block_step.RW_CLS_UNHELD:
         (new_d, tr_d), same = run_d, ~decided
-    if kind == "hmc":
+    # and the generic route's MALA, on Cancer's and TicTac's hundreds of
+    # rows, as the regression MALA's
+    if kind == "hmc" or (kind == "mala"
+                         and topo not in precond_cls_step.TOPOLOGIES):
         new_d, tr_d = plain(_upcast(state), _upcast(nz), start, length,
-                            _upcast(data), at.double(), CLS_TOPO, scal,
+                            _upcast(data), at.double(), topo, scal,
                             record_w=True)
         same = new_d["n_accept"] == new_r["n_accept"]
         for n in ("accept_count", "traj_len"):
-            same &= (tr_d[n] == tr_r[n]).all(dim=0)
+            if n in tr_r:
+                same &= (tr_d[n] == tr_r[n]).all(dim=0)
     torch.cuda.synchronize()
     close = (tr_r["margin"] <= MARGIN) | (tr_r["traj_margin"] <= MARGIN)
     if kind == "rw":
@@ -607,17 +661,50 @@ def test_hmc_cls_block_kernel_matches_plain_version(cuda, chains, chees):
 
 @pytest.mark.cuda
 def test_cls_kernels_reject_other_topologies(cuda):
-    """The MALA and HMC kernels are built for iris's (4, 12, 3) alone."""
-    *args, cfg = _cls_inputs(cuda, 8, "precond_mala", k=4)
-    state, noise = args[0], dict(args[1])
-    del noise["u_jit"], noise["u_traj"]
-    with pytest.raises(ValueError, match="topolog"):
-        precond_cls_step.fused_mala_cls_block(state, noise, 0, 4, args[4],
-                                              args[5], (4, 11, 3), args[6])
+    """The MALA and HMC kernels take any (I, H, O): the fixed-shape route
+    for iris's networks, the generic one for the others. Refused: only what
+    no plan fits, more rows than a Hopper block's shared memory holds."""
     *args, cfg = _cls_inputs(cuda, 8, "hmc", k=4, hmc_leapfrog=4)
-    with pytest.raises(ValueError, match="topolog"):
-        precond_cls_step.fused_hmc_cls_block(args[0], args[1], 0, 4, args[4],
+    state, noise = args[0], dict(args[1])
+    narrow = dict(noise, w=torch.zeros((4, 8, fnn.w_size((4, 11, 3))),
+                                       device=cuda))
+    big = dict(args[4], n_tr=60_000)
+    mala_noise = {k: v for k, v in narrow.items()
+                  if k not in ("u_jit", "u_traj")}
+    with pytest.raises(ValueError, match="no Hopper plan"):
+        precond_cls_step.fused_mala_cls_block(state, mala_noise, 0, 4, big,
+                                              args[5], (4, 11, 3), args[6])
+    with pytest.raises(ValueError, match="no Hopper plan"):
+        precond_cls_step.fused_hmc_cls_block(state, narrow, 0, 4, big,
                                              args[5], (4, 11, 3), args[6])
+
+
+# The classification generic routes: Cancer's (9, 12, 2) on all its rows
+# and auto's (9, 10, 2) on TicTac's, MALA and HMC with and without ChEES.
+GEN_CLS = [(64, "Cancer", None, "precond_mala", False),
+           (256, "Cancer", None, "precond_mala", False),
+           (64, "Cancer", None, "hmc", True),
+           (256, "Cancer", None, "hmc", True),
+           (130, "Cancer", None, "hmc", False),
+           (64, "TicTac", (9, 10, 2), "precond_mala", False),
+           (64, "TicTac", (9, 10, 2), "hmc", True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chains, name, topo, proposal, chees", GEN_CLS)
+def test_generic_cls_kernels_match_plain_version(cuda, chains, name, topo,
+                                                 proposal, chees):
+    hmc = proposal == "hmc"
+    kw = dict(hmc_leapfrog=8, hmc_adapt_traj=chees) if hmc else {}
+    if chees:
+        kw["n_ladders"] = chains // 4
+    *args, cfg = _cls_inputs(cuda, chains, proposal, start=1, name=name,
+                             topo=topo, step_w=0.1, **kw)
+    kname = "hmc_cls_block" if hmc else "mala_cls_block"
+    before = dict(precond_cls_step.variant_launches[kname])
+    _check_cls("hmc" if hmc else "mala", *args, cfg, length=12)
+    assert precond_cls_step.variant_launches[kname] == dict(
+        before, generic=before["generic"] + 1)
 
 
 # ---------------------------------------------------------------------------

@@ -83,17 +83,27 @@ def test_fused_reason_scope():
         with pytest.raises(ValueError, match="fused sampler runs"):
             tfused.sample_fused(cfg, np.zeros((4, 5)), np.zeros((4, 5)),
                                 device="cpu")
-    # the working-set gate: a net whose block does not fit a Hopper block's
-    # shared memory (Ionosphere's w_size 1852 under MALA) is refused
+    # ptnn's gate: a net whose working set passes ptnn's VMEM budget
+    # (Ionosphere's w_size 1852 under MALA) is refused, though the generic
+    # route has a Hopper plan for it; rows that pass a Hopper block's shared
+    # memory have none
     iono = ptnn_torch.PTConfig(**_kw(task="classification",
                                      topology=(34, 50, 2),
                                      proposal="precond_mala")).validate()
-    assert "shared memory" in tfused.working_set_reason(iono, 245, 106)
+    assert "VMEM budget" in tfused.working_set_reason(iono, 245, 106)
+    assert "VMEM budget" in tfused.runtime_reason(iono, 245, 106)
+    # ptnn's gate aside, the generic route lays it out, and has no layout
+    # for rows past a block's shared memory
+    from ptnn_torch.ops import precond_step
+
+    precond_step.gen_layout("mala", 245 + 106, (34, 50, 2))
+    with pytest.raises(ValueError, match="no Hopper plan"):
+        precond_step.gen_layout("mala", 24_500, (34, 50, 2))
     assert tfused.working_set_reason(
         ptnn_torch.PTConfig(**_kw(task="classification", topology=(4, 12, 3),
                                   proposal="hmc", hmc_adapt_traj=True,
                                   n_ladders=2)).validate(), 105, 45) is None
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="VMEM budget"):
         tfused.sample_fused(iono, np.zeros((245, 36)), np.zeros((106, 36)),
                             device="cpu")
     # the per-step sampler runs what the fused one refuses: the reference
@@ -107,12 +117,13 @@ def test_fused_reason_scope():
 
 
 def test_topology_the_kernels_lack_falls_back_on_every_device():
-    """Cancer's (9, 12, 2) net. The RW kernels take every topology (a
-    fixed-shape classification kernel is built for it), so a fused RW
-    config runs fused, with no warning, on the CPU (the plain version) as
-    on the card. No MALA or HMC kernel is built for it, so those fall back
-    to the per-step sampler with ptnn's warning on every device, which runs
-    them; the fused sampler refuses them alike."""
+    """Cancer's (9, 12, 2) net runs fused under every proposal: the RW
+    kernel's fixed-shape route and the MALA and HMC kernels' generic route,
+    with no warning, on the CPU (the plain versions) as on the card.
+    TicTac's (9, 25, 2) MALA and HMC fall back to the per-step sampler with
+    ptnn's warning on every device, where ptnn's own gate refuses them (the
+    working set passes ptnn's VMEM budget), and run; the fused sampler
+    refuses them alike."""
     import dataclasses
     import warnings
 
@@ -123,35 +134,51 @@ def test_topology_the_kernels_lack_falls_back_on_every_device():
                                          num_chains=8),
         fused_step=True).validate()
     n_tr, n_te = prob.train.shape[0], prob.test.shape[0]
-    assert tfused.runtime_reason(rw, n_tr, n_te) is None
     assert block_step.cls_variant(rw.topology) == "fixed"
-    before = (block_step.launches, block_step.cls_launches)
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")  # no "falling back"
-        res = ptnn_torch.sample(rw, prob.train, prob.test, device="cpu")
-    assert res.traces["acc_test"].shape == (6, 8)
-    assert (block_step.launches, block_step.cls_launches) == before
-    # the fused sampler's own run: the same chain, so sample took it
-    fused_res = tfused.sample_fused(rw, prob.train, prob.test, device="cpu")
-    np.testing.assert_array_equal(res.traces["accept_count"],
-                                  fused_res.traces["accept_count"])
-    np.testing.assert_array_equal(res.traces["ll"], fused_res.traces["ll"])
-    for proposal in ("precond_mala", "hmc"):
+    before = (block_step.launches, block_step.cls_launches,
+              dict(precond_cls_step.launches))
+    for proposal in ("reference", "precond_mala", "hmc"):
         cfg = dataclasses.replace(rw, proposal=proposal).validate()
-        assert tfused.fused_reason(cfg) is None
-        assert tfused.working_set_reason(cfg, n_tr, n_te) is None
-        assert "built for" in tfused.runtime_reason(cfg, n_tr, n_te)
-        with pytest.warns(UserWarning, match="falling back"):
-            res = ptnn_torch.sample(cfg, prob.train, prob.test, device="cpu")
+        assert tfused.runtime_reason(cfg, n_tr, n_te) is None
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")  # no "falling back"
+            res = ptnn_torch.sample(cfg, prob.train, prob.test,
+                                    device="cpu")
         assert res.traces["acc_test"].shape == (6, 8)
         assert np.isfinite(res.traces["ll"]).all()
-        with pytest.raises(ValueError, match="built for"):
-            tfused.sample_fused(cfg, prob.train, prob.test, device="cpu")
-    # the topologies the kernels are built for pass the gate
+        # the fused sampler's own run: the same chain, so sample took it
+        fused_res = tfused.sample_fused(cfg, prob.train, prob.test,
+                                        device="cpu")
+        np.testing.assert_array_equal(res.traces["accept_count"],
+                                      fused_res.traces["accept_count"])
+        np.testing.assert_array_equal(res.traces["ll"],
+                                      fused_res.traces["ll"])
+    assert (block_step.launches, block_step.cls_launches,
+            precond_cls_step.launches) == before
+    tic = ptnn_torch.data.load_classification("TicTac")
+    assert tic.topology == (9, 25, 2)
+    n_tr, n_te = tic.train.shape[0], tic.test.shape[0]
+    for proposal in ("precond_mala", "hmc"):
+        cfg = dataclasses.replace(
+            ptnn_torch.classification_preset((9, 25, 2), num_samples=8 * 6,
+                                             num_chains=8),
+            fused_step=True, proposal=proposal).validate()
+        assert tfused.fused_reason(cfg) is None
+        assert tfused.topology_reason(cfg) is None
+        assert "VMEM budget" in tfused.runtime_reason(cfg, n_tr, n_te)
+        with pytest.warns(UserWarning, match="falling back"):
+            res = ptnn_torch.sample(cfg, tic.train, tic.test, device="cpu")
+        assert res.traces["acc_test"].shape == (6, 8)
+        assert np.isfinite(res.traces["ll"]).all()
+        with pytest.raises(ValueError, match="VMEM budget"):
+            tfused.sample_fused(cfg, tic.train, tic.test, device="cpu")
+    # the Sunspot networks pass the gate; the random walk takes any
     for cfg in (ptnn_torch.PTConfig(**_kw()),
-                ptnn_torch.PTConfig(**_kw(proposal="precond_mala"))):
+                ptnn_torch.PTConfig(**_kw(proposal="precond_mala")),
+                ptnn_torch.PTConfig(**_kw(proposal="precond_mala",
+                                          topology=(4, 20, 1)))):
         assert tfused.topology_reason(cfg.validate()) is None
-    for topo in ((4, 7, 1), (9, 12, 2), (4, 7, 3)):  # RW takes any
+    for topo in ((4, 7, 1), (9, 12, 2), (4, 7, 3)):
         task = "regression" if topo[2] == 1 else "classification"
         assert tfused.topology_reason(ptnn_torch.PTConfig(**_kw(
             task=task, topology=topo)).validate()) is None

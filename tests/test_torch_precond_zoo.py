@@ -157,8 +157,8 @@ def test_function_space_rhat_matches_ptnn(model, monkeypatch):
 def test_ionosphere_fused_mala_falls_back_and_runs():
     """bench.py's Ionosphere arm (``_cls_variants``' mala_fused_16x4,
     fused_step=True) at 8 chains x 20: the fused gate refuses its working
-    set (w 1852), so sample warns as ptnn does and the per-step sampler
-    runs it, the same run as fused_step=False."""
+    set (w 1852) by ptnn's VMEM budget, so sample warns as ptnn does and
+    the per-step sampler runs it, the same run as fused_step=False."""
     prob = load_classification("Ionosphere")
     base = ptnn_torch.classification_preset((34, 50, 2), num_samples=8 * 20,
                                             num_chains=8, maxtemp=5.0)
@@ -169,7 +169,7 @@ def test_ionosphere_fused_mala_falls_back_and_runs():
         precond_start_frac=0.3, record_w=True, record_w_chains=2,
         track_replicas=True, chunk_steps=1000, fused_step=True).validate()
     n_tr, n_te = prob.train.shape[0], prob.test.shape[0]
-    assert "shared memory" in tfused.runtime_reason(cfg, n_tr, n_te)
+    assert "VMEM budget" in tfused.runtime_reason(cfg, n_tr, n_te)
     with pytest.warns(UserWarning, match="falling back"):
         res = ptnn_torch.sample(cfg, prob.train, prob.test, seed=1,
                                 device="cpu")
