@@ -6310,6 +6310,13 @@ SURR_GRID = (5, 64, 500)
 SURR_GRID_ARMS = ("anchored", "da_rw")
 # the parity runner's full budget: grid_parity's 100,000 samples
 PARITY_SAMPLES = 100_000
+# the parity runners of many single runs (python -m
+# ptnn_torch.experiments.parity singles / bands) cut to 10,000 regression
+# samples (phase_sweeps' configuration, 1000 steps a chain) and 5000
+# classification samples (500 steps a chain, swaps every 10), from 100,000
+# and 50,000
+PARITY_REG_SAMPLES = GRID_REG_SAMPLES
+PARITY_CLS_SAMPLES = 5_000
 
 
 def phase_grid_vref():
@@ -6443,13 +6450,332 @@ def phase_grid_vref():
     return total
 
 
+# ptnn's mean and sample sd over its seed_sweep of seeds 0-19 on the CPU of
+# each classification single run of the phase (parity.cls_single_cfg at
+# PARITY_CLS_SAMPLES; printed by python
+# tests/test_torch_parity_singles.py MODE SET 0 ... 19), by (mode, set):
+# test_mean, accept_pct, swap_pct. A row or a bands cell's seed is held to
+# mean +- 4 sd, a bands cell's mean over its five seeds to mean +- 4 sd
+# sqrt(1 / 5 + 1 / 20) (family_band)
+PARITY_REF = {
+    ("rw", "iris"): dict(test_mean=(39.31, 4.3683736),
+                         accept_pct=(92.893, 0.50555962),
+                         swap_pct=(73.605442, 2.4237874)),
+    ("rw", "Ionosphere"): dict(test_mean=(58.35642, 12.032389),
+                               accept_pct=(88.875, 1.2867891),
+                               swap_pct=(72.777778, 2.6612295)),
+    ("rw", "Cancer"): dict(test_mean=(74.525684, 6.4675543),
+                           accept_pct=(85.168, 1.2003578),
+                           swap_pct=(70.589569, 2.1374529)),
+    ("rw", "bank-additional"): dict(test_mean=(61.570384, 2.0869536),
+                                    accept_pct=(60.707, 1.389741),
+                                    swap_pct=(69.240363, 1.7100431)),
+    ("rw", "PenDigit"): dict(test_mean=(17.681394, 3.5133503),
+                             accept_pct=(53.042, 0.82742212),
+                             swap_pct=(68.287982, 1.6021926)),
+    ("rw", "chess"): dict(test_mean=(10.247287, 1.2733029),
+                          accept_pct=(51.166, 0.5924472),
+                          swap_pct=(67.970522, 1.3975843)),
+    ("lg", "iris"): dict(test_mean=(86.402663, 1.0701839),
+                         accept_pct=(97.707, 0.18618327),
+                         swap_pct=(40.680272, 3.5901764)),
+    ("lg", "Ionosphere"): dict(test_mean=(85.777324, 4.5635386),
+                               accept_pct=(94.499, 0.38784017),
+                               swap_pct=(38.854875, 4.158663)),
+    ("lg", "Cancer"): dict(test_mean=(98.899084, 0.063101027),
+                           accept_pct=(96.771, 0.23472044),
+                           swap_pct=(46.473923, 4.1795647)),
+    ("lg", "bank-additional"): dict(test_mean=(81.380649, 0.092285809),
+                                    accept_pct=(63.075, 0.59622938),
+                                    swap_pct=(30.634921, 4.7461934)),
+    ("lg", "PenDigit"): dict(test_mean=(16.173823, 5.1153415),
+                             accept_pct=(28.727, 2.2573135),
+                             swap_pct=(12.165533, 3.1163348)),
+    # chess's LG row on the batch drift, as parity.cls_single_cfg runs it
+    ("lg", "chess"): dict(test_mean=(7.8575026, 1.1975455),
+                          accept_pct=(25.811, 0.77401142),
+                          swap_pct=(10.804989, 2.9613789)),
+}
+# the bands the phase runs: every set under RW, and under legacy LG the
+# small sets' grids and two big sets' five single runs on the sequential
+# drift (bank-additional's and chess's run in the full-budget record)
+PARITY_BANDS = {"rw": ("iris", "Ionosphere", "Cancer", "bank-additional",
+                       "PenDigit", "chess"),
+                "lg": ("iris", "Ionosphere", "Cancer", "PenDigit")}
+PARITY_OUT = ROOT / "build" / "chip_smoke_parity"
+
+
+def by_register(want, tag):
+    """Every drift epoch since the counts were zeroed by the register
+    kernel."""
+    from ptnn_torch.ops import drift
+
+    check(drift.variant_launches["register"] == want["drift_epoch"],
+          f"{tag} drift by kernel {drift.variant_launches}, planned "
+          f"{want['drift_epoch']} by the register kernel")
+
+
+def single_plan(cfg, got, runs=1):
+    """The launches of ``runs`` single per-step runs: each 2 drift epochs a
+    step with Langevin gradients on the per-row drift (none on the batch
+    drift, plain products), 1 eval pair a step, init's and the temper
+    switch's; the drift by the register kernel."""
+    n = cfg.n_steps
+    want = {name: 0 for name in KERNELS}
+    want["drift_epoch"] = runs * (2 * n if cfg.use_langevin_gradients
+                                  and cfg.drift_mode != "batch" else 0)
+    want["fnn_eval"] = runs * (n + 1 + int(0 < cfg.temper_switch_step < n))
+    check(got == want, f"single run launches {got}, planned {want}")
+    by_register(want, "single run")
+
+
+def drift_row_us(prob, chains=10, reps=5):
+    """The register drift's epoch over a set's train rows at ``chains``
+    chains, device time by CUDA events: (ms, us a row)."""
+    import torch
+
+    from ptnn_torch.models import fnn
+    from ptnn_torch.ops import drift
+
+    topo, i = prob.topology, prob.topology[0]
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                  device=DEVICE).contiguous()
+    x, y = f(prob.train[:, :i]), f(prob.train[:, i])
+    t = drift.make_targets(y, topo[2], prob.task).contiguous()
+    w = torch.randn((chains, fnn.w_size(topo)), device=DEVICE)
+    drift.sgd_epoch(w, x, t, topo, 0.01, mode="pallas")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        drift.sgd_epoch(w, x, t, topo, 0.01, mode="pallas")
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    return ms, 1e3 * ms / x.shape[0]
+
+
+def phase_parity_singles():
+    """The parity runners of many single runs on the card (``python -m
+    ptnn_torch.experiments.parity singles`` and ``bands``), at
+    PARITY_REG_SAMPLES / PARITY_CLS_SAMPLES:
+
+    * ``singles``, every section: each row's single run (seed 0) with
+      launches exactly its plan (the drift by the register kernel), then
+      the one-cell ``seed_sweep`` of its configuration, equal in accepts
+      and swap % and within G_RTOL / G_ATOL in the mean and best of the
+      train and test metric on the grid's window (``summarize``'s); the
+      regression rows in GRID_BANDS, the classification rows in ptnn's
+      PARITY_REF bands; the Langevin regression rows equal to the cells of
+      a ``dataset_grid`` at phase_sweeps' configuration whose every cell
+      replays seed 0's start and draws (the RW rows draw no Langevin
+      choice, which the grid's cells draw: their streams part);
+    * ``bands`` of PARITY_BANDS: a grid cell's launches the grid's plan, a
+      five-run cell's each run's; every seed in ptnn's band and the cell's
+      mean in ptnn's band of a five-seed mean; each five-run cell equal in
+      accepts and swap % to the five-cell ``seed_sweep`` of its
+      configuration, and its seed 0 run to the ``singles`` row of the set;
+    * each run's wall and ms a step, and at the big sets' legacy-LG rows the
+      register drift's us a row over their train rows, beside the card's
+      name and power limit.
+
+    Returns the launches by kernel."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from ptnn_torch import data, kernel, sampler, sweeps
+    from ptnn_torch.experiments import parity
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    PARITY_OUT.mkdir(parents=True, exist_ok=True)
+    stdout = sys.stdout
+    total = {name: 0 for name in KERNELS}
+    lg_rows, lg_seed0 = {}, {}
+
+    def counted():
+        got = {name: launch_count(name) for name in KERNELS}
+        for name, n in got.items():
+            total[name] += n
+        return got
+
+    def load(name):
+        return (data.load_regression(name) if name in parity.REF_RW
+                else data.load_classification(name, seed=0))
+
+    def same_counts(tag, accept_pct, swap_pct, cfg, accepts, swap):
+        n = int(round(float(accept_pct) * cfg.samples_per_chain
+                      * cfg.num_chains / 100.0))
+        check(n == accepts and float(swap_pct) == float(swap),
+              f"{tag}: {accepts} accepts, swap {swap} %; its grid {n}, "
+              f"{float(swap_pct)} %")
+
+    def on_row(table, key, cfg, s, res):
+        wall = 60.0 * s.time_min
+        single_plan(cfg, counted())
+        prob = load(s.problem)
+        reset_launch_counts()
+        grid = sweeps.seed_sweep(cfg, [0], prob.train, prob.test,
+                                 device=DEVICE)
+        by_register(grid_plan(cfg, counted(),
+                              batch=cfg.drift_mode == "batch"),
+                    f"singles {table} {key}'s grid")
+        tag = f"singles {table} {key}"
+        accepts = int(res.final_state.n_accept.sum())
+        same_counts(tag, grid["accept_pct"][0], grid["swap_pct"][0], cfg,
+                    accepts, res.swap_percent)
+        for stat in ("test_mean", "test_best", "train_mean", "train_best"):
+            g, w = float(grid[stat][0]), getattr(s, stat)
+            check(abs(g - w) <= G_ATOL + G_RTOL * abs(w),
+                  f"{tag}: {stat} {w} against its one-cell grid's {g}")
+        vals = dict(test_mean=s.test_mean, accept_pct=s.accept_per,
+                    swap_pct=s.swap_perc)
+        mode = dict(lprob="lg01").get(table, table[4:])
+        if table.startswith("cls-"):
+            band = family_check(f"singles {table}",
+                                {m: [v] for m, v in vals.items()}, [0],
+                                PARITY_REF[mode, key])
+        elif table.startswith("reg-") or (table, key) == ("lprob", 0.5):
+            lo_hi = GRID_BANDS["reg", (s.problem, mode)]
+            for (lo, hi), (m, v) in zip(lo_hi, vals.items()):
+                check(lo <= v <= hi, f"{tag}: {m} {v:.5g} outside ptnn's "
+                      f"({lo}, {hi})")
+            band = f"in GRID_BANDS {('reg', (s.problem, mode))}"
+        else:
+            check(all(np.isfinite(v) for v in vals.values()),
+                  f"{tag}: not finite {vals}")
+            band = "finite (no band)"
+        if table.startswith("reg-lg"):
+            lg_rows[s.problem, mode] = (accepts, res.swap_percent, s)
+        if table == "cls-lg":
+            lg_seed0[key] = (accepts, res.swap_percent)
+        if table == "cls-lg" and key in parity.BAND_BIG:
+            ms, us = drift_row_us(prob)
+            band += (f"; the register drift {ms:.4f} ms an epoch at 10 "
+                     f"chains x {prob.train.shape[0]} rows, {us:.4f} us a "
+                     f"row at {prob.topology} ({card})")
+        print(f"[4/6] parity singles: {table} {key} ({cfg.topology}, "
+              f"{cfg.num_chains} x {cfg.samples_per_chain}, swaps every "
+              f"{cfg.swap_interval}, drift {cfg.drift_mode}) {wall:.2f} s, "
+              f"{1e3 * wall / cfg.n_steps:.3f} ms a step ({card}): test "
+              f"{s.test_mean:.5g}, accept {s.accept_per:.4g}, swap "
+              f"{s.swap_perc:.4g}; equal to its one-cell grid ({accepts} "
+              f"accepts); {band}", file=stdout, flush=True)
+        reset_launch_counts()
+
+    reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        lines = parity.singles(PARITY_REG_SAMPLES, PARITY_CLS_SAMPLES,
+                               parity.SECTIONS,
+                               str(PARITY_OUT / "singles.md"), DEVICE,
+                               on_row=on_row)
+    t_singles = time.perf_counter() - t_phase
+    rows = sum(ln.startswith("| ") and not ln.startswith("|---")
+               for ln in lines) - 8
+    check(rows == 46, f"singles printed {rows} rows, not 46")
+    # the Langevin regression rows against dataset_grid's cells, every cell
+    # seed 0's start and stream
+    cfg = parity.regression_cfg(PARITY_REG_SAMPLES)
+    gcfg = sweeps._grid_cfg(cfg, use_langevin_gradients=True)
+    cells = [(n, m) for n in GRID_REG_NAMES for m in sweeps.REGRESSION_MODES]
+    probs = {n: data.load_regression(n) for n in GRID_REG_NAMES}
+    grid_data = sampler.make_grid_dataset(
+        gcfg, [(probs[n].train, probs[n].test, gcfg.topology)
+               for n, _m in cells], DEVICE)
+    seeds = [0] * len(cells)
+    reset_launch_counts()
+    out = sweeps.dataset_grid(
+        cfg, list(GRID_REG_NAMES), seed=0, device=DEVICE,
+        init_state=sampler.init_grid(gcfg, grid_data, seeds),
+        noise_fn=sampler.grid_noise(seeds, DEVICE,
+                                    kernel.step_noise_names(gcfg),
+                                    gcfg.num_chains))
+    by_register(grid_plan(gcfg, counted()), "singles' dataset_grid")
+    for (name, mode), (accepts, swap, s) in sorted(lg_rows.items()):
+        k = cells.index((name, mode))
+        tag = f"singles reg-{mode} {name} against dataset_grid"
+        same_counts(tag, out["accept_pct"][k], out["swap_pct"][k], cfg,
+                    accepts, swap)
+        for stat in ("test_mean", "test_best", "train_mean", "train_best"):
+            g, w = float(out[stat][k]), getattr(s, stat)
+            check(abs(g - w) <= G_ATOL + G_RTOL * abs(w),
+                  f"{tag}: {stat} {w} against {g}")
+    print(f"[4/6] parity singles: the {len(lg_rows)} Langevin regression "
+          f"rows equal to their cells of dataset_grid at phase_sweeps' "
+          f"configuration with every cell on seed 0's start and draws "
+          f"(accepts and swap % exactly, statistics within rtol {G_RTOL})")
+    print(f"[4/6] parity singles: python -m ptnn_torch.experiments.parity "
+          f"singles --samples-reg {PARITY_REG_SAMPLES} --samples-cls "
+          f"{PARITY_CLS_SAMPLES}: 46 runs in {t_singles:.1f} s with their "
+          f"checks ({card}):")
+    for line in lines:
+        if line.startswith(("|", "#")):
+            print(f"[4/6] parity singles:   {line}")
+    for mode, names in PARITY_BANDS.items():
+        legacy = mode == "lg"
+
+        def on_cell(name, cell, wall):
+            prob = load(name)
+            cfg = parity.band_cfg(name, prob.topology, legacy,
+                                  PARITY_CLS_SAMPLES)
+            big = legacy and name in parity.BAND_BIG
+            if big:
+                single_plan(cfg, counted(), runs=len(parity.BAND_SEEDS))
+            else:
+                by_register(grid_plan(cfg, counted()),
+                            f"bands {mode} {name}")
+            verdict = family_check(f"bands {mode} {name}", cell,
+                                   list(parity.BAND_SEEDS),
+                                   PARITY_REF[mode, name])
+            extra = ""
+            if big:
+                reset_launch_counts()
+                grid = sweeps.seed_sweep(cfg, list(parity.BAND_SEEDS),
+                                         prob.train, prob.test,
+                                         device=DEVICE)
+                by_register(grid_plan(cfg, counted()),
+                            f"bands {mode} {name}'s seed_sweep")
+                for k, seed in enumerate(parity.BAND_SEEDS):
+                    same_counts(f"bands {name} seed {seed}",
+                                grid["accept_pct"][k], grid["swap_pct"][k],
+                                cfg, int(cell["accepts"][k]),
+                                cell["swap_pct"][k])
+                check((int(cell["accepts"][0]), float(cell["swap_pct"][0]))
+                      == lg_seed0[name], f"bands {name} seed 0 against its "
+                      f"singles row {lg_seed0[name]}")
+                extra = ("; equal to the five-cell seed_sweep in accepts "
+                         "and swap % and its seed 0 to the singles row")
+            steps = cfg.n_steps * (5 if big else 1)
+            how = (f"five single runs, drift {cfg.drift_mode}" if big
+                   else "one seed_sweep of 5 cells")
+            print(f"[4/6] parity bands: {mode} {name} ({how}, 10 x "
+                  f"{cfg.samples_per_chain}) {wall:.2f} s, "
+                  f"{1e3 * wall / steps:.3f} ms a step ({card}): "
+                  f"{verdict}{extra}", file=stdout, flush=True)
+            reset_launch_counts()
+
+        reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            lines = parity.bands(list(names), mode, PARITY_CLS_SAMPLES,
+                                 out=str(PARITY_OUT / f"bands_{mode}.md"),
+                                 device=DEVICE, on_cell=on_cell)
+        for line in lines:
+            print(f"[4/6] parity bands:   {line}")
+    print(f"[4/6] parity: phase in {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {total}")
+    return total
+
+
 # phases run in subprocesses of their own, beside the phases of the main
 # process (each run is deterministic in its seed, so only the walls move):
 # the digits CNN's MALA / ChEES receipts, the card's heaviest work, beside
 # the host-bound Sunspot and Ionosphere runs and the command lines that
 # follow them; the grids beside the lifecycle, VR and surrogate phases,
-# whose command lines' start-up leaves the card near idle
+# whose command lines' start-up leaves the card near idle; the parity
+# runners' many host-bound single runs beside the CNN's receipts
 BACKGROUND = {"cnn": ("phase_cnn_precond_end_to_end",),
+              "parity": ("phase_parity_singles",),
               "grids": ("phase_sweeps", "phase_grid_families",
                         "phase_grid_vref")}
 BACKGROUND_OUT = ROOT / "build" / "chip_smoke_background"
@@ -6567,6 +6893,7 @@ def main() -> int:
     bgs = {}
     try:  # a failed check leaves no subprocess behind
         bgs["cnn"] = start_background("cnn")
+        bgs["parity"] = start_background("parity")
         with clock("phase_per_step_precond_end_to_end"):
             phase_per_step_precond_end_to_end(mala_twin)
         bgs["grids"] = start_background("grids")
@@ -6585,6 +6912,10 @@ def main() -> int:
                 launches[name] = launches.get(name, 0) + n
         with clock("background: " + ", ".join(BACKGROUND["cnn"])):
             finish_background(bgs["cnn"], "cnn")
+        with clock("background: " + ", ".join(BACKGROUND["parity"])):
+            for name, n in finish_background(bgs["parity"],
+                                             "parity").items():
+                launches[name] = launches.get(name, 0) + n
     finally:
         for proc in bgs.values():
             stop(proc)

@@ -1,5 +1,5 @@
 """ptnn_torch imports, with every module of the slice, where jax cannot,
-and loads no file of the JAX package ``ptnn/``."""
+and loads no file of the JAX package ``ptnn/`` nor of ptnn's ``scripts/``."""
 
 import os
 import subprocess
@@ -55,6 +55,7 @@ MODULES = (
     "ptnn_torch.surrogate",
     "ptnn_torch.auto",
     "ptnn_torch.sweeps",
+    "ptnn_torch.experiments.parity",
 )
 
 
@@ -91,6 +92,12 @@ def test_port_imports_without_jax():
         "    model_spec=cnn.digits_spec(channels=(4,), hidden=8,\n"
         "                               fused_eval=True))\n"
         "assert r.traces['acc_test'].shape == (4, 4)\n"
+        "from ptnn_torch.experiments import parity\n"
+        "s, _r = parity.run_reg('Sunspot', lg=False, lr=0.1, samples=40,\n"
+        "                       device='cpu')\n"
+        "assert s.num_samples == 40\n"
+        "assert parity.bands(['iris'], 'rw', 500, device='cpu')[3].startswith(\n"
+        "    '| iris | ')\n"
         "assert not any(k.split('.')[0] in ('sklearn', 'matplotlib')\n"
         "               for k in sys.modules)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'ptnn.'))\n"
@@ -98,9 +105,11 @@ def test_port_imports_without_jax():
         "assert not any(k.startswith('_ptnn_shared_') for k in sys.modules)\n"
         "import os\n"
         f"jax_pkg = os.path.join({ROOT!r}, 'ptnn') + os.sep\n"
+        f"scripts = os.path.join({ROOT!r}, 'scripts') + os.sep\n"
         "for k, m in list(sys.modules.items()):\n"
         "    f = getattr(m, '__file__', None) or ''\n"
         "    assert not os.path.abspath(f).startswith(jax_pkg), (k, f)\n"
+        "    assert not os.path.abspath(f).startswith(scripts), (k, f)\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
